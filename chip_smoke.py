@@ -8,30 +8,53 @@ from solr_tpu_torch/csrc/ on first use.  Phases, each of which must pass:
 
 1. the card's name and power limit (nvidia-smi);
 2. build the kernels with nvcc and report the build seconds;
-3. kernel vs plain PyTorch at the bench shapes: the strip selection of
-   the bench scene's primary rays (1M triangles, 512x512, BLOCK=512,
-   K=64, Kt=256) through sweep_closest, and of its primary hits' shadow
-   rays through sweep_transmittance (once with the scene's 0/1 shadow
-   factors, once with fractional ones); t, idx, tr and visits must be
-   bit-equal; both times are reported;
-4. the main path: render_sample of the full bench frame (2 bounces, hard
+3. ``kernels``: B1 and B2 against their plain PyTorch versions at the
+   bench shapes: the strip selection of the bench scene's primary rays
+   (1M triangles, 512x512, BLOCK=512, K=64, Kt=256) through
+   sweep_closest, and of its primary hits' shadow rays through
+   sweep_transmittance (once with the scene's 0/1 shadow factors, once
+   with fractional ones); t, idx, tr and visits must be bit-equal; both
+   times are reported;
+4. ``main_path``: render_sample of the full bench frame (2 bounces, hard
    shadows), one warm-up and three timed frames; frame ms, rays/s as
-   bench.py counts them, the digest img.sum(), and each kernel's launch
-   count over the run, which must be > 0; the image must be finite;
-5. the port on the card against the committed solr_tpu CPU reference of
-   a reduced bench frame (tests/data/torch_bench_ref.npz): atol 1e-4
-   outside a budget of 0.2% of pixels (discrete hit flips at silhouette
-   edges, where the reference's CPU build contracts the Woop and cross
-   product chains into FMAs).
+   bench.py counts them, the digest img.sum(), and the launch count of
+   B1 and B2 over the run, which must be > 0; the image must be finite;
+5. ``reference``: the port on the card against the committed solr_tpu
+   CPU reference of a reduced bench frame (tests/data/torch_bench_ref.npz):
+   atol 1e-4 outside a budget of 0.2% of pixels (discrete hit flips at
+   silhouette edges, where the reference's CPU build contracts the Woop
+   and cross product chains into FMAs);
+6. ``kernels_molecule``: B3 (sphere) and B5 (cylinder) sweep_closest at
+   the molecule frame's primary selection, and B4 and B6
+   sweep_transmittance at its shadow selection (the scene's factors and
+   fractional ones), against their plain versions: bit-equal, both
+   times reported;
+7. ``molecule_path``: render_sample of the full molecule frame (a
+   100,000-atom synthetic PDB in ball-and-stick mode over a
+   32,768-triangle reflective ground, 512x512, 2 bounces, BLOCK=256),
+   one warm-up and three timed frames; frame ms, live rays per bounce,
+   the digest, the exactness net's counters, peak memory, scene-build
+   seconds, and the launch count of all six kernels over the run, each
+   of which must be > 0;
+8. ``molecule_reference``: a reduced molecule frame on the card against
+   the committed solr_tpu CPU frame (tests/data/torch_molecule_ref.npz,
+   whose PDB text's sha256 must match), atol 1e-4 outside 0.2% of
+   pixels (f32 differences in the recomputed hit distance, amplified in
+   the normals of thin cylinders).
 
-Prints the full record of the run on one line ("record: {...}"), the
-kernel table as one JSON line, the nvidia-smi line, and last
-{"ok": true, "device": {...}}.  Exits non-zero, without that line, when
-any phase fails or no card is visible.
+Each main path runs with the launch counts set to 0 just before it and
+read just after.  Prints the full record of the run on one line
+("record: {...}"), the kernel table as one JSON line (each kernel's
+time, its plain version's, and its bound: the larger of the bytes its
+inputs and outputs take over 3.35 TB/s and the f32 operations its
+visited (ray, primitive) tests take over 67 TFLOP/s), the nvidia-smi
+line, and last {"ok": true, "device": {...}}.  Exits non-zero, without
+that line, when any phase fails or no card is visible.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import subprocess
@@ -46,6 +69,22 @@ N_TRIS = 1_000_000
 SIZE = 512
 BLOCK = 512
 BOUNCES = 2
+MOL_ATOMS = 100_000
+MOL_GROUND_RES = 128
+MOL_BLOCK = 256
+
+# The card's published peaks (NVIDIA H100 SXM data sheet, at 700 W):
+# device memory bandwidth and f32 rate outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# f32 adds, subtracts, multiplies, divides and square roots of one
+# (ray, primitive) test, counted from the functors of
+# solr_tpu_torch/csrc/sweep.cu (WoopT, SphereT, CylT).
+OPS_PER_TEST = {"tri": 40, "sphere": 20, "cyl": 88}
+REPLACES = {"sweep_closest": "solr_tpu/ops/pallas_kernels.py:175",
+            "sweep_transmittance": "solr_tpu/ops/pallas_kernels.py:255"}
+BODY = {"tri": "_woop_rows :108", "sphere": "_sphere_rows :136",
+        "cyl": "_cyl_rows :158"}
 
 
 def _nvidia_smi() -> str:
@@ -85,105 +124,217 @@ def _tiles(o, d, cfg):
     return o[perm].reshape(-1, sb, 3), d[perm].reshape(-1, sb, 3)
 
 
-def phase_kernels(scene, cam, cfg, rec):
-    """Kernel vs plain at the bench shapes."""
+def _bound_ms(prim, args, outs, visits, block):
+    """(bound ms, "bytes" or "operations") of one sweep call: each input
+    and output tensor counted once against the card's memory rate, and
+    the visited strips' tests (visits x 32 rays x block primitives x
+    OPS_PER_TEST) against its f32 rate."""
     import torch
 
-    from solr_tpu_torch.constants import PARK_DIR, PARK_POS, RAY_EPS, T_FAR
-    from solr_tpu_torch.ops import packet as pk
+    tensors = [x for x in args + outs if isinstance(x, torch.Tensor)]
+    nbytes = sum(x.numel() * x.element_size() for x in tensors)
+    ops = int(visits) * 32 * block * OPS_PER_TEST[prim]
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes > t_ops else "operations"
+
+
+def _check_kernel(rec, entry, prim, args, label=None, timed=True):
+    """One kernel against its plain version on the same inputs: outputs
+    bit-equal; times and bound when ``timed``."""
+    import torch
+
     from solr_tpu_torch.ops import sweep
-    from solr_tpu_torch.ops.camera import camera_rays
-    from solr_tpu_torch.ops.traverse import POOL_TRIANGLE, Hit, _scene_box, surface_at
 
-    accel = scene.tri_accel
-    ks, kt = cfg.packet_max_blocks, cfg.packet_tile_cand
-    with torch.no_grad():
-        o, d = camera_rays(cam, cfg)
-        o_t, d_t = _tiles(o, d, cfg)
-        live = torch.ones(o_t.shape[:2], dtype=torch.bool, device=o.device)
-        cand, counts, nearb, _ = pk.strip_interval_select(
-            o_t, d_t, live, accel, kt, ks, RAY_EPS)
-        bmin, bmax = _scene_box(accel)
-        t_cap = pk.ray_box_exit(o_t, d_t, bmin, bmax)
-        args = (accel.packed, o_t, d_t, t_cap, live, cand, counts, nearb, RAY_EPS)
-        t_k, i_k, v_k = sweep.sweep_closest(*args)
-        t_p, i_p, v_p = sweep.sweep_closest_plain(*args)
-        torch.cuda.synchronize()
-        ok = (torch.equal(t_k, t_p) and torch.equal(i_k, i_p)
-              and torch.equal(v_k, v_p))
-        err = float((t_k - t_p).abs().max())
-        closest = dict(
-            name="sweep_closest", equal=ok, max_abs_err=err,
-            hits=int((t_k < T_FAR * 0.5).sum()), strips=int(counts.numel()),
-            mean_strip_list=float(counts.float().mean()),
-            visits=int(v_k.sum()),
-            ms=_time_ms(lambda: sweep.sweep_closest(*args), 5),
-            plain_ms=_time_ms(lambda: sweep.sweep_closest_plain(*args), 1))
-        rec["kernels"].append(closest)
+    kernel = getattr(sweep, entry)
+    plain = getattr(sweep, entry + "_plain")
+    got = kernel(*args, prim=prim)
+    want = plain(*args, prim=prim)
+    torch.cuda.synchronize()
+    visits = int(got[-1].sum())
+    entry_rec = dict(
+        name=sweep.kernel_name(entry, prim), entry=entry, prim=prim,
+        equal=all(torch.equal(a, b) for a, b in zip(got, want)),
+        max_abs_err=float((got[0] - want[0]).abs().max()),
+        strips=int(args[6].numel()),
+        mean_strip_list=float(args[6].float().mean()), visits=visits,
+        tests=visits * 32 * args[0].shape[2])
+    if entry == "sweep_closest":
+        entry_rec["hits"] = int((got[0] < 1e30).sum())
+    else:
+        entry_rec["shadowed"] = int((got[0] < 1.0).sum())
+    if label:
+        entry_rec["factors"] = label
+    if timed:
+        entry_rec["ms"] = _time_ms(lambda: kernel(*args, prim=prim), 5)
+        entry_rec["plain_ms"] = _time_ms(lambda: plain(*args, prim=prim), 1)
+        entry_rec["bound_ms"], entry_rec["bound_by"] = _bound_ms(
+            prim, list(args), list(got), visits, args[0].shape[2])
+    rec["kernels"].append(entry_rec)
+    return got
 
-        # Shadow rays toward the light from the primary hits, in the same
-        # tile order; misses park as on the main path.
-        r = t_k.numel()
-        of, df = o_t.reshape(r, 3), d_t.reshape(r, 3)
-        tf, idx = t_k.reshape(r), i_k.reshape(r)
-        hit = Hit(t=tf, pool=torch.where(tf < T_FAR * 0.5, POOL_TRIANGLE, -1)
-                  .to(torch.int32), idx=idx.clamp(min=0))
-        surf = surface_at(scene, hit, of, df)
-        to_l = scene.lights.position[0] - surf.point
-        dist = torch.sqrt(torch.clamp((to_l * to_l).sum(-1), min=1e-12))
-        so = surf.point + surf.normal * (RAY_EPS * 4.0)
-        sd = to_l / dist[:, None]
-        bad = ~surf.valid[:, None]
-        so = torch.where(bad, torch.full_like(so, PARK_POS), so)
-        sd = torch.where(bad, torch.full_like(sd, PARK_DIR), sd)
-        tm = torch.where(surf.valid, dist - RAY_EPS, torch.ones_like(dist))
-        so_t, sd_t = so.reshape(o_t.shape), sd.reshape(o_t.shape)
-        tm_t = tm.reshape(t_cap.shape)
-        slive = so_t[..., 0] < 1e7
-        cand2, counts2, _, _ = pk.strip_interval_select(
-            so_t, sd_t, slive, accel, kt, ks, RAY_EPS, tm_t=tm_t)
-        frac = accel.packed.clone()
-        gen = torch.Generator(device=frac.device).manual_seed(0)
-        frac[:, 15, :] = torch.rand(frac[:, 15, :].shape, generator=gen,
-                                    device=frac.device) * 0.6 + 0.35
-        for label, packed in (("scene", accel.packed), ("fractional", frac)):
-            a2 = (packed, so_t, sd_t, tm_t, slive, cand2, counts2, RAY_EPS)
-            tr_k, vk2 = sweep.sweep_transmittance(*a2)
-            tr_p, vp2 = sweep.sweep_transmittance_plain(*a2)
-            torch.cuda.synchronize()
-            entry = dict(
-                name="sweep_transmittance", factors=label,
-                equal=torch.equal(tr_k, tr_p) and torch.equal(vk2, vp2),
-                max_abs_err=float((tr_k - tr_p).abs().max()),
-                shadowed=int((tr_k < 1.0).sum()),
-                mean_strip_list=float(counts2.float().mean()),
-                visits=int(vk2.sum()))
-            if label == "scene":
-                entry["ms"] = _time_ms(lambda: sweep.sweep_transmittance(*a2), 5)
-                entry["plain_ms"] = _time_ms(
-                    lambda: sweep.sweep_transmittance_plain(*a2), 1)
-            rec["kernels"].append(entry)
+
+def _shadow_rays(scene, o_t, d_t, hit):
+    """Shadow rays toward the first light from the hits ``hit`` of the
+    tile-ordered rays, in the same tile order; misses park as on the
+    main path.  Returns (so_t, sd_t, tm_t, live)."""
+    import torch
+
+    from solr_tpu_torch.constants import PARK_DIR, PARK_POS, RAY_EPS
+    from solr_tpu_torch.ops.traverse import surface_at
+
+    r = o_t.shape[0] * o_t.shape[1]
+    surf = surface_at(scene, hit, o_t.reshape(r, 3), d_t.reshape(r, 3))
+    to_l = scene.lights.position[0] - surf.point
+    dist = torch.sqrt(torch.clamp((to_l * to_l).sum(-1), min=1e-12))
+    so = surf.point + surf.normal * (RAY_EPS * 4.0)
+    sd = to_l / dist[:, None]
+    bad = ~surf.valid[:, None]
+    so = torch.where(bad, torch.full_like(so, PARK_POS), so)
+    sd = torch.where(bad, torch.full_like(sd, PARK_DIR), sd)
+    tm = torch.where(surf.valid, dist - RAY_EPS, torch.ones_like(dist))
+    so_t, sd_t = so.reshape(o_t.shape), sd.reshape(o_t.shape)
+    return so_t, sd_t, tm.reshape(o_t.shape[:2]), so_t[..., 0] < 1e7
+
+
+def _fractional(packed):
+    import torch
+
+    frac = packed.clone()
+    gen = torch.Generator(device=frac.device).manual_seed(0)
+    frac[:, 15, :] = torch.rand(frac[:, 15, :].shape, generator=gen,
+                                device=frac.device) * 0.6 + 0.35
+    return frac
+
+
+def _sweep_args(accel, o_t, d_t, live, cfg, closest, tm_t=None):
+    from solr_tpu_torch.constants import RAY_EPS
+    from solr_tpu_torch.ops import packet as pk
+    from solr_tpu_torch.ops.traverse import _scene_box
+
+    cand, counts, nearb, _ = pk.strip_interval_select(
+        o_t, d_t, live, accel, cfg.packet_tile_cand, cfg.packet_max_blocks,
+        RAY_EPS, tm_t=tm_t)
+    if closest:
+        t_cap = pk.ray_box_exit(o_t, d_t, *_scene_box(accel))
+        return (accel.packed, o_t, d_t, t_cap, live, cand, counts, nearb,
+                RAY_EPS)
+    return (accel.packed, o_t, d_t, tm_t, live, cand, counts, RAY_EPS)
+
+
+def _assert_equal(rec):
     bad = [k for k in rec["kernels"] if not k["equal"]]
     if bad:
         raise AssertionError(f"kernel and plain version disagree: {bad}")
 
 
-def phase_main_path(scene, cam, cfg, rec):
+def phase_kernels(scene, cam, cfg, rec):
+    """B1 and B2 against their plain versions at the bench shapes."""
     import torch
 
-    from solr_tpu_torch.ops import sweep
+    from solr_tpu_torch.constants import T_FAR
+    from solr_tpu_torch.ops.camera import camera_rays
+    from solr_tpu_torch.ops.traverse import POOL_TRIANGLE, Hit
+
+    accel = scene.tri_accel
+    with torch.no_grad():
+        o, d = camera_rays(cam, cfg)
+        o_t, d_t = _tiles(o, d, cfg)
+        live = torch.ones(o_t.shape[:2], dtype=torch.bool, device=o.device)
+        args = _sweep_args(accel, o_t, d_t, live, cfg, True)
+        t_k, i_k, _ = _check_kernel(rec, "sweep_closest", "tri", args)
+        # Shadow rays toward the light from the primary triangle hits.
+        tf, idx = t_k.reshape(-1), i_k.reshape(-1)
+        hit = Hit(t=tf, pool=torch.where(tf < T_FAR * 0.5, POOL_TRIANGLE, -1)
+                  .to(torch.int32), idx=idx.clamp(min=0))
+        so_t, sd_t, tm_t, slive = _shadow_rays(scene, o_t, d_t, hit)
+        args = _sweep_args(accel, so_t, sd_t, slive, cfg, False, tm_t)
+        _check_kernel(rec, "sweep_transmittance", "tri", args, "scene")
+        _check_kernel(rec, "sweep_transmittance", "tri",
+                      (_fractional(accel.packed),) + args[1:], "fractional",
+                      timed=False)
+    _assert_equal(rec)
+
+
+def phase_kernels_molecule(scene, cam, cfg, rec):
+    """B3-B6 against their plain versions at the molecule frame's primary
+    and shadow selections."""
+    import torch
+
+    from solr_tpu_torch.ops.camera import camera_rays
+    from solr_tpu_torch.ops.traverse import scene_closest_hit
+
+    spec = (cfg.packet_rays, cfg.packet_max_blocks, cfg.packet_tile_cand,
+            cfg.packet_exact)
+    with torch.no_grad():
+        o, d = camera_rays(cam, cfg)
+        o_t, d_t = _tiles(o, d, cfg)
+        live = torch.ones(o_t.shape[:2], dtype=torch.bool, device=o.device)
+        # The frame's primary hits over all pools, for the shadow rays.
+        hit = scene_closest_hit(scene, o_t.reshape(-1, 3), d_t.reshape(-1, 3),
+                                packet=spec)
+        so_t, sd_t, tm_t, slive = _shadow_rays(scene, o_t, d_t, hit)
+        for prim, accel in (("sphere", scene.sph_accel),
+                            ("cyl", scene.cyl_accel)):
+            args = _sweep_args(accel, o_t, d_t, live, cfg, True)
+            _check_kernel(rec, "sweep_closest", prim, args)
+            args = _sweep_args(accel, so_t, sd_t, slive, cfg, False, tm_t)
+            _check_kernel(rec, "sweep_transmittance", prim, args, "scene")
+            _check_kernel(rec, "sweep_transmittance", prim,
+                          (_fractional(accel.packed),) + args[1:],
+                          "fractional", timed=False)
+    _assert_equal(rec)
+
+
+def _reset_counts():
+    from solr_tpu_torch.ops import sweep, traverse
+
+    for counts in (sweep.LAUNCHES, traverse.NET_STATS):
+        for k in counts:
+            counts[k] = 0
+
+
+def _live_rays_per_bounce(scene, cam, cfg):
+    """Live rays entering each bounce of one frame (the rays whose origin
+    is not parked), read by wrapping the render loop's closest-hit
+    call."""
+    import torch
+
+    from solr_tpu_torch.constants import PARK_THRESHOLD
+    from solr_tpu_torch.ops import render
+
+    live, inner = [], render.scene_closest_hit
+
+    def counting(scene, o, d, **kw):
+        live.append(int((o[:, 0] < PARK_THRESHOLD).sum()))
+        return inner(scene, o, d, **kw)
+
+    render.scene_closest_hit = counting
+    try:
+        img, _ = render.render_sample(scene, cam, cfg)
+        torch.cuda.synchronize()
+    finally:
+        render.scene_closest_hit = inner
+    return img, live
+
+
+def phase_path(scene, cam, cfg, rec, key, kernels, frames=3):
+    """One main path: the launch and net counts set to 0, render_sample
+    once as a warm-up (counting live rays per bounce) and ``frames``
+    timed times, the counts read.  Every kernel in ``kernels`` must have
+    launched."""
+    import torch
+
+    from solr_tpu_torch.ops import sweep, traverse
     from solr_tpu_torch.ops.render import render_sample
 
-    for k in sweep.LAUNCHES:
-        sweep.LAUNCHES[k] = 0
+    _reset_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     with torch.no_grad():
-        img, _ = render_sample(scene, cam, cfg)
-        torch.cuda.synchronize()
+        img, live = _live_rays_per_bounce(scene, cam, cfg)
         warm_s = time.time() - t0
         times = []
-        for _ in range(3):
+        for _ in range(frames):
             t0 = time.time()
             img, _ = render_sample(scene, cam, cfg)
             torch.cuda.synchronize()
@@ -193,17 +344,35 @@ def phase_main_path(scene, cam, cfg, rec):
     n_lights = scene.lights.position.shape[0]
     rays = cfg.n_pixels * cfg.max_bounces * (1 + n_lights)
     finite = bool(torch.isfinite(img).all())
-    rec["main_path"] = dict(
-        n_tris=N_TRIS, size=SIZE, bounces=BOUNCES, block=BLOCK,
-        warmup_s=warm_s, frame_ms=[t * 1000 for t in times],
-        best_frame_ms=best * 1000, rays_per_s=rays / best,
+    rec[key] = dict(
+        size=cfg.width, bounces=cfg.max_bounces,
+        block=scene.tri_accel.block, warmup_s=warm_s,
+        frame_ms=[t * 1000 for t in times], best_frame_ms=best * 1000,
+        rays_per_s=rays / best, live_rays_per_bounce=live,
         digest=float(img.double().sum()), finite=finite, launches=launches,
+        net_stats=dict(traverse.NET_STATS),
         peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
     if not finite:
-        raise AssertionError("main-path image is not finite")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel was never launched: {launches}")
+        raise AssertionError(f"{key} image is not finite")
+    missing = [k for k in kernels if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on {key}: {missing}")
     return launches
+
+
+def _hold_to(rec, key, img, ref, **extra):
+    import numpy as np
+
+    err = np.abs(img - ref).max(-1)
+    frac = float((err > MISMATCH_ATOL).mean())
+    rec[key] = dict(
+        mismatched=int((err > MISMATCH_ATOL).sum()), mismatched_frac=frac,
+        budget=MISMATCH_BUDGET, max_err=float(err.max()),
+        digest=float(img.astype(np.float64).sum()),
+        ref_digest=float(ref.astype(np.float64).sum()), **extra)
+    if not np.isfinite(img).all() or frac > MISMATCH_BUDGET:
+        raise AssertionError(f"{key}: the frame differs from the reference: "
+                             f"{rec[key]}")
 
 
 def phase_reference(rec, device):
@@ -220,17 +389,55 @@ def phase_reference(rec, device):
                                   bounces=int(ref["bounces"]), device=device)
     with torch.no_grad():
         img = render_sample(scene, cam, cfg)[0].cpu().numpy()
-    err = np.abs(img - ref["image"]).max(-1)
-    frac = float((err > MISMATCH_ATOL).mean())
-    rec["reference"] = dict(
-        size=size, n_tris=int(ref["n_tris"]), block=int(ref["block"]),
-        mismatched=int((err > MISMATCH_ATOL).sum()), mismatched_frac=frac,
-        budget=MISMATCH_BUDGET, max_err=float(err.max()),
-        digest=float(img.astype(np.float64).sum()),
-        ref_digest=float(ref["image"].astype(np.float64).sum()))
-    if not np.isfinite(img).all() or frac > MISMATCH_BUDGET:
-        raise AssertionError(f"reduced frame differs from the reference: "
-                             f"{rec['reference']}")
+    _hold_to(rec, "reference", img, ref["image"], size=size,
+             n_tris=int(ref["n_tris"]), block=int(ref["block"]))
+
+
+def phase_molecule_reference(rec, device):
+    import numpy as np
+    import torch
+
+    from solr_tpu_torch.molecule_scene import molecule_scene, synthetic_pdb
+    from solr_tpu_torch.ops.render import render_sample
+
+    ref = np.load(os.path.join(ROOT, "tests", "data",
+                               "torch_molecule_ref.npz"))
+    n_atoms, size = int(ref["n_atoms"]), int(ref["size"])
+    sha = hashlib.sha256(synthetic_pdb(n_atoms).encode()).hexdigest()
+    if sha != str(ref["pdb_sha256"]):
+        raise AssertionError(f"the synthetic PDB text differs from the one "
+                             f"the reference read: {sha}")
+    scene, cam, cfg = molecule_scene(
+        n_atoms, int(ref["ground_res"]), width=size, height=size,
+        bounces=int(ref["bounces"]), block=int(ref["block"]), device=device)
+    with torch.no_grad():
+        img = render_sample(scene, cam, cfg)[0].cpu().numpy()
+    _hold_to(rec, "molecule_reference", img, ref["image"], size=size,
+             n_atoms=n_atoms, block=int(ref["block"]), pdb_sha256=sha)
+
+
+def _kernel_table(rec, paths):
+    """The kernels JSON line: each kernel's timed comparison, with its
+    launches from the main path whose shapes it was timed at."""
+    from solr_tpu_torch.ops import sweep
+
+    table = []
+    for prim in sweep.PRIMS:
+        path = "main_path" if prim == "tri" else "molecule_path"
+        for entry in ("sweep_closest", "sweep_transmittance"):
+            name = sweep.kernel_name(entry, prim)
+            runs = [k for k in rec["kernels"] if k["name"] == name]
+            timed = next(k for k in runs if "ms" in k)
+            table.append(dict(
+                name=name, route="cuda",
+                source="solr_tpu_torch/csrc/sweep.cu",
+                replaces=f"{REPLACES[entry]} + {BODY[prim]}",
+                launches=paths[path][name],
+                max_abs_err=max(k["max_abs_err"] for k in runs),
+                ms=timed["ms"], plain_ms=timed["plain_ms"],
+                bound_ms=timed["bound_ms"], bound_by=timed["bound_by"],
+                library_ms=None))
+    return table
 
 
 def main() -> int:
@@ -240,6 +447,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
     from solr_tpu_torch.bench_scene import bench_scene
+    from solr_tpu_torch.molecule_scene import molecule_scene
     from solr_tpu_torch.ops import sweep
 
     device = torch.device("cuda:0")
@@ -253,21 +461,50 @@ def main() -> int:
     rec["build_s"] = time.time() - t0
     print(f"build: {rec['build_s']:.2f} s\n{log.strip()}", flush=True)
 
-    t0 = time.time()
-    scene, cam, cfg = bench_scene(N_TRIS, block=BLOCK, width=SIZE,
-                                  height=SIZE, bounces=BOUNCES, device=device)
-    torch.cuda.synchronize()
-    rec["scene_build_s"] = time.time() - t0
-    print(f"scene: {scene.triangles.v0.shape[0]} triangles, "
-          f"{scene.tri_accel.packed.shape[0]} blocks, "
-          f"{rec['scene_build_s']:.2f} s", flush=True)
+    paths = {}
+    scenes = {}
 
-    launches = {}
+    def bench():
+        t0 = time.time()
+        scenes["bench"] = bench_scene(N_TRIS, block=BLOCK, width=SIZE,
+                                      height=SIZE, bounces=BOUNCES,
+                                      device=device)
+        torch.cuda.synchronize()
+        rec["scene_build_s"] = time.time() - t0
+        print(f"bench scene: {scenes['bench'][0].triangles.v0.shape[0]} "
+              f"triangles, {rec['scene_build_s']:.2f} s", flush=True)
+
+    def molecule():
+        t0 = time.time()
+        scene = molecule_scene(MOL_ATOMS, MOL_GROUND_RES, width=SIZE,
+                               height=SIZE, bounces=BOUNCES, block=MOL_BLOCK,
+                               device=device)
+        torch.cuda.synchronize()
+        scenes["molecule"] = scene
+        s = scene[0]
+        rec["molecule_scene"] = dict(
+            build_s=time.time() - t0, atoms=MOL_ATOMS,
+            spheres=int((s.spheres.radius > 0).sum()),
+            cylinders=int((s.cylinders.radius > 0).sum()),
+            triangles=int(s.triangles.v0.shape[0]),
+            blocks={k: int(getattr(s, k).packed.shape[0])
+                    for k in ("tri_accel", "sph_accel", "cyl_accel")})
+        print(f"molecule scene: {rec['molecule_scene']}", flush=True)
+
+    tri = ["sweep_closest", "sweep_transmittance"]
     steps = (
-        ("kernels", lambda: phase_kernels(scene, cam, cfg, rec)),
-        ("main_path", lambda: launches.update(
-            phase_main_path(scene, cam, cfg, rec))),
-        ("reference", lambda: phase_reference(rec, device)))
+        ("bench_scene", bench),
+        ("kernels", lambda: phase_kernels(*scenes["bench"], rec)),
+        ("main_path", lambda: paths.update(main_path=phase_path(
+            *scenes["bench"], rec, "main_path", tri))),
+        ("reference", lambda: phase_reference(rec, device)),
+        ("molecule_scene", lambda: (scenes.pop("bench"), molecule())),
+        ("kernels_molecule",
+         lambda: phase_kernels_molecule(*scenes["molecule"], rec)),
+        ("molecule_path", lambda: paths.update(molecule_path=phase_path(
+            *scenes["molecule"], rec, "molecule_path", list(sweep.LAUNCHES)))),
+        ("molecule_reference", lambda: phase_molecule_reference(rec, device)),
+    )
     for name, fn in steps:
         try:
             fn()
@@ -280,19 +517,7 @@ def main() -> int:
         print(f"chip_smoke: failed phases {rec['failed']}", file=sys.stderr)
         return 1
 
-    by_name = {}
-    for k in rec["kernels"]:
-        if "ms" in k:
-            by_name[k["name"]] = k
-    replaces = {"sweep_closest": "solr_tpu/ops/pallas_kernels.py:175",
-                "sweep_transmittance": "solr_tpu/ops/pallas_kernels.py:255"}
-    table = [dict(name=n, route="cuda", source="solr_tpu_torch/csrc/sweep.cu",
-                  replaces=replaces[n], launches=launches[n],
-                  max_abs_err=max(k["max_abs_err"] for k in rec["kernels"]
-                                  if k["name"] == n),
-                  ms=by_name[n]["ms"], plain_ms=by_name[n]["plain_ms"])
-             for n in ("sweep_closest", "sweep_transmittance")]
-    print(json.dumps({"kernels": table}))
+    print(json.dumps({"kernels": _kernel_table(rec, paths)}))
     print(_nvidia_smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

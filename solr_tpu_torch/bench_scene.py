@@ -69,7 +69,7 @@ def bench_scene_arrays(n_tris: int, seed: int = 42) -> dict:
 
 def bench_scene(n_tris: int = 1_000_000, block: int = 512, width: int = 512,
                 height: int = 512, bounces: int = 2, seed: int = 42,
-                device="cpu"):
+                device="cuda"):
     """(scene, camera, config) of the bench frame on ``device``."""
     a = bench_scene_arrays(n_tris, seed)
     b = SceneBuilder()

@@ -13,9 +13,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from solr_tpu_torch.types import (Camera, CameraMode, Lights, Materials,
-                                  RenderConfig, Scene, SceneInfo, Spheres,
-                                  Textures, Triangles, TriAccel)
+from solr_tpu_torch.types import (Camera, CameraMode, Cylinders, Lights,
+                                  Materials, RenderConfig, Scene, SceneInfo,
+                                  Spheres, Textures, Triangles, TriAccel)
 
 __all__ = ["scene_from_numpy", "camera_from_numpy",
            "config_from_reference_fields"]
@@ -40,21 +40,18 @@ def scene_from_numpy(tree: dict, device) -> Scene:
     """Build a Scene from the reference's Scene flattened to numpy.
 
     ``tree`` has the reference's field names: spheres, triangles,
-    materials, lights, textures, info, tri_accel (or None), and the
-    cylinders/ellipsoids/planes pools, which must be empty.  The BVH
-    node arrays are ignored: the packet path needs only the accelerator.
+    cylinders, materials, lights, textures, info, tri_accel, sph_accel
+    and cyl_accel (each None or an accelerator), and the ellipsoids and
+    planes pools, which must be empty.  The BVH node arrays are ignored:
+    the packet path needs only the accelerators.
     """
     dev = torch.device(device)
-    for key in ("cylinders", "ellipsoids", "planes"):
+    for key in ("ellipsoids", "planes"):
         if not _empty(tree, key):
             raise NotImplementedError(f"the {key} pool is not ported")
     if not _empty(tree, "textures") and np.asarray(
             tree["textures"]["offset"]).shape[0] > 0:
         raise NotImplementedError("textures are not ported")
-    for key in ("sph_accel", "cyl_accel"):
-        if tree.get(key) is not None:
-            raise NotImplementedError(f"{key}: sphere and cylinder sweeps "
-                                      "are not ported")
 
     m = tree["materials"]
     materials = Materials(
@@ -72,19 +69,27 @@ def scene_from_numpy(tree: dict, device) -> Scene:
     triangles = Triangles(**{k: _t(tr[k], dev) for k in (
         "v0", "v1", "v2", "n0", "n1", "n2", "uv0", "uv1", "uv2")},
         material=_t(tr["material"], dev, torch.int32))
+    c = tree["cylinders"]
+    cylinders = Cylinders(p0=_t(c["p0"], dev), p1=_t(c["p1"], dev),
+                          radius=_t(c["radius"], dev),
+                          material=_t(c["material"], dev, torch.int32))
     li = tree["lights"]
     lights = Lights(position=_t(li["position"], dev),
                     color=_t(li["color"], dev), radius=_t(li["radius"], dev))
     info = SceneInfo(**{k: _t(v, dev) for k, v in tree["info"].items()})
-    accel = None
-    if tree.get("tri_accel") is not None:
-        a = tree["tri_accel"]
-        accel = TriAccel(packed=_t(a["packed"], dev),
-                         block_bounds=_t(a["block_bounds"], dev),
-                         block=int(a["block"]))
-    return Scene(spheres=spheres, triangles=triangles, materials=materials,
-                 lights=lights, textures=Textures(), info=info,
-                 tri_accel=accel)
+
+    def accel(key):
+        a = tree.get(key)
+        if a is None:
+            return None
+        return TriAccel(packed=_t(a["packed"], dev),
+                        block_bounds=_t(a["block_bounds"], dev),
+                        block=int(a["block"]))
+
+    return Scene(spheres=spheres, triangles=triangles, cylinders=cylinders,
+                 materials=materials, lights=lights, textures=Textures(),
+                 info=info, tri_accel=accel("tri_accel"),
+                 sph_accel=accel("sph_accel"), cyl_accel=accel("cyl_accel"))
 
 
 def camera_from_numpy(tree: dict, device) -> Camera:

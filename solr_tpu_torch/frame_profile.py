@@ -1,10 +1,13 @@
-"""Where the bench frame's time goes.
+"""Where a frame's time goes.
 
-    python -m solr_tpu_torch.frame_profile [--n-tris N] [--size S]
-                                            [--block B] [--out FILE]
+    python -m solr_tpu_torch.frame_profile [--scene bench|molecule]
+        [--n-tris N] [--n-atoms N] [--ground-res R] [--size S]
+        [--block B] [--out FILE]
 
 Builds the bench frame (bench_scene.py; by default the full 1M-triangle
-512x512 frame at BLOCK=512) on cuda:0, renders one warm-up frame, then:
+512x512 frame at BLOCK=512) or the molecule frame (molecule_scene.py; by
+default 100k atoms over a res-128 ground, 512x512, BLOCK=256) on cuda:0,
+renders one warm-up frame, then:
 
 1. three plain frames, each timed on the host clock up to a device sync;
 2. on a CUDA device, one frame under ``torch.profiler``: the number of
@@ -12,7 +15,8 @@ Builds the bench frame (bench_scene.py; by default the full 1M-triangle
    frame's wall time, and the largest kernels by name;
 3. one instrumented frame: each phase in ``PHASES`` timed on the host
    clock with a device sync on both sides, and the exactness net's
-   counters (``traverse.NET_STATS``) read around each net call.
+   counters (``traverse.NET_STATS``) read around each net call.  The
+   sweep wrappers are timed per kernel ("kernel sweep_closest_sphere").
 
 The phases nest (the net calls the pool brute force when a union
 overflows), so their seconds do not add up to the frame.  The syncs make
@@ -26,12 +30,14 @@ import argparse
 import collections
 import contextlib
 import functools
+import inspect
 import json
 import time
 
 import torch
 
 from solr_tpu_torch.bench_scene import bench_scene
+from solr_tpu_torch.molecule_scene import molecule_scene
 from solr_tpu_torch.ops import packet, render, sweep, traverse
 
 __all__ = ["PHASES", "profile_frame"]
@@ -46,9 +52,9 @@ PHASES = (
     (sweep, "sweep_closest", "kernel sweep_closest"),
     (sweep, "sweep_transmittance", "kernel sweep_transmittance"),
     (traverse, "_compacted_net", "exactness net"),
-    (traverse, "_pool_closest", "pool_closest (spheres, net overflows)"),
+    (traverse, "_pool_closest", "pool_closest (small pools, net overflows)"),
     (traverse, "_pool_transmittance_brute",
-     "pool_transmittance_brute (spheres, net overflows)"),
+     "pool_transmittance_brute (small pools, net overflows)"),
 )
 
 
@@ -89,8 +95,14 @@ def _instrumented(device, seconds, calls, net_calls):
     saved = []
 
     def timed(fn, label, is_net):
+        sig = inspect.signature(fn) if fn.__module__ == sweep.__name__ else None
+
         @functools.wraps(fn)
         def call(*args, **kwargs):
+            key = label
+            if sig is not None:  # one label per kernel of the wrapper
+                prim = sig.bind(*args, **kwargs).arguments.get("prim", "tri")
+                key = "kernel " + sweep.kernel_name(fn.__name__, prim)
             before = dict(traverse.NET_STATS)
             _sync(device)
             t0 = time.perf_counter()
@@ -98,8 +110,8 @@ def _instrumented(device, seconds, calls, net_calls):
                 return fn(*args, **kwargs)
             finally:
                 _sync(device)
-                seconds[label] += time.perf_counter() - t0
-                calls[label] += 1
+                seconds[key] += time.perf_counter() - t0
+                calls[key] += 1
                 if is_net:
                     net_calls.append({k: traverse.NET_STATS[k] - before[k]
                                       for k in before})
@@ -144,16 +156,37 @@ def profile_frame(scene, cam, cfg, frames: int = 3, top: int = 12) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--scene", choices=("bench", "molecule"), default="bench")
     ap.add_argument("--n-tris", type=int, default=1_000_000)
+    ap.add_argument("--n-atoms", type=int, default=100_000)
+    ap.add_argument("--ground-res", type=int, default=128)
     ap.add_argument("--size", type=int, default=512)
-    ap.add_argument("--block", type=int, default=512)
+    ap.add_argument("--block", type=int, default=None,
+                    help="primitives per block (bench 512, molecule 256)")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     device = torch.device("cuda:0")
-    scene, cam, cfg = bench_scene(args.n_tris, block=args.block,
-                                  width=args.size, height=args.size,
-                                  device=device)
-    rec = dict(n_tris=args.n_tris, size=args.size, block=args.block,
+    t0 = time.perf_counter()
+    if args.scene == "bench":
+        block = args.block or 512
+        scene, cam, cfg = bench_scene(args.n_tris, block=block,
+                                      width=args.size, height=args.size,
+                                      device=device)
+        rec = dict(scene="bench", n_tris=args.n_tris)
+    else:
+        block = args.block or 256
+        scene, cam, cfg = molecule_scene(args.n_atoms, args.ground_res,
+                                         width=args.size, height=args.size,
+                                         block=block, device=device)
+        rec = dict(scene="molecule", n_atoms=args.n_atoms,
+                   ground_res=args.ground_res)
+    _sync(device)
+    rec.update(size=args.size, block=block,
+               scene_build_s=time.perf_counter() - t0,
+               pools={k: int(v) for k, v in (
+                   ("spheres", scene.spheres.radius.shape[0]),
+                   ("triangles", scene.triangles.v0.shape[0]),
+                   ("cylinders", scene.cylinders.radius.shape[0]))},
                **profile_frame(scene, cam, cfg))
     text = json.dumps(rec, indent=1)
     print(text)

@@ -1,10 +1,11 @@
-"""Ray-primitive intersection for spheres and triangles (counterpart of
-solr_tpu/ops/intersect.py).
+"""Ray-primitive intersection for spheres, triangles and capped
+cylinders (counterpart of solr_tpu/ops/intersect.py).
 
 ``*_t_p`` take broadcast-compatible (..., 3) rays and primitives;
 ``*_t`` take rays (..., 3) and a pool (N, ...) and return the (..., N)
 t-matrix.  Both return the smallest t > t_min, else T_FAR; padding
-(radius <= 0, degenerate triangles) never hits.
+(radius <= 0, degenerate triangles) never hits.  A ray that starts
+inside a closed primitive gets the exit hit.
 """
 
 from __future__ import annotations
@@ -12,10 +13,11 @@ from __future__ import annotations
 import torch
 
 from solr_tpu_torch.constants import INTERSECT_EPS, T_FAR
+from solr_tpu_torch.ops.packet import cyl_core
 from solr_tpu_torch.ops.vecmath import cross, dot, safe_inv
 
 __all__ = ["sphere_t_p", "sphere_t", "triangle_t_p", "triangle_t",
-           "triangle_bary"]
+           "cylinder_t_p", "cylinder_t", "triangle_bary"]
 
 
 def _far(x):
@@ -55,12 +57,28 @@ def triangle_t_p(o, d, v0, v1, v2, t_min):
     return torch.where(valid & (t > t_min), t, _far(t))
 
 
+def cylinder_t_p(o, d, p0, p1, radius, t_min):
+    """Capped cylinder p0 -> p1: the side surface plus both end disks,
+    two-sided: :func:`packet.cyl_core` on the rows ``cylinder_pack``
+    stores (p0, radius, axis, |axis|^2), so the pool test and the block
+    test share one formula (the reference writes it out twice)."""
+    axis = p1 - p0
+    rows = [p0[..., 0], p0[..., 1], p0[..., 2], radius,
+            axis[..., 0], axis[..., 1], axis[..., 2], dot(axis, axis)]
+    return cyl_core(lambda i: o[..., i] if i < 3 else d[..., i - 4],
+                    rows.__getitem__, t_min)
+
+
 def sphere_t(o, d, center, radius, t_min):
     return sphere_t_p(o[..., None, :], d[..., None, :], center, radius, t_min)
 
 
 def triangle_t(o, d, v0, v1, v2, t_min):
     return triangle_t_p(o[..., None, :], d[..., None, :], v0, v1, v2, t_min)
+
+
+def cylinder_t(o, d, p0, p1, radius, t_min):
+    return cylinder_t_p(o[..., None, :], d[..., None, :], p0, p1, radius, t_min)
 
 
 def triangle_bary(o, d, v0, v1, v2):

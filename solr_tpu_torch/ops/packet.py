@@ -1,12 +1,12 @@
 """Packet (tile-frustum) traversal: block packing, bundle culls and the
 per-strip interval selection (counterpart of solr_tpu/ops/packet.py).
 
-The triangle pool, in Morton order, is cut into blocks of ``block``
-triangles.  Rays come in spatially coherent 16x16-pixel tiles; each tile
-culls the whole block list with a bundle test, keeps its Kt nearest
-survivors, slab-tests every ray against them, and every 32-ray strip
-gets its own entry-sorted front-to-back candidate list of at most K
-blocks.  Any block a list had to drop is certified per ray by
+Each accelerated pool (triangles, spheres, cylinders), in Morton order,
+is cut into blocks of ``block`` primitives.  Rays come in spatially
+coherent 16x16-pixel tiles; each tile culls the whole block list with a
+bundle test, keeps its Kt nearest survivors, slab-tests every ray
+against them, and every 32-ray strip gets its own entry-sorted
+front-to-back candidate list of at most K blocks.  Any block a list had to drop is certified per ray by
 ``dropped``: a lower bound on the hit distance inside every dropped
 block.  The sweep kernels in :mod:`solr_tpu_torch.ops.sweep` consume the
 lists; the exactness net in :mod:`solr_tpu_torch.ops.traverse`
@@ -21,7 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from solr_tpu_torch.constants import T_FAR
+from solr_tpu_torch.constants import INTERSECT_EPS, T_FAR
 from solr_tpu_torch.ops.vecmath import cross, safe_inv
 from solr_tpu_torch.types import TriAccel
 
@@ -37,7 +37,13 @@ __all__ = [
     "slab_entries_g",
     "strip_interval_select",
     "block_pack",
+    "sphere_pack",
+    "cylinder_pack",
     "build_tri_accel",
+    "build_sph_accel",
+    "build_cyl_accel",
+    "cyl_core",
+    "PRIM_T",
     "tri_blocks_closest",
     "tri_blocks_transmittance",
 ]
@@ -334,7 +340,7 @@ def strip_interval_select(o_t, d_t, live, accel: TriAccel, kt: int, ks: int,
 
 
 # --------------------------------------------------------------------------
-# Block data: Woop transforms and block bounds.
+# Block data: primitive rows and block bounds.
 # --------------------------------------------------------------------------
 
 
@@ -352,9 +358,7 @@ def block_pack(tris, factor, block: int):
     triangles get all-zero rows and never hit, and are left out of the
     block bounds; an empty block parks at +1e30.
     """
-    n = tris.v0.shape[0]
-    b = (n + block - 1) // block
-    pad = b * block - n
+    b, pad = _pad_pool(tris.v0.shape[0], block)
 
     def pv(a):
         return torch.nn.functional.pad(a, (0, 0, 0, pad)) if pad else a
@@ -373,7 +377,7 @@ def block_pack(tris, factor, block: int):
     m3 = -_dot3(r3, v0)
 
     zeros = torch.zeros((b * block,), dtype=v0.dtype, device=v0.device)
-    fac = torch.nn.functional.pad(factor, (0, pad), value=1.0) if pad else factor
+    fac = _pad_factor(factor, pad)
     comps = [
         r1[:, 0], r1[:, 1], r1[:, 2], m1,
         r2[:, 0], r2[:, 1], r2[:, 2], m2,
@@ -385,6 +389,13 @@ def block_pack(tris, factor, block: int):
     real = (v0.abs().sum(-1) + v1.abs().sum(-1) + v2.abs().sum(-1)) > 0.0
     vmin = torch.minimum(torch.minimum(v0, v1), v2)
     vmax = torch.maximum(torch.maximum(v0, v1), v2)
+    return (packed,) + _block_bounds(real, vmin, vmax, b, block)
+
+
+def _block_bounds(real, vmin, vmax, b: int, block: int):
+    """(centers (B, 3), half_extents (B, 3)) of each block's real
+    primitives' AABBs (vmin, vmax (B * block, 3)); an empty block parks
+    at +1e30."""
     vmin = torch.where(real[:, None], vmin, torch.full_like(vmin, _BIG))
     vmax = torch.where(real[:, None], vmax, torch.full_like(vmax, -_BIG))
     bmin = vmin.reshape(b, block, 3).amin(1)
@@ -392,7 +403,59 @@ def block_pack(tris, factor, block: int):
     empty = (bmax[:, 0] < bmin[:, 0])[:, None]
     centers = torch.where(empty, torch.full_like(bmin, _BIG), 0.5 * (bmin + bmax))
     half = torch.where(empty, torch.zeros_like(bmin), 0.5 * (bmax - bmin) + 1e-5)
-    return packed, centers, half
+    return centers, half
+
+
+def _pad_pool(n: int, block: int):
+    """(blocks, padding rows) of a pool of n primitives."""
+    b = (n + block - 1) // block
+    return b, b * block - n
+
+
+def _pad_factor(factor, pad: int):
+    return torch.nn.functional.pad(factor, (0, pad), value=1.0) if pad else factor
+
+
+def sphere_pack(spheres, factor, block: int):
+    """Pack the Morton-ordered sphere pool: (packed (B, 16, block),
+    centers, half_extents).  Rows 0..2 the centre, row 3 the radius,
+    rows 4..14 zero, row 15 the shadow ``factor``.  Padding spheres
+    (radius <= 0) never hit and are left out of the block bounds."""
+    b, pad = _pad_pool(spheres.radius.shape[0], block)
+    c, rad = spheres.center, spheres.radius
+    if pad:
+        c = torch.nn.functional.pad(c, (0, 0, 0, pad))
+        rad = torch.nn.functional.pad(rad, (0, pad), value=-1.0)
+    zeros = torch.zeros((b * block,), dtype=c.dtype, device=c.device)
+    comps = [c[:, 0], c[:, 1], c[:, 2], rad] + [zeros] * 11 \
+        + [_pad_factor(factor, pad)]
+    packed = torch.stack([x.reshape(b, block) for x in comps], 1)
+    return (packed,) + _block_bounds(rad > 0.0, c - rad[:, None],
+                                     c + rad[:, None], b, block)
+
+
+def cylinder_pack(cyls, factor, block: int):
+    """Pack the Morton-ordered cylinder pool: (packed (B, 16, block),
+    centers, half_extents).  Rows 0..2 p0, row 3 the radius, rows 4..6
+    the axis p1 - p0, row 7 |axis|^2, rows 8..14 zero, row 15 the shadow
+    ``factor``.  Padding cylinders (radius <= 0) never hit and are left
+    out of the block bounds."""
+    b, pad = _pad_pool(cyls.radius.shape[0], block)
+    p0, p1, rad = cyls.p0, cyls.p1, cyls.radius
+    if pad:
+        p0 = torch.nn.functional.pad(p0, (0, 0, 0, pad))
+        p1 = torch.nn.functional.pad(p1, (0, 0, 0, pad))
+        rad = torch.nn.functional.pad(rad, (0, pad), value=-1.0)
+    axis = p1 - p0
+    h2 = _dot3(axis, axis)
+    zeros = torch.zeros((b * block,), dtype=p0.dtype, device=p0.device)
+    comps = [p0[:, 0], p0[:, 1], p0[:, 2], rad,
+             axis[:, 0], axis[:, 1], axis[:, 2], h2] + [zeros] * 7 \
+        + [_pad_factor(factor, pad)]
+    packed = torch.stack([x.reshape(b, block) for x in comps], 1)
+    return (packed,) + _block_bounds(
+        rad > 0.0, torch.minimum(p0, p1) - rad[:, None],
+        torch.maximum(p0, p1) + rad[:, None], b, block)
 
 
 def _group_blocks(packed, centers, half, block: int) -> TriAccel:
@@ -413,14 +476,34 @@ def _group_blocks(packed, centers, half, block: int) -> TriAccel:
                     block=block)
 
 
+def _shadow_factor(material, materials):
+    """Per-primitive shadow factor: the material's transparency, 1 for
+    emissive primitives (the lights never occlude)."""
+    m = material.long()
+    return torch.where(materials.emission[m] > 0.0,
+                       torch.ones_like(materials.transparency[m]),
+                       materials.transparency[m])
+
+
 def build_tri_accel(triangles, materials, block: int) -> TriAccel:
-    """The triangle accelerator.  Row 15 of ``packed`` carries the shadow
-    factor: the material's transparency, 1 for emissive triangles."""
-    m = triangles.material.long()
-    factor = torch.where(materials.emission[m] > 0.0,
-                         torch.ones_like(materials.transparency[m]),
-                         materials.transparency[m])
-    packed, centers, half = block_pack(triangles, factor, block)
+    """The triangle accelerator; row 15 of ``packed`` carries the shadow
+    factor."""
+    packed, centers, half = block_pack(
+        triangles, _shadow_factor(triangles.material, materials), block)
+    return _group_blocks(packed, centers, half, block)
+
+
+def build_sph_accel(spheres, materials, block: int) -> TriAccel:
+    """The sphere-pool accelerator (the sweeps' ``prim="sphere"``)."""
+    packed, centers, half = sphere_pack(
+        spheres, _shadow_factor(spheres.material, materials), block)
+    return _group_blocks(packed, centers, half, block)
+
+
+def build_cyl_accel(cylinders, materials, block: int) -> TriAccel:
+    """The cylinder-pool accelerator (the sweeps' ``prim="cyl"``)."""
+    packed, centers, half = cylinder_pack(
+        cylinders, _shadow_factor(cylinders.material, materials), block)
     return _group_blocks(packed, centers, half, block)
 
 
@@ -455,11 +538,87 @@ def _woop_t(o, d, w, t_min):
     return torch.where(valid, t, torch.full_like(t, T_FAR))
 
 
-def tri_blocks_closest(packed, o_t, d_t, cand, counts, t_min):
+def _sphere_t(o, d, w, t_min):
+    """Sphere test, broadcast as :func:`_woop_t`; rows per
+    :func:`sphere_pack`.  The nearest root > t_min (the exit root for a
+    ray that starts inside).  The association is the CUDA kernels'."""
+    ocx, ocy, ocz = (o[..., i, None] - w[..., None, i, :] for i in range(3))
+    dx, dy, dz = (d[..., i, None] for i in range(3))
+    rad = w[..., None, 3, :]
+    b = ocx * dx + ocy * dy + ocz * dz
+    c0 = ocx * ocx + ocy * ocy + ocz * ocz - rad * rad
+    disc = b * b - c0
+    valid = (disc > 0.0) & (rad > 0.0)
+    sq = torch.sqrt(torch.where(valid, disc, torch.ones_like(disc)))
+    far = torch.full_like(disc, T_FAR)
+    t1 = torch.where(valid & (-b - sq > t_min), -b - sq, far)
+    t2 = torch.where(valid & (-b + sq > t_min), -b + sq, far)
+    return torch.minimum(t1, t2)
+
+
+def cyl_core(c, r, t_min):
+    """Capped cylinder (side plus both end disks, two-sided; radius <= 0
+    never hits), as solr_tpu.ops.packet.cyl_core: ``c(i)`` is ray
+    component i (0..2 origin, 4..6 direction), ``r(i)`` packed row i
+    (:func:`cylinder_pack`); both broadcast.  The CUDA kernels'
+    ``cyl_t`` repeats it operation for operation."""
+    ocx, ocy, ocz = c(0) - r(0), c(1) - r(1), c(2) - r(2)
+    dx, dy, dz = c(4), c(5), c(6)
+    rad = r(3)
+    h2 = r(7)
+    inv_h2 = 1.0 / torch.clamp(h2, min=INTERSECT_EPS)
+    d_a = dx * r(4) + dy * r(5) + dz * r(6)
+    oc_a = ocx * r(4) + ocy * r(5) + ocz * r(6)
+    a = 1.0 - d_a * d_a * inv_h2
+    b = (ocx * dx + ocy * dy + ocz * dz) - d_a * oc_a * inv_h2
+    cq = (ocx * ocx + ocy * ocy + ocz * ocz) - oc_a * oc_a * inv_h2 \
+        - rad * rad
+    safe_a = torch.clamp(a, min=INTERSECT_EPS)
+    disc = b * b - safe_a * cq
+    base = (disc > 0.0) & (a > INTERSECT_EPS) & (rad > 0.0)
+    sq = torch.sqrt(torch.where(base, disc, torch.ones_like(disc)))
+    t1 = (-b - sq) / safe_a
+    t2 = (-b + sq) / safe_a
+    s1 = oc_a + t1 * d_a
+    s2 = oc_a + t2 * d_a
+    far = torch.full_like(t1, T_FAR)
+    t1 = torch.where(base & (s1 >= 0.0) & (s1 <= h2) & (t1 > t_min), t1, far)
+    t2 = torch.where(base & (s2 >= 0.0) & (s2 <= h2) & (t2 > t_min), t2, far)
+    t_side = torch.minimum(t1, t2)
+
+    ax_safe = d_a.abs() > INTERSECT_EPS
+    inv_da = safe_inv(d_a, ax_safe)
+
+    def cap(plane_s, off_scale):
+        tc = (plane_s - oc_a) * inv_da
+        qx = ocx + tc * dx - off_scale * r(4)
+        qy = ocy + tc * dy - off_scale * r(5)
+        qz = ocz + tc * dz - off_scale * r(6)
+        rad2 = qx * qx + qy * qy + qz * qz
+        ok = ax_safe & (rad > 0.0) & (rad2 <= rad * rad) & (tc > t_min)
+        return torch.where(ok, tc, far)
+
+    return torch.minimum(t_side, torch.minimum(cap(0.0, 0.0), cap(h2, 1.0)))
+
+
+def _cyl_t(o, d, w, t_min):
+    """Cylinder test, broadcast as :func:`_woop_t`."""
+    return cyl_core(
+        lambda i: o[..., i, None] if i < 3 else d[..., i - 4, None],
+        lambda i: w[..., None, i, :], t_min)
+
+
+# The block test of each primitive kind: (o, d, packed rows, t_min) -> t.
+PRIM_T = {"tri": _woop_t, "sphere": _sphere_t, "cyl": _cyl_t}
+
+
+def tri_blocks_closest(packed, o_t, d_t, cand, counts, t_min,
+                       prim: str = "tri"):
     """Closest hit of every ray against its tile's candidate blocks.
 
-    packed (B, 16, block); o_t/d_t (T, TR, 3); cand (T, K) block ids;
-    counts (T,).  Returns (t (T, TR), prim idx (T, TR), -1 on a miss).
+    packed (B, 16, block) rows of kind ``prim``; o_t/d_t (T, TR, 3);
+    cand (T, K) block ids; counts (T,).  Returns (t (T, TR), prim idx
+    (T, TR), -1 on a miss).
     Ties go to the earliest candidate, then the lowest lane, as in the
     reference's sequential scan: the first minimum of each flattened
     (candidate, lane) chunk is exactly that order.
@@ -472,7 +631,7 @@ def tri_blocks_closest(packed, o_t, d_t, cand, counts, t_min):
     for k0 in range(0, k_max, _MIRROR_CHUNK):
         kc = cand[:, k0:k0 + _MIRROR_CHUNK].long()  # (T, C)
         w = packed[kc]  # (T, C, 16, block)
-        t = _woop_t(o_t[:, None], d_t[:, None], w, t_min)  # (T, C, TR, block)
+        t = PRIM_T[prim](o_t[:, None], d_t[:, None], w, t_min)  # (T, C, TR, block)
         ok = ks[k0:k0 + kc.shape[1]][None] < counts[:, None]  # (T, C)
         t = torch.where(ok[:, :, None, None], t, torch.full_like(t, T_FAR))
         t = t.permute(0, 2, 1, 3).reshape(t.shape[0], t.shape[2], -1)
@@ -485,7 +644,8 @@ def tri_blocks_closest(packed, o_t, d_t, cand, counts, t_min):
     return best_t, best_i
 
 
-def tri_blocks_transmittance(packed, o_t, d_t, t_max_t, cand, counts, t_min):
+def tri_blocks_transmittance(packed, o_t, d_t, t_max_t, cand, counts, t_min,
+                             prim: str = "tri"):
     """Shadow transmittance of every ray through its tile's candidate
     blocks: the product of the row-15 factor of every triangle hit with
     t < t_max.  (T, TR) in [0, 1]."""
@@ -495,7 +655,7 @@ def tri_blocks_transmittance(packed, o_t, d_t, t_max_t, cand, counts, t_min):
     for k0 in range(0, k_max, _MIRROR_CHUNK):
         kc = cand[:, k0:k0 + _MIRROR_CHUNK].long()
         w = packed[kc]  # (T, C, 16, block)
-        t = _woop_t(o_t[:, None], d_t[:, None], w, t_min)  # (T, C, TR, block)
+        t = PRIM_T[prim](o_t[:, None], d_t[:, None], w, t_min)
         ok = ks[k0:k0 + kc.shape[1]][None] < counts[:, None]
         occ = (t < t_max_t[:, None, :, None]) & ok[:, :, None, None]
         f = torch.where(occ, w[:, :, None, 15, :], torch.ones_like(t))

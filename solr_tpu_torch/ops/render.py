@@ -131,7 +131,11 @@ def trace_rays(scene: Scene, o, d, cfg: RenderConfig, packet=None):
 
 def trace_rays_tiled(scene: Scene, o, d, cfg: RenderConfig):
     """Trace a row-major pixel block with the packet tile swizzle when
-    the scene and frame allow it."""
+    the scene and frame allow it.  As in the reference (render.py:273),
+    only a scene with a triangle accelerator takes packets; its sphere
+    and cylinder pools then take them too.  A scene of accelerated
+    spheres or cylinders alone needs the per-ray BVH walk (ROADMAP A14),
+    and traversal raises for it."""
     n = o.shape[0]
     if scene.tri_accel is None or n % cfg.width != 0:
         return trace_rays(scene, o, d, cfg)

@@ -1,29 +1,34 @@
-"""Per-strip interval sweeps over candidate triangle blocks: the kernels
-of the slice (counterpart of solr_tpu/ops/pallas_kernels.py).
+"""Per-strip interval sweeps over candidate primitive blocks: the
+kernels of the port (counterpart of solr_tpu/ops/pallas_kernels.py).
 
-Each entry point has a plain PyTorch version and a wrapper:
+Each entry point has a plain PyTorch version and a wrapper, and takes
+``prim``, the kind of the packed rows: "tri" (Woop rows,
+packet.block_pack), "sphere" (packet.sphere_pack) or "cyl"
+(packet.cylinder_pack):
 
 * ``sweep_closest`` (replaces ``sweep_closest`` / ``_closest_kernel`` at
-  solr_tpu/ops/pallas_kernels.py:175): for each 32-ray strip, walk its
-  candidate blocks front to back, run the Woop test on every triangle
-  with t > t_min, keep the block minimum (lowest prim id on a tie) and
+  solr_tpu/ops/pallas_kernels.py:175 with ``_woop_rows`` :108,
+  ``_sphere_rows`` :136 or ``_cyl_rows`` :158): for each 32-ray strip,
+  walk its candidate blocks front to back, test every primitive with
+  t > t_min, keep the block minimum (lowest prim id on a tie) and
   replace the ray's best only when strictly smaller; skip a candidate
   once its entry bound ``nearb`` is not below the strip's ``done``
   bound, the max over its live rays of min(best t, box exit).
 * ``sweep_transmittance`` (replaces ``sweep_transmittance`` /
-  ``_trans_kernel`` at pallas_kernels.py:255): for each strip, multiply
-  into every ray the row-15 factor of each triangle hit with
-  t_min < t < t_max; stop a strip, between blocks, once the max of its
-  live rays' transmittance is <= 1e-6.
+  ``_trans_kernel`` at pallas_kernels.py:255 with the same bodies): for
+  each strip, multiply into every ray the row-15 factor of each
+  primitive hit with t_min < t < t_max; stop a strip, between blocks,
+  once the max of its live rays' transmittance is <= 1e-6.
 
 Both also count strip visits per tile.  The wrappers dispatch on the
 device of the tensors: CPU tensors go to the plain version, CUDA tensors
 to the hand-written kernels in ``solr_tpu_torch/csrc/sweep.cu``, which
 are built with nvcc at first use and loaded with ctypes.  A build or
 launch failure raises; nothing falls back to the plain version.  The
-plain and kernel versions agree bit for bit on the same device: same
-Woop association, no FMA contraction, the same tie rules and product
-order (ascending lanes within a block).
+plain and kernel versions agree bit for bit on the same device: the
+same association in every primitive test, no FMA contraction, IEEE
+sqrt and division, the same tie rules and product order (ascending
+lanes within a block).
 
 Rays are passed directly as o_t/d_t (S, SB, 3), t_cap or t_max (S, SB)
 and live (S, SB); SB / G must be 32 for the kernels.
@@ -42,20 +47,34 @@ from pathlib import Path
 import torch
 
 from solr_tpu_torch.constants import T_FAR
-from solr_tpu_torch.ops.packet import STRIP, _masked_max, _woop_t
+from solr_tpu_torch.ops.packet import PRIM_T, STRIP, _masked_max
 
 __all__ = [
     "LAUNCHES",
+    "PRIMS",
     "build",
+    "kernel_name",
     "sweep_closest",
     "sweep_closest_plain",
     "sweep_transmittance",
     "sweep_transmittance_plain",
 ]
 
-# Kernel launch counts, one per wrapper; incremented only where the
-# wrapper launches its kernel.
-LAUNCHES = {"sweep_closest": 0, "sweep_transmittance": 0}
+# Primitive kinds in the order of their codes in csrc/sweep.cu.
+PRIMS = ("tri", "sphere", "cyl")
+
+
+def kernel_name(entry: str, prim: str) -> str:
+    """The name of one kernel: the entry point, suffixed by the primitive
+    kind except for triangles ("sweep_closest", "sweep_closest_sphere",
+    ...)."""
+    return entry if prim == "tri" else f"{entry}_{prim}"
+
+
+# Kernel launch counts, one per kernel (entry point x primitive kind);
+# incremented only where a wrapper launches that kernel.
+LAUNCHES = {kernel_name(e, p): 0 for p in PRIMS
+            for e in ("sweep_closest", "sweep_transmittance")}
 
 _SRC = Path(__file__).resolve().parents[1] / "csrc" / "sweep.cu"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "solr_tpu_torch"
@@ -81,7 +100,7 @@ def _strips(o_t, d_t, ray_vals, live, g):
 
 
 def sweep_closest_plain(packed, o_t, d_t, t_cap, live, cand, counts, nearb,
-                        t_min):
+                        t_min, prim: str = "tri"):
     """Plain PyTorch closest-hit sweep; any strip width.  Returns
     (t (S, SB), prim idx (S, SB) with -1 on a miss, visits (S,))."""
     s, sb = o_t.shape[:2]
@@ -102,7 +121,7 @@ def sweep_closest_plain(packed, o_t, d_t, t_cap, live, cand, counts, nearb,
                 break
             continue
         blk = c[rows, k]
-        t = _woop_t(o[rows], d[rows], packed[blk], t_min)  # (R, ssb, block)
+        t = PRIM_T[prim](o[rows], d[rows], packed[blk], t_min)  # (R, ssb, block)
         c_min, lane = t.min(-1)
         bt = best_t[rows]
         better = c_min < bt
@@ -138,7 +157,7 @@ def _lane_ordered_product(occ, f):
 
 
 def sweep_transmittance_plain(packed, o_t, d_t, t_max, live, cand, counts,
-                              t_min):
+                              t_min, prim: str = "tri"):
     """Plain PyTorch shadow sweep; any strip width.  Returns
     (tr (S, SB) in [0, 1], visits (S,))."""
     s, sb = o_t.shape[:2]
@@ -154,7 +173,7 @@ def sweep_transmittance_plain(packed, o_t, d_t, t_max, live, cand, counts,
         if rows.numel() == 0:
             break  # a strip that stops never resumes
         w = packed[c[rows, k]]
-        t = _woop_t(o[rows], d[rows], w, t_min)
+        t = PRIM_T[prim](o[rows], d[rows], w, t_min)
         p = _lane_ordered_product(t < tm[rows][..., None], w[:, 15, :])
         new = tr[rows] * p
         tr[rows] = new
@@ -203,10 +222,11 @@ def build(verbose: bool = False) -> str:
             vp, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                                  ctypes.c_float)
             lib.solr_sweep_closest.argtypes = [
-                vp, i32, vp, vp, vp, vp, vp, vp, vp, i64, i32, f32, vp, vp, vp, vp]
+                i32, vp, i32, vp, vp, vp, vp, vp, vp, vp, i64, i32, f32, vp, vp,
+                vp, vp]
             lib.solr_sweep_closest.restype = i32
             lib.solr_sweep_transmittance.argtypes = [
-                vp, i32, vp, vp, vp, vp, vp, vp, i64, i32, f32, vp, vp, vp]
+                i32, vp, i32, vp, vp, vp, vp, vp, vp, i64, i32, f32, vp, vp, vp]
             lib.solr_sweep_transmittance.restype = i32
             _lib = lib
         return log
@@ -218,7 +238,10 @@ def _library():
     return _lib
 
 
-def _check_inputs(packed, o_t, d_t, ray_vals, live, cand, counts, nearb=None):
+def _check_inputs(packed, o_t, d_t, ray_vals, live, cand, counts, prim,
+                  nearb=None):
+    if prim not in PRIMS:
+        raise ValueError(f"prim must be one of {PRIMS}, got {prim!r}")
     s, sb = o_t.shape[:2]
     g = cand.shape[1]
     if sb != g * STRIP:
@@ -257,20 +280,22 @@ def _raise_on(err: int, name: str):
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
 
 
-def sweep_closest(packed, o_t, d_t, t_cap, live, cand, counts, nearb, t_min):
+def sweep_closest(packed, o_t, d_t, t_cap, live, cand, counts, nearb, t_min,
+                  prim: str = "tri"):
     """Closest hit over per-strip front-to-back candidate lists.
 
-    packed (NB, 16, block); o_t/d_t (S, SB, 3); t_cap (S, SB) per-ray box
-    exit; live (S, SB) bool; cand (S, G, K) block ids per strip sorted by
-    entry; counts (S, G); nearb (S, G, K) ascending entry bounds.
-    Returns (t (S, SB), prim idx (S, SB), -1 on a miss, visits (S,)).
+    packed (NB, 16, block) rows of kind ``prim``; o_t/d_t (S, SB, 3);
+    t_cap (S, SB) per-ray box exit; live (S, SB) bool; cand (S, G, K)
+    block ids per strip sorted by entry; counts (S, G); nearb (S, G, K)
+    ascending entry bounds.  Returns (t (S, SB), prim idx (S, SB), -1 on
+    a miss, visits (S,)).
     """
     if packed.device.type == "cpu":
         return sweep_closest_plain(packed, o_t, d_t, t_cap, live, cand,
-                                   counts, nearb, t_min)
+                                   counts, nearb, t_min, prim)
     if packed.device.type != "cuda":
         raise ValueError(f"no sweep kernel for device {packed.device}")
-    _check_inputs(packed, o_t, d_t, t_cap, live, cand, counts, nearb)
+    _check_inputs(packed, o_t, d_t, t_cap, live, cand, counts, prim, nearb)
     lib = _library()
     s, sb = o_t.shape[:2]
     g, k_max = cand.shape[1:]
@@ -281,16 +306,18 @@ def sweep_closest(packed, o_t, d_t, t_cap, live, cand, counts, nearb, t_min):
     out_i = torch.empty((s, sb), dtype=torch.int32, device=packed.device)
     out_v = torch.empty((s, g), dtype=torch.int32, device=packed.device)
     stream = torch.cuda.current_stream(packed.device).cuda_stream
+    name = kernel_name("sweep_closest", prim)
     err = lib.solr_sweep_closest(
-        _ptr(ins[0]), packed.shape[2], *(_ptr(x) for x in ins[1:]),
-        s * g, k_max, float(t_min), _ptr(out_t), _ptr(out_i), _ptr(out_v),
-        ctypes.c_void_p(stream))
-    _raise_on(err, "sweep_closest")
-    LAUNCHES["sweep_closest"] += 1
+        PRIMS.index(prim), _ptr(ins[0]), packed.shape[2],
+        *(_ptr(x) for x in ins[1:]), s * g, k_max, float(t_min), _ptr(out_t),
+        _ptr(out_i), _ptr(out_v), ctypes.c_void_p(stream))
+    _raise_on(err, name)
+    LAUNCHES[name] += 1
     return out_t, out_i, out_v.sum(1, dtype=torch.int32)
 
 
-def sweep_transmittance(packed, o_t, d_t, t_max, live, cand, counts, t_min):
+def sweep_transmittance(packed, o_t, d_t, t_max, live, cand, counts, t_min,
+                        prim: str = "tri"):
     """Shadow transmittance over per-strip candidate lists.
 
     t_max (S, SB) per-ray segment length; other arguments as for
@@ -298,10 +325,10 @@ def sweep_transmittance(packed, o_t, d_t, t_max, live, cand, counts, t_min):
     """
     if packed.device.type == "cpu":
         return sweep_transmittance_plain(packed, o_t, d_t, t_max, live, cand,
-                                         counts, t_min)
+                                         counts, t_min, prim)
     if packed.device.type != "cuda":
         raise ValueError(f"no sweep kernel for device {packed.device}")
-    _check_inputs(packed, o_t, d_t, t_max, live, cand, counts)
+    _check_inputs(packed, o_t, d_t, t_max, live, cand, counts, prim)
     lib = _library()
     s, sb = o_t.shape[:2]
     g, k_max = cand.shape[1:]
@@ -310,10 +337,11 @@ def sweep_transmittance(packed, o_t, d_t, t_max, live, cand, counts, t_min):
     out_tr = torch.empty((s, sb), dtype=torch.float32, device=packed.device)
     out_v = torch.empty((s, g), dtype=torch.int32, device=packed.device)
     stream = torch.cuda.current_stream(packed.device).cuda_stream
+    name = kernel_name("sweep_transmittance", prim)
     err = lib.solr_sweep_transmittance(
-        _ptr(ins[0]), packed.shape[2], *(_ptr(x) for x in ins[1:]),
-        s * g, k_max, float(t_min), _ptr(out_tr), _ptr(out_v),
-        ctypes.c_void_p(stream))
-    _raise_on(err, "sweep_transmittance")
-    LAUNCHES["sweep_transmittance"] += 1
+        PRIMS.index(prim), _ptr(ins[0]), packed.shape[2],
+        *(_ptr(x) for x in ins[1:]), s * g, k_max, float(t_min), _ptr(out_tr),
+        _ptr(out_v), ctypes.c_void_p(stream))
+    _raise_on(err, name)
+    LAUNCHES[name] += 1
     return out_tr, out_v.sum(1, dtype=torch.int32)

@@ -1,12 +1,17 @@
 """Scene-level closest-hit and shadow queries (counterpart of
 solr_tpu/ops/traverse.py).
 
-The scene is split into typed pools.  The triangle pool, when it has an
-accelerator, takes the packet path: per-strip interval selection
-(:mod:`solr_tpu_torch.ops.packet`), the sweep kernels
-(:mod:`solr_tpu_torch.ops.sweep`) and the union-block exactness net for
-the rays whose drop certificate fails.  Small pools (the bench's spheres)
-are brute-forced.
+The scene is split into typed pools: spheres, triangles and capped
+cylinders, visited in that code order (the strict ``<`` across pools
+makes the earlier pool win a tie).  A pool with an accelerator takes the
+packet path: per-strip interval selection
+(:mod:`solr_tpu_torch.ops.packet`), the sweep kernels of its primitive
+kind (:mod:`solr_tpu_torch.ops.sweep`) and the union-block exactness net
+for the rays whose drop certificate fails.  Small pools (the bench's
+spheres) are brute-forced.  Where a sphere or cylinder pool has an
+accelerator but the rays do not come in packets (a scene without a
+triangle accelerator, see ops/render.py), the reference walks its
+per-ray BVH, which is not ported (ROADMAP A14): the port raises there.
 
 Two phases, as in the reference: traversal runs detached under
 ``torch.no_grad``, then the hit ``t`` of the selected primitive is
@@ -29,10 +34,17 @@ from solr_tpu_torch.ops.vecmath import cross, dot, normalize, spherical_uv
 from solr_tpu_torch.types import Scene
 
 __all__ = ["Hit", "SurfaceInfo", "POOL_SPHERE", "POOL_TRIANGLE",
-           "scene_closest_hit", "scene_transmittance", "surface_at"]
+           "POOL_CYLINDER", "scene_closest_hit", "scene_transmittance",
+           "surface_at"]
 
 POOL_SPHERE = 0
 POOL_TRIANGLE = 1
+POOL_CYLINDER = 2
+
+# The sweep kernels' primitive kind of each pool.
+_POOL_PRIM = {POOL_SPHERE: "sphere", POOL_TRIANGLE: "tri",
+              POOL_CYLINDER: "cyl"}
+_PRIM_POOL = {p: c for c, p in _POOL_PRIM.items()}
 
 # Brute-force sweeps take the primitives in chunks of at least
 # _PRIM_CHUNK, and of as many more as keep the (rays x chunk) matrices
@@ -81,7 +93,18 @@ class SurfaceInfo:
 
 def _pool_sizes(scene: Scene):
     return {POOL_SPHERE: scene.spheres.radius.shape[0],
-            POOL_TRIANGLE: scene.triangles.v0.shape[0]}
+            POOL_TRIANGLE: scene.triangles.v0.shape[0],
+            POOL_CYLINDER: scene.cylinders.radius.shape[0]}
+
+
+def _pool(scene: Scene, code: int):
+    return {POOL_SPHERE: scene.spheres, POOL_TRIANGLE: scene.triangles,
+            POOL_CYLINDER: scene.cylinders}[code]
+
+
+def _pool_accel(scene: Scene, code: int):
+    return {POOL_SPHERE: scene.sph_accel, POOL_TRIANGLE: scene.tri_accel,
+            POOL_CYLINDER: scene.cyl_accel}[code]
 
 
 def _chunked_min(t_fn, n: int, r_shape, like):
@@ -103,19 +126,20 @@ def _chunked_min(t_fn, n: int, r_shape, like):
 
 
 def _pool_t_chunk(scene: Scene, code: int, o, d, start, chunk, t_min):
+    rows = slice(start, start + chunk)
     if code == POOL_SPHERE:
         p = scene.spheres
-        return isect.sphere_t(o, d, p.center[start:start + chunk],
-                              p.radius[start:start + chunk], t_min)
+        return isect.sphere_t(o, d, p.center[rows], p.radius[rows], t_min)
+    if code == POOL_CYLINDER:
+        p = scene.cylinders
+        return isect.cylinder_t(o, d, p.p0[rows], p.p1[rows], p.radius[rows],
+                                t_min)
     p = scene.triangles
-    return isect.triangle_t(o, d, p.v0[start:start + chunk],
-                            p.v1[start:start + chunk],
-                            p.v2[start:start + chunk], t_min)
+    return isect.triangle_t(o, d, p.v0[rows], p.v1[rows], p.v2[rows], t_min)
 
 
 def _pool_material(scene: Scene, code: int, idx):
-    pool = scene.spheres if code == POOL_SPHERE else scene.triangles
-    return pool.material[idx].long()
+    return _pool(scene, code).material[idx].long()
 
 
 def _pool_closest(o, d, scene: Scene, code: int, t_min, t_max):
@@ -160,12 +184,29 @@ def _recompute_t(scene: Scene, o, d, pool, idx, t_min):
         i = idx.clamp(0, sizes[POOL_TRIANGLE] - 1).long()
         t = torch.where(pool == POOL_TRIANGLE, isect.triangle_t_p(
             o, d, p.v0[i], p.v1[i], p.v2[i], t_min), t)
+    if sizes[POOL_CYLINDER]:
+        p = scene.cylinders
+        i = idx.clamp(0, sizes[POOL_CYLINDER] - 1).long()
+        t = torch.where(pool == POOL_CYLINDER, isect.cylinder_t_p(
+            o, d, p.p0[i], p.p1[i], p.radius[i], t_min), t)
     return t
 
 
 def _packet_ok(scene: Scene, code: int, o, packet) -> bool:
-    return (code == POOL_TRIANGLE and scene.tri_accel is not None
-            and packet is not None and o.shape[0] % packet[0] == 0)
+    """Whether the pool takes the packet path: it has an accelerator and
+    the rays come in whole tiles.  A triangle pool without it is
+    brute-forced; an accelerated sphere or cylinder pool without it
+    raises, since the reference walks its BVH there (ROADMAP A14)."""
+    if _pool_accel(scene, code) is None:
+        return False
+    if packet is not None and o.shape[0] % packet[0] == 0:
+        return True
+    if code == POOL_TRIANGLE:
+        return False
+    raise NotImplementedError(
+        f"the accelerated {_POOL_PRIM[code]} pool outside the packet path "
+        "takes the per-ray BVH walk, which is not ported (ROADMAP A14); "
+        "the packet path needs a triangle accelerator (ops/render.py)")
 
 
 def _scene_closest_hit_raw(scene: Scene, o, d, t_min, t_max, packet) -> Hit:
@@ -177,7 +218,8 @@ def _scene_closest_hit_raw(scene: Scene, o, d, t_min, t_max, packet) -> Hit:
         if size == 0:
             continue
         if _packet_ok(scene, code, o, packet) and o.dim() == 2:
-            t, i = _tri_packet_closest(scene, o, d, t_min, packet)
+            t, i = _tri_packet_closest(scene, o, d, t_min, packet,
+                                       _POOL_PRIM[code])
         else:
             t, i = _pool_closest(o, d, scene, code, t_min, t_max)
         better = t < best_t
@@ -223,7 +265,7 @@ def _union_candidates(hitm, n_blocks):
     return union.nonzero().squeeze(1).to(torch.int32), overflow
 
 
-def _windowed_sweep(o_c, d_c, cand, accel, t_min, tm_c=None):
+def _windowed_sweep(o_c, d_c, cand, accel, t_min, prim, tm_c=None):
     """Sweep one chunk of needy rays over its union candidate list with
     the block mirrors (the reference runs the same fold in 64-wide
     windows under lax.cond; here the list is already exactly as long as
@@ -232,11 +274,11 @@ def _windowed_sweep(o_c, d_c, cand, accel, t_min, tm_c=None):
                         device=o_c.device)
     if tm_c is None:
         t, i = pk.tri_blocks_closest(accel.packed, o_c[None], d_c[None],
-                                     cand[None], counts, t_min)
+                                     cand[None], counts, t_min, prim)
         return t[0], i[0]
     return pk.tri_blocks_transmittance(accel.packed, o_c[None], d_c[None],
                                        tm_c[None], cand[None], counts,
-                                       t_min)[0]
+                                       t_min, prim)[0]
 
 
 def _block_net_closest(scene, accel, code, o_c, d_c, t_best, t_min):
@@ -249,7 +291,7 @@ def _block_net_closest(scene, accel, code, o_c, d_c, t_best, t_min):
     cand, overflow = _union_candidates(hitm, accel.packed.shape[0])
     if overflow:
         return _pool_closest(o_c, d_c, scene, code, t_min, t_best)
-    return _windowed_sweep(o_c, d_c, cand, accel, t_min)
+    return _windowed_sweep(o_c, d_c, cand, accel, t_min, _POOL_PRIM[code])
 
 
 def _block_net_transmittance(scene, accel, code, o_c, d_c, tm_c, t_min):
@@ -261,7 +303,8 @@ def _block_net_transmittance(scene, accel, code, o_c, d_c, tm_c, t_min):
     cand, overflow = _union_candidates(hitm, accel.packed.shape[0])
     if overflow:
         return _pool_transmittance_brute(scene, code, o_c, d_c, tm_c, t_min)
-    return _windowed_sweep(o_c, d_c, cand, accel, t_min, tm_c)
+    return _windowed_sweep(o_c, d_c, cand, accel, t_min, _POOL_PRIM[code],
+                           tm_c)
 
 
 def _spatial_keys(p, bmin, bmax):
@@ -302,12 +345,14 @@ def _compacted_net(need, carry, walk_chunk, sort_key=None):
     return carry
 
 
-def _tri_packet_closest(scene: Scene, o, d, t_min, packet):
-    """Packet closest hit: strip interval lists -> front-to-back sweep ->
-    exactness net for rays whose drop certificate fails."""
+def _tri_packet_closest(scene: Scene, o, d, t_min, packet, prim="tri"):
+    """Packet closest hit over the pool of kind ``prim``: strip interval
+    lists -> front-to-back sweep -> exactness net for rays whose drop
+    certificate fails."""
     tile_rays, ks, kt, exact = packet
     r = o.shape[0]
-    accel = scene.tri_accel
+    code = _PRIM_POOL[prim]
+    accel = _pool_accel(scene, code)
     o_t = o.reshape(-1, tile_rays, 3)
     d_t = d.reshape(-1, tile_rays, 3)
     live = o_t[..., 0] < PARK_THRESHOLD
@@ -318,7 +363,7 @@ def _tri_packet_closest(scene: Scene, o, d, t_min, packet):
     bmin, bmax = _scene_box(accel)
     t_cap = pk.ray_box_exit(o_t, d_t, bmin, bmax)
     bt, bi, _ = sweep.sweep_closest(accel.packed, o_t, d_t, t_cap, live,
-                                    cand, counts, nearb, t_min)
+                                    cand, counts, nearb, t_min, prim)
     bt, bi = bt.reshape(r), bi.reshape(r)
     if not exact:
         return bt, bi
@@ -329,8 +374,8 @@ def _tri_packet_closest(scene: Scene, o, d, t_min, packet):
 
     def walk_chunk(idx, carry):
         bt_c, bi_c = carry
-        t2, i2 = _block_net_closest(scene, accel, POOL_TRIANGLE, o[idx],
-                                    d[idx], bt_c[idx], t_min)
+        t2, i2 = _block_net_closest(scene, accel, code, o[idx], d[idx],
+                                    bt_c[idx], t_min)
         better = t2 < bt_c[idx]
         bt_c[idx] = torch.where(better, t2, bt_c[idx])
         bi_c[idx] = torch.where(better, i2, bi_c[idx])
@@ -354,18 +399,20 @@ def scene_transmittance(scene: Scene, o, d, t_max, t_min=RAY_EPS,
             with torch.no_grad():
                 trans = trans * _tri_packet_transmittance(
                     scene, o.detach(), d.detach(), t_max.detach(), t_min,
-                    packet)
+                    packet, _POOL_PRIM[code])
             continue
         trans = trans * _pool_transmittance_brute(scene, code, o, d, t_max,
                                                   t_min)
     return trans
 
 
-def _tri_packet_transmittance(scene: Scene, o, d, t_max, t_min, packet):
-    """Packet shadow transmittance; lights unroll as a Python loop over
-    the (R, L, 3) rays."""
+def _tri_packet_transmittance(scene: Scene, o, d, t_max, t_min, packet,
+                              prim="tri"):
+    """Packet shadow transmittance over the pool of kind ``prim``; lights
+    unroll as a Python loop over the (R, L, 3) rays."""
     tile_rays, ks, kt, exact = packet
-    accel = scene.tri_accel
+    code = _PRIM_POOL[prim]
+    accel = _pool_accel(scene, code)
 
     def one_light(o2, d2, tm2):
         o_t = o2.reshape(-1, tile_rays, 3)
@@ -375,7 +422,7 @@ def _tri_packet_transmittance(scene: Scene, o, d, t_max, t_min, packet):
         cand, counts, _, dropped = pk.strip_interval_select(
             o_t, d_t, live, accel, kt, ks, t_min, tm_t=tm_t)
         tr, _ = sweep.sweep_transmittance(accel.packed, o_t, d_t, tm_t, live,
-                                          cand, counts, t_min)
+                                          cand, counts, t_min, prim)
         tr = tr.reshape(-1)
         if not exact:
             return tr
@@ -388,8 +435,7 @@ def _tri_packet_transmittance(scene: Scene, o, d, t_max, t_min, packet):
         def walk_chunk(idx, carry):
             (tr_c,) = carry
             tr_c[idx] = _block_net_transmittance(
-                scene, accel, POOL_TRIANGLE, o2[idx], d2[idx], tm2[idx],
-                t_min)
+                scene, accel, code, o2[idx], d2[idx], tm2[idx], t_min)
             return (tr_c,)
 
         return _compacted_net(need, (tr,), walk_chunk,
@@ -427,8 +473,7 @@ def _pool_transmittance_brute(scene: Scene, code: int, o, d, t_max,
 
 
 def surface_at(scene: Scene, hit: Hit, o, d) -> SurfaceInfo:
-    """Point, normals, UV and material at the selected hits (sphere and
-    triangle pools)."""
+    """Point, normals, UV and material at the selected hits."""
     if scene.textures.count > 0:
         raise NotImplementedError("normal and bump maps are not ported")
     t = torch.where(hit.valid, hit.t, torch.ones_like(hit.t))
@@ -470,6 +515,22 @@ def surface_at(scene: Scene, hit: Hit, o, d) -> SurfaceInfo:
                + bv[..., None] * p.uv2[i])
         normal, shading, uv, material = blend(
             hit.pool == POOL_TRIANGLE, gn, sn, uvt, p.material[i].long())
+
+    if sizes[POOL_CYLINDER]:
+        p = scene.cylinders
+        i = hit.idx.clamp(0, sizes[POOL_CYLINDER] - 1).long()
+        p0 = p.p0[i]
+        axis = p.p1[i] - p0
+        h2 = torch.clamp(dot(axis, axis), min=1e-12)
+        s = dot(point - p0, axis) / h2
+        n_side = normalize(point - (p0 + s[..., None] * axis))
+        # End-cap hits pin s to 0 or 1; their normal is the axis.
+        a_hat = axis / torch.sqrt(h2)[..., None]
+        n = torch.where((s < 1e-4)[..., None], -a_hat,
+                        torch.where((s > 1.0 - 1e-4)[..., None], a_hat, n_side))
+        uvc = torch.stack([spherical_uv(n_side)[..., 0], s], -1)
+        normal, shading, uv, material = blend(
+            hit.pool == POOL_CYLINDER, n, n, uvc, p.material[i].long())
 
     # Flip normals to oppose the incoming ray; record backface hits.
     backface = dot(d, normal) > 0.0

@@ -15,7 +15,11 @@ __all__ = ["dot", "cross", "norm", "normalize", "safe_inv", "reflect",
 
 
 def dot(a, b, keepdim: bool = False):
-    return (a * b).sum(-1, keepdim=keepdim)
+    """Dot product of (..., 3) vectors, summed as (x + y) + z: written out
+    so that the CPU and the card add in the same order (a sum reduction
+    may add in another order on the card)."""
+    out = a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
+    return out[..., None] if keepdim else out
 
 
 def cross(a, b):

@@ -6,10 +6,13 @@ reference.  Anything that changes the shape of the work (resolution,
 bounce cap, packet widths) lives in the plain-Python ``RenderConfig``;
 everything continuously variable is a tensor field.
 
-Only the parts the bench frame uses are here: spheres and triangles,
-materials without texture maps, point lights, and the triangle packet
-accelerator.  Cylinders, ellipsoids, planes and textures are not ported
-yet (ROADMAP A10-A11).
+Only the parts the bench and molecule frames use are here: spheres,
+triangles and cylinders, materials without texture maps, point lights,
+and the packet accelerators of the three pools.  Ellipsoids, planes and
+textures are not ported yet (ROADMAP A11, A16).
+
+Entry points put their tensors on the card unless the caller asks for
+another device.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ __all__ = [
     "Materials",
     "Spheres",
     "Triangles",
+    "Cylinders",
     "Lights",
     "Textures",
     "TriAccel",
@@ -79,7 +83,7 @@ class Camera:
     @staticmethod
     def create(position=(0.0, 0.0, -4.0), angles=(0.0, 0.0, 0.0), fov=0.7,
                aperture=0.0, focal_distance=4.0, eye_separation=0.06,
-               device="cpu") -> "Camera":
+               device="cuda") -> "Camera":
         return Camera(
             position=_vec(position, device), angles=_vec(angles, device),
             fov=_vec(fov, device), aperture=_vec(aperture, device),
@@ -105,7 +109,7 @@ class SceneInfo:
                soft_shadow_radius=1.0,
                gradient_sky_zenith=(0.3, 0.5, 0.8, 1.0),
                gradient_sky_horizon=(0.9, 0.9, 1.0, 1.0),
-               device="cpu") -> "SceneInfo":
+               device="cuda") -> "SceneInfo":
         return SceneInfo(
             background_color=_vec(background_color, device),
             ambient=_vec(ambient, device),
@@ -186,6 +190,14 @@ class Triangles:
 
 
 @_frozen
+class Cylinders:
+    p0: torch.Tensor  # (N, 3) axis start
+    p1: torch.Tensor  # (N, 3) axis end
+    radius: torch.Tensor  # (N,) padding < 0
+    material: torch.Tensor  # (N,) int32
+
+
+@_frozen
 class Lights:
     position: torch.Tensor  # (L, 3)
     color: torch.Tensor  # (L, 4) rgb * intensity
@@ -202,10 +214,11 @@ class Textures:
 
 @_frozen
 class TriAccel:
-    """Per-block packed Woop rows and block bounds for the packet path.
+    """Per-block packed rows and block bounds for the packet path, for
+    any of the three pools (the reference's name is kept).
 
-    ``packed`` (NB, 16, block): rows 0..11 the Woop world->unit-triangle
-    transform, rows 12..14 zero, row 15 the shadow factor.
+    ``packed`` (NB, 16, block): the primitive rows (packet.block_pack,
+    sphere_pack, cylinder_pack), row 15 the shadow factor.
     ``block_bounds`` (NB, 8): [cx cy cz hx hy hz 0 0]; NB is a multiple
     of 128 and padding blocks park at +1e30.
     """
@@ -219,11 +232,14 @@ class TriAccel:
 class Scene:
     spheres: Spheres
     triangles: Triangles
+    cylinders: Cylinders
     materials: Materials
     lights: Lights
     textures: Textures
     info: SceneInfo
     tri_accel: Optional[TriAccel] = None
+    sph_accel: Optional[TriAccel] = None
+    cyl_accel: Optional[TriAccel] = None
 
     @property
     def device(self) -> torch.device:

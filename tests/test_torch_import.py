@@ -1,4 +1,5 @@
-"""The PyTorch port stands alone: it imports neither JAX nor solr_tpu."""
+"""The PyTorch port and chip_smoke.py stand alone: they import neither
+JAX nor solr_tpu."""
 
 import ast
 import os
@@ -16,10 +17,12 @@ def test_imports_with_jax_blocked():
         "sys.modules['solr_tpu'] = None\n"
         "import solr_tpu_torch, solr_tpu_torch.convert, "
         "solr_tpu_torch.bench_scene, solr_tpu_torch.ops.sweep, "
-        "solr_tpu_torch.frame_profile\n"
+        "solr_tpu_torch.frame_profile, solr_tpu_torch.molecule_scene, "
+        "solr_tpu_torch.io.pdb, chip_smoke\n"
         "from solr_tpu_torch.bench_scene import bench_scene\n"
         "from solr_tpu_torch.ops.render import render_sample\n"
-        "s, c, cfg = bench_scene(2000, block=128, width=32, height=32)\n"
+        "s, c, cfg = bench_scene(2000, block=128, width=32, height=32,\n"
+        "                         device='cpu')\n"
         "img, _ = render_sample(s, c, cfg)\n"
         "assert img.shape == (32, 32, 4)\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'solr_tpu.'))\n"
@@ -33,21 +36,20 @@ def test_imports_with_jax_blocked():
 
 
 def test_no_jax_or_reference_imports_in_source():
-    bad = []
+    paths = [os.path.join(ROOT, "chip_smoke.py")]
     for dirpath, _, files in os.walk(PKG):
-        for name in files:
-            if not name.endswith(".py"):
-                continue
-            path = os.path.join(dirpath, name)
-            tree = ast.parse(open(path).read(), path)
-            for node in ast.walk(tree):
-                mods = []
-                if isinstance(node, ast.Import):
-                    mods = [a.name for a in node.names]
-                elif isinstance(node, ast.ImportFrom) and node.module:
-                    mods = [node.module]
-                for m in mods:
-                    top = m.split(".")[0]
-                    if top in ("jax", "jaxlib", "solr_tpu"):
-                        bad.append(f"{path}: {m}")
+        paths += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
+    bad = []
+    for path in paths:
+        tree = ast.parse(open(path).read(), path)
+        for node in ast.walk(tree):
+            mods = []
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                mods = [node.module]
+            for m in mods:
+                top = m.split(".")[0]
+                if top in ("jax", "jaxlib", "solr_tpu"):
+                    bad.append(f"{path}: {m}")
     assert not bad, bad

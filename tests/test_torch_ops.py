@@ -7,6 +7,11 @@ Tolerances, from what differs between the two CPU builds:
   agrees to rtol 1e-6, transcendental results to atol 1e-6.
 * Ray-primitive t: rtol 1e-5 (t inherits cancellation in its
   numerator); hit/miss must agree on every ray.
+* Capped cylinders: hit/miss on more than 99.9% of the rays and t at
+  rtol 5e-4 where both hit, the bounds tests/test_pallas_kernels.py
+  holds the reference's two cylinder forms to: grazing rays (disc ~ 0,
+  s ~ 0 or h2) flip between f32 evaluation orders, and the roots'
+  cancellation in -b -+ sqrt(disc) is larger than a sphere's.
 * Procedural textures: exact for all kinds but marble and granite,
   whose four turbulence octaves feed _hash2, which multiplies sin(.) by
   43758.5453 and keeps the fraction, so a 1-ulp difference in sin grows
@@ -93,6 +98,41 @@ def rays_and_prims():
     v1 = (c + rng.normal(0, 0.8, (n, 3))).astype(np.float32)
     v2 = (c + rng.normal(0, 0.8, (n, 3))).astype(np.float32)
     return o, d, c, r, v0, v1, v2
+
+
+@pytest.fixture(scope="module")
+def cylinders():
+    """Rays from a box toward a field of capped cylinders: side, cap and
+    grazing hits, misses, and padding (radius <= 0)."""
+    rng = np.random.default_rng(6)
+    n = 4000
+    o = rng.uniform(-1, 1, (n, 3)).astype(np.float32)
+    p0 = (rng.uniform(-1, 1, (n, 3)) + [0, 0, 5]).astype(np.float32)
+    p1 = (p0 + rng.normal(0, 0.8, (n, 3))).astype(np.float32)
+    r = rng.uniform(-0.1, 0.5, (n,)).astype(np.float32)
+    target = 0.5 * (p0 + p1) + rng.normal(0, 0.3, (n, 3))
+    d = target - o
+    d = (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
+    return o, d, p0, p1, r
+
+
+@pytest.mark.parametrize("form", ["pairwise", "matrix"])
+def test_cylinder_matches_reference(cylinders, form):
+    o, d, p0, p1, r = cylinders
+    if form == "pairwise":
+        fj, ft = jis.cylinder_t_p, tis.cylinder_t_p
+    else:  # 400 rays x 600 cylinders
+        o, d = o[:400], d[:400]
+        p0, p1, r = p0[:600], p1[:600], r[:600]
+        fj, ft = jis.cylinder_t, tis.cylinder_t
+    ref, port = _both(lambda *a: fj(*a, 1e-4), lambda *a: ft(*a, 1e-4),
+                      o, d, p0, p1, r)
+    ref, port = np.asarray(ref), port.numpy()
+    hit_r, hit_t = ref < 1e30, port < 1e30
+    assert 100 < hit_r.sum() < hit_r.size
+    assert (hit_r == hit_t).mean() > 0.999
+    both = hit_r & hit_t
+    np.testing.assert_allclose(port[both], ref[both], rtol=5e-4)
 
 
 @pytest.mark.parametrize("prim", ["sphere", "triangle", "bary"])

@@ -9,6 +9,18 @@ Tolerances:
   cancels then differs in its last bits relative to its terms, not to
   itself.
 * block bounds: rtol 1e-6 (min/max and one add, no cancellation).
+* sphere and cylinder packing: rtol 1e-6 (copies, one subtraction and
+  a three-term dot per cylinder).
+* sphere and cylinder block mirrors: t at rtol 5e-4 where both hit and
+  prim ids equal there, hit/miss on more than 99.9% of the rays, the
+  bounds tests/test_pallas_kernels.py sets for the reference's own two
+  cylinder forms.  disc = b*b - c subtracts two numbers of about
+  |o - c|^2 (400 for a sphere 20 away), so the last bits of b move disc
+  by 5e-5, and near tangency sqrt(disc) turns that into 1e-4 of t; the
+  reference contracts b*b - c into an FMA, the port does not.  Checked
+  against f64 on the worst rays: both sit that far from it, on either
+  side (measured 1.4e-4 for spheres, 4.3e-4 for cylinders).
+  Transmittance at atol 1e-6.
 * selection: counts and dropped equal; candidate lists equal as sets per
   strip, entry bounds equal in sorted order (top-k orders tied scores
   differently in the two frameworks, ROADMAP C7; at a tie on the list's
@@ -26,7 +38,8 @@ from solr_tpu.ops import packet as jpk
 from solr_tpu.ops.camera import camera_rays as j_camera_rays
 
 from data.torch_reference import numpy_tree, reference_bench_scene
-from scenes_fixtures import random_tri_field
+from scenes_fixtures import (random_cylinder_field, random_sphere_field,
+                             random_tri_field)
 from solr_tpu_torch.bench_scene import bench_scene_arrays
 from solr_tpu_torch.convert import scene_from_numpy
 from solr_tpu_torch.ops import packet as tpk
@@ -236,3 +249,72 @@ def test_tile_permutation_matches_reference():
         pt, it = tpk.tile_permutation(*shape)
         np.testing.assert_array_equal(pt, pj)
         np.testing.assert_array_equal(it, ij)
+
+
+PRIM_FIELDS = {"sphere": (lambda: random_sphere_field(900), "sph_accel",
+                          tpk.build_sph_accel, "spheres"),
+               "cyl": (lambda: random_cylinder_field(700), "cyl_accel",
+                       tpk.build_cyl_accel, "cylinders")}
+
+
+@pytest.fixture(scope="module", params=sorted(PRIM_FIELDS))
+def prim_case(request):
+    make, key, build, pool = PRIM_FIELDS[request.param]
+    jscene = make().build(bvh_threshold=64)
+    tscene = scene_from_numpy(numpy_tree(jscene), "cpu")
+    cfg = st.RenderConfig(width=64, height=64)
+    o, d = j_camera_rays(CAM_FIELD, cfg)
+    perm, _ = jpk.tile_permutation(64, 64, 16, 16)
+    o_t = np.asarray(o[perm], np.float32).reshape(-1, 256, 3)
+    d_t = np.asarray(d[perm], np.float32).reshape(-1, 256, 3)
+    return request.param, getattr(jscene, key), build, \
+        getattr(tscene, pool), tscene.materials, o_t, d_t
+
+
+def test_sphere_and_cylinder_accels_match_reference(prim_case):
+    prim, ref, build, pool, mats, _, _ = prim_case
+    accel = build(pool, mats, jpk.BLOCK)
+    assert accel.block == jpk.BLOCK
+    assert accel.packed.shape == ref.packed.shape
+    np.testing.assert_allclose(accel.packed.numpy(), np.asarray(ref.packed),
+                               rtol=1e-6)
+    np.testing.assert_allclose(accel.block_bounds.numpy(),
+                               np.asarray(ref.block_bounds), rtol=1e-6)
+    # The pool's padding lanes never hit (radius -1) and pass light.
+    n = pool.radius.shape[0]
+    rows = accel.packed.numpy().transpose(1, 0, 2).reshape(16, -1)
+    assert (rows[3][n:] <= 0.0).all() and (rows[3][:n] == pool.radius.numpy()).all()
+
+
+def test_sphere_and_cylinder_mirrors_match_reference(prim_case):
+    """tri_blocks_closest / _transmittance with prim="sphere" and "cyl"
+    over every real block, fractional shadow factors."""
+    prim, ref, _, _, _, o_t, d_t = prim_case
+    packed = np.asarray(ref.packed).copy()
+    rng = np.random.default_rng(0)
+    packed[:, 15, :] = rng.uniform(0.5, 0.95, packed[:, 15, :].shape)
+    nb = int((np.asarray(ref.block_bounds)[:, 0] < 1e29).sum())
+    o_t, d_t = o_t[::2], d_t[::2]
+    s = o_t.shape[0]
+    cand = np.broadcast_to(np.arange(nb, dtype=np.int32)[None], (s, nb)).copy()
+    counts = np.full((s,), nb, np.int32)
+    tm = np.full(o_t.shape[:2], 30.0, np.float32)
+    jargs = [jnp.asarray(x) for x in (packed, o_t, d_t, cand, counts)]
+    targs = [torch.from_numpy(np.ascontiguousarray(x))
+             for x in (packed, o_t, d_t, cand, counts)]
+    t_j, i_j = (np.asarray(x) for x in jpk.tri_blocks_closest(
+        *jargs, 1e-4, prim=prim))
+    t_t, i_t = (x.numpy() for x in tpk.tri_blocks_closest(
+        *targs, 1e-4, prim=prim))
+    hit_j, hit_t = t_j < 1e30, t_t < 1e30
+    assert hit_j.sum() > 100
+    assert (hit_j == hit_t).mean() > 0.999
+    both = hit_j & hit_t
+    np.testing.assert_allclose(t_t[both], t_j[both], rtol=5e-4)
+    np.testing.assert_array_equal(i_t[both], i_j[both])
+    tr_j = jpk.tri_blocks_transmittance(*jargs[:3], jnp.asarray(tm),
+                                        *jargs[3:], 1e-4, prim=prim)
+    tr_t = tpk.tri_blocks_transmittance(*targs[:3], torch.from_numpy(tm),
+                                        *targs[3:], 1e-4, prim=prim)
+    np.testing.assert_allclose(tr_t.numpy(), np.asarray(tr_j), atol=1e-6)
+    assert (tr_t.numpy() < 1.0).any()

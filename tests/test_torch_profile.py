@@ -18,7 +18,7 @@ torch.set_num_threads(2)
 
 def test_profile_reads_phases_and_net_counters():
     scene, cam, cfg = bench_scene(4_000, block=64, width=32, height=32,
-                                  bounces=2)
+                                  bounces=2, device="cpu")
     # Two blocks per strip drop most candidates, so the net has work.
     cfg = dataclasses.replace(cfg, packet_max_blocks=2, packet_tile_cand=8)
     originals = [getattr(mod, name) for mod, name, _ in PHASES]
@@ -47,7 +47,7 @@ def test_net_keeps_the_frame_exact_when_lists_are_short():
     """With two blocks per strip most candidates are dropped and the net
     finds them: the frame is the one full lists give."""
     scene, cam, cfg = bench_scene(4_000, block=64, width=32, height=32,
-                                  bounces=2)
+                                  bounces=2, device="cpu")
     short = dataclasses.replace(cfg, packet_max_blocks=2, packet_tile_cand=8)
     for k in traverse.NET_STATS:
         traverse.NET_STATS[k] = 0

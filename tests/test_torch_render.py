@@ -58,7 +58,7 @@ def test_bench_frame_matches_reference(bench_ref):
     """The port's own builder and bench scene, same arrays."""
     *_, ref = bench_ref
     scene, cam, cfg = bench_scene(N_TRIS, block=jpk.BLOCK, width=SIZE,
-                                  height=SIZE, bounces=2)
+                                  height=SIZE, bounces=2, device="cpu")
     img, depth = render_sample(scene, cam, cfg)
     assert depth.shape == (SIZE, SIZE)
     assert_image_close(img.numpy(), ref)
@@ -80,7 +80,7 @@ def test_committed_reference_frame():
     size = int(ref["size"])
     scene, cam, cfg = bench_scene(int(ref["n_tris"]), block=int(ref["block"]),
                                   width=size, height=size,
-                                  bounces=int(ref["bounces"]))
+                                  bounces=int(ref["bounces"]), device="cpu")
     assert_image_close(render_sample(scene, cam, cfg)[0].numpy(), ref["image"])
 
 

@@ -1,9 +1,11 @@
 """The port's SceneBuilder and converters against solr_tpu's.
 
-The builders must give the same triangle order: the port sorts by Morton
-code with numpy's stable argsort, the reference's numpy path does the
-same, and the reference prefers its native LBVH builder, whose
-std::stable_sort over the same float32 codes must agree."""
+The builders must give the same triangle, sphere and cylinder orders:
+the port sorts by Morton code with numpy's stable argsort, the
+reference's numpy path does the same, and the reference prefers its
+native LBVH builder, whose std::stable_sort over the same float32 codes
+must agree.  Pools and lights are compared exactly, the accelerators'
+rows and bounds at rtol 1e-6 (see tests/test_torch_packet.py)."""
 
 import dataclasses
 
@@ -16,10 +18,13 @@ from solr_tpu.ops import packet as jpk
 from solr_tpu.ops.bvh import build_bvh
 
 from data.torch_reference import numpy_tree, reference_bench_scene
-from scenes_fixtures import cornell_box, random_tri_field
+from scenes_fixtures import (cornell_box, random_cylinder_field,
+                             random_sphere_field, random_tri_field)
 from solr_tpu_torch.bench_scene import bench_scene, bench_scene_arrays
 from solr_tpu_torch.convert import config_from_reference_fields, scene_from_numpy
+from solr_tpu_torch.ops.render import render_sample
 from solr_tpu_torch.scene import SceneBuilder
+from solr_tpu_torch.types import Camera, RenderConfig
 
 # Several test workers share the cores: keep each one's intra-op pool small.
 torch.set_num_threads(2)
@@ -46,12 +51,13 @@ def _field_scenes():
     b.add_mesh(verts, np.arange(3 * n).reshape(n, 3), m)
     b.add_light((0, 10.0, 0), intensity=1.0)
     return (random_tri_field(1200).build(bvh_threshold=64),
-            b.build(block=jpk.BLOCK))
+            b.build(block=jpk.BLOCK, device="cpu"))
 
 
 def _bench_scenes():
     ref, _, _ = reference_bench_scene(bench_scene_arrays(20_000), 32, 32, 2)
-    port, _, _ = bench_scene(20_000, block=jpk.BLOCK, width=32, height=32)
+    port, _, _ = bench_scene(20_000, block=jpk.BLOCK, width=32, height=32,
+                             device="cpu")
     return ref, port
 
 
@@ -71,6 +77,74 @@ def test_builder_matches_reference(make):
                                rtol=1e-6)
 
 
+def _port_builder_from(raw):
+    """A port SceneBuilder holding the reference scene ``raw`` (built
+    without reordering): its materials, spheres and cylinders in
+    insertion order, padding left out."""
+    b = SceneBuilder()
+    m = raw.materials
+    b._mat.clear()
+    for i in range(np.asarray(m.color).shape[0]):
+        spec = np.asarray(m.specular[i])
+        b.add_material(color=tuple(np.asarray(m.color[i])), specular=spec[0],
+                       specular_power=spec[1],
+                       reflection=float(m.reflection[i]), ior=float(m.ior[i]),
+                       transparency=float(m.transparency[i]),
+                       emission=float(m.emission[i]),
+                       procedural=int(m.procedural[i]),
+                       procedural_scale=float(m.procedural_scale[i]))
+    sp = raw.spheres
+    for c, r, mat in zip(*(np.asarray(x) for x in (sp.center, sp.radius,
+                                                   sp.material))):
+        if r > 0:
+            b.add_sphere(c, float(r), int(mat))
+    cy = raw.cylinders
+    for p0, p1, r, mat in zip(*(np.asarray(x) for x in (
+            cy.p0, cy.p1, cy.radius, cy.material))):
+        if r > 0:
+            b.add_cylinder(p0, p1, float(r), int(mat))
+    return b
+
+
+ORDER_CASES = {"spheres": (lambda: random_sphere_field(900), "sph_accel"),
+               "cylinders": (lambda: random_cylinder_field(700), "cyl_accel")}
+
+
+@pytest.mark.parametrize("pool", sorted(ORDER_CASES))
+def test_sphere_and_cylinder_order_match_reference(pool):
+    """The Morton order of a sphere or cylinder pool, its lights (taken
+    before the reorder) and its accelerator, against solr_tpu's build."""
+    make, key = ORDER_CASES[pool]
+    ref = make().build(bvh_threshold=64)
+    port = _port_builder_from(make().build(use_bvh=False)).build(
+        block=jpk.BLOCK, device="cpu")
+    fields = {"spheres": ("center", "radius", "material"),
+              "cylinders": ("p0", "p1", "radius", "material"),
+              "lights": ("position", "color", "radius")}
+    for name, names in fields.items():
+        for f in names:
+            a = np.asarray(getattr(getattr(ref, name), f))
+            b = getattr(getattr(port, name), f).numpy()
+            np.testing.assert_array_equal(b, a.astype(b.dtype),
+                                          err_msg=f"{name}.{f}")
+    for k in ("tri_accel", "sph_accel", "cyl_accel"):
+        assert (getattr(port, k) is None) == (getattr(ref, k) is None), k
+    a, r = getattr(port, key), getattr(ref, key)
+    np.testing.assert_allclose(a.packed.numpy(), np.asarray(r.packed),
+                               rtol=1e-6)
+    np.testing.assert_allclose(a.block_bounds.numpy(),
+                               np.asarray(r.block_bounds), rtol=1e-6)
+
+
+def test_converted_scene_carries_every_accelerator():
+    ref = random_sphere_field(900).build(bvh_threshold=64)
+    scene = scene_from_numpy(numpy_tree(ref), "cpu")
+    np.testing.assert_array_equal(scene.sph_accel.packed.numpy(),
+                                  np.asarray(ref.sph_accel.packed))
+    assert scene.cyl_accel is None and scene.tri_accel is None
+    assert scene.cylinders.radius.shape == (0,)
+
+
 def test_native_and_numpy_orders_agree():
     """The reference's two BVH builders order the bench terrain alike,
     so the port's numpy order is the reference's whichever it used."""
@@ -88,11 +162,16 @@ def test_unported_parts_raise():
     for ref in (st.RenderConfig(fog=True), st.RenderConfig(traversal="while")):
         with pytest.raises(NotImplementedError):
             config_from_reference_fields(dataclasses.asdict(ref))
+    # An accelerated sphere pool without a triangle accelerator: the
+    # reference walks its BVH there (ROADMAP A14), which is not ported.
     b = SceneBuilder()
     for i in range(64):
         b.add_sphere((float(i), 0.0, 5.0), 0.3)
-    with pytest.raises(NotImplementedError):
-        b.build()
+    scene = b.build(device="cpu")
+    assert scene.sph_accel is not None and scene.tri_accel is None
+    with pytest.raises(NotImplementedError, match="A14"):
+        render_sample(scene, Camera.create(device="cpu"),
+                      RenderConfig(width=16, height=16))
 
 
 def test_config_carries_the_packet_fields():
