@@ -25,10 +25,11 @@ from solr_tpu_torch/csrc/ on first use.  Phases, each of which must pass:
    silhouette edges, where the reference's CPU build contracts the Woop
    and cross product chains into FMAs);
 6. ``kernels_molecule``: B3 (sphere) and B5 (cylinder) sweep_closest at
-   the molecule frame's primary selection, and B4 and B6
-   sweep_transmittance at its shadow selection (the scene's factors and
-   fractional ones), against their plain versions: bit-equal, both
-   times reported;
+   the molecule frame's primary selection, B1 at its ground's primary
+   selection (BLOCK=256, B1's second shape on the main paths), and B4
+   and B6 sweep_transmittance at its shadow selection (the scene's
+   factors and fractional ones), against their plain versions:
+   bit-equal, times reported;
 7. ``molecule_path``: render_sample of the full molecule frame (a
    100,000-atom synthetic PDB in ball-and-stick mode over a
    32,768-triangle reflective ground, 512x512, 2 bounces, BLOCK=256),
@@ -45,11 +46,13 @@ from solr_tpu_torch/csrc/ on first use.  Phases, each of which must pass:
 Each main path runs with the launch counts set to 0 just before it and
 read just after.  Prints the full record of the run on one line
 ("record: {...}"), the kernel table as one JSON line (each kernel's
-time, its plain version's, and its bound: the larger of the bytes its
+time, its plain version's, its bound: the larger of the bytes its
 inputs and outputs take over 3.35 TB/s and the f32 operations its
-visited (ray, primitive) tests take over 67 TFLOP/s), the nvidia-smi
-line, and last {"ok": true, "device": {...}}.  Exits non-zero, without
-that line, when any phase fails or no card is visible.
+visited (ray, primitive) tests take over 67 TFLOP/s, its ceiling: those
+operations at 33.5e12 single-issue instructions/s, and its tests/s),
+the nvidia-smi line, and last {"ok": true, "device": {...}}.  Exits
+non-zero, without that line, when any phase fails or no card is
+visible.
 """
 
 from __future__ import annotations
@@ -74,9 +77,14 @@ MOL_GROUND_RES = 128
 MOL_BLOCK = 256
 
 # The card's published peaks (NVIDIA H100 SXM data sheet, at 700 W):
-# device memory bandwidth and f32 rate outside the tensor cores.
+# device memory bandwidth and f32 rate outside the tensor cores.  The
+# f32 rate counts a fused multiply-add as two operations; the kernels
+# build with --fmad=false, so each add or multiply is one instruction of
+# its own, and their own ceiling is half of it: 132 SMs x 128 lanes x
+# 1.98 GHz single-issue f32 instructions.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+F32_SINGLE_ISSUE_PER_S = 33.5e12
 # f32 adds, subtracts, multiplies, divides and square roots of one
 # (ray, primitive) test, counted from the functors of
 # solr_tpu_torch/csrc/sweep.cu (WoopT, SphereT, CylT).
@@ -96,53 +104,30 @@ def _nvidia_smi() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def _time_ms(fn, reps: int):
-    """Mean ms per call over ``reps`` calls, CUDA events, after one
-    warm-up call."""
-    import torch
-
-    fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def _tiles(o, d, cfg):
-    import torch
-
-    from solr_tpu_torch.ops.packet import tile_permutation
-
-    perm, _ = tile_permutation(cfg.width, cfg.height, cfg.packet_tile_w,
-                               cfg.packet_tile_h)
-    perm = torch.as_tensor(perm, device=o.device)
-    sb = cfg.packet_rays
-    return o[perm].reshape(-1, sb, 3), d[perm].reshape(-1, sb, 3)
-
-
 def _bound_ms(prim, args, outs, visits, block):
-    """(bound ms, "bytes" or "operations") of one sweep call: each input
-    and output tensor counted once against the card's memory rate, and
-    the visited strips' tests (visits x 32 rays x block primitives x
-    OPS_PER_TEST) against its f32 rate."""
+    """(bound ms, "bytes" or "operations", ceiling ms) of one sweep call:
+    each input and output tensor counted once against the card's memory
+    rate, and the visited strips' tests (visits x 32 rays x block
+    primitives x OPS_PER_TEST) against its f32 rate; the ceiling is
+    those ops at the single-issue rate of a --fmad=false build."""
     import torch
 
     tensors = [x for x in args + outs if isinstance(x, torch.Tensor)]
     nbytes = sum(x.numel() * x.element_size() for x in tensors)
     ops = int(visits) * 32 * block * OPS_PER_TEST[prim]
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes > t_ops else "operations"
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes > t_ops else "operations",
+            ops / F32_SINGLE_ISSUE_PER_S * 1e3)
 
 
 def _check_kernel(rec, entry, prim, args, label=None, timed=True):
     """One kernel against its plain version on the same inputs: outputs
-    bit-equal; times and bound when ``timed``."""
+    bit-equal; times, bound and ceiling when ``timed``.  ``label`` names
+    the factors or the shapes where one kernel is checked twice."""
     import torch
 
+    from solr_tpu_torch.kernel_shapes import time_ms
     from solr_tpu_torch.ops import sweep
 
     kernel = getattr(sweep, entry)
@@ -163,62 +148,16 @@ def _check_kernel(rec, entry, prim, args, label=None, timed=True):
     else:
         entry_rec["shadowed"] = int((got[0] < 1.0).sum())
     if label:
-        entry_rec["factors"] = label
+        entry_rec["label"] = label
     if timed:
-        entry_rec["ms"] = _time_ms(lambda: kernel(*args, prim=prim), 5)
-        entry_rec["plain_ms"] = _time_ms(lambda: plain(*args, prim=prim), 1)
-        entry_rec["bound_ms"], entry_rec["bound_by"] = _bound_ms(
+        entry_rec["ms"] = time_ms(lambda: kernel(*args, prim=prim), 5)
+        entry_rec["plain_ms"] = time_ms(lambda: plain(*args, prim=prim), 1)
+        (entry_rec["bound_ms"], entry_rec["bound_by"],
+         entry_rec["ceiling_ms"]) = _bound_ms(
             prim, list(args), list(got), visits, args[0].shape[2])
+        entry_rec["tests_per_s"] = entry_rec["tests"] / entry_rec["ms"] * 1e3
     rec["kernels"].append(entry_rec)
     return got
-
-
-def _shadow_rays(scene, o_t, d_t, hit):
-    """Shadow rays toward the first light from the hits ``hit`` of the
-    tile-ordered rays, in the same tile order; misses park as on the
-    main path.  Returns (so_t, sd_t, tm_t, live)."""
-    import torch
-
-    from solr_tpu_torch.constants import PARK_DIR, PARK_POS, RAY_EPS
-    from solr_tpu_torch.ops.traverse import surface_at
-
-    r = o_t.shape[0] * o_t.shape[1]
-    surf = surface_at(scene, hit, o_t.reshape(r, 3), d_t.reshape(r, 3))
-    to_l = scene.lights.position[0] - surf.point
-    dist = torch.sqrt(torch.clamp((to_l * to_l).sum(-1), min=1e-12))
-    so = surf.point + surf.normal * (RAY_EPS * 4.0)
-    sd = to_l / dist[:, None]
-    bad = ~surf.valid[:, None]
-    so = torch.where(bad, torch.full_like(so, PARK_POS), so)
-    sd = torch.where(bad, torch.full_like(sd, PARK_DIR), sd)
-    tm = torch.where(surf.valid, dist - RAY_EPS, torch.ones_like(dist))
-    so_t, sd_t = so.reshape(o_t.shape), sd.reshape(o_t.shape)
-    return so_t, sd_t, tm.reshape(o_t.shape[:2]), so_t[..., 0] < 1e7
-
-
-def _fractional(packed):
-    import torch
-
-    frac = packed.clone()
-    gen = torch.Generator(device=frac.device).manual_seed(0)
-    frac[:, 15, :] = torch.rand(frac[:, 15, :].shape, generator=gen,
-                                device=frac.device) * 0.6 + 0.35
-    return frac
-
-
-def _sweep_args(accel, o_t, d_t, live, cfg, closest, tm_t=None):
-    from solr_tpu_torch.constants import RAY_EPS
-    from solr_tpu_torch.ops import packet as pk
-    from solr_tpu_torch.ops.traverse import _scene_box
-
-    cand, counts, nearb, _ = pk.strip_interval_select(
-        o_t, d_t, live, accel, cfg.packet_tile_cand, cfg.packet_max_blocks,
-        RAY_EPS, tm_t=tm_t)
-    if closest:
-        t_cap = pk.ray_box_exit(o_t, d_t, *_scene_box(accel))
-        return (accel.packed, o_t, d_t, t_cap, live, cand, counts, nearb,
-                RAY_EPS)
-    return (accel.packed, o_t, d_t, tm_t, live, cand, counts, RAY_EPS)
 
 
 def _assert_equal(rec):
@@ -232,55 +171,56 @@ def phase_kernels(scene, cam, cfg, rec):
     import torch
 
     from solr_tpu_torch.constants import T_FAR
-    from solr_tpu_torch.ops.camera import camera_rays
+    from solr_tpu_torch.kernel_shapes import (fractional, primary_tiles,
+                                              shadow_rays, sweep_args)
     from solr_tpu_torch.ops.traverse import POOL_TRIANGLE, Hit
 
     accel = scene.tri_accel
     with torch.no_grad():
-        o, d = camera_rays(cam, cfg)
-        o_t, d_t = _tiles(o, d, cfg)
-        live = torch.ones(o_t.shape[:2], dtype=torch.bool, device=o.device)
-        args = _sweep_args(accel, o_t, d_t, live, cfg, True)
+        o_t, d_t, live = primary_tiles(cam, cfg)
+        args = sweep_args(accel, o_t, d_t, live, cfg, True)
         t_k, i_k, _ = _check_kernel(rec, "sweep_closest", "tri", args)
         # Shadow rays toward the light from the primary triangle hits.
         tf, idx = t_k.reshape(-1), i_k.reshape(-1)
         hit = Hit(t=tf, pool=torch.where(tf < T_FAR * 0.5, POOL_TRIANGLE, -1)
                   .to(torch.int32), idx=idx.clamp(min=0))
-        so_t, sd_t, tm_t, slive = _shadow_rays(scene, o_t, d_t, hit)
-        args = _sweep_args(accel, so_t, sd_t, slive, cfg, False, tm_t)
+        so_t, sd_t, tm_t, slive = shadow_rays(scene, o_t, d_t, hit)
+        args = sweep_args(accel, so_t, sd_t, slive, cfg, False, tm_t)
         _check_kernel(rec, "sweep_transmittance", "tri", args, "scene")
         _check_kernel(rec, "sweep_transmittance", "tri",
-                      (_fractional(accel.packed),) + args[1:], "fractional",
+                      (fractional(accel.packed),) + args[1:], "fractional",
                       timed=False)
     _assert_equal(rec)
 
 
 def phase_kernels_molecule(scene, cam, cfg, rec):
     """B3-B6 against their plain versions at the molecule frame's primary
-    and shadow selections."""
+    and shadow selections, and B1 at its ground's primary selection
+    (BLOCK=256, the second shape B1 runs at on the main paths)."""
     import torch
 
-    from solr_tpu_torch.ops.camera import camera_rays
+    from solr_tpu_torch.kernel_shapes import (fractional, primary_tiles,
+                                              shadow_rays, sweep_args)
     from solr_tpu_torch.ops.traverse import scene_closest_hit
 
     spec = (cfg.packet_rays, cfg.packet_max_blocks, cfg.packet_tile_cand,
             cfg.packet_exact)
     with torch.no_grad():
-        o, d = camera_rays(cam, cfg)
-        o_t, d_t = _tiles(o, d, cfg)
-        live = torch.ones(o_t.shape[:2], dtype=torch.bool, device=o.device)
+        o_t, d_t, live = primary_tiles(cam, cfg)
         # The frame's primary hits over all pools, for the shadow rays.
         hit = scene_closest_hit(scene, o_t.reshape(-1, 3), d_t.reshape(-1, 3),
                                 packet=spec)
-        so_t, sd_t, tm_t, slive = _shadow_rays(scene, o_t, d_t, hit)
+        so_t, sd_t, tm_t, slive = shadow_rays(scene, o_t, d_t, hit)
+        args = sweep_args(scene.tri_accel, o_t, d_t, live, cfg, True)
+        _check_kernel(rec, "sweep_closest", "tri", args, "molecule ground")
         for prim, accel in (("sphere", scene.sph_accel),
                             ("cyl", scene.cyl_accel)):
-            args = _sweep_args(accel, o_t, d_t, live, cfg, True)
+            args = sweep_args(accel, o_t, d_t, live, cfg, True)
             _check_kernel(rec, "sweep_closest", prim, args)
-            args = _sweep_args(accel, so_t, sd_t, slive, cfg, False, tm_t)
+            args = sweep_args(accel, so_t, sd_t, slive, cfg, False, tm_t)
             _check_kernel(rec, "sweep_transmittance", prim, args, "scene")
             _check_kernel(rec, "sweep_transmittance", prim,
-                          (_fractional(accel.packed),) + args[1:],
+                          (fractional(accel.packed),) + args[1:],
                           "fractional", timed=False)
     _assert_equal(rec)
 
@@ -436,7 +376,8 @@ def _kernel_table(rec, paths):
                 max_abs_err=max(k["max_abs_err"] for k in runs),
                 ms=timed["ms"], plain_ms=timed["plain_ms"],
                 bound_ms=timed["bound_ms"], bound_by=timed["bound_by"],
-                library_ms=None))
+                library_ms=None, ceiling_ms=timed["ceiling_ms"],
+                tests_per_s=timed["tests_per_s"]))
     return table
 
 

@@ -11,25 +11,62 @@
 //   prim 2 = cyl    (B5, B6) <- _cyl_rows    (:158) -> packet.cyl_core,
 //                                                     functor CylT
 // They compute what those compute; they are not the Pallas grid carried
-// over.
+// over.  Two designs share the functors:
 //
-// Mapping: one warp per 32-ray strip, one thread per ray.  The warp
-// walks its strip's candidate list; every thread scans the block's
-// `block` primitives in ascending lane order.  The block's packed rows
-// are read at warp-uniform addresses, so each load is one broadcast
-// transaction served from L1 (a block's 12 Woop rows are 24 KB at
-// block=512; a sphere reads 4 rows, a cylinder 8).  What bounds the
-// kernels on this card: the per-pair arithmetic (about 40 instructions
-// for a Woop test, 20 for a sphere, 90 for a capped cylinder), issued by
-// one thread per ray; the row bytes are small next to it.  A strip
-// whose list is empty returns at once, which is what makes the parked
-// tiles of later bounces cost nothing.
+// Staged (closest_staged, trans_staged): B1 (closest, tri) and B6
+// (transmittance, cyl).  One CTA per 32-ray strip, of kClosestWarps (8)
+// or kTransWarps (4) warps.  Every warp holds the strip's 32 rays, one
+// per thread, and tests them against its own contiguous, ascending slice
+// of the block's lanes.  Each visited block's rows are copied into
+// shared memory with 16-byte cp.async (4-byte when BLOCK is not a
+// multiple of 4), double-buffered: the next listed block's rows arrive
+// while the current one is tested.  The thread that copied a lane's rows
+// also computes that lane's per-primitive terms (CylT: 1/max(h2, 1e-8)
+// and r*r) once, beside them.  The tests read kLaneVec lanes of a row per
+// 16-byte shared load, a broadcast to the warp.
+//   * closest: each warp keeps, per ray, its slice's minimum with a
+//     strict `<` in ascending lane order; then every warp combines the
+//     slices in ascending order with a strict `<` (the serial scan's
+//     (t, lane)) and keeps the same best and `done` bound;
+//   * transmittance: each warp writes, per ray, the occlusion bits
+//     (t < t_max) of its slice to shared memory; then every warp
+//     multiplies the factors of the set bits in ascending lane order
+//     (__ffs), the serial product, and keeps the same `lit` bound.
+// `done` and `lit` are uniform over the CTA and change between blocks
+// only; two CTA barriers per visited block.  A prefetched block that the
+// early-out then skips is read and dropped.
+//
+// What bounds them.  The one-warp-per-strip design below spent each test
+// waiting on 8-12 dependent global loads, and one warp walked a whole
+// list, so the longest lists set the end of the kernel.  Spreading a
+// strip over warps, with rows in shared memory ahead of use, took B1
+// from 6.8 to 2.9 ms and B6 from 7.8 to 4.2 ms on an H100 (700 W; see
+// solr_tpu_torch/sweep_steps.py).  What is left is instruction issue:
+// the counted f32 operations are 40% of the single-issue ceiling of a
+// --fmad=false build, the rest being the compares, selects and IEEE
+// division and square-root sequences around them, and the strips with
+// the longest lists, launched last, still set the end (launching them
+// first was 17% faster for B6; the kernels take no launch order yet).
+// Registers set the CTAs per SM: 80 for B1 (3 CTAs of 8 warps), 92 for
+// B6 (4 CTAs of 4 warps); the occupancy hints hold them there.  B6's
+// cylinder test skips its side roots when no ray of the warp reaches the
+// side (15% of B6's time, 18% of B5's, which shares CylT).
+//
+// Warp per strip (closest_kernel, trans_kernel): B2-B5.  One warp per
+// strip, one thread per ray; every thread scans the block's `block`
+// primitives in ascending lane order, reading the rows at warp-uniform
+// addresses through __ldg (one broadcast transaction from L1 each).
+// They move to the staged design one at a time.
+//
+// In both designs a strip whose list is empty returns at once, which is
+// what makes the parked tiles of later bounces cost nothing.
 //
 // Exactness with the plain PyTorch versions (ops/packet.py PRIM_T):
 //   * build with --fmad=false and without fast math: every chain keeps
 //     the plain version's association (((a*b + c*d) + e*f) + g) and
 //     every product rounds on its own, as PyTorch's separate
-//     elementwise ops do; sqrtf and every division are IEEE;
+//     elementwise ops do; sqrtf and every division are IEEE; tensor
+//     cores are not used (a TF32 transform rounds the inputs);
 //   * the clamps of the plain version (torch.clamp(x, min=eps)) are
 //     `x < eps ? eps : x`, which keeps a NaN as torch does;
 //   * closest hit: strict `<` in ascending lane order gives the lowest
@@ -48,6 +85,19 @@ constexpr int kStrip = 32;
 constexpr int kWarpsPerBlock = 4;
 constexpr float kTFar = 3.0e38f;
 
+// The staged design's shape: warps per strip (one CTA) and the
+// __launch_bounds__ occupancy hint of each kernel, lanes per shared load
+// in the tests, row buffers in flight, and whether the per-primitive
+// terms are computed while staging.
+constexpr int kClosestWarps = 8;
+constexpr int kClosestMinCtas = 3;
+constexpr int kTransWarps = 4;
+constexpr int kTransMinCtas = 4;
+constexpr int kLaneVec = 4;
+constexpr int kStages = 2;
+constexpr bool kDeriveOnStage = true;
+constexpr int kMaxSmem = 232448;  // the H100's opt-in shared memory per CTA
+
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
@@ -65,32 +115,29 @@ __device__ __forceinline__ float clamp_min(float x, float lo) {
   return x < lo ? lo : x;
 }
 
-// Woop test of one ray against lane `l` of a packed block (rows of
-// length `block`, row-major).  Mirrors packet._woop_t.
+// A functor tests one ray against one primitive given its values `v`:
+// the kRaw packed rows of its lane, then the kVals - kRaw per-primitive
+// terms that derive() computes from them.
+
+// Woop rows 0-11.  Mirrors packet._woop_t.
 struct WoopT {
-  __device__ __forceinline__ static float t(const Ray& r,
-                                            const float* __restrict__ w,
-                                            int block, int l, float t_min) {
-    const float r0 = __ldg(w + 0 * block + l), r1 = __ldg(w + 1 * block + l);
-    const float r2 = __ldg(w + 2 * block + l), r3 = __ldg(w + 3 * block + l);
-    const float r4 = __ldg(w + 4 * block + l), r5 = __ldg(w + 5 * block + l);
-    const float r6 = __ldg(w + 6 * block + l), r7 = __ldg(w + 7 * block + l);
-    const float r8 = __ldg(w + 8 * block + l), r9 = __ldg(w + 9 * block + l);
-    const float r10 = __ldg(w + 10 * block + l);
-    const float r11 = __ldg(w + 11 * block + l);
-    const float opx = ((r.ox * r0 + r.oy * r1) + r.oz * r2) + r3;
-    const float opy = ((r.ox * r4 + r.oy * r5) + r.oz * r6) + r7;
-    const float opz = ((r.ox * r8 + r.oy * r9) + r.oz * r10) + r11;
-    const float dpx = (r.dx * r0 + r.dy * r1) + r.dz * r2;
-    const float dpy = (r.dx * r4 + r.dy * r5) + r.dz * r6;
-    const float dpz = (r.dx * r8 + r.dy * r9) + r.dz * r10;
+  static constexpr int kRaw = 12, kVals = 12;
+  __device__ __forceinline__ static void derive(float*) {}
+  __device__ __forceinline__ static float hit(const Ray& r, const float* v,
+                                              float t_min) {
+    const float opx = ((r.ox * v[0] + r.oy * v[1]) + r.oz * v[2]) + v[3];
+    const float opy = ((r.ox * v[4] + r.oy * v[5]) + r.oz * v[6]) + v[7];
+    const float opz = ((r.ox * v[8] + r.oy * v[9]) + r.oz * v[10]) + v[11];
+    const float dpx = (r.dx * v[0] + r.dy * v[1]) + r.dz * v[2];
+    const float dpy = (r.dx * v[4] + r.dy * v[5]) + r.dz * v[6];
+    const float dpz = (r.dx * v[8] + r.dy * v[9]) + r.dz * v[10];
     const bool safe = fabsf(dpz) > 1e-12f;
     const float inv = safe ? 1.0f / dpz : 0.0f;
     const float t = (-opz) * inv;
     const float u = opx + t * dpx;
-    const float v = opy + t * dpy;
+    const float w = opy + t * dpy;
     const bool valid =
-        safe && (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f) && (t > t_min);
+        safe && (u >= 0.0f) && (w >= 0.0f) && (u + w <= 1.0f) && (t > t_min);
     return valid ? t : kTFar;
   }
 };
@@ -98,13 +145,14 @@ struct WoopT {
 // Sphere rows [cx cy cz r]: the nearest root > t_min (the exit root for
 // a ray that starts inside); r <= 0 never hits.  Mirrors packet._sphere_t.
 struct SphereT {
-  __device__ __forceinline__ static float t(const Ray& r,
-                                            const float* __restrict__ w,
-                                            int block, int l, float t_min) {
-    const float ocx = r.ox - __ldg(w + 0 * block + l);
-    const float ocy = r.oy - __ldg(w + 1 * block + l);
-    const float ocz = r.oz - __ldg(w + 2 * block + l);
-    const float rad = __ldg(w + 3 * block + l);
+  static constexpr int kRaw = 4, kVals = 4;
+  __device__ __forceinline__ static void derive(float*) {}
+  __device__ __forceinline__ static float hit(const Ray& r, const float* v,
+                                              float t_min) {
+    const float ocx = r.ox - v[0];
+    const float ocy = r.oy - v[1];
+    const float ocz = r.oz - v[2];
+    const float rad = v[3];
     const float b = (ocx * r.dx + ocy * r.dy) + ocz * r.dz;
     const float c0 = ((ocx * ocx + ocy * ocy) + ocz * ocz) - rad * rad;
     const float disc = b * b - c0;
@@ -117,37 +165,46 @@ struct SphereT {
   }
 };
 
-// Capped cylinder rows [p0 r axis |axis|^2]: the side surface plus the
-// two end disks, two-sided; r <= 0 never hits.  Mirrors packet.cyl_core.
+// Capped cylinder rows [p0 r axis |axis|^2], then 1/max(|axis|^2, 1e-8)
+// and r*r: the side surface plus the two end disks, two-sided; r <= 0
+// never hits.  Mirrors packet.cyl_core.
 struct CylT {
-  __device__ __forceinline__ static float t(const Ray& r,
-                                            const float* __restrict__ w,
-                                            int block, int l, float t_min) {
-    const float ocx = r.ox - __ldg(w + 0 * block + l);
-    const float ocy = r.oy - __ldg(w + 1 * block + l);
-    const float ocz = r.oz - __ldg(w + 2 * block + l);
-    const float rad = __ldg(w + 3 * block + l);
-    const float ax = __ldg(w + 4 * block + l), ay = __ldg(w + 5 * block + l);
-    const float az = __ldg(w + 6 * block + l), h2 = __ldg(w + 7 * block + l);
-    const float inv_h2 = 1.0f / clamp_min(h2, kIntersectEps);
+  static constexpr int kRaw = 8, kVals = 10;
+  __device__ __forceinline__ static void derive(float* v) {
+    v[8] = 1.0f / clamp_min(v[7], kIntersectEps);
+    v[9] = v[3] * v[3];
+  }
+  __device__ __forceinline__ static float hit(const Ray& r, const float* v,
+                                              float t_min) {
+    const float ocx = r.ox - v[0];
+    const float ocy = r.oy - v[1];
+    const float ocz = r.oz - v[2];
+    const float rad = v[3];
+    const float ax = v[4], ay = v[5], az = v[6], h2 = v[7];
+    const float inv_h2 = v[8], rad_sq = v[9];
     const float d_a = (r.dx * ax + r.dy * ay) + r.dz * az;
     const float oc_a = (ocx * ax + ocy * ay) + ocz * az;
     const float a = 1.0f - (d_a * d_a) * inv_h2;
     const float b =
         ((ocx * r.dx + ocy * r.dy) + ocz * r.dz) - (d_a * oc_a) * inv_h2;
     const float cq = (((ocx * ocx + ocy * ocy) + ocz * ocz) -
-                      (oc_a * oc_a) * inv_h2) - rad * rad;
+                      (oc_a * oc_a) * inv_h2) - rad_sq;
     const float safe_a = clamp_min(a, kIntersectEps);
     const float disc = b * b - safe_a * cq;
     const bool base = (disc > 0.0f) && (a > kIntersectEps) && (rad > 0.0f);
-    const float sq = sqrtf(base ? disc : 1.0f);
-    float t1 = (-b - sq) / safe_a;
-    float t2 = (-b + sq) / safe_a;
-    const float s1 = oc_a + t1 * d_a;
-    const float s2 = oc_a + t2 * d_a;
-    t1 = (base && s1 >= 0.0f && s1 <= h2 && t1 > t_min) ? t1 : kTFar;
-    t2 = (base && s2 >= 0.0f && s2 <= h2 && t2 > t_min) ? t2 : kTFar;
-    const float t_side = fminf(t1, t2);
+    // Without `base` both side roots are kTFar: their square root and
+    // two divisions run only when a thread of the warp needs them.
+    float t_side = kTFar;
+    if (base) {
+      const float sq = sqrtf(disc);
+      float t1 = (-b - sq) / safe_a;
+      float t2 = (-b + sq) / safe_a;
+      const float s1 = oc_a + t1 * d_a;
+      const float s2 = oc_a + t2 * d_a;
+      t1 = (s1 >= 0.0f && s1 <= h2 && t1 > t_min) ? t1 : kTFar;
+      t2 = (s2 >= 0.0f && s2 <= h2 && t2 > t_min) ? t2 : kTFar;
+      t_side = fminf(t1, t2);
+    }
 
     const bool ax_safe = fabsf(d_a) > kIntersectEps;
     const float inv_da = (ax_safe ? 1.0f : 0.0f) / (ax_safe ? d_a : 1.0f);
@@ -159,12 +216,24 @@ struct CylT {
       const float qz = (ocz + tc * r.dz) - off * az;
       const float rad2 = (qx * qx + qy * qy) + qz * qz;
       const bool ok =
-          ax_safe && (rad > 0.0f) && (rad2 <= rad * rad) && (tc > t_min);
+          ax_safe && (rad > 0.0f) && (rad2 <= rad_sq) && (tc > t_min);
       return ok ? tc : kTFar;
     };
     return fminf(t_side, fminf(cap(0.0f, 0.0f), cap(h2, 1.0f)));
   }
 };
+
+// One test with the rows read from device memory (warp per strip).
+template <class Prim>
+__device__ __forceinline__ float test_global(const Ray& r,
+                                             const float* __restrict__ w,
+                                             int block, int l, float t_min) {
+  float v[Prim::kVals];
+#pragma unroll
+  for (int i = 0; i < Prim::kRaw; ++i) v[i] = __ldg(w + i * block + l);
+  Prim::derive(v);
+  return Prim::hit(r, v, t_min);
+}
 
 __device__ __forceinline__ Ray load_ray(const float* __restrict__ o,
                                         const float* __restrict__ d,
@@ -174,6 +243,10 @@ __device__ __forceinline__ Ray load_ray(const float* __restrict__ o,
   r.dx = d[3 * ray + 0]; r.dy = d[3 * ray + 1]; r.dz = d[3 * ray + 2];
   return r;
 }
+
+// ---------------------------------------------------------------------
+// Warp per strip (B2-B5)
+// ---------------------------------------------------------------------
 
 template <class Prim>
 __global__ void __launch_bounds__(kStrip * kWarpsPerBlock)
@@ -212,7 +285,7 @@ closest_kernel(const float* __restrict__ packed, int block,
       float c_min = kTFar;
       int c_lane = 0;
       for (int l = 0; l < block; ++l) {
-        const float t = Prim::t(r, w, block, l, t_min);
+        const float t = test_global<Prim>(r, w, block, l, t_min);
         if (t < c_min) { c_min = t; c_lane = l; }
       }
       if (c_min < best_t) { best_t = c_min; best_i = blk * block + c_lane; }
@@ -256,7 +329,7 @@ trans_kernel(const float* __restrict__ packed, int block,
       const float* f = w + 15 * block;
       float p = 1.0f;
       for (int l = 0; l < block; ++l) {
-        const float t = Prim::t(r, w, block, l, t_min);
+        const float t = test_global<Prim>(r, w, block, l, t_min);
         if (t < tm) p = p * __ldg(f + l);
       }
       tr = tr * p;
@@ -273,8 +346,378 @@ inline unsigned grid_for(int64_t n_strips) {
                                kWarpsPerBlock);
 }
 
+// ---------------------------------------------------------------------
+// Staged (B1, B6)
+// ---------------------------------------------------------------------
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Shared-memory rows of one stage: the functor's kRaw packed rows, its
+// derived rows, then (transmittance) the factor row 15.  Rows are
+// `stride` floats apart, stride = BLOCK rounded up to a multiple of 4.
+template <class Prim, bool kTrans>
+struct Stage {
+  static constexpr int kCopied = Prim::kRaw + (kTrans ? 1 : 0);
+  static constexpr int kRows = Prim::kVals + (kTrans ? 1 : 0);
+  static constexpr int kFactorRow = Prim::kVals;
+
+  __device__ __forceinline__ static int src_row(int i) {
+    return i < Prim::kRaw ? i : 15;
+  }
+  __device__ __forceinline__ static int dst_row(int i) {
+    return i < Prim::kRaw ? i : kFactorRow;
+  }
+
+  // Issue the copies of one block's rows.  Thread t owns lanes
+  // [u * unit, (u + 1) * unit) for u = t, t + nthreads, ...; unit 4 (16
+  // bytes) when BLOCK % 4 == 0, else 1.
+  __device__ __forceinline__ static void issue(float* st,
+                                               const float* __restrict__ w,
+                                               int block, int stride) {
+    if ((block & 3) == 0) {
+      for (int l = 4 * threadIdx.x; l < block; l += 4 * blockDim.x) {
+#pragma unroll
+        for (int i = 0; i < kCopied; ++i)
+          cp_async16(st + dst_row(i) * stride + l, w + src_row(i) * block + l);
+      }
+    } else {
+      for (int l = threadIdx.x; l < block; l += blockDim.x) {
+#pragma unroll
+        for (int i = 0; i < kCopied; ++i)
+          cp_async4(st + dst_row(i) * stride + l, w + src_row(i) * block + l);
+      }
+    }
+  }
+
+  // The per-primitive terms of the lanes this thread copied; its own
+  // copies are complete (cp.async.wait_group) and visible to it.
+  __device__ __forceinline__ static void derive(float* st, int block,
+                                                int stride) {
+    if constexpr (kDeriveOnStage && Prim::kVals > Prim::kRaw) {
+      const int unit = (block & 3) == 0 ? 4 : 1;
+      for (int l0 = unit * threadIdx.x; l0 < block; l0 += unit * blockDim.x) {
+        for (int l = l0; l < l0 + unit && l < block; ++l) {
+          float v[Prim::kVals];
+#pragma unroll
+          for (int i = 0; i < Prim::kRaw; ++i) v[i] = st[i * stride + l];
+          Prim::derive(v);
+#pragma unroll
+          for (int i = Prim::kRaw; i < Prim::kVals; ++i)
+            st[i * stride + l] = v[i];
+        }
+      }
+    }
+  }
+
+  __host__ __device__ static constexpr int64_t floats(int stride) {
+    return static_cast<int64_t>(kRows) * stride;
+  }
+};
+
+__host__ __device__ constexpr int round4(int x) { return (x + 3) & ~3; }
+
+// Lanes [lo, hi) of slice `s` of `slices`: contiguous, ascending, cut at
+// multiples of kLaneVec (the last slice ends at BLOCK).
+__device__ __forceinline__ void slice_of(int s, int slices, int block,
+                                         int& lo, int& hi) {
+  const int units = (block + kLaneVec - 1) / kLaneVec;
+  lo = min(block, kLaneVec * (units * s / slices));
+  hi = min(block, kLaneVec * (units * (s + 1) / slices));
+}
+
+// Call f(l, t) for each lane l of [lo, hi) in ascending order, with t
+// the test of ray r against lane l of stage `st`.  kLaneVec lanes of
+// each row per shared load; `lo` is a multiple of kLaneVec.
+template <class Prim, class F>
+__device__ __forceinline__ void sweep_slice(const Ray& r, const float* st,
+                                            int stride, int lo, int hi,
+                                            float t_min, F&& f) {
+  for (int l0 = lo; l0 < hi; l0 += kLaneVec) {
+    float v[Prim::kVals][kLaneVec];
+#pragma unroll
+    for (int i = 0; i < Prim::kVals; ++i) {
+      if (i >= Prim::kRaw && !kDeriveOnStage) break;
+      const float* p = st + i * stride + l0;
+      if constexpr (kLaneVec == 4) {
+        const float4 q = *reinterpret_cast<const float4*>(p);
+        v[i][0] = q.x; v[i][1] = q.y; v[i][2] = q.z; v[i][3] = q.w;
+      } else if constexpr (kLaneVec == 2) {
+        const float2 q = *reinterpret_cast<const float2*>(p);
+        v[i][0] = q.x; v[i][1] = q.y;
+      } else {
+        v[i][0] = p[0];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kLaneVec; ++j) {
+      float u[Prim::kVals];
+#pragma unroll
+      for (int i = 0; i < Prim::kVals; ++i) u[i] = v[i][j];
+      if constexpr (!kDeriveOnStage) Prim::derive(u);
+      const int l = l0 + j;
+      if (l < hi) f(l, Prim::hit(r, u, t_min));
+    }
+  }
+}
+
+// The candidate schedule shared by both staged kernels: candidate k is
+// tested from one buffer while candidate k + 1 is copied into the other.
+template <class S>
+struct Pipeline {
+  float* stages;
+  int64_t stage_floats;
+  const float* packed;
+  const int32_t* cand;
+  int block, stride;
+  int buf = 0;     // buffer of the candidate last tested
+  int ahead = -1;  // candidate in flight into buffer buf ^ 1, or -1
+
+  __device__ __forceinline__ float* stage(int b) const {
+    return stages + b * stage_floats;
+  }
+  __device__ __forceinline__ const float* rows(int k) const {
+    return packed + static_cast<int64_t>(cand[k]) * 16 * block;
+  }
+
+  // Make candidate k's rows ready in shared memory (all threads), then
+  // start the copy of candidate `next` (-1: none) into the other buffer
+  // when there is one.  The CTA barrier between the two is where every
+  // warp is done with the previous visit, the other buffer included.
+  __device__ __forceinline__ const float* acquire(int k, int next) {
+    if (kStages > 1 && ahead == k) {
+      buf ^= 1;
+    } else {
+      if (ahead >= 0) cp_async_wait<0>();  // drop a skipped prefetch
+      S::issue(stage(buf), rows(k), block, stride);
+      cp_async_commit();
+    }
+    cp_async_wait<0>();
+    S::derive(stage(buf), block, stride);
+    __syncthreads();
+    ahead = -1;
+    if (kStages > 1 && next >= 0) {
+      S::issue(stage(buf ^ 1), rows(next), block, stride);
+      cp_async_commit();
+      ahead = next;
+    }
+    return stage(buf);
+  }
+
+  __device__ __forceinline__ void drain() const {
+    if (ahead >= 0) cp_async_wait<0>();
+  }
+};
+
 template <class Prim>
-void launch_closest(const float* packed, int block, const float* o,
+__global__ void __launch_bounds__(kStrip * kClosestWarps, kClosestMinCtas)
+closest_staged(const float* __restrict__ packed, int block,
+               const float* __restrict__ o, const float* __restrict__ d,
+               const float* __restrict__ t_cap,
+               const uint8_t* __restrict__ live,
+               const int32_t* __restrict__ cand,
+               const int32_t* __restrict__ counts,
+               const float* __restrict__ nearb, int k_max, float t_min,
+               float* __restrict__ out_t, int32_t* __restrict__ out_idx,
+               int32_t* __restrict__ out_visits) {
+  using S = Stage<Prim, false>;
+  extern __shared__ __align__(16) float smem[];
+  const int lane = threadIdx.x & (kStrip - 1);
+  const int warp = threadIdx.x >> 5;
+  const int64_t sg = blockIdx.x;
+  const int64_t ray = sg * kStrip + lane;
+  const int cnt = counts[sg];
+  if (cnt <= 0) {
+    if (warp == 0) {
+      out_t[ray] = kTFar;
+      out_idx[ray] = -1;
+      if (lane == 0) out_visits[sg] = 0;
+    }
+    return;
+  }
+  const int stride = round4(block);
+  const int64_t stage_floats = S::floats(stride);
+  float* s_t = smem + kStages * stage_floats;  // [kClosestWarps][32]
+  int* s_l = reinterpret_cast<int*>(s_t + kClosestWarps * kStrip);
+
+  const Ray r = load_ray(o, d, ray);
+  const float cap = t_cap[ray];
+  const bool lv = live[ray] != 0;
+  float best_t = kTFar;
+  int32_t best_i = -1;
+  // Early-out bound: max over the strip's live rays of min(best_t, box
+  // exit); a strip with no live ray gets 0.  Uniform over the CTA.
+  float done = warp_max(lv ? cap : 0.0f);
+  const int32_t* c = cand + sg * k_max;
+  const float* nb = nearb + sg * k_max;
+  int lo, hi;
+  slice_of(warp, kClosestWarps, block, lo, hi);
+  Pipeline<S> pipe{smem, stage_floats, packed, c, block, stride};
+  int visits = 0;
+  int k = 0;
+  while (k < cnt && !(nb[k] < done)) ++k;
+  while (k < cnt) {
+    const int32_t blk = c[k];
+    const float* st = pipe.acquire(k, k + 1 < cnt ? k + 1 : -1);
+    float c_min = kTFar;
+    int c_lane = 0;
+    sweep_slice<Prim>(r, st, stride, lo, hi, t_min, [&](int l, float t) {
+      if (t < c_min) { c_min = t; c_lane = l; }
+    });
+    s_t[warp * kStrip + lane] = c_min;
+    s_l[warp * kStrip + lane] = c_lane;
+    __syncthreads();
+    // Every warp combines the slices in ascending order, the serial
+    // scan's (t, lane), and keeps the same best and `done`.
+    c_min = kTFar;
+    c_lane = 0;
+#pragma unroll
+    for (int s = 0; s < kClosestWarps; ++s) {
+      const float t = s_t[s * kStrip + lane];
+      if (t < c_min) { c_min = t; c_lane = s_l[s * kStrip + lane]; }
+    }
+    if (c_min < best_t) { best_t = c_min; best_i = blk * block + c_lane; }
+    done = warp_max(lv ? fminf(best_t, cap) : 0.0f);
+    ++visits;
+    ++k;
+    while (k < cnt && !(nb[k] < done)) ++k;
+  }
+  pipe.drain();
+  if (warp == 0) {
+    out_t[ray] = best_t;
+    out_idx[ray] = best_i;
+    if (lane == 0) out_visits[sg] = visits;
+  }
+}
+
+template <class Prim>
+__global__ void __launch_bounds__(kStrip * kTransWarps, kTransMinCtas)
+trans_staged(const float* __restrict__ packed, int block,
+             const float* __restrict__ o, const float* __restrict__ d,
+             const float* __restrict__ t_max,
+             const uint8_t* __restrict__ live,
+             const int32_t* __restrict__ cand,
+             const int32_t* __restrict__ counts, int k_max, float t_min,
+             int words, float* __restrict__ out_tr,
+             int32_t* __restrict__ out_visits) {
+  using S = Stage<Prim, true>;
+  extern __shared__ __align__(16) float smem[];
+  const int lane = threadIdx.x & (kStrip - 1);
+  const int warp = threadIdx.x >> 5;
+  const int64_t sg = blockIdx.x;
+  const int64_t ray = sg * kStrip + lane;
+  const int cnt = counts[sg];
+  if (cnt <= 0) {
+    if (warp == 0) {
+      out_tr[ray] = 1.0f;
+      if (lane == 0) out_visits[sg] = 0;
+    }
+    return;
+  }
+  const int stride = round4(block);
+  const int64_t stage_floats = S::floats(stride);
+  // Occlusion bits [kTransWarps][words][32 rays]: bit b of word j of
+  // slice s is lane lo_s + 32 j + b.
+  uint32_t* s_occ =
+      reinterpret_cast<uint32_t*>(smem + kStages * stage_floats);
+
+  const Ray r = load_ray(o, d, ray);
+  const float tm = t_max[ray];
+  const bool lv = live[ray] != 0;
+  float tr = 1.0f;
+  // Max live transmittance of the strip; the strip stops, at block
+  // boundaries only, once it is <= 1e-6.  Uniform over the CTA.
+  float lit = warp_max(lv ? 1.0f : 0.0f);
+  const int32_t* c = cand + sg * k_max;
+  int lo, hi;
+  slice_of(warp, kTransWarps, block, lo, hi);
+  Pipeline<S> pipe{smem, stage_floats, packed, c, block, stride};
+  int visits = 0;
+  for (int k = 0; k < cnt && lit > 1e-6f; ++k) {
+    const float* st = pipe.acquire(k, k + 1 < cnt ? k + 1 : -1);
+    uint32_t* occ = s_occ + warp * words * kStrip + lane;
+    uint32_t m = 0;
+    int word = 0;
+    sweep_slice<Prim>(r, st, stride, lo, hi, t_min, [&](int l, float t) {
+      const int b = (l - lo) & 31;
+      if (t < tm) m |= 1u << b;
+      if (b == 31) { occ[word * kStrip] = m; m = 0; ++word; }
+    });
+    if (word < words) occ[word * kStrip] = m;  // a last, partial word
+    __syncthreads();
+    // Every warp multiplies the factors of the occluding lanes in
+    // ascending lane order and keeps the same transmittance and `lit`.
+    const float* f = st + S::kFactorRow * stride;
+    float p = 1.0f;
+    for (int s = 0; s < kTransWarps; ++s) {
+      int s_lo, s_hi;
+      slice_of(s, kTransWarps, block, s_lo, s_hi);
+      const int n_words = (s_hi - s_lo + 31) >> 5;
+      for (int j = 0; j < n_words; ++j) {
+        uint32_t bits = s_occ[(s * words + j) * kStrip + lane];
+        while (bits) {
+          const int b = __ffs(bits) - 1;
+          p = p * f[s_lo + 32 * j + b];
+          bits &= bits - 1;
+        }
+      }
+    }
+    tr = tr * p;
+    lit = warp_max(lv ? tr : 0.0f);
+    ++visits;
+  }
+  pipe.drain();
+  if (warp == 0) {
+    out_tr[ray] = tr;
+    if (lane == 0) out_visits[sg] = visits;
+  }
+}
+
+// Dynamic shared memory of a staged launch, in bytes.
+template <class Prim, bool kTrans>
+int64_t staged_smem(int block, int* words) {
+  constexpr int warps = kTrans ? kTransWarps : kClosestWarps;
+  const int units = (block + kLaneVec - 1) / kLaneVec;
+  const int max_slice = kLaneVec * ((units + warps - 1) / warps);
+  *words = (max_slice + 31) / 32;
+  const int64_t scratch = kTrans ? int64_t{*words} * warps * kStrip
+                                 : int64_t{2} * warps * kStrip;
+  return 4 * (kStages * Stage<Prim, kTrans>::floats(round4(block)) + scratch);
+}
+
+template <class K>
+cudaError_t allow_smem(K kernel, int64_t bytes) {
+  if (bytes > kMaxSmem) return cudaErrorInvalidValue;
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+// ---------------------------------------------------------------------
+// Launchers
+// ---------------------------------------------------------------------
+
+template <class Prim>
+cudaError_t launch_closest(const float* packed, int block, const float* o,
                     const float* d, const float* t_cap, const uint8_t* live,
                     const int32_t* cand, const int32_t* counts,
                     const float* nearb, int64_t n_strips, int k_max,
@@ -284,10 +727,11 @@ void launch_closest(const float* packed, int block, const float* o,
                          stream>>>(packed, block, o, d, t_cap, live, cand,
                                    counts, nearb, n_strips, k_max, t_min,
                                    out_t, out_idx, out_visits);
+  return cudaSuccess;
 }
 
 template <class Prim>
-void launch_trans(const float* packed, int block, const float* o,
+cudaError_t launch_trans(const float* packed, int block, const float* o,
                   const float* d, const float* t_max, const uint8_t* live,
                   const int32_t* cand, const int32_t* counts,
                   int64_t n_strips, int k_max, float t_min, float* out_tr,
@@ -296,6 +740,44 @@ void launch_trans(const float* packed, int block, const float* o,
                        stream>>>(packed, block, o, d, t_max, live, cand,
                                  counts, n_strips, k_max, t_min, out_tr,
                                  out_visits);
+  return cudaSuccess;
+}
+
+template <class Prim>
+cudaError_t launch_closest_staged(const float* packed, int block, const float* o,
+                           const float* d, const float* t_cap,
+                           const uint8_t* live, const int32_t* cand,
+                           const int32_t* counts, const float* nearb,
+                           int64_t n_strips, int k_max, float t_min,
+                           float* out_t, int32_t* out_idx,
+                           int32_t* out_visits, cudaStream_t stream) {
+  int words;
+  const int64_t bytes = staged_smem<Prim, false>(block, &words);
+  const cudaError_t err = allow_smem(closest_staged<Prim>, bytes);
+  if (err != cudaSuccess) return err;
+  closest_staged<Prim><<<static_cast<unsigned>(n_strips),
+                         kStrip * kClosestWarps, bytes, stream>>>(
+      packed, block, o, d, t_cap, live, cand, counts, nearb, k_max, t_min,
+      out_t, out_idx, out_visits);
+  return cudaSuccess;
+}
+
+template <class Prim>
+cudaError_t launch_trans_staged(const float* packed, int block, const float* o,
+                         const float* d, const float* t_max,
+                         const uint8_t* live, const int32_t* cand,
+                         const int32_t* counts, int64_t n_strips, int k_max,
+                         float t_min, float* out_tr, int32_t* out_visits,
+                         cudaStream_t stream) {
+  int words;
+  const int64_t bytes = staged_smem<Prim, true>(block, &words);
+  const cudaError_t err = allow_smem(trans_staged<Prim>, bytes);
+  if (err != cudaSuccess) return err;
+  trans_staged<Prim><<<static_cast<unsigned>(n_strips),
+                       kStrip * kTransWarps, bytes, stream>>>(
+      packed, block, o, d, t_max, live, cand, counts, k_max, t_min, words,
+      out_tr, out_visits);
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -309,7 +791,8 @@ extern "C" {
 //   f32; counts (n_strips) i32.  Outputs: out_t/out_tr (n_strips * 32),
 //   out_idx (n_strips * 32) i32, out_visits (n_strips) i32.
 // Returns the cudaError_t of the launch (0 on success), or
-// cudaErrorInvalidValue for an unknown prim.
+// cudaErrorInvalidValue for an unknown prim or a block whose staged rows
+// do not fit in shared memory (solr_sweep_smem_bytes).
 int solr_sweep_closest(int prim, const float* packed, int block,
                        const float* o, const float* d, const float* t_cap,
                        const uint8_t* live, const int32_t* cand,
@@ -319,10 +802,12 @@ int solr_sweep_closest(int prim, const float* packed, int block,
   if (prim < 0 || prim > 2) return static_cast<int>(cudaErrorInvalidValue);
   if (n_strips > 0) {
     auto s = static_cast<cudaStream_t>(stream);
-    auto fn = prim == 0 ? launch_closest<WoopT>
+    auto fn = prim == 0 ? launch_closest_staged<WoopT>
               : prim == 1 ? launch_closest<SphereT> : launch_closest<CylT>;
-    fn(packed, block, o, d, t_cap, live, cand, counts, nearb, n_strips,
-       k_max, t_min, out_t, out_idx, out_visits, s);
+    const cudaError_t err =
+        fn(packed, block, o, d, t_cap, live, cand, counts, nearb, n_strips,
+           k_max, t_min, out_t, out_idx, out_visits, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -338,11 +823,27 @@ int solr_sweep_transmittance(int prim, const float* packed, int block,
   if (n_strips > 0) {
     auto s = static_cast<cudaStream_t>(stream);
     auto fn = prim == 0 ? launch_trans<WoopT>
-              : prim == 1 ? launch_trans<SphereT> : launch_trans<CylT>;
-    fn(packed, block, o, d, t_max, live, cand, counts, n_strips, k_max,
-       t_min, out_tr, out_visits, s);
+              : prim == 1 ? launch_trans<SphereT> : launch_trans_staged<CylT>;
+    const cudaError_t err =
+        fn(packed, block, o, d, t_max, live, cand, counts, n_strips, k_max,
+           t_min, out_tr, out_visits, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
   return static_cast<int>(cudaGetLastError());
 }
+
+// The dynamic shared memory, in bytes, that a launch of the entry
+// (closest 1: solr_sweep_closest, 0: solr_sweep_transmittance) for prim
+// at this block takes; 0 for the warp-per-strip kernels, -1 for an
+// unknown prim.  Above solr_sweep_smem_limit() the launch is refused.
+int64_t solr_sweep_smem_bytes(int closest, int prim, int block) {
+  int words;
+  if (prim < 0 || prim > 2 || block <= 0) return -1;
+  if (closest && prim == 0) return staged_smem<WoopT, false>(block, &words);
+  if (!closest && prim == 2) return staged_smem<CylT, true>(block, &words);
+  return 0;
+}
+
+int64_t solr_sweep_smem_limit() { return kMaxSmem; }
 
 }  // extern "C"

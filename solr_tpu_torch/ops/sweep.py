@@ -24,11 +24,12 @@ Both also count strip visits per tile.  The wrappers dispatch on the
 device of the tensors: CPU tensors go to the plain version, CUDA tensors
 to the hand-written kernels in ``solr_tpu_torch/csrc/sweep.cu``, which
 are built with nvcc at first use and loaded with ctypes.  A build or
-launch failure raises; nothing falls back to the plain version.  The
-plain and kernel versions agree bit for bit on the same device: the
-same association in every primitive test, no FMA contraction, IEEE
-sqrt and division, the same tie rules and product order (ascending
-lanes within a block).
+launch failure raises, and so does a BLOCK whose rows do not fit the
+shared memory of the kernel it would run (B1 and B6 stage them there);
+nothing falls back to the plain version.  The plain and kernel
+versions agree bit for bit on the same device: the same association in
+every primitive test, no FMA contraction, IEEE sqrt and division, the
+same tie rules and product order (ascending lanes within a block).
 
 Rays are passed directly as o_t/d_t (S, SB, 3), t_cap or t_max (S, SB)
 and live (S, SB); SB / G must be 32 for the kernels.
@@ -53,7 +54,11 @@ __all__ = [
     "LAUNCHES",
     "PRIMS",
     "build",
+    "compile_library",
     "kernel_name",
+    "launch_closest",
+    "launch_transmittance",
+    "load_library",
     "sweep_closest",
     "sweep_closest_plain",
     "sweep_transmittance",
@@ -196,39 +201,58 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the sweep kernels need the CUDA toolkit")
 
 
+def compile_library(src: bytes, stem: str = "libsolr_sweep",
+                    verbose: bool = False):
+    """Compile the CUDA source ``src`` for sm_90a into
+    ``build/solr_tpu_torch/{stem}_{hash}.so``, unless it is there.
+    Returns (path, the compiler's output or '')."""
+    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    out = _BUILD_DIR / f"{stem}_{tag}.so"
+    if out.exists():
+        return out, ""
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu = out.with_suffix(f".{os.getpid()}.cu")
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cu.write_bytes(src)
+    cmd = [_nvcc()] + NVCC_FLAGS + (["-Xptxas", "-v"] if verbose else []) \
+        + ["-o", str(tmp), str(cu)]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    cu.unlink()
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
+                           f"{res.stdout}\n{res.stderr}")
+    os.replace(tmp, out)
+    return out, res.stdout + res.stderr
+
+
+def load_library(path):
+    """Load a compiled sweep library and declare its C entry points."""
+    lib = ctypes.CDLL(str(path))
+    vp, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
+                         ctypes.c_float)
+    lib.solr_sweep_closest.argtypes = [
+        i32, vp, i32, vp, vp, vp, vp, vp, vp, vp, i64, i32, f32, vp, vp, vp, vp]
+    lib.solr_sweep_closest.restype = i32
+    lib.solr_sweep_transmittance.argtypes = [
+        i32, vp, i32, vp, vp, vp, vp, vp, vp, i64, i32, f32, vp, vp, vp]
+    lib.solr_sweep_transmittance.restype = i32
+    if hasattr(lib, "solr_sweep_smem_bytes"):
+        lib.solr_sweep_smem_bytes.argtypes = [i32, i32, i32]
+        lib.solr_sweep_smem_bytes.restype = i64
+        lib.solr_sweep_smem_limit.argtypes = []
+        lib.solr_sweep_smem_limit.restype = i64
+    return lib
+
+
 def build(verbose: bool = False) -> str:
     """Compile ``csrc/sweep.cu`` for sm_90a (once per source and flag
     set) and load it.  Returns the compiler's output when it built, ''
     when the library was already there.  Raises on any failure."""
     global _lib
     with _lock:
-        src = _SRC.read_bytes()
-        tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        out = _BUILD_DIR / f"libsolr_sweep_{tag}.so"
-        log = ""
-        if not out.exists():
-            _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc()] + NVCC_FLAGS + (["-Xptxas", "-v"] if verbose else []) \
-                + ["-o", str(tmp), str(_SRC)]
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            if res.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                                   f"{res.stdout}\n{res.stderr}")
-            os.replace(tmp, out)
-            log = res.stdout + res.stderr
+        path, log = compile_library(_SRC.read_bytes(), verbose=verbose)
         if _lib is None:
-            lib = ctypes.CDLL(str(out))
-            vp, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
-                                 ctypes.c_float)
-            lib.solr_sweep_closest.argtypes = [
-                i32, vp, i32, vp, vp, vp, vp, vp, vp, vp, i64, i32, f32, vp, vp,
-                vp, vp]
-            lib.solr_sweep_closest.restype = i32
-            lib.solr_sweep_transmittance.argtypes = [
-                i32, vp, i32, vp, vp, vp, vp, vp, vp, i64, i32, f32, vp, vp, vp]
-            lib.solr_sweep_transmittance.restype = i32
-            _lib = lib
+            _lib = load_library(path)
         return log
 
 
@@ -280,6 +304,58 @@ def _raise_on(err: int, name: str):
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
 
 
+def _check_smem(lib, closest: bool, prim: str, block: int):
+    """Raise if the rows of ``block`` primitives do not fit the shared
+    memory of the kernel that the entry runs for ``prim``."""
+    need = lib.solr_sweep_smem_bytes(int(closest), PRIMS.index(prim), block)
+    limit = lib.solr_sweep_smem_limit()
+    if need < 0 or need > limit:
+        entry = "sweep_closest" if closest else "sweep_transmittance"
+        raise ValueError(f"block={block} needs {need} bytes of shared memory "
+                         f"for {kernel_name(entry, prim)}; the card allows "
+                         f"{limit}")
+
+
+def launch_closest(lib, packed, o_t, d_t, t_cap, live, cand, counts, nearb,
+                   t_min, prim: str = "tri"):
+    """One launch of ``lib``'s closest-hit kernel on CUDA tensors checked
+    by the caller.  Returns what :func:`sweep_closest` returns."""
+    s, sb = o_t.shape[:2]
+    g, k_max = cand.shape[1:]
+    ins = (_f32(packed), _f32(o_t), _f32(d_t), _f32(t_cap),
+           live.to(torch.uint8).contiguous(), _i32(cand), _i32(counts),
+           _f32(nearb))
+    out_t = torch.empty((s, sb), dtype=torch.float32, device=packed.device)
+    out_i = torch.empty((s, sb), dtype=torch.int32, device=packed.device)
+    out_v = torch.empty((s, g), dtype=torch.int32, device=packed.device)
+    stream = torch.cuda.current_stream(packed.device).cuda_stream
+    err = lib.solr_sweep_closest(
+        PRIMS.index(prim), _ptr(ins[0]), packed.shape[2],
+        *(_ptr(x) for x in ins[1:]), s * g, k_max, float(t_min), _ptr(out_t),
+        _ptr(out_i), _ptr(out_v), ctypes.c_void_p(stream))
+    _raise_on(err, kernel_name("sweep_closest", prim))
+    return out_t, out_i, out_v.sum(1, dtype=torch.int32)
+
+
+def launch_transmittance(lib, packed, o_t, d_t, t_max, live, cand, counts,
+                         t_min, prim: str = "tri"):
+    """One launch of ``lib``'s shadow kernel on CUDA tensors checked by
+    the caller.  Returns what :func:`sweep_transmittance` returns."""
+    s, sb = o_t.shape[:2]
+    g, k_max = cand.shape[1:]
+    ins = (_f32(packed), _f32(o_t), _f32(d_t), _f32(t_max),
+           live.to(torch.uint8).contiguous(), _i32(cand), _i32(counts))
+    out_tr = torch.empty((s, sb), dtype=torch.float32, device=packed.device)
+    out_v = torch.empty((s, g), dtype=torch.int32, device=packed.device)
+    stream = torch.cuda.current_stream(packed.device).cuda_stream
+    err = lib.solr_sweep_transmittance(
+        PRIMS.index(prim), _ptr(ins[0]), packed.shape[2],
+        *(_ptr(x) for x in ins[1:]), s * g, k_max, float(t_min), _ptr(out_tr),
+        _ptr(out_v), ctypes.c_void_p(stream))
+    _raise_on(err, kernel_name("sweep_transmittance", prim))
+    return out_tr, out_v.sum(1, dtype=torch.int32)
+
+
 def sweep_closest(packed, o_t, d_t, t_cap, live, cand, counts, nearb, t_min,
                   prim: str = "tri"):
     """Closest hit over per-strip front-to-back candidate lists.
@@ -297,23 +373,11 @@ def sweep_closest(packed, o_t, d_t, t_cap, live, cand, counts, nearb, t_min,
         raise ValueError(f"no sweep kernel for device {packed.device}")
     _check_inputs(packed, o_t, d_t, t_cap, live, cand, counts, prim, nearb)
     lib = _library()
-    s, sb = o_t.shape[:2]
-    g, k_max = cand.shape[1:]
-    ins = (_f32(packed), _f32(o_t), _f32(d_t), _f32(t_cap),
-           live.to(torch.uint8).contiguous(), _i32(cand), _i32(counts),
-           _f32(nearb))
-    out_t = torch.empty((s, sb), dtype=torch.float32, device=packed.device)
-    out_i = torch.empty((s, sb), dtype=torch.int32, device=packed.device)
-    out_v = torch.empty((s, g), dtype=torch.int32, device=packed.device)
-    stream = torch.cuda.current_stream(packed.device).cuda_stream
-    name = kernel_name("sweep_closest", prim)
-    err = lib.solr_sweep_closest(
-        PRIMS.index(prim), _ptr(ins[0]), packed.shape[2],
-        *(_ptr(x) for x in ins[1:]), s * g, k_max, float(t_min), _ptr(out_t),
-        _ptr(out_i), _ptr(out_v), ctypes.c_void_p(stream))
-    _raise_on(err, name)
-    LAUNCHES[name] += 1
-    return out_t, out_i, out_v.sum(1, dtype=torch.int32)
+    _check_smem(lib, True, prim, packed.shape[2])
+    out = launch_closest(lib, packed, o_t, d_t, t_cap, live, cand, counts,
+                         nearb, t_min, prim)
+    LAUNCHES[kernel_name("sweep_closest", prim)] += 1
+    return out
 
 
 def sweep_transmittance(packed, o_t, d_t, t_max, live, cand, counts, t_min,
@@ -330,18 +394,8 @@ def sweep_transmittance(packed, o_t, d_t, t_max, live, cand, counts, t_min,
         raise ValueError(f"no sweep kernel for device {packed.device}")
     _check_inputs(packed, o_t, d_t, t_max, live, cand, counts, prim)
     lib = _library()
-    s, sb = o_t.shape[:2]
-    g, k_max = cand.shape[1:]
-    ins = (_f32(packed), _f32(o_t), _f32(d_t), _f32(t_max),
-           live.to(torch.uint8).contiguous(), _i32(cand), _i32(counts))
-    out_tr = torch.empty((s, sb), dtype=torch.float32, device=packed.device)
-    out_v = torch.empty((s, g), dtype=torch.int32, device=packed.device)
-    stream = torch.cuda.current_stream(packed.device).cuda_stream
-    name = kernel_name("sweep_transmittance", prim)
-    err = lib.solr_sweep_transmittance(
-        PRIMS.index(prim), _ptr(ins[0]), packed.shape[2],
-        *(_ptr(x) for x in ins[1:]), s * g, k_max, float(t_min), _ptr(out_tr),
-        _ptr(out_v), ctypes.c_void_p(stream))
-    _raise_on(err, name)
-    LAUNCHES[name] += 1
-    return out_tr, out_v.sum(1, dtype=torch.int32)
+    _check_smem(lib, False, prim, packed.shape[2])
+    out = launch_transmittance(lib, packed, o_t, d_t, t_max, live, cand,
+                               counts, t_min, prim)
+    LAUNCHES[kernel_name("sweep_transmittance", prim)] += 1
+    return out

@@ -2,6 +2,13 @@
 and the bench and molecule frames rendered on the card against the same
 frames on the CPU.
 
+B1 (closest, tri) and B6 (transmittance, cyl) run the staged design,
+which splits a block's lanes over several warps; their cases add a
+BLOCK that is not a multiple of the slices (200), forced ties (each
+block's second half a copy of its first, and every listed block listed
+again at once as a copy), strips with empty and with K-long lists, and
+a BLOCK whose rows do not fit in shared memory.
+
 These need a CUDA card and nvcc; without a card they skip.  The file
 imports neither JAX nor solr_tpu, so it runs where only PyTorch is
 installed:
@@ -20,12 +27,14 @@ import torch
 
 from solr_tpu_torch.bench_scene import bench_scene
 from solr_tpu_torch.constants import RAY_EPS
+from solr_tpu_torch.kernel_shapes import primary_tiles
 from solr_tpu_torch.molecule_scene import molecule_scene
 from solr_tpu_torch.ops import packet as pk
 from solr_tpu_torch.ops import sweep
 from solr_tpu_torch.ops.camera import camera_rays
 from solr_tpu_torch.ops.render import render_sample
 from solr_tpu_torch.ops.traverse import _scene_box
+from torch_sweep_helpers import forced_ties
 
 N_TRIS, SIZE, BLOCK = 20_000, 64, 512
 N_ATOMS, GROUND_RES = 2_000, 32
@@ -188,3 +197,114 @@ def test_molecule_frame_on_card_matches_cpu(cuda):
     assert torch.isfinite(card).all()
     err = (card - cpu).abs().amax(-1)
     assert float((err > 1e-4).float().mean()) <= 0.002
+
+
+@pytest.fixture(scope="module")
+def odd_block(cuda):
+    """The reduced molecule frame built with block=200 (SceneBuilder.build),
+    which 8 and 4 slices of 4 lanes do not divide."""
+    scene, cam, cfg = molecule_scene(N_ATOMS, GROUND_RES, width=SIZE,
+                                     height=SIZE, block=200, device=cuda)
+    o_t, d_t, live = primary_tiles(cam, cfg)
+    live[2, 32:70] = False
+    return scene, o_t, d_t, live
+
+
+def _closest_equal(args):
+    before = sweep.LAUNCHES["sweep_closest"]
+    got = sweep.sweep_closest(*args)
+    assert sweep.LAUNCHES["sweep_closest"] == before + 1
+    want = sweep.sweep_closest_plain(*args)
+    assert (want[0] < 1e30).any()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    return want
+
+
+def _trans_equal(args):
+    name = "sweep_transmittance_cyl"
+    before = sweep.LAUNCHES[name]
+    got = sweep.sweep_transmittance(*args, prim="cyl")
+    assert sweep.LAUNCHES[name] == before + 1
+    want = sweep.sweep_transmittance_plain(*args, prim="cyl")
+    assert (want[0] < 1.0).any()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    return want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ties", [False, True])
+def test_staged_closest_odd_block(odd_block, ties):
+    """B1 at block=200 on the ground's primary selection; with ``ties``,
+    duplicated triangles inside each block and across listed blocks, an
+    empty list and K-long lists."""
+    scene, o_t, d_t, live = odd_block
+    accel = scene.tri_accel
+    assert accel.packed.shape[2] == 200
+    cand, counts, nearb, _ = pk.strip_interval_select(
+        o_t, d_t, live, accel, 256, 64, RAY_EPS)
+    t_cap = pk.ray_box_exit(o_t, d_t, *_scene_box(accel))
+    packed = accel.packed
+    if ties:
+        packed, cand, counts, nearb = forced_ties(packed, cand, counts, nearb)
+    want = _closest_equal((packed, o_t, d_t, t_cap, live, cand, counts,
+                           nearb, RAY_EPS))
+    if ties:  # the earlier copy of a block wins every tie
+        hit = want[1] >= 0
+        assert hit.any() and (want[1][hit] < accel.packed.numel() // 16).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ties", [False, True])
+def test_staged_closest_ties_bench_block(cuda, ties):
+    """B1 at the bench's block=512 with the same forced ties, empty and
+    K-long lists."""
+    accel, o_t, d_t, live, t_cap, cand, counts, nearb = _selection(cuda)
+    packed = accel.packed
+    if ties:
+        packed, cand, counts, nearb = forced_ties(packed, cand, counts, nearb)
+    _closest_equal((packed, o_t, d_t, t_cap, live, cand, counts, nearb,
+                    RAY_EPS))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("factors", ["scene", "fractional"])
+def test_staged_transmittance_odd_block(odd_block, factors, ties):
+    """B6 at block=200 with the scene's and with fractional factors; with
+    ``ties``, duplicated cylinders inside each block and across listed
+    blocks (each copy multiplies its factor in), an empty list and
+    K-long lists."""
+    scene, o_t, d_t, live = odd_block
+    accel = scene.cyl_accel
+    assert accel.packed.shape[2] == 200
+    tm = torch.full(o_t.shape[:2], 8.0, device=o_t.device)
+    cand, counts, _, _ = pk.strip_interval_select(
+        o_t, d_t, live, accel, 256, 64, RAY_EPS, tm_t=tm)
+    packed = accel.packed
+    if factors == "fractional":
+        gen = torch.Generator(device=packed.device).manual_seed(3)
+        packed = packed.clone()
+        packed[:, 15, :] = torch.rand(packed[:, 15, :].shape, generator=gen,
+                                      device=packed.device) * 0.4 + 0.55
+    if ties:
+        packed, cand, counts = forced_ties(packed, cand, counts)
+    _trans_equal((packed, o_t, d_t, tm, live, cand, counts, RAY_EPS))
+
+
+@pytest.mark.gpu
+def test_staged_kernels_reject_blocks_beyond_shared_memory(cuda):
+    """A block whose staged rows exceed the card's shared memory raises
+    before any launch."""
+    accel, o_t, d_t, live, t_cap, cand, counts, nearb = _selection(cuda)
+    big = torch.zeros((2, 16, 8192), device=cuda)
+    before = dict(sweep.LAUNCHES)
+    with pytest.raises(ValueError, match="shared memory"):
+        sweep.sweep_closest(big, o_t, d_t, t_cap, live, cand.clamp(max=1),
+                            counts, nearb, RAY_EPS)
+    with pytest.raises(ValueError, match="shared memory"):
+        sweep.sweep_transmittance(big, o_t, d_t, t_cap, live,
+                                  cand.clamp(max=1), counts, RAY_EPS,
+                                  prim="cyl")
+    assert sweep.LAUNCHES == before

@@ -106,6 +106,38 @@ def test_closest_without_early_out_matches_pallas(setup):
     assert v_e.sum() <= v_t.sum()
 
 
+def test_closest_forced_ties_match_pallas(setup):
+    """Duplicated triangles inside each block (lanes [h, 2h) repeat lanes
+    [0, h)) and across listed blocks (each candidate followed by a copy
+    of itself): the lowest lane and the earlier block win, as in the
+    Pallas kernel (ROADMAP C2)."""
+    accel, o_t, d_t, live, t_cap, cand, counts, nearb = setup
+    packed = np.asarray(accel.packed).copy()
+    nb_, _, block = packed.shape
+    h = block // 2
+    packed[:, :, h:2 * h] = packed[:, :, :h]
+    packed = np.concatenate([packed, packed])
+    s, g, k = cand.shape
+    c2 = np.stack([np.asarray(cand), np.asarray(cand) + nb_], -1)
+    c2 = c2.reshape(s, g, 2 * k)[..., :k].astype(np.int32)
+    nb2 = np.repeat(np.asarray(nearb), 2, axis=-1)[..., :k]
+    n2 = np.minimum(np.asarray(counts) * 2, k).astype(np.int32)
+    rays_t = make_rays16t(o_t, d_t, tmax_t=t_cap, live_t=live)
+    t_j, i_j, v_j = (np.asarray(x) for x in p_closest(
+        jnp.asarray(packed), rays_t, jnp.asarray(c2), jnp.asarray(n2),
+        jnp.asarray(nb2), 1e-4, interpret=True))
+    t_t, i_t, v_t = (x.numpy() for x in sweep.sweep_closest(
+        _t(packed), _t(o_t), _t(d_t), _t(t_cap), _t(live), _t(c2), _t(n2),
+        _t(nb2), 1e-4))
+    np.testing.assert_allclose(t_t, t_j, rtol=1e-6)
+    hit = t_j < 1e30
+    assert hit.sum() > 300
+    np.testing.assert_array_equal(i_t[hit], i_j[hit])
+    assert (i_t[hit] < nb_ * block).all()  # never the later copy
+    assert (i_t[hit] % block < h).any()
+    np.testing.assert_array_equal(v_t, v_j)
+
+
 @pytest.mark.parametrize("factors", ["scene", "fractional"])
 def test_transmittance_matches_pallas(setup, factors):
     accel, o_t, d_t, live, _, _, _, _ = setup
