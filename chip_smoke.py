@@ -26,10 +26,12 @@ from solr_tpu_torch/csrc/ on first use.  Phases, each of which must pass:
    and cross product chains into FMAs);
 6. ``kernels_molecule``: B3 (sphere) and B5 (cylinder) sweep_closest at
    the molecule frame's primary selection, B1 at its ground's primary
-   selection (BLOCK=256, B1's second shape on the main paths), and B4
-   and B6 sweep_transmittance at its shadow selection (the scene's
-   factors and fractional ones), against their plain versions:
-   bit-equal, times reported;
+   selection and B2 at its ground's shadow selection (BLOCK=256, B1's
+   and B2's second shapes on the main paths), and B4 and B6
+   sweep_transmittance at its shadow selection (B2, B4 and B6 with the
+   scene's factors and fractional ones), against their plain versions:
+   bit-equal, times reported (in phases 3 and 6, each staged kernel's
+   launch order is held to its plain version, a stable sort);
 7. ``molecule_path``: render_sample of the full molecule frame (a
    100,000-atom synthetic PDB in ball-and-stick mode over a
    32,768-triangle reflective ground, 512x512, 2 bounces, BLOCK=256),
@@ -49,7 +51,8 @@ read just after.  Prints the full record of the run on one line
 time, its plain version's, its bound: the larger of the bytes its
 inputs and outputs take over 3.35 TB/s and the f32 operations its
 visited (ray, primitive) tests take over 67 TFLOP/s, its ceiling: those
-operations at 33.5e12 single-issue instructions/s, and its tests/s),
+operations at 33.5e12 single-issue instructions/s, its tests/s, and its
+design: "staged" or "warp" per strip, with its warps per CTA),
 the nvidia-smi line, and last {"ok": true, "device": {...}}.  Exits
 non-zero, without that line, when any phase fails or no card is
 visible.
@@ -123,8 +126,11 @@ def _bound_ms(prim, args, outs, visits, block):
 
 def _check_kernel(rec, entry, prim, args, label=None, timed=True):
     """One kernel against its plain version on the same inputs: outputs
-    bit-equal; times, bound and ceiling when ``timed``.  ``label`` names
-    the factors or the shapes where one kernel is checked twice."""
+    bit-equal, and for a staged kernel the launch order its entry
+    computes first (the order kernel) equal to ``longest_first``; times
+    (the order kernel's included), bound and ceiling when ``timed``.
+    ``label`` names the factors or the shapes where one kernel is
+    checked twice."""
     import torch
 
     from solr_tpu_torch.kernel_shapes import time_ms
@@ -134,11 +140,18 @@ def _check_kernel(rec, entry, prim, args, label=None, timed=True):
     plain = getattr(sweep, entry + "_plain")
     got = kernel(*args, prim=prim)
     want = plain(*args, prim=prim)
+    shape = sweep.kernel_shape(entry, prim, args[0].shape[2])
+    equal = all(torch.equal(a, b) for a, b in zip(got, want))
+    if shape["design"] == "staged":  # its launch order, on the same counts
+        counts = args[6]
+        equal &= torch.equal(
+            sweep.launch_order(sweep._library(), counts, args[5].shape[2]),
+            sweep.longest_first(counts))
     torch.cuda.synchronize()
     visits = int(got[-1].sum())
     entry_rec = dict(
-        name=sweep.kernel_name(entry, prim), entry=entry, prim=prim,
-        equal=all(torch.equal(a, b) for a, b in zip(got, want)),
+        name=sweep.kernel_name(entry, prim), entry=entry, prim=prim, **shape,
+        equal=equal,
         max_abs_err=float((got[0] - want[0]).abs().max()),
         strips=int(args[6].numel()),
         mean_strip_list=float(args[6].float().mean()), visits=visits,
@@ -170,10 +183,9 @@ def phase_kernels(scene, cam, cfg, rec):
     """B1 and B2 against their plain versions at the bench shapes."""
     import torch
 
-    from solr_tpu_torch.constants import T_FAR
     from solr_tpu_torch.kernel_shapes import (fractional, primary_tiles,
-                                              shadow_rays, sweep_args)
-    from solr_tpu_torch.ops.traverse import POOL_TRIANGLE, Hit
+                                              shadow_rays, sweep_args,
+                                              triangle_hits)
 
     accel = scene.tri_accel
     with torch.no_grad():
@@ -181,10 +193,8 @@ def phase_kernels(scene, cam, cfg, rec):
         args = sweep_args(accel, o_t, d_t, live, cfg, True)
         t_k, i_k, _ = _check_kernel(rec, "sweep_closest", "tri", args)
         # Shadow rays toward the light from the primary triangle hits.
-        tf, idx = t_k.reshape(-1), i_k.reshape(-1)
-        hit = Hit(t=tf, pool=torch.where(tf < T_FAR * 0.5, POOL_TRIANGLE, -1)
-                  .to(torch.int32), idx=idx.clamp(min=0))
-        so_t, sd_t, tm_t, slive = shadow_rays(scene, o_t, d_t, hit)
+        so_t, sd_t, tm_t, slive = shadow_rays(scene, o_t, d_t,
+                                              triangle_hits(t_k, i_k))
         args = sweep_args(accel, so_t, sd_t, slive, cfg, False, tm_t)
         _check_kernel(rec, "sweep_transmittance", "tri", args, "scene")
         _check_kernel(rec, "sweep_transmittance", "tri",
@@ -195,8 +205,9 @@ def phase_kernels(scene, cam, cfg, rec):
 
 def phase_kernels_molecule(scene, cam, cfg, rec):
     """B3-B6 against their plain versions at the molecule frame's primary
-    and shadow selections, and B1 at its ground's primary selection
-    (BLOCK=256, the second shape B1 runs at on the main paths)."""
+    and shadow selections, and B1 and B2 at its ground's primary and
+    shadow selections (BLOCK=256, the second shape B1 and B2 run at on
+    the main paths)."""
     import torch
 
     from solr_tpu_torch.kernel_shapes import (fractional, primary_tiles,
@@ -213,6 +224,13 @@ def phase_kernels_molecule(scene, cam, cfg, rec):
         so_t, sd_t, tm_t, slive = shadow_rays(scene, o_t, d_t, hit)
         args = sweep_args(scene.tri_accel, o_t, d_t, live, cfg, True)
         _check_kernel(rec, "sweep_closest", "tri", args, "molecule ground")
+        args = sweep_args(scene.tri_accel, so_t, sd_t, slive, cfg, False,
+                          tm_t)
+        _check_kernel(rec, "sweep_transmittance", "tri", args,
+                      "molecule ground")
+        _check_kernel(rec, "sweep_transmittance", "tri",
+                      (fractional(args[0]),) + args[1:],
+                      "molecule ground, fractional", timed=False)
         for prim, accel in (("sphere", scene.sph_accel),
                             ("cyl", scene.cyl_accel)):
             args = sweep_args(accel, o_t, d_t, live, cfg, True)
@@ -369,7 +387,8 @@ def _kernel_table(rec, paths):
             runs = [k for k in rec["kernels"] if k["name"] == name]
             timed = next(k for k in runs if "ms" in k)
             table.append(dict(
-                name=name, route="cuda",
+                name=name, route="cuda", design=timed["design"],
+                warps_per_cta=timed["warps_per_cta"],
                 source="solr_tpu_torch/csrc/sweep.cu",
                 replaces=f"{REPLACES[entry]} + {BODY[prim]}",
                 launches=paths[path][name],

@@ -13,17 +13,17 @@
 // They compute what those compute; they are not the Pallas grid carried
 // over.  Two designs share the functors:
 //
-// Staged (closest_staged, trans_staged): B1 (closest, tri) and B6
-// (transmittance, cyl).  One CTA per 32-ray strip, of kClosestWarps (8)
-// or kTransWarps (4) warps.  Every warp holds the strip's 32 rays, one
-// per thread, and tests them against its own contiguous, ascending slice
-// of the block's lanes.  Each visited block's rows are copied into
-// shared memory with 16-byte cp.async (4-byte when BLOCK is not a
-// multiple of 4), double-buffered: the next listed block's rows arrive
-// while the current one is tested.  The thread that copied a lane's rows
-// also computes that lane's per-primitive terms (CylT: 1/max(h2, 1e-8)
-// and r*r) once, beside them.  The tests read kLaneVec lanes of a row per
-// 16-byte shared load, a broadcast to the warp.
+// Staged (closest_staged, trans_staged): B1 and B5 (closest; tri, cyl),
+// B2 and B6 (transmittance; tri, cyl).  One CTA per 32-ray strip.  Every
+// warp holds the strip's 32 rays, one per thread, and tests them against
+// its own contiguous, ascending slice of the block's lanes.  Each
+// visited block's rows are copied into shared memory with 16-byte
+// cp.async (4-byte when BLOCK is not a multiple of 4), double-buffered:
+// the next listed block's rows arrive while the current one is tested.
+// The thread that copied a lane's rows also computes that lane's
+// per-primitive terms (CylT: 1/max(h2, 1e-8) and r*r) once, beside
+// them.  The tests read 2 or 4 lanes of a row per shared load, a
+// broadcast to the warp.
 //   * closest: each warp keeps, per ray, its slice's minimum with a
 //     strict `<` in ascending lane order; then every warp combines the
 //     slices in ascending order with a strict `<` (the serial scan's
@@ -34,29 +34,43 @@
 //     (__ffs), the serial product, and keeps the same `lit` bound.
 // `done` and `lit` are uniform over the CTA and change between blocks
 // only; two CTA barriers per visited block.  A prefetched block that the
-// early-out then skips is read and dropped.
+// early-out then skips is read and dropped.  A staged launch runs
+// order_kernel first, a stable sort of the strips by descending list
+// length, and CTA i sweeps strip order[i]: the strips with the longest
+// lists start first instead of setting the end of the launch alone.
 //
-// What bounds them.  The one-warp-per-strip design below spent each test
-// waiting on 8-12 dependent global loads, and one warp walked a whole
-// list, so the longest lists set the end of the kernel.  Spreading a
-// strip over warps, with rows in shared memory ahead of use, took B1
-// from 6.8 to 2.9 ms and B6 from 7.8 to 4.2 ms on an H100 (700 W; see
-// solr_tpu_torch/sweep_steps.py).  What is left is instruction issue:
-// the counted f32 operations are 40% of the single-issue ceiling of a
-// --fmad=false build, the rest being the compares, selects and IEEE
-// division and square-root sequences around them, and the strips with
-// the longest lists, launched last, still set the end (launching them
-// first was 17% faster for B6; the kernels take no launch order yet).
-// Registers set the CTAs per SM: 80 for B1 (3 CTAs of 8 warps), 92 for
-// B6 (4 CTAs of 4 warps); the occupancy hints hold them there.  B6's
-// cylinder test skips its side roots when no ray of the warp reaches the
-// side (15% of B6's time, 18% of B5's, which shares CylT).
+// What bounds them.  The one-warp-per-strip design below spends each
+// test waiting on 8-12 dependent global loads, and one warp walks a
+// whole list.  Spread over warps, with rows in shared memory ahead of
+// use, B1 went from 6.8 to 2.9 ms, B6 from 7.8 to 3.6, B2 from 5.9 to
+// 2.7 and B5 from 4.6 to 2.8 on an H100 (700 W).  The launch order took
+// another 20% off B6 and 3-7% off the others; the order kernel takes
+// 0.02 ms alone (torch.argsort 0.07-0.11 ms) and costs B1's smallest
+// launch (0.52 ms) nothing measurable (solr_tpu_torch/sweep_steps.py,
+// PERF.md).  What is left is instruction issue: the counted f32
+// operations are 35-58% of the single-issue ceiling of a --fmad=false
+// build, the rest being the compares, selects and IEEE division and
+// square-root sequences around them.  So each kernel takes the shape
+// (StagedShape: warps per CTA, occupancy hint, lanes per load) that
+// keeps the most warps of it on an SM without spilling:
+//   * B1 8 / 3 / 4 and B6 4 / 4 / 4: 80 and 94 registers;
+//   * B2 8 / 3 / 2: at BLOCK=512 a CTA stages 13 rows of 512 lanes twice
+//     plus 2 KB of occlusion bits, 54 KB, so shared memory holds 4 CTAs
+//     of an SM; 8 warps under the hint's 85 registers give 24 warps
+//     where 4 warps per CTA gave 16 (10% slower).  4 lanes per load
+//     need 88 registers and spill under the hint; 2 lanes take 80;
+//   * B5 4 / 4 / 2: CylT needs 91-94 registers at 4 lanes per load, which
+//     spill under 8 warps / 3 CTAs; 2 lanes take 72, and the SM holds 7
+//     of its 21 KB CTAs.
+// CylT skips its side roots when no ray of the warp reaches the side
+// (15% of B6's time).
 //
-// Warp per strip (closest_kernel, trans_kernel): B2-B5.  One warp per
-// strip, one thread per ray; every thread scans the block's `block`
+// Warp per strip (closest_kernel, trans_kernel): B3 and B4.  One warp
+// per strip, one thread per ray; every thread scans the block's `block`
 // primitives in ascending lane order, reading the rows at warp-uniform
 // addresses through __ldg (one broadcast transaction from L1 each).
-// They move to the staged design one at a time.
+// Each test waits on its dependent loads, and one warp walks a whole
+// list; these two move to the staged design next.
 //
 // In both designs a strip whose list is empty returns at once, which is
 // what makes the parked tiles of later bounces cost nothing.
@@ -85,17 +99,25 @@ constexpr int kStrip = 32;
 constexpr int kWarpsPerBlock = 4;
 constexpr float kTFar = 3.0e38f;
 
-// The staged design's shape: warps per strip (one CTA) and the
-// __launch_bounds__ occupancy hint of each kernel, lanes per shared load
-// in the tests, row buffers in flight, and whether the per-primitive
-// terms are computed while staging.
-constexpr int kClosestWarps = 8;
-constexpr int kClosestMinCtas = 3;
-constexpr int kTransWarps = 4;
-constexpr int kTransMinCtas = 4;
-constexpr int kLaneVec = 4;
+// The staged design's shape.  Per kernel (StagedShape below): warps per
+// strip (one CTA), the __launch_bounds__ occupancy hint, and lanes of a
+// row per shared load in the tests.  For all of them: row buffers (one
+// tested, one in flight), and whether the CTAs take the strips with the
+// longest lists first.
+constexpr int kB1Warps = 8;    // closest_staged<WoopT>
+constexpr int kB1MinCtas = 3;
+constexpr int kB1LaneVec = 4;
+constexpr int kB2Warps = 8;    // trans_staged<WoopT>
+constexpr int kB2MinCtas = 3;
+constexpr int kB2LaneVec = 2;
+constexpr int kB5Warps = 4;    // closest_staged<CylT>
+constexpr int kB5MinCtas = 4;
+constexpr int kB5LaneVec = 2;
+constexpr int kB6Warps = 4;    // trans_staged<CylT>
+constexpr int kB6MinCtas = 4;
+constexpr int kB6LaneVec = 4;
 constexpr int kStages = 2;
-constexpr bool kDeriveOnStage = true;
+constexpr bool kLongestFirst = true;
 constexpr int kMaxSmem = 232448;  // the H100's opt-in shared memory per CTA
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -223,6 +245,30 @@ struct CylT {
   }
 };
 
+// The shape of each staged kernel (closest: kTrans false).
+template <class Prim, bool kTrans>
+struct StagedShape;
+template <>
+struct StagedShape<WoopT, false> {
+  static constexpr int kWarps = kB1Warps, kMinCtas = kB1MinCtas,
+                       kLaneVec = kB1LaneVec;
+};
+template <>
+struct StagedShape<WoopT, true> {
+  static constexpr int kWarps = kB2Warps, kMinCtas = kB2MinCtas,
+                       kLaneVec = kB2LaneVec;
+};
+template <>
+struct StagedShape<CylT, false> {
+  static constexpr int kWarps = kB5Warps, kMinCtas = kB5MinCtas,
+                       kLaneVec = kB5LaneVec;
+};
+template <>
+struct StagedShape<CylT, true> {
+  static constexpr int kWarps = kB6Warps, kMinCtas = kB6MinCtas,
+                       kLaneVec = kB6LaneVec;
+};
+
 // One test with the rows read from device memory (warp per strip).
 template <class Prim>
 __device__ __forceinline__ float test_global(const Ray& r,
@@ -245,7 +291,7 @@ __device__ __forceinline__ Ray load_ray(const float* __restrict__ o,
 }
 
 // ---------------------------------------------------------------------
-// Warp per strip (B2-B5)
+// Warp per strip (B3, B4)
 // ---------------------------------------------------------------------
 
 template <class Prim>
@@ -347,7 +393,7 @@ inline unsigned grid_for(int64_t n_strips) {
 }
 
 // ---------------------------------------------------------------------
-// Staged (B1, B6)
+// Staged (B1, B2, B5, B6)
 // ---------------------------------------------------------------------
 
 __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
@@ -412,7 +458,7 @@ struct Stage {
   // copies are complete (cp.async.wait_group) and visible to it.
   __device__ __forceinline__ static void derive(float* st, int block,
                                                 int stride) {
-    if constexpr (kDeriveOnStage && Prim::kVals > Prim::kRaw) {
+    if constexpr (Prim::kVals > Prim::kRaw) {
       const int unit = (block & 3) == 0 ? 4 : 1;
       for (int l0 = unit * threadIdx.x; l0 < block; l0 += unit * blockDim.x) {
         for (int l = l0; l < l0 + unit && l < block; ++l) {
@@ -436,31 +482,30 @@ struct Stage {
 __host__ __device__ constexpr int round4(int x) { return (x + 3) & ~3; }
 
 // Lanes [lo, hi) of slice `s` of `slices`: contiguous, ascending, cut at
-// multiples of kLaneVec (the last slice ends at BLOCK).
-__device__ __forceinline__ void slice_of(int s, int slices, int block,
-                                         int& lo, int& hi) {
-  const int units = (block + kLaneVec - 1) / kLaneVec;
-  lo = min(block, kLaneVec * (units * s / slices));
-  hi = min(block, kLaneVec * (units * (s + 1) / slices));
+// multiples of `vec` (the last slice ends at BLOCK).
+__device__ __forceinline__ void slice_of(int s, int slices, int vec,
+                                         int block, int& lo, int& hi) {
+  const int units = (block + vec - 1) / vec;
+  lo = min(block, vec * (units * s / slices));
+  hi = min(block, vec * (units * (s + 1) / slices));
 }
 
 // Call f(l, t) for each lane l of [lo, hi) in ascending order, with t
-// the test of ray r against lane l of stage `st`.  kLaneVec lanes of
-// each row per shared load; `lo` is a multiple of kLaneVec.
-template <class Prim, class F>
+// the test of ray r against lane l of stage `st`.  kVec (1, 2 or 4)
+// lanes of each row per shared load; `lo` is a multiple of kVec.
+template <class Prim, int kVec, class F>
 __device__ __forceinline__ void sweep_slice(const Ray& r, const float* st,
                                             int stride, int lo, int hi,
                                             float t_min, F&& f) {
-  for (int l0 = lo; l0 < hi; l0 += kLaneVec) {
-    float v[Prim::kVals][kLaneVec];
+  for (int l0 = lo; l0 < hi; l0 += kVec) {
+    float v[Prim::kVals][kVec];
 #pragma unroll
     for (int i = 0; i < Prim::kVals; ++i) {
-      if (i >= Prim::kRaw && !kDeriveOnStage) break;
       const float* p = st + i * stride + l0;
-      if constexpr (kLaneVec == 4) {
+      if constexpr (kVec == 4) {
         const float4 q = *reinterpret_cast<const float4*>(p);
         v[i][0] = q.x; v[i][1] = q.y; v[i][2] = q.z; v[i][3] = q.w;
-      } else if constexpr (kLaneVec == 2) {
+      } else if constexpr (kVec == 2) {
         const float2 q = *reinterpret_cast<const float2*>(p);
         v[i][0] = q.x; v[i][1] = q.y;
       } else {
@@ -468,11 +513,10 @@ __device__ __forceinline__ void sweep_slice(const Ray& r, const float* st,
       }
     }
 #pragma unroll
-    for (int j = 0; j < kLaneVec; ++j) {
+    for (int j = 0; j < kVec; ++j) {
       float u[Prim::kVals];
 #pragma unroll
       for (int i = 0; i < Prim::kVals; ++i) u[i] = v[i][j];
-      if constexpr (!kDeriveOnStage) Prim::derive(u);
       const int l = l0 + j;
       if (l < hi) f(l, Prim::hit(r, u, t_min));
     }
@@ -503,7 +547,7 @@ struct Pipeline {
   // when there is one.  The CTA barrier between the two is where every
   // warp is done with the previous visit, the other buffer included.
   __device__ __forceinline__ const float* acquire(int k, int next) {
-    if (kStages > 1 && ahead == k) {
+    if (ahead == k) {
       buf ^= 1;
     } else {
       if (ahead >= 0) cp_async_wait<0>();  // drop a skipped prefetch
@@ -514,7 +558,7 @@ struct Pipeline {
     S::derive(stage(buf), block, stride);
     __syncthreads();
     ahead = -1;
-    if (kStages > 1 && next >= 0) {
+    if (next >= 0) {
       S::issue(stage(buf ^ 1), rows(next), block, stride);
       cp_async_commit();
       ahead = next;
@@ -527,22 +571,32 @@ struct Pipeline {
   }
 };
 
+// The strip that CTA blockIdx.x sweeps.
+__device__ __forceinline__ int64_t strip_of(
+    const int32_t* __restrict__ order) {
+  return kLongestFirst ? order[blockIdx.x] : blockIdx.x;
+}
+
 template <class Prim>
-__global__ void __launch_bounds__(kStrip * kClosestWarps, kClosestMinCtas)
+__global__ void __launch_bounds__(kStrip * StagedShape<Prim, false>::kWarps,
+                                  StagedShape<Prim, false>::kMinCtas)
 closest_staged(const float* __restrict__ packed, int block,
                const float* __restrict__ o, const float* __restrict__ d,
                const float* __restrict__ t_cap,
                const uint8_t* __restrict__ live,
                const int32_t* __restrict__ cand,
                const int32_t* __restrict__ counts,
-               const float* __restrict__ nearb, int k_max, float t_min,
+               const float* __restrict__ nearb,
+               const int32_t* __restrict__ order, int k_max, float t_min,
                float* __restrict__ out_t, int32_t* __restrict__ out_idx,
                int32_t* __restrict__ out_visits) {
   using S = Stage<Prim, false>;
+  constexpr int kWarps = StagedShape<Prim, false>::kWarps;
+  constexpr int kVec = StagedShape<Prim, false>::kLaneVec;
   extern __shared__ __align__(16) float smem[];
   const int lane = threadIdx.x & (kStrip - 1);
   const int warp = threadIdx.x >> 5;
-  const int64_t sg = blockIdx.x;
+  const int64_t sg = strip_of(order);
   const int64_t ray = sg * kStrip + lane;
   const int cnt = counts[sg];
   if (cnt <= 0) {
@@ -555,8 +609,8 @@ closest_staged(const float* __restrict__ packed, int block,
   }
   const int stride = round4(block);
   const int64_t stage_floats = S::floats(stride);
-  float* s_t = smem + kStages * stage_floats;  // [kClosestWarps][32]
-  int* s_l = reinterpret_cast<int*>(s_t + kClosestWarps * kStrip);
+  float* s_t = smem + kStages * stage_floats;  // [kWarps][32]
+  int* s_l = reinterpret_cast<int*>(s_t + kWarps * kStrip);
 
   const Ray r = load_ray(o, d, ray);
   const float cap = t_cap[ray];
@@ -569,7 +623,7 @@ closest_staged(const float* __restrict__ packed, int block,
   const int32_t* c = cand + sg * k_max;
   const float* nb = nearb + sg * k_max;
   int lo, hi;
-  slice_of(warp, kClosestWarps, block, lo, hi);
+  slice_of(warp, kWarps, kVec, block, lo, hi);
   Pipeline<S> pipe{smem, stage_floats, packed, c, block, stride};
   int visits = 0;
   int k = 0;
@@ -579,7 +633,8 @@ closest_staged(const float* __restrict__ packed, int block,
     const float* st = pipe.acquire(k, k + 1 < cnt ? k + 1 : -1);
     float c_min = kTFar;
     int c_lane = 0;
-    sweep_slice<Prim>(r, st, stride, lo, hi, t_min, [&](int l, float t) {
+    sweep_slice<Prim, kVec>(r, st, stride, lo, hi, t_min,
+                            [&](int l, float t) {
       if (t < c_min) { c_min = t; c_lane = l; }
     });
     s_t[warp * kStrip + lane] = c_min;
@@ -590,7 +645,7 @@ closest_staged(const float* __restrict__ packed, int block,
     c_min = kTFar;
     c_lane = 0;
 #pragma unroll
-    for (int s = 0; s < kClosestWarps; ++s) {
+    for (int s = 0; s < kWarps; ++s) {
       const float t = s_t[s * kStrip + lane];
       if (t < c_min) { c_min = t; c_lane = s_l[s * kStrip + lane]; }
     }
@@ -609,20 +664,24 @@ closest_staged(const float* __restrict__ packed, int block,
 }
 
 template <class Prim>
-__global__ void __launch_bounds__(kStrip * kTransWarps, kTransMinCtas)
+__global__ void __launch_bounds__(kStrip * StagedShape<Prim, true>::kWarps,
+                                  StagedShape<Prim, true>::kMinCtas)
 trans_staged(const float* __restrict__ packed, int block,
              const float* __restrict__ o, const float* __restrict__ d,
              const float* __restrict__ t_max,
              const uint8_t* __restrict__ live,
              const int32_t* __restrict__ cand,
-             const int32_t* __restrict__ counts, int k_max, float t_min,
+             const int32_t* __restrict__ counts,
+             const int32_t* __restrict__ order, int k_max, float t_min,
              int words, float* __restrict__ out_tr,
              int32_t* __restrict__ out_visits) {
   using S = Stage<Prim, true>;
+  constexpr int kWarps = StagedShape<Prim, true>::kWarps;
+  constexpr int kVec = StagedShape<Prim, true>::kLaneVec;
   extern __shared__ __align__(16) float smem[];
   const int lane = threadIdx.x & (kStrip - 1);
   const int warp = threadIdx.x >> 5;
-  const int64_t sg = blockIdx.x;
+  const int64_t sg = strip_of(order);
   const int64_t ray = sg * kStrip + lane;
   const int cnt = counts[sg];
   if (cnt <= 0) {
@@ -634,7 +693,7 @@ trans_staged(const float* __restrict__ packed, int block,
   }
   const int stride = round4(block);
   const int64_t stage_floats = S::floats(stride);
-  // Occlusion bits [kTransWarps][words][32 rays]: bit b of word j of
+  // Occlusion bits [kWarps][words][32 rays]: bit b of word j of
   // slice s is lane lo_s + 32 j + b.
   uint32_t* s_occ =
       reinterpret_cast<uint32_t*>(smem + kStages * stage_floats);
@@ -648,7 +707,7 @@ trans_staged(const float* __restrict__ packed, int block,
   float lit = warp_max(lv ? 1.0f : 0.0f);
   const int32_t* c = cand + sg * k_max;
   int lo, hi;
-  slice_of(warp, kTransWarps, block, lo, hi);
+  slice_of(warp, kWarps, kVec, block, lo, hi);
   Pipeline<S> pipe{smem, stage_floats, packed, c, block, stride};
   int visits = 0;
   for (int k = 0; k < cnt && lit > 1e-6f; ++k) {
@@ -656,7 +715,8 @@ trans_staged(const float* __restrict__ packed, int block,
     uint32_t* occ = s_occ + warp * words * kStrip + lane;
     uint32_t m = 0;
     int word = 0;
-    sweep_slice<Prim>(r, st, stride, lo, hi, t_min, [&](int l, float t) {
+    sweep_slice<Prim, kVec>(r, st, stride, lo, hi, t_min,
+                            [&](int l, float t) {
       const int b = (l - lo) & 31;
       if (t < tm) m |= 1u << b;
       if (b == 31) { occ[word * kStrip] = m; m = 0; ++word; }
@@ -667,9 +727,9 @@ trans_staged(const float* __restrict__ packed, int block,
     // ascending lane order and keeps the same transmittance and `lit`.
     const float* f = st + S::kFactorRow * stride;
     float p = 1.0f;
-    for (int s = 0; s < kTransWarps; ++s) {
+    for (int s = 0; s < kWarps; ++s) {
       int s_lo, s_hi;
-      slice_of(s, kTransWarps, block, s_lo, s_hi);
+      slice_of(s, kWarps, kVec, block, s_lo, s_hi);
       const int n_words = (s_hi - s_lo + 31) >> 5;
       for (int j = 0; j < n_words; ++j) {
         uint32_t bits = s_occ[(s * words + j) * kStrip + lane];
@@ -691,18 +751,6 @@ trans_staged(const float* __restrict__ packed, int block,
   }
 }
 
-// Dynamic shared memory of a staged launch, in bytes.
-template <class Prim, bool kTrans>
-int64_t staged_smem(int block, int* words) {
-  constexpr int warps = kTrans ? kTransWarps : kClosestWarps;
-  const int units = (block + kLaneVec - 1) / kLaneVec;
-  const int max_slice = kLaneVec * ((units + warps - 1) / warps);
-  *words = (max_slice + 31) / 32;
-  const int64_t scratch = kTrans ? int64_t{*words} * warps * kStrip
-                                 : int64_t{2} * warps * kStrip;
-  return 4 * (kStages * Stage<Prim, kTrans>::floats(round4(block)) + scratch);
-}
-
 template <class K>
 cudaError_t allow_smem(K kernel, int64_t bytes) {
   if (bytes > kMaxSmem) return cudaErrorInvalidValue;
@@ -712,16 +760,114 @@ cudaError_t allow_smem(K kernel, int64_t bytes) {
                               static_cast<int>(bytes));
 }
 
+// The launch order of the staged kernels: `order` = the strips by
+// descending list length, equal lengths in ascending id (a stable sort
+// of `counts`, the plain version being ops/sweep.py longest_first).
+// One CTA.  Warp w takes a contiguous range of the strips, 32 at a time;
+// the lanes of equal length find each other with __match_any_sync.
+// cnt[b * kOrderWarps + w] counts warp w's strips of length b, then
+// holds the position of its next one: the strips of greater length, and
+// of length b in earlier warps, come before it.
+constexpr int kOrderWarps = 32;
+
+__global__ void __launch_bounds__(kStrip * kOrderWarps)
+order_kernel(const int32_t* __restrict__ counts, int64_t n, int k_max,
+             int32_t* __restrict__ order) {
+  extern __shared__ __align__(16) float smem[];
+  int* cnt = reinterpret_cast<int*>(smem);  // [k_max + 1][kOrderWarps]
+  int* total = cnt + (k_max + 1) * kOrderWarps;  // [k_max + 1]
+  const int lane = threadIdx.x & (kStrip - 1);
+  const int warp = threadIdx.x >> 5;
+  const unsigned below = (1u << lane) - 1;
+  for (int i = threadIdx.x; i < (k_max + 1) * kOrderWarps; i += blockDim.x)
+    cnt[i] = 0;
+  __syncthreads();
+  const int64_t per = (n + kOrderWarps - 1) / kOrderWarps;
+  const int64_t lo = warp * per < n ? warp * per : n;
+  const int64_t hi = lo + per < n ? lo + per : n;
+  for (int64_t i = lo + lane; i - lane < hi; i += kStrip) {
+    const int b = i < hi ? max(0, min(counts[i], k_max)) : -1;
+    const unsigned peers = __match_any_sync(0xffffffffu, b);
+    if (b >= 0 && (peers & below) == 0)
+      cnt[b * kOrderWarps + warp] += __popc(peers);
+    __syncwarp();
+  }
+  __syncthreads();
+  for (int b = threadIdx.x; b <= k_max; b += blockDim.x) {
+    int s = 0;
+    for (int w = 0; w < kOrderWarps; ++w) {
+      const int c = cnt[b * kOrderWarps + w];
+      cnt[b * kOrderWarps + w] = s;
+      s += c;
+    }
+    total[b] = s;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int s = 0;
+    for (int b = k_max; b >= 0; --b) {
+      const int c = total[b];
+      total[b] = s;
+      s += c;
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < (k_max + 1) * kOrderWarps; i += blockDim.x)
+    cnt[i] += total[i / kOrderWarps];
+  __syncthreads();
+  for (int64_t i = lo + lane; i - lane < hi; i += kStrip) {
+    const int b = i < hi ? max(0, min(counts[i], k_max)) : -1;
+    const unsigned peers = __match_any_sync(0xffffffffu, b);
+    int* next = cnt + max(b, 0) * kOrderWarps + warp;
+    const int pos = *next + __popc(peers & below);
+    __syncwarp();
+    if (b >= 0) {
+      order[pos] = static_cast<int32_t>(i);
+      if ((peers & below) == 0) *next += __popc(peers);
+    }
+    __syncwarp();
+  }
+}
+
+int64_t order_smem(int k_max) {
+  return 4 * int64_t{k_max + 1} * (kOrderWarps + 1);
+}
+
+cudaError_t launch_order(const int32_t* counts, int64_t n, int k_max,
+                         int32_t* order, cudaStream_t stream) {
+  const int64_t bytes = order_smem(k_max);
+  const cudaError_t err = allow_smem(order_kernel, bytes);
+  if (err != cudaSuccess) return err;
+  order_kernel<<<1, kStrip * kOrderWarps, bytes, stream>>>(counts, n, k_max,
+                                                           order);
+  return cudaSuccess;
+}
+
+// Dynamic shared memory of a staged launch, in bytes.
+template <class Prim, bool kTrans>
+int64_t staged_smem(int block, int* words) {
+  constexpr int warps = StagedShape<Prim, kTrans>::kWarps;
+  constexpr int vec = StagedShape<Prim, kTrans>::kLaneVec;
+  const int units = (block + vec - 1) / vec;
+  const int max_slice = vec * ((units + warps - 1) / warps);
+  *words = (max_slice + 31) / 32;
+  const int64_t scratch = kTrans ? int64_t{*words} * warps * kStrip
+                                 : int64_t{2} * warps * kStrip;
+  return 4 * (kStages * Stage<Prim, kTrans>::floats(round4(block)) + scratch);
+}
+
 // ---------------------------------------------------------------------
-// Launchers
+// Launchers.  A staged launch first writes its launch order into the
+// scratch `order`; the warp-per-strip kernels take the strips in id
+// order and leave it alone.
 // ---------------------------------------------------------------------
 
 template <class Prim>
 cudaError_t launch_closest(const float* packed, int block, const float* o,
                     const float* d, const float* t_cap, const uint8_t* live,
                     const int32_t* cand, const int32_t* counts,
-                    const float* nearb, int64_t n_strips, int k_max,
-                    float t_min, float* out_t, int32_t* out_idx,
+                    const float* nearb, int32_t*, int64_t n_strips,
+                    int k_max, float t_min, float* out_t, int32_t* out_idx,
                     int32_t* out_visits, cudaStream_t stream) {
   closest_kernel<Prim><<<grid_for(n_strips), kStrip * kWarpsPerBlock, 0,
                          stream>>>(packed, block, o, d, t_cap, live, cand,
@@ -733,7 +879,7 @@ cudaError_t launch_closest(const float* packed, int block, const float* o,
 template <class Prim>
 cudaError_t launch_trans(const float* packed, int block, const float* o,
                   const float* d, const float* t_max, const uint8_t* live,
-                  const int32_t* cand, const int32_t* counts,
+                  const int32_t* cand, const int32_t* counts, int32_t*,
                   int64_t n_strips, int k_max, float t_min, float* out_tr,
                   int32_t* out_visits, cudaStream_t stream) {
   trans_kernel<Prim><<<grid_for(n_strips), kStrip * kWarpsPerBlock, 0,
@@ -748,17 +894,20 @@ cudaError_t launch_closest_staged(const float* packed, int block, const float* o
                            const float* d, const float* t_cap,
                            const uint8_t* live, const int32_t* cand,
                            const int32_t* counts, const float* nearb,
-                           int64_t n_strips, int k_max, float t_min,
-                           float* out_t, int32_t* out_idx,
+                           int32_t* order, int64_t n_strips, int k_max,
+                           float t_min, float* out_t, int32_t* out_idx,
                            int32_t* out_visits, cudaStream_t stream) {
+  constexpr int threads = kStrip * StagedShape<Prim, false>::kWarps;
   int words;
   const int64_t bytes = staged_smem<Prim, false>(block, &words);
-  const cudaError_t err = allow_smem(closest_staged<Prim>, bytes);
+  cudaError_t err = allow_smem(closest_staged<Prim>, bytes);
+  if (err == cudaSuccess && kLongestFirst)
+    err = launch_order(counts, n_strips, k_max, order, stream);
   if (err != cudaSuccess) return err;
-  closest_staged<Prim><<<static_cast<unsigned>(n_strips),
-                         kStrip * kClosestWarps, bytes, stream>>>(
-      packed, block, o, d, t_cap, live, cand, counts, nearb, k_max, t_min,
-      out_t, out_idx, out_visits);
+  closest_staged<Prim><<<static_cast<unsigned>(n_strips), threads, bytes,
+                         stream>>>(
+      packed, block, o, d, t_cap, live, cand, counts, nearb, order, k_max,
+      t_min, out_t, out_idx, out_visits);
   return cudaSuccess;
 }
 
@@ -766,17 +915,21 @@ template <class Prim>
 cudaError_t launch_trans_staged(const float* packed, int block, const float* o,
                          const float* d, const float* t_max,
                          const uint8_t* live, const int32_t* cand,
-                         const int32_t* counts, int64_t n_strips, int k_max,
-                         float t_min, float* out_tr, int32_t* out_visits,
+                         const int32_t* counts, int32_t* order,
+                         int64_t n_strips, int k_max, float t_min,
+                         float* out_tr, int32_t* out_visits,
                          cudaStream_t stream) {
+  constexpr int threads = kStrip * StagedShape<Prim, true>::kWarps;
   int words;
   const int64_t bytes = staged_smem<Prim, true>(block, &words);
-  const cudaError_t err = allow_smem(trans_staged<Prim>, bytes);
+  cudaError_t err = allow_smem(trans_staged<Prim>, bytes);
+  if (err == cudaSuccess && kLongestFirst)
+    err = launch_order(counts, n_strips, k_max, order, stream);
   if (err != cudaSuccess) return err;
-  trans_staged<Prim><<<static_cast<unsigned>(n_strips),
-                       kStrip * kTransWarps, bytes, stream>>>(
-      packed, block, o, d, t_max, live, cand, counts, k_max, t_min, words,
-      out_tr, out_visits);
+  trans_staged<Prim><<<static_cast<unsigned>(n_strips), threads, bytes,
+                       stream>>>(
+      packed, block, o, d, t_max, live, cand, counts, order, k_max, t_min,
+      words, out_tr, out_visits);
   return cudaSuccess;
 }
 
@@ -788,25 +941,31 @@ extern "C" {
 // All pointers are device pointers to contiguous arrays:
 //   packed (NB, 16, block) f32; o, d (n_strips * 32, 3) f32; t_cap/t_max,
 //   live (n_strips * 32) f32 / u8; cand, nearb (n_strips, k_max) i32 /
-//   f32; counts (n_strips) i32.  Outputs: out_t/out_tr (n_strips * 32),
-//   out_idx (n_strips * 32) i32, out_visits (n_strips) i32.
-// Returns the cudaError_t of the launch (0 on success), or
+//   f32; counts (n_strips) i32.  Scratch: order (n_strips) i32, where
+//   a staged kernel's entry writes its launch order (solr_sweep_order)
+//   before CTA i sweeps strip order[i]; the warp-per-strip kernels
+//   (solr_sweep_warps() == 0) do not touch it.  Outputs: out_t/out_tr
+//   (n_strips * 32), out_idx (n_strips * 32) i32, out_visits (n_strips)
+//   i32.
+// Returns the cudaError_t of the launches (0 on success), or
 // cudaErrorInvalidValue for an unknown prim or a block whose staged rows
 // do not fit in shared memory (solr_sweep_smem_bytes).
 int solr_sweep_closest(int prim, const float* packed, int block,
                        const float* o, const float* d, const float* t_cap,
                        const uint8_t* live, const int32_t* cand,
                        const int32_t* counts, const float* nearb,
-                       int64_t n_strips, int k_max, float t_min, float* out_t,
-                       int32_t* out_idx, int32_t* out_visits, void* stream) {
+                       int32_t* order, int64_t n_strips, int k_max,
+                       float t_min, float* out_t, int32_t* out_idx,
+                       int32_t* out_visits, void* stream) {
   if (prim < 0 || prim > 2) return static_cast<int>(cudaErrorInvalidValue);
   if (n_strips > 0) {
     auto s = static_cast<cudaStream_t>(stream);
-    auto fn = prim == 0 ? launch_closest_staged<WoopT>
-              : prim == 1 ? launch_closest<SphereT> : launch_closest<CylT>;
+    auto fn = prim == 0   ? launch_closest_staged<WoopT>
+              : prim == 1 ? launch_closest<SphereT>
+                          : launch_closest_staged<CylT>;
     const cudaError_t err =
-        fn(packed, block, o, d, t_cap, live, cand, counts, nearb, n_strips,
-           k_max, t_min, out_t, out_idx, out_visits, s);
+        fn(packed, block, o, d, t_cap, live, cand, counts, nearb, order,
+           n_strips, k_max, t_min, out_t, out_idx, out_visits, s);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return static_cast<int>(cudaGetLastError());
@@ -816,32 +975,64 @@ int solr_sweep_transmittance(int prim, const float* packed, int block,
                              const float* o, const float* d,
                              const float* t_max, const uint8_t* live,
                              const int32_t* cand, const int32_t* counts,
-                             int64_t n_strips, int k_max, float t_min,
-                             float* out_tr, int32_t* out_visits,
-                             void* stream) {
+                             int32_t* order, int64_t n_strips,
+                             int k_max, float t_min, float* out_tr,
+                             int32_t* out_visits, void* stream) {
   if (prim < 0 || prim > 2) return static_cast<int>(cudaErrorInvalidValue);
   if (n_strips > 0) {
     auto s = static_cast<cudaStream_t>(stream);
-    auto fn = prim == 0 ? launch_trans<WoopT>
-              : prim == 1 ? launch_trans<SphereT> : launch_trans_staged<CylT>;
+    auto fn = prim == 0   ? launch_trans_staged<WoopT>
+              : prim == 1 ? launch_trans<SphereT>
+                          : launch_trans_staged<CylT>;
     const cudaError_t err =
-        fn(packed, block, o, d, t_max, live, cand, counts, n_strips, k_max,
-           t_min, out_tr, out_visits, s);
+        fn(packed, block, o, d, t_max, live, cand, counts, order, n_strips,
+           k_max, t_min, out_tr, out_visits, s);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// The dynamic shared memory, in bytes, that a launch of the entry
-// (closest 1: solr_sweep_closest, 0: solr_sweep_transmittance) for prim
-// at this block takes; 0 for the warp-per-strip kernels, -1 for an
+// The staged kernels' launch order into order (n) i32: the strips by
+// descending counts (n) i32, clamped to [0, k_max], equal counts in
+// ascending id.  Returns the cudaError_t of the launch (0 on success),
+// or cudaErrorInvalidValue when k_max is too large for shared memory.
+int solr_sweep_order(const int32_t* counts, int64_t n, int k_max,
+                     int32_t* order, void* stream) {
+  if (n > 0 && k_max >= 0) {
+    auto s = static_cast<cudaStream_t>(stream);
+    const cudaError_t err = launch_order(counts, n, k_max, order, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Warps per CTA of the kernel that the entry (closest 1:
+// solr_sweep_closest, 0: solr_sweep_transmittance) runs for prim: the
+// staged kernel's warps per strip, 0 for a warp-per-strip kernel (one
+// warp per strip, kWarpsPerBlock strips per CTA), -1 for an unknown
+// prim.
+int solr_sweep_warps(int closest, int prim) {
+  if (prim < 0 || prim > 2) return -1;
+  if (prim == 1) return 0;
+  if (closest)
+    return prim == 0 ? StagedShape<WoopT, false>::kWarps
+                     : StagedShape<CylT, false>::kWarps;
+  return prim == 0 ? StagedShape<WoopT, true>::kWarps
+                   : StagedShape<CylT, true>::kWarps;
+}
+
+// The dynamic shared memory, in bytes, that a launch of the entry for
+// prim at this block takes; 0 for the warp-per-strip kernels, -1 for an
 // unknown prim.  Above solr_sweep_smem_limit() the launch is refused.
 int64_t solr_sweep_smem_bytes(int closest, int prim, int block) {
   int words;
   if (prim < 0 || prim > 2 || block <= 0) return -1;
-  if (closest && prim == 0) return staged_smem<WoopT, false>(block, &words);
-  if (!closest && prim == 2) return staged_smem<CylT, true>(block, &words);
-  return 0;
+  if (prim == 1) return 0;
+  if (closest)
+    return prim == 0 ? staged_smem<WoopT, false>(block, &words)
+                     : staged_smem<CylT, false>(block, &words);
+  return prim == 0 ? staged_smem<WoopT, true>(block, &words)
+                   : staged_smem<CylT, true>(block, &words);
 }
 
 int64_t solr_sweep_smem_limit() { return kMaxSmem; }

@@ -1,20 +1,21 @@
 """The sweep kernels at a frame's shapes, outside the frame: the primary
-rays of a frame in tile order, the shadow rays toward the first light
-from their hits, the strip selection that ``render_sample`` would hand
-each kernel, and a CUDA-event timer.  Used by ``chip_smoke.py`` and
-``solr_tpu_torch.sweep_steps``."""
+rays of a frame in tile order, their triangle hits, the shadow rays
+toward the first light from their hits, the strip selection that
+``render_sample`` would hand each kernel, and a CUDA-event timer.  Used
+by ``chip_smoke.py`` and ``solr_tpu_torch.sweep_steps``."""
 
 from __future__ import annotations
 
 import torch
 
-from solr_tpu_torch.constants import PARK_DIR, PARK_POS, RAY_EPS
+from solr_tpu_torch.constants import PARK_DIR, PARK_POS, RAY_EPS, T_FAR
 from solr_tpu_torch.ops import packet as pk
 from solr_tpu_torch.ops.camera import camera_rays
-from solr_tpu_torch.ops.traverse import _scene_box, surface_at
+from solr_tpu_torch.ops.traverse import (POOL_TRIANGLE, Hit, _scene_box,
+                                         surface_at)
 
 __all__ = ["fractional", "primary_tiles", "shadow_rays", "sweep_args",
-           "time_ms"]
+           "time_ms", "triangle_hits"]
 
 
 def primary_tiles(cam, cfg):
@@ -46,6 +47,14 @@ def shadow_rays(scene, o_t, d_t, hit):
     tm = torch.where(surf.valid, dist - RAY_EPS, torch.ones_like(dist))
     so_t, sd_t = so.reshape(o_t.shape), sd.reshape(o_t.shape)
     return so_t, sd_t, tm.reshape(o_t.shape[:2]), so_t[..., 0] < 1e7
+
+
+def triangle_hits(t_t, idx_t):
+    """The Hit of ``sweep_closest``'s per-tile (t, prim idx) over the
+    triangle pool, flattened in tile order; a miss has pool -1."""
+    t, idx = t_t.reshape(-1), idx_t.reshape(-1)
+    return Hit(t=t, pool=torch.where(t < T_FAR * 0.5, POOL_TRIANGLE, -1)
+               .to(torch.int32), idx=idx.clamp(min=0))
 
 
 def fractional(packed, seed: int = 0):

@@ -25,7 +25,8 @@ device of the tensors: CPU tensors go to the plain version, CUDA tensors
 to the hand-written kernels in ``solr_tpu_torch/csrc/sweep.cu``, which
 are built with nvcc at first use and loaded with ctypes.  A build or
 launch failure raises, and so does a BLOCK whose rows do not fit the
-shared memory of the kernel it would run (B1 and B6 stage them there);
+shared memory of the kernel it would run (the triangle and cylinder
+kernels stage them there, and take their strips longest list first);
 nothing falls back to the plain version.  The plain and kernel
 versions agree bit for bit on the same device: the same association in
 every primitive test, no FMA contraction, IEEE sqrt and division, the
@@ -56,9 +57,12 @@ __all__ = [
     "build",
     "compile_library",
     "kernel_name",
+    "kernel_shape",
     "launch_closest",
+    "launch_order",
     "launch_transmittance",
     "load_library",
+    "longest_first",
     "sweep_closest",
     "sweep_closest_plain",
     "sweep_transmittance",
@@ -80,6 +84,9 @@ def kernel_name(entry: str, prim: str) -> str:
 # incremented only where a wrapper launches that kernel.
 LAUNCHES = {kernel_name(e, p): 0 for p in PRIMS
             for e in ("sweep_closest", "sweep_transmittance")}
+
+# Strips per CTA of the warp-per-strip kernels (kWarpsPerBlock in sweep.cu).
+_WARP_STRIPS_PER_CTA = 4
 
 _SRC = Path(__file__).resolve().parents[1] / "csrc" / "sweep.cu"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "solr_tpu_torch"
@@ -231,16 +238,20 @@ def load_library(path):
     vp, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                          ctypes.c_float)
     lib.solr_sweep_closest.argtypes = [
-        i32, vp, i32, vp, vp, vp, vp, vp, vp, vp, i64, i32, f32, vp, vp, vp, vp]
+        i32, vp, i32, vp, vp, vp, vp, vp, vp, vp, vp, i64, i32, f32, vp, vp,
+        vp, vp]
     lib.solr_sweep_closest.restype = i32
     lib.solr_sweep_transmittance.argtypes = [
-        i32, vp, i32, vp, vp, vp, vp, vp, vp, i64, i32, f32, vp, vp, vp]
+        i32, vp, i32, vp, vp, vp, vp, vp, vp, vp, i64, i32, f32, vp, vp, vp]
     lib.solr_sweep_transmittance.restype = i32
-    if hasattr(lib, "solr_sweep_smem_bytes"):
-        lib.solr_sweep_smem_bytes.argtypes = [i32, i32, i32]
-        lib.solr_sweep_smem_bytes.restype = i64
-        lib.solr_sweep_smem_limit.argtypes = []
-        lib.solr_sweep_smem_limit.restype = i64
+    lib.solr_sweep_order.argtypes = [vp, i64, i32, vp, vp]
+    lib.solr_sweep_order.restype = i32
+    lib.solr_sweep_warps.argtypes = [i32, i32]
+    lib.solr_sweep_warps.restype = i32
+    lib.solr_sweep_smem_bytes.argtypes = [i32, i32, i32]
+    lib.solr_sweep_smem_bytes.restype = i64
+    lib.solr_sweep_smem_limit.argtypes = []
+    lib.solr_sweep_smem_limit.restype = i64
     return lib
 
 
@@ -316,15 +327,55 @@ def _check_smem(lib, closest: bool, prim: str, block: int):
                          f"{limit}")
 
 
+def kernel_shape(entry: str, prim: str, block: int, lib=None) -> dict:
+    """The kernel that ``entry`` runs for ``prim`` in ``lib`` (default:
+    the built ``csrc/sweep.cu``): its design, "staged" (one CTA of
+    ``warps_per_cta`` warps per strip) or "warp" (one warp per strip, 4
+    strips per CTA), and the dynamic shared memory it takes at this
+    ``block``, in bytes."""
+    lib = lib or _library()
+    closest, code = int(entry == "sweep_closest"), PRIMS.index(prim)
+    warps = lib.solr_sweep_warps(closest, code)
+    return dict(design="staged" if warps else "warp",
+                warps_per_cta=warps or _WARP_STRIPS_PER_CTA,
+                smem_bytes=lib.solr_sweep_smem_bytes(closest, code, block))
+
+
+def longest_first(counts):
+    """The launch order of the staged kernels, plain version: strip ids
+    (int32) by descending list length, equal lengths in id order (a
+    stable sort), so that the strips that take longest start first.
+    The kernels' entries compute it on the card (:func:`launch_order`)."""
+    return torch.argsort(counts.reshape(-1), descending=True,
+                         stable=True).to(torch.int32)
+
+
+def launch_order(lib, counts, k_max: int):
+    """The order kernel that every staged launch of ``lib`` runs first,
+    alone, on CUDA ``counts`` (S, G) with entries in [0, ``k_max``]:
+    what :func:`longest_first` returns."""
+    counts = _i32(counts)
+    order = torch.empty(counts.numel(), dtype=torch.int32,
+                        device=counts.device)
+    stream = torch.cuda.current_stream(counts.device).cuda_stream
+    _raise_on(lib.solr_sweep_order(_ptr(counts), counts.numel(), k_max,
+                                   _ptr(order), ctypes.c_void_p(stream)),
+              "launch order")
+    return order
+
+
 def launch_closest(lib, packed, o_t, d_t, t_cap, live, cand, counts, nearb,
                    t_min, prim: str = "tri"):
     """One launch of ``lib``'s closest-hit kernel on CUDA tensors checked
-    by the caller.  Returns what :func:`sweep_closest` returns."""
+    by the caller; a staged kernel takes its strips in
+    :func:`longest_first` order.  Returns what :func:`sweep_closest`
+    returns."""
     s, sb = o_t.shape[:2]
     g, k_max = cand.shape[1:]
     ins = (_f32(packed), _f32(o_t), _f32(d_t), _f32(t_cap),
            live.to(torch.uint8).contiguous(), _i32(cand), _i32(counts),
-           _f32(nearb))
+           _f32(nearb), torch.empty(s * g, dtype=torch.int32,
+                                    device=packed.device))
     out_t = torch.empty((s, sb), dtype=torch.float32, device=packed.device)
     out_i = torch.empty((s, sb), dtype=torch.int32, device=packed.device)
     out_v = torch.empty((s, g), dtype=torch.int32, device=packed.device)
@@ -340,11 +391,14 @@ def launch_closest(lib, packed, o_t, d_t, t_cap, live, cand, counts, nearb,
 def launch_transmittance(lib, packed, o_t, d_t, t_max, live, cand, counts,
                          t_min, prim: str = "tri"):
     """One launch of ``lib``'s shadow kernel on CUDA tensors checked by
-    the caller.  Returns what :func:`sweep_transmittance` returns."""
+    the caller; a staged kernel takes its strips in
+    :func:`longest_first` order.  Returns what
+    :func:`sweep_transmittance` returns."""
     s, sb = o_t.shape[:2]
     g, k_max = cand.shape[1:]
     ins = (_f32(packed), _f32(o_t), _f32(d_t), _f32(t_max),
-           live.to(torch.uint8).contiguous(), _i32(cand), _i32(counts))
+           live.to(torch.uint8).contiguous(), _i32(cand), _i32(counts),
+           torch.empty(s * g, dtype=torch.int32, device=packed.device))
     out_tr = torch.empty((s, sb), dtype=torch.float32, device=packed.device)
     out_v = torch.empty((s, g), dtype=torch.int32, device=packed.device)
     stream = torch.cuda.current_stream(packed.device).cuda_stream

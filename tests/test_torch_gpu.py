@@ -2,12 +2,14 @@
 and the bench and molecule frames rendered on the card against the same
 frames on the CPU.
 
-B1 (closest, tri) and B6 (transmittance, cyl) run the staged design,
-which splits a block's lanes over several warps; their cases add a
-BLOCK that is not a multiple of the slices (200), forced ties (each
-block's second half a copy of its first, and every listed block listed
-again at once as a copy), strips with empty and with K-long lists, and
-a BLOCK whose rows do not fit in shared memory.
+B1 and B5 (closest, tri and cyl) and B2 and B6 (transmittance, tri and
+cyl) run the staged design, which splits a block's lanes over several
+warps and launches the strips with the longest lists first (an order
+kernel, held to a stable sort); their cases add a BLOCK that is not a
+multiple of the slices (200), forced ties (each block's second half a
+copy of its first, and every listed block listed again at once as a
+copy), strips with empty and with K-long lists, fractional shadow
+factors, and a BLOCK whose rows do not fit in shared memory.
 
 These need a CUDA card and nvcc; without a card they skip.  The file
 imports neither JAX nor solr_tpu, so it runs where only PyTorch is
@@ -202,7 +204,7 @@ def test_molecule_frame_on_card_matches_cpu(cuda):
 @pytest.fixture(scope="module")
 def odd_block(cuda):
     """The reduced molecule frame built with block=200 (SceneBuilder.build),
-    which 8 and 4 slices of 4 lanes do not divide."""
+    which 8 and 4 slices of 2 or 4 lanes do not divide."""
     scene, cam, cfg = molecule_scene(N_ATOMS, GROUND_RES, width=SIZE,
                                      height=SIZE, block=200, device=cuda)
     o_t, d_t, live = primary_tiles(cam, cfg)
@@ -210,27 +212,36 @@ def odd_block(cuda):
     return scene, o_t, d_t, live
 
 
-def _closest_equal(args):
-    before = sweep.LAUNCHES["sweep_closest"]
-    got = sweep.sweep_closest(*args)
-    assert sweep.LAUNCHES["sweep_closest"] == before + 1
-    want = sweep.sweep_closest_plain(*args)
+def _closest_equal(args, prim="tri"):
+    name = sweep.kernel_name("sweep_closest", prim)
+    before = sweep.LAUNCHES[name]
+    got = sweep.sweep_closest(*args, prim=prim)
+    assert sweep.LAUNCHES[name] == before + 1
+    want = sweep.sweep_closest_plain(*args, prim=prim)
     assert (want[0] < 1e30).any()
     for a, b in zip(got, want):
         assert torch.equal(a, b)
     return want
 
 
-def _trans_equal(args):
-    name = "sweep_transmittance_cyl"
+def _trans_equal(args, prim="cyl"):
+    name = sweep.kernel_name("sweep_transmittance", prim)
     before = sweep.LAUNCHES[name]
-    got = sweep.sweep_transmittance(*args, prim="cyl")
+    got = sweep.sweep_transmittance(*args, prim=prim)
     assert sweep.LAUNCHES[name] == before + 1
-    want = sweep.sweep_transmittance_plain(*args, prim="cyl")
+    want = sweep.sweep_transmittance_plain(*args, prim=prim)
     assert (want[0] < 1.0).any()
     for a, b in zip(got, want):
         assert torch.equal(a, b)
     return want
+
+
+def _fractional(packed, seed):
+    gen = torch.Generator(device=packed.device).manual_seed(seed)
+    packed = packed.clone()
+    packed[:, 15, :] = torch.rand(packed[:, 15, :].shape, generator=gen,
+                                  device=packed.device) * 0.4 + 0.55
+    return packed
 
 
 @pytest.mark.gpu
@@ -284,13 +295,59 @@ def test_staged_transmittance_odd_block(odd_block, factors, ties):
         o_t, d_t, live, accel, 256, 64, RAY_EPS, tm_t=tm)
     packed = accel.packed
     if factors == "fractional":
-        gen = torch.Generator(device=packed.device).manual_seed(3)
-        packed = packed.clone()
-        packed[:, 15, :] = torch.rand(packed[:, 15, :].shape, generator=gen,
-                                      device=packed.device) * 0.4 + 0.55
+        packed = _fractional(packed, 3)
     if ties:
         packed, cand, counts = forced_ties(packed, cand, counts)
     _trans_equal((packed, o_t, d_t, tm, live, cand, counts, RAY_EPS))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("factors", ["scene", "fractional"])
+@pytest.mark.parametrize("block", [200, 512])
+def test_staged_transmittance_tri(cuda, odd_block, block, factors, ties):
+    """B2 on camera rays to t 50: at block=200 over the reduced molecule
+    frame's ground, at the bench's block=512 over its triangle field;
+    with the scene's and with fractional factors; with ``ties``,
+    duplicated triangles inside each block and across listed blocks, an
+    empty list and K-long lists."""
+    if block == 200:
+        scene, o_t, d_t, live = odd_block
+        accel = scene.tri_accel
+    else:
+        accel, o_t, d_t, live, _, _, _, _ = _selection(cuda)
+    assert accel.packed.shape[2] == block
+    tm = torch.full(o_t.shape[:2], 50.0, device=o_t.device)
+    cand, counts, _, _ = pk.strip_interval_select(
+        o_t, d_t, live, accel, 256, 64, RAY_EPS, tm_t=tm)
+    packed = accel.packed
+    if factors == "fractional":
+        packed = _fractional(packed, 5)
+    if ties:
+        packed, cand, counts = forced_ties(packed, cand, counts)
+    _trans_equal((packed, o_t, d_t, tm, live, cand, counts, RAY_EPS), "tri")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ties", [False, True])
+def test_staged_closest_cyl_odd_block(odd_block, ties):
+    """B5 at block=200 on the reduced molecule frame's primary rays; with
+    ``ties``, duplicated cylinders inside each block and across listed
+    blocks, an empty list and K-long lists."""
+    scene, o_t, d_t, live = odd_block
+    accel = scene.cyl_accel
+    assert accel.packed.shape[2] == 200
+    cand, counts, nearb, _ = pk.strip_interval_select(
+        o_t, d_t, live, accel, 256, 64, RAY_EPS)
+    t_cap = pk.ray_box_exit(o_t, d_t, *_scene_box(accel))
+    packed = accel.packed
+    if ties:
+        packed, cand, counts, nearb = forced_ties(packed, cand, counts, nearb)
+    want = _closest_equal((packed, o_t, d_t, t_cap, live, cand, counts,
+                           nearb, RAY_EPS), "cyl")
+    if ties:  # the earlier copy of a block wins every tie
+        hit = want[1] >= 0
+        assert hit.any() and (want[1][hit] < accel.packed.numel() // 16).all()
 
 
 @pytest.mark.gpu
@@ -300,11 +357,33 @@ def test_staged_kernels_reject_blocks_beyond_shared_memory(cuda):
     accel, o_t, d_t, live, t_cap, cand, counts, nearb = _selection(cuda)
     big = torch.zeros((2, 16, 8192), device=cuda)
     before = dict(sweep.LAUNCHES)
-    with pytest.raises(ValueError, match="shared memory"):
-        sweep.sweep_closest(big, o_t, d_t, t_cap, live, cand.clamp(max=1),
-                            counts, nearb, RAY_EPS)
-    with pytest.raises(ValueError, match="shared memory"):
-        sweep.sweep_transmittance(big, o_t, d_t, t_cap, live,
-                                  cand.clamp(max=1), counts, RAY_EPS,
-                                  prim="cyl")
+    for prim in ("tri", "cyl"):  # B1 and B5, B2 and B6
+        with pytest.raises(ValueError, match="shared memory"):
+            sweep.sweep_closest(big, o_t, d_t, t_cap, live,
+                                cand.clamp(max=1), counts, nearb, RAY_EPS,
+                                prim=prim)
+        with pytest.raises(ValueError, match="shared memory"):
+            sweep.sweep_transmittance(big, o_t, d_t, t_cap, live,
+                                      cand.clamp(max=1), counts, RAY_EPS,
+                                      prim=prim)
     assert sweep.LAUNCHES == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("counts", ["selection", "uniform", "one length"])
+def test_launch_order_matches_stable_sort(cuda, counts):
+    """The order kernel that every staged launch runs first, against its
+    plain version (a stable descending sort of the list lengths): on the
+    bench selection's counts, on 8,192 strips of random lengths up to
+    K=64, and on 8,193 strips that all tie."""
+    if counts == "selection":
+        c = _selection(cuda)[6]
+    elif counts == "uniform":
+        gen = torch.Generator(device=cuda).manual_seed(7)
+        c = torch.randint(0, 65, (1024, 8), generator=gen, device=cuda,
+                          dtype=torch.int32)
+    else:
+        c = torch.full((8193,), 64, dtype=torch.int32, device=cuda)
+    got = sweep.launch_order(sweep._library(), c, 64)
+    torch.cuda.synchronize()
+    assert torch.equal(got, sweep.longest_first(c))

@@ -12,10 +12,11 @@ import torch
 from solr_tpu_torch.bench_scene import bench_scene
 from solr_tpu_torch.constants import PARK_THRESHOLD
 from solr_tpu_torch.kernel_shapes import (fractional, primary_tiles,
-                                          shadow_rays, sweep_args)
+                                          shadow_rays, sweep_args,
+                                          triangle_hits)
 from solr_tpu_torch.ops import sweep
-from solr_tpu_torch.ops.traverse import POOL_TRIANGLE, Hit
-from solr_tpu_torch.sweep_steps import STEPS, longest_first, variant_source
+from solr_tpu_torch.ops.traverse import POOL_TRIANGLE
+from solr_tpu_torch.sweep_steps import STEPS, _registers, variant_source
 
 # Several test workers share the cores: keep each one's intra-op pool small.
 torch.set_num_threads(2)
@@ -27,13 +28,13 @@ def _const(src, name):
 
 @pytest.mark.parametrize("step", range(len(STEPS)))
 def test_each_step_sets_its_constants(step):
-    name, consts, side_branch = STEPS[step]
+    name, consts = STEPS[step]
     src = sweep._SRC.read_text()
-    out = variant_source(src, consts, side_branch)
+    out = variant_source(src, consts)
     for key, value in consts.items():
         assert _const(out, key) == str(value)
-    assert ("if (base) {" in out) == side_branch
     assert out.count("constexpr") == src.count("constexpr")
+    assert len(out.splitlines()) == len(src.splitlines())
 
 
 def test_variant_source_rejects_an_unknown_constant():
@@ -42,16 +43,34 @@ def test_variant_source_rejects_an_unknown_constant():
 
 
 def test_longest_first_orders_tiles_by_list_length():
+    """The staged kernels' launch order: strip ids (tile-major) by
+    descending list length, equal lengths in id order."""
     counts = torch.tensor([[1, 0], [5, 5], [0, 0], [3, 4]], dtype=torch.int32)
-    cand = torch.arange(4)[:, None, None].expand(4, 2, 3).contiguous()
-    o = torch.arange(4.0)[:, None, None].expand(4, 64, 3)
-    args = (torch.zeros(1), o, o, o[..., 0], o[..., 0] > -1, cand, counts,
-            1e-4)
-    out = longest_first(args)
-    assert out[0] is args[0] and out[-1] == args[-1]
-    assert out[5][:, 0, 0].tolist() == [1, 3, 0, 2]
-    assert out[6].sum(1).tolist() == [10, 7, 1, 0]
-    assert out[1][:, 0, 0].tolist() == [1.0, 3.0, 0.0, 2.0]
+    order = sweep.longest_first(counts)
+    assert order.dtype == torch.int32
+    assert order.tolist() == [2, 3, 7, 6, 0, 1, 4, 5]
+    assert torch.equal(counts.reshape(-1)[order.long()],
+                       torch.sort(counts.reshape(-1), descending=True).values)
+
+
+def test_registers_read_from_ptxas_output():
+    log = "\n".join([
+        "ptxas info    : Compiling entry function "
+        "'_ZN12_GLOBAL__N_112trans_stagedI5WoopTEEvPKfi' for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN12_GLOBAL__N_112trans",
+        "    0 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads",
+        "ptxas info    : Used 85 registers, used 1 barriers",
+        "ptxas info    : Compiling entry function "
+        "'_ZN12_GLOBAL__N_114closest_kernelI7SphereTEEvPKfi' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 40 registers",
+        "ptxas info    : Compiling entry function "
+        "'_ZN12_GLOBAL__N_112order_kernelEPKilPi' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 24 registers"])
+    assert _registers(log) == {"trans_staged<WoopT>": "85 regs, 8 spill",
+                               "closest_kernel<SphereT>": "40 regs, 0 spill",
+                               "order_kernel": "24 regs, 0 spill"}
 
 
 def test_kernel_inputs_are_the_frames():
@@ -66,9 +85,9 @@ def test_kernel_inputs_are_the_frames():
     assert len(args) == 9 and args[5].shape[:2] == (4, cfg.packet_rays // 32)
     t, idx, visits = sweep.sweep_closest(*args)
     assert (t < 1e30).any() and (visits > 0).any()
-    tf = t.reshape(-1)
-    hit = Hit(t=tf, pool=torch.where(tf < 1e30, POOL_TRIANGLE, -1)
-              .to(torch.int32), idx=idx.reshape(-1).clamp(min=0))
+    hit = triangle_hits(t, idx)
+    assert torch.equal(hit.pool == POOL_TRIANGLE, t.reshape(-1) < 1e30)
+    assert int(hit.idx.min()) >= 0
     so_t, sd_t, tm_t, slive = shadow_rays(scene, o_t, d_t, hit)
     assert torch.equal(slive, t < 1e30)
     assert (so_t[~slive][:, 0] >= PARK_THRESHOLD).all()

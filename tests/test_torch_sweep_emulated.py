@@ -4,12 +4,14 @@ thread, real barriers), against their plain PyTorch versions: t, idx,
 tr and visits bit-equal, as on the card.  The emulation compiles without
 FMA contraction, as nvcc does with --fmad=false, and runs the kernels'
 own control flow: the staged kernels' lane slices and their combine
-(B1, B6) at a BLOCK that 8 and 4 slices of 4 lanes do not divide, with
-forced ties, empty and K-long lists, fractional factors; and the
-warp-per-strip kernel of B5, which shares B6's cylinder test.
+(B1, B2, B5, B6) at a BLOCK that their slices of 2 or 4 lanes do not
+divide, with forced ties, empty and K-long lists, fractional factors,
+and their launch order, the strips with the longest lists first, which
+an order kernel computes.
 
 The card's own runs are tests/test_torch_gpu.py."""
 
+import numpy as np
 import pytest
 import torch
 
@@ -36,10 +38,14 @@ def emulated(tmp_path_factory):
                                              tmp_path_factory.mktemp("emu")))
 
 
-def _run(monkeypatch, lib, launch, args, prim):
+def _no_stream(monkeypatch):
     class Stream:
         cuda_stream = 0
     monkeypatch.setattr(torch.cuda, "current_stream", lambda *a: Stream())
+
+
+def _run(monkeypatch, lib, launch, args, prim):
+    _no_stream(monkeypatch)
     return launch(lib, *args, prim=prim)
 
 
@@ -77,6 +83,37 @@ def test_emulated_closest_tri(emulated, monkeypatch, block, ties):
         assert torch.equal(a, b)
 
 
+def _selection(accel, cam, cfg, closest, t_max=None):
+    """A selection over ``accel`` of the TILES busiest tiles, as the
+    kernels take it: (o_t, d_t, t_cap or t_max, live, cand, counts and,
+    for closest hits, nearb).  Shadow rays run from the camera to
+    ``t_max``."""
+    o_t, d_t, live = _rays(cam, cfg, accel)
+    if closest:
+        cand, counts, nearb, _ = pk.strip_interval_select(
+            o_t, d_t, live, accel, 256, 64, RAY_EPS)
+        t_cap = pk.ray_box_exit(o_t, d_t, *_scene_box(accel))
+        return o_t, d_t, t_cap, live, cand, counts, nearb
+    tm = torch.full(o_t.shape[:2], t_max)
+    cand, counts, _, _ = pk.strip_interval_select(
+        o_t, d_t, live, accel, 256, 64, RAY_EPS, tm_t=tm)
+    return o_t, d_t, tm, live, cand, counts
+
+
+def _trans_equal(monkeypatch, emulated, accel, sel, factors, ties, prim):
+    o_t, d_t, tm, live, cand, counts = sel
+    packed = fractional(accel.packed) if factors == "fractional" \
+        else accel.packed
+    if ties:
+        packed, cand, counts = forced_ties(packed, cand, counts)
+    args = (packed, o_t, d_t, tm, live, cand, counts, RAY_EPS)
+    got = _run(monkeypatch, emulated, sweep.launch_transmittance, args, prim)
+    want = sweep.sweep_transmittance_plain(*args, prim=prim)
+    assert (want[0] < 1.0).any() and (want[0] > 0.0).any()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("block,factors,ties", [
     (64, "scene", True), (64, "fractional", False),
     (200, "scene", False), (200, "fractional", True)])
@@ -86,34 +123,91 @@ def test_emulated_transmittance_cyl(emulated, monkeypatch, block, factors,
     scene, cam, cfg = molecule_scene(400, 16, width=64, height=64,
                                      block=block, device="cpu")
     accel = scene.cyl_accel
-    o_t, d_t, live = _rays(cam, cfg, accel)
-    tm = torch.full(o_t.shape[:2], 8.0)
-    cand, counts, _, _ = pk.strip_interval_select(
-        o_t, d_t, live, accel, 256, 64, RAY_EPS, tm_t=tm)
-    packed = fractional(accel.packed) if factors == "fractional" \
-        else accel.packed
-    if ties:
-        packed, cand, counts = forced_ties(packed, cand, counts)
-    args = (packed, o_t, d_t, tm, live, cand, counts, RAY_EPS)
-    got = _run(monkeypatch, emulated, sweep.launch_transmittance, args, "cyl")
-    want = sweep.sweep_transmittance_plain(*args, prim="cyl")
-    assert (want[0] < 1.0).any()
-    for a, b in zip(got, want):
-        assert torch.equal(a, b)
+    _trans_equal(monkeypatch, emulated, accel,
+                 _selection(accel, cam, cfg, False, 8.0), factors, ties,
+                 "cyl")
 
 
-def test_emulated_closest_cyl(emulated, monkeypatch):
-    """B5 (closest_kernel, one warp per strip) on the same cylinders."""
-    scene, cam, cfg = molecule_scene(400, 16, width=64, height=64, block=64,
-                                     device="cpu")
+@pytest.mark.parametrize("block,factors,ties", [
+    (64, "scene", True), (64, "fractional", False),
+    (200, "scene", False), (200, "fractional", True)])
+def test_emulated_transmittance_tri(emulated, monkeypatch, block, factors,
+                                    ties):
+    """B2 (trans_staged on Woop rows) on a triangle field."""
+    scene, cam, cfg = bench_scene(4_000, block=block, width=64, height=64,
+                                  device="cpu")
+    accel = scene.tri_accel
+    _trans_equal(monkeypatch, emulated, accel,
+                 _selection(accel, cam, cfg, False, 50.0), factors, ties,
+                 "tri")
+
+
+@pytest.mark.parametrize("block,ties", [(64, False), (64, True),
+                                        (200, False), (200, True)])
+def test_emulated_closest_cyl(emulated, monkeypatch, block, ties):
+    """B5 (closest_staged on cylinders) on a small molecule's cylinders;
+    the forced ties' lists are longest in tile 1 and empty for strip 0,
+    so the launch order is not the strips' id order."""
+    scene, cam, cfg = molecule_scene(400, 16, width=64, height=64,
+                                     block=block, device="cpu")
     accel = scene.cyl_accel
-    o_t, d_t, live = _rays(cam, cfg, accel)
-    cand, counts, nearb, _ = pk.strip_interval_select(
-        o_t, d_t, live, accel, 256, 64, RAY_EPS)
-    t_cap = pk.ray_box_exit(o_t, d_t, *_scene_box(accel))
-    args = (accel.packed, o_t, d_t, t_cap, live, cand, counts, nearb, RAY_EPS)
+    o_t, d_t, t_cap, live, cand, counts, nearb = _selection(
+        accel, cam, cfg, True)
+    packed = accel.packed
+    if ties:
+        packed, cand, counts, nearb = forced_ties(packed, cand, counts, nearb)
+        order = sweep.longest_first(counts)
+        assert not torch.equal(order, torch.sort(order).values)
+    args = (packed, o_t, d_t, t_cap, live, cand, counts, nearb, RAY_EPS)
     got = _run(monkeypatch, emulated, sweep.launch_closest, args, "cyl")
     want = sweep.sweep_closest_plain(*args, prim="cyl")
-    assert (want[0] < 1e30).any()
+    assert (want[0] < 1e30).sum() > 100 and int(want[2].sum()) > 0
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+    if ties:  # the earlier copy of a block wins every tie
+        hit = want[1] >= 0
+        assert hit.any() and (want[1][hit] < accel.packed.numel() // 16).all()
+
+
+@pytest.mark.parametrize("n,k_max", [(16, 64), (1000, 64), (2077, 5)])
+def test_emulated_launch_order(emulated, monkeypatch, n, k_max):
+    """The order kernel, which every staged launch runs first, against
+    its plain version (a stable descending sort): random lengths with a
+    run of empty lists and a run of full ones, over warp ranges that 32
+    does not divide; a k_max whose counters exceed shared memory
+    raises."""
+    gen = np.random.default_rng(n)
+    counts = torch.from_numpy(
+        gen.integers(0, k_max + 1, size=n).astype(np.int32))
+    counts[n // 5: n // 3] = 0
+    counts[n // 2: n // 2 + 40] = k_max
+    counts = counts.reshape(-1, 8) if n % 8 == 0 else counts
+    _no_stream(monkeypatch)
+    got = sweep.launch_order(emulated, counts, k_max)
+    assert torch.equal(got, sweep.longest_first(counts))
+    with pytest.raises(RuntimeError, match="launch order"):
+        sweep.launch_order(emulated, counts, 4000)
+
+
+def test_emulated_kernel_shapes(emulated):
+    """The triangle and cylinder entries run the staged kernels, the
+    sphere entries one warp per strip; the staged rows of every BLOCK
+    the frames use fit the card's shared memory per CTA, and B2's at the
+    bench's BLOCK=512, the largest of them, leave room for 4 CTAs in an
+    SM's 228 KB (1 KB reserved per CTA)."""
+    limit = emulated.solr_sweep_smem_limit()
+    for entry in ("sweep_closest", "sweep_transmittance"):
+        for prim in sweep.PRIMS:
+            for block in (64, 200, 256, 512):
+                shape = sweep.kernel_shape(entry, prim, block, emulated)
+                if prim == "sphere":
+                    assert shape == dict(design="warp", warps_per_cta=4,
+                                         smem_bytes=0)
+                    continue
+                assert shape["design"] == "staged"
+                assert 0 < shape["smem_bytes"] <= limit
+    b2 = sweep.kernel_shape("sweep_transmittance", "tri", 512, emulated)
+    assert b2["smem_bytes"] == 2 * 13 * 512 * 4 + 2048
+    assert 4 * (b2["smem_bytes"] + 1024) <= 228 * 1024
+    big = sweep.kernel_shape("sweep_transmittance", "tri", 8192, emulated)
+    assert big["smem_bytes"] > limit

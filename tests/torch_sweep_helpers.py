@@ -3,9 +3,9 @@ emulation of the CUDA kernels in solr_tpu_torch/csrc/sweep.cu.
 
 The emulation compiles sweep.cu with the host's C++ compiler against a
 stand-in for the CUDA runtime: one std::thread per CUDA thread, the
-CTAs of a launch one after another, __syncthreads and warp shuffles as
-real barriers, cp.async as a plain copy, and shared memory filled with
-NaN before each CTA.  It runs the kernels' own control flow (which
+CTAs of a launch one after another, __syncthreads, __syncwarp and the
+warp shuffles and matches as real barriers, cp.async as a plain copy,
+and shared memory filled with NaN before each CTA.  It runs the kernels' own control flow (which
 thread owns which lanes, the barriers, the slice combine, the early-out
 and stop rules) on CPU tensors through the same C entry points, so the
 tests can hold it to the plain PyTorch versions bit for bit.  It says
@@ -52,9 +52,11 @@ typedef int cudaError_t;
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1,
        cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+using std::max;
 using std::min;
 inline float __ldg(const float* p) { return *p; }
 inline int __ffs(unsigned x) { return __builtin_ffs(x); }
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
 template <class T> cudaError_t cudaFuncSetAttribute(T, int, int) { return 0; }
 inline cudaError_t cudaGetLastError() { return 0; }
 
@@ -79,8 +81,10 @@ struct EmuBarrier {
 inline EmuBarrier* emu_cta;
 inline std::vector<EmuBarrier*> emu_warps;
 inline float emu_lanes[32][32];
+inline int emu_keys[32][32];
 inline float* emu_smem;
 inline void __syncthreads() { emu_cta->wait(); }
+inline void __syncwarp() { emu_warps[threadIdx.x / 32]->wait(); }
 inline float __shfl_xor_sync(unsigned, float v, int off) {
   const int w = threadIdx.x / 32, l = threadIdx.x % 32;
   emu_lanes[w][l] = v;
@@ -88,6 +92,15 @@ inline float __shfl_xor_sync(unsigned, float v, int off) {
   const float r = emu_lanes[w][l ^ off];
   emu_warps[w]->wait();
   return r;
+}
+inline unsigned __match_any_sync(unsigned, int v) {
+  const int w = threadIdx.x / 32, l = threadIdx.x % 32;
+  emu_keys[w][l] = v;
+  emu_warps[w]->wait();
+  unsigned peers = 0;
+  for (int j = 0; j < 32; ++j) peers |= (emu_keys[w][j] == v ? 1u : 0u) << j;
+  emu_warps[w]->wait();
+  return peers;
 }
 inline void emu_launch(unsigned grid, unsigned block, int64_t smem,
                        const std::function<void()>& body) {
