@@ -30,8 +30,8 @@ from solr_tpu_torch/csrc/ on first use.  Phases, each of which must pass:
    and B2's second shapes on the main paths), and B4 and B6
    sweep_transmittance at its shadow selection (B2, B4 and B6 with the
    scene's factors and fractional ones), against their plain versions:
-   bit-equal, times reported (in phases 3 and 6, each staged kernel's
-   launch order is held to its plain version, a stable sort);
+   bit-equal, times reported (in phases 3 and 6, each kernel's launch
+   order is held to its plain version, a stable sort);
 7. ``molecule_path``: render_sample of the full molecule frame (a
    100,000-atom synthetic PDB in ball-and-stick mode over a
    32,768-triangle reflective ground, 512x512, 2 bounces, BLOCK=256),
@@ -50,9 +50,11 @@ read just after.  Prints the full record of the run on one line
 ("record: {...}"), the kernel table as one JSON line (each kernel's
 time, its plain version's, its bound: the larger of the bytes its
 inputs and outputs take over 3.35 TB/s and the f32 operations its
-visited (ray, primitive) tests take over 67 TFLOP/s, its ceiling: those
-operations at 33.5e12 single-issue instructions/s, its tests/s, and its
-design: "staged" or "warp" per strip, with its warps per CTA),
+visited (ray, primitive) tests take over 67 TFLOP/s, a sphere's or a
+cylinder's roots counted only in the pairs of this run that reach
+them; its ceiling: those operations at 33.5e12 single-issue
+instructions/s, its tests/s, and its design, "staged" for all six,
+with its warps per CTA),
 the nvidia-smi line, and last {"ok": true, "device": {...}}.  Exits
 non-zero, without that line, when any phase fails or no card is
 visible.
@@ -88,10 +90,17 @@ MOL_BLOCK = 256
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 F32_SINGLE_ISSUE_PER_S = 33.5e12
-# f32 adds, subtracts, multiplies, divides and square roots of one
-# (ray, primitive) test, counted from the functors of
-# solr_tpu_torch/csrc/sweep.cu (WoopT, SphereT, CylT).
-OPS_PER_TEST = {"tri": 40, "sphere": 20, "cyl": 88}
+# f32 adds, subtracts, multiplies, divides and square roots, counted
+# from the functors of solr_tpu_torch/csrc/sweep.cu (WoopT, SphereT,
+# CylT; a negated operand is no operation of its own): those of every
+# (ray, primitive) test; those of the roots, only in a pair that
+# reaches them (_reaches_roots): SphereT's square root and two roots,
+# CylT's square root, two side roots and their two axial positions; and
+# CylT's per-primitive terms 1/max(h2, 1e-8) and r*r, once per lane of
+# a visited block.
+OPS_PER_TEST = {"tri": 40, "sphere": 17, "cyl": 75}
+OPS_PER_ROOT_PAIR = {"tri": 0, "sphere": 3, "cyl": 9}
+OPS_PER_LANE = {"tri": 0, "sphere": 0, "cyl": 2}
 REPLACES = {"sweep_closest": "solr_tpu/ops/pallas_kernels.py:175",
             "sweep_transmittance": "solr_tpu/ops/pallas_kernels.py:255"}
 BODY = {"tri": "_woop_rows :108", "sphere": "_sphere_rows :136",
@@ -107,17 +116,73 @@ def _nvidia_smi() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def _bound_ms(prim, args, outs, visits, block):
+def _reaches_roots(prim, o, d, w):
+    """The (ray, primitive) pairs of one block test, broadcast as
+    packet.PRIM_T, that need their roots: a sphere's where disc > 0 and
+    r > 0, a cylinder's side roots where disc > 0, a > 1e-8 and r > 0
+    (packet._sphere_t and packet.cyl_core, in their association)."""
+    import torch
+
+    from solr_tpu_torch.constants import INTERSECT_EPS
+
+    oc = [o[..., i, None] - w[..., None, i, :] for i in range(3)]
+    dd = [d[..., i, None] for i in range(3)]
+    rad = w[..., None, 3, :]
+
+    def dot(u, v):
+        return u[0] * v[0] + u[1] * v[1] + u[2] * v[2]
+
+    if prim == "sphere":
+        b = dot(oc, dd)
+        disc = b * b - (dot(oc, oc) - rad * rad)
+        return (disc > 0.0) & (rad > 0.0)
+    ax = [w[..., None, i, :] for i in range(4, 7)]
+    inv_h2 = 1.0 / torch.clamp(w[..., None, 7, :], min=INTERSECT_EPS)
+    d_a, oc_a = dot(dd, ax), dot(oc, ax)
+    a = 1.0 - d_a * d_a * inv_h2
+    b = dot(oc, dd) - d_a * oc_a * inv_h2
+    cq = dot(oc, oc) - oc_a * oc_a * inv_h2 - rad * rad
+    disc = b * b - torch.clamp(a, min=INTERSECT_EPS) * cq
+    return (disc > 0.0) & (a > INTERSECT_EPS) & (rad > 0.0)
+
+
+def _plain_with_root_pairs(plain, args, prim):
+    """The plain version's outputs on ``args``, and how many of its
+    (ray, primitive) tests reach their roots (0 for triangles), counted
+    by wrapping its block test: the plain version tests just the blocks
+    that the kernel visits."""
+    from solr_tpu_torch.ops import packet
+
+    if prim == "tri":
+        return plain(*args, prim=prim), 0
+    test, pairs = packet.PRIM_T[prim], []
+
+    def counting(o, d, w, t_min):
+        pairs.append(int(_reaches_roots(prim, o, d, w).sum()))
+        return test(o, d, w, t_min)
+
+    packet.PRIM_T[prim] = counting
+    try:
+        out = plain(*args, prim=prim)
+    finally:
+        packet.PRIM_T[prim] = test
+    return out, sum(pairs)
+
+
+def _bound_ms(prim, args, outs, visits, block, root_pairs):
     """(bound ms, "bytes" or "operations", ceiling ms) of one sweep call:
     each input and output tensor counted once against the card's memory
-    rate, and the visited strips' tests (visits x 32 rays x block
-    primitives x OPS_PER_TEST) against its f32 rate; the ceiling is
-    those ops at the single-issue rate of a --fmad=false build."""
+    rate, and the operations of the visited strips' tests (visits x 32
+    rays x block primitives x OPS_PER_TEST, OPS_PER_ROOT_PAIR for each
+    of the ``root_pairs`` that reach their roots, OPS_PER_LANE for each
+    visited block's lanes) against its f32 rate; the ceiling is those
+    ops at the single-issue rate of a --fmad=false build."""
     import torch
 
     tensors = [x for x in args + outs if isinstance(x, torch.Tensor)]
     nbytes = sum(x.numel() * x.element_size() for x in tensors)
-    ops = int(visits) * 32 * block * OPS_PER_TEST[prim]
+    ops = (int(visits) * block * (32 * OPS_PER_TEST[prim] + OPS_PER_LANE[prim])
+           + int(root_pairs) * OPS_PER_ROOT_PAIR[prim])
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes > t_ops else "operations",
@@ -126,8 +191,8 @@ def _bound_ms(prim, args, outs, visits, block):
 
 def _check_kernel(rec, entry, prim, args, label=None, timed=True):
     """One kernel against its plain version on the same inputs: outputs
-    bit-equal, and for a staged kernel the launch order its entry
-    computes first (the order kernel) equal to ``longest_first``; times
+    bit-equal, and the launch order its entry computes first (the order
+    kernel) equal to ``longest_first``; times
     (the order kernel's included), bound and ceiling when ``timed``.
     ``label`` names the factors or the shapes where one kernel is
     checked twice."""
@@ -139,14 +204,13 @@ def _check_kernel(rec, entry, prim, args, label=None, timed=True):
     kernel = getattr(sweep, entry)
     plain = getattr(sweep, entry + "_plain")
     got = kernel(*args, prim=prim)
-    want = plain(*args, prim=prim)
+    want, root_pairs = _plain_with_root_pairs(plain, args, prim)
     shape = sweep.kernel_shape(entry, prim, args[0].shape[2])
     equal = all(torch.equal(a, b) for a, b in zip(got, want))
-    if shape["design"] == "staged":  # its launch order, on the same counts
-        counts = args[6]
-        equal &= torch.equal(
-            sweep.launch_order(sweep._library(), counts, args[5].shape[2]),
-            sweep.longest_first(counts))
+    counts = args[6]  # its launch order, on the same counts
+    equal &= torch.equal(
+        sweep.launch_order(sweep._library(), counts, args[5].shape[2]),
+        sweep.longest_first(counts))
     torch.cuda.synchronize()
     visits = int(got[-1].sum())
     entry_rec = dict(
@@ -155,7 +219,7 @@ def _check_kernel(rec, entry, prim, args, label=None, timed=True):
         max_abs_err=float((got[0] - want[0]).abs().max()),
         strips=int(args[6].numel()),
         mean_strip_list=float(args[6].float().mean()), visits=visits,
-        tests=visits * 32 * args[0].shape[2])
+        tests=visits * 32 * args[0].shape[2], root_pairs=root_pairs)
     if entry == "sweep_closest":
         entry_rec["hits"] = int((got[0] < 1e30).sum())
     else:
@@ -167,7 +231,8 @@ def _check_kernel(rec, entry, prim, args, label=None, timed=True):
         entry_rec["plain_ms"] = time_ms(lambda: plain(*args, prim=prim), 1)
         (entry_rec["bound_ms"], entry_rec["bound_by"],
          entry_rec["ceiling_ms"]) = _bound_ms(
-            prim, list(args), list(got), visits, args[0].shape[2])
+            prim, list(args), list(got), visits, args[0].shape[2],
+            root_pairs)
         entry_rec["tests_per_s"] = entry_rec["tests"] / entry_rec["ms"] * 1e3
     rec["kernels"].append(entry_rec)
     return got

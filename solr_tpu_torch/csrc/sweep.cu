@@ -11,16 +11,14 @@
 //   prim 2 = cyl    (B5, B6) <- _cyl_rows    (:158) -> packet.cyl_core,
 //                                                     functor CylT
 // They compute what those compute; they are not the Pallas grid carried
-// over.  Two designs share the functors:
-//
-// Staged (closest_staged, trans_staged): B1 and B5 (closest; tri, cyl),
-// B2 and B6 (transmittance; tri, cyl).  One CTA per 32-ray strip.  Every
-// warp holds the strip's 32 rays, one per thread, and tests them against
-// its own contiguous, ascending slice of the block's lanes.  Each
-// visited block's rows are copied into shared memory with 16-byte
-// cp.async (4-byte when BLOCK is not a multiple of 4), double-buffered:
-// the next listed block's rows arrive while the current one is tested.
-// The thread that copied a lane's rows also computes that lane's
+// over.  One design, staged (closest_staged, trans_staged), runs all six
+// on the functors.  One CTA per 32-ray strip.  Every warp holds the
+// strip's 32 rays, one per thread, and tests them against its own
+// contiguous, ascending slice of the block's lanes.  Each visited
+// block's rows are copied into shared memory with 16-byte cp.async
+// (4-byte when BLOCK is not a multiple of 4), double-buffered: the next
+// listed block's rows arrive while the current one is tested.  The
+// thread that copied a lane's rows also computes that lane's
 // per-primitive terms (CylT: 1/max(h2, 1e-8) and r*r) once, beside
 // them.  The tests read 2 or 4 lanes of a row per shared load, a
 // broadcast to the warp.
@@ -34,14 +32,16 @@
 //     (__ffs), the serial product, and keeps the same `lit` bound.
 // `done` and `lit` are uniform over the CTA and change between blocks
 // only; two CTA barriers per visited block.  A prefetched block that the
-// early-out then skips is read and dropped.  A staged launch runs
-// order_kernel first, a stable sort of the strips by descending list
-// length, and CTA i sweeps strip order[i]: the strips with the longest
-// lists start first instead of setting the end of the launch alone.
+// early-out then skips is read and dropped.  A launch runs order_kernel
+// first, a stable sort of the strips by descending list length, and CTA
+// i sweeps strip order[i]: the strips with the longest lists start
+// first instead of setting the end of the launch alone.  A strip whose
+// list is empty returns at once, which is what makes the parked tiles
+// of later bounces cost nothing.
 //
-// What bounds them.  The one-warp-per-strip design below spends each
-// test waiting on 8-12 dependent global loads, and one warp walks a
-// whole list.  Spread over warps, with rows in shared memory ahead of
+// What bounds them.  One warp per strip, the port's first design, spent
+// each test waiting on 4-12 dependent global loads, and one warp walked
+// a whole list.  Spread over warps, with rows in shared memory ahead of
 // use, B1 went from 6.8 to 2.9 ms, B6 from 7.8 to 3.6, B2 from 5.9 to
 // 2.7 and B5 from 4.6 to 2.8 on an H100 (700 W).  The launch order took
 // another 20% off B6 and 3-7% off the others; the order kernel takes
@@ -61,19 +61,17 @@
 //     need 88 registers and spill under the hint; 2 lanes take 80;
 //   * B5 4 / 4 / 2: CylT needs 91-94 registers at 4 lanes per load, which
 //     spill under 8 warps / 3 CTAs; 2 lanes take 72, and the SM holds 7
-//     of its 21 KB CTAs.
+//     of its 21 KB CTAs;
+//   * B3 4 / 4 / 4 and B4 4 / 6 / 4: SphereT's 4 rows (5 with the
+//     factor) take 4-5 KB a stage at BLOCK=256, so registers set the
+//     shape: 56 at 4 lanes per load, 9 CTAs of 4 warps per SM.  8 warps
+//     per CTA took 6-12% longer, 2 lanes per load 7-9%, and 8 warps
+//     under a hint of 6 or 8 CTAs mostly spill.
 // CylT skips its side roots when no ray of the warp reaches the side
-// (15% of B6's time).
-//
-// Warp per strip (closest_kernel, trans_kernel): B3 and B4.  One warp
-// per strip, one thread per ray; every thread scans the block's `block`
-// primitives in ascending lane order, reading the rows at warp-uniform
-// addresses through __ldg (one broadcast transaction from L1 each).
-// Each test waits on its dependent loads, and one warp walks a whole
-// list; these two move to the staged design next.
-//
-// In both designs a strip whose list is empty returns at once, which is
-// what makes the parked tiles of later bounces cost nothing.
+// (15% of B6's time), and SphereT its square root and roots when no ray
+// of the warp meets the sphere (29-30% of B3's time, 20-25% of B4's;
+// about 0.1% of the (ray, sphere) pairs of the molecule frame need
+// them).
 //
 // Exactness with the plain PyTorch versions (ops/packet.py PRIM_T):
 //   * build with --fmad=false and without fast math: every chain keeps
@@ -96,7 +94,6 @@
 namespace {
 
 constexpr int kStrip = 32;
-constexpr int kWarpsPerBlock = 4;
 constexpr float kTFar = 3.0e38f;
 
 // The staged design's shape.  Per kernel (StagedShape below): warps per
@@ -116,6 +113,12 @@ constexpr int kB5LaneVec = 2;
 constexpr int kB6Warps = 4;    // trans_staged<CylT>
 constexpr int kB6MinCtas = 4;
 constexpr int kB6LaneVec = 4;
+constexpr int kB3Warps = 4;    // closest_staged<SphereT>
+constexpr int kB3MinCtas = 4;
+constexpr int kB3LaneVec = 4;
+constexpr int kB4Warps = 4;    // trans_staged<SphereT>
+constexpr int kB4MinCtas = 6;
+constexpr int kB4LaneVec = 4;
 constexpr int kStages = 2;
 constexpr bool kLongestFirst = true;
 constexpr int kMaxSmem = 232448;  // the H100's opt-in shared memory per CTA
@@ -179,11 +182,15 @@ struct SphereT {
     const float c0 = ((ocx * ocx + ocy * ocy) + ocz * ocz) - rad * rad;
     const float disc = b * b - c0;
     const bool valid = (disc > 0.0f) && (rad > 0.0f);
-    const float sq = sqrtf(valid ? disc : 1.0f);
-    const float lo = -b - sq, hi = -b + sq;
-    const float t1 = (valid && lo > t_min) ? lo : kTFar;
-    const float t2 = (valid && hi > t_min) ? hi : kTFar;
-    return fminf(t1, t2);
+    // Without `valid` both roots are kTFar: the square root runs only
+    // when a thread of the warp needs it.
+    float t = kTFar;
+    if (valid) {
+      const float sq = sqrtf(disc);
+      const float lo = -b - sq, hi = -b + sq;
+      t = fminf(lo > t_min ? lo : kTFar, hi > t_min ? hi : kTFar);
+    }
+    return t;
   }
 };
 
@@ -268,18 +275,16 @@ struct StagedShape<CylT, true> {
   static constexpr int kWarps = kB6Warps, kMinCtas = kB6MinCtas,
                        kLaneVec = kB6LaneVec;
 };
-
-// One test with the rows read from device memory (warp per strip).
-template <class Prim>
-__device__ __forceinline__ float test_global(const Ray& r,
-                                             const float* __restrict__ w,
-                                             int block, int l, float t_min) {
-  float v[Prim::kVals];
-#pragma unroll
-  for (int i = 0; i < Prim::kRaw; ++i) v[i] = __ldg(w + i * block + l);
-  Prim::derive(v);
-  return Prim::hit(r, v, t_min);
-}
+template <>
+struct StagedShape<SphereT, false> {
+  static constexpr int kWarps = kB3Warps, kMinCtas = kB3MinCtas,
+                       kLaneVec = kB3LaneVec;
+};
+template <>
+struct StagedShape<SphereT, true> {
+  static constexpr int kWarps = kB4Warps, kMinCtas = kB4MinCtas,
+                       kLaneVec = kB4LaneVec;
+};
 
 __device__ __forceinline__ Ray load_ray(const float* __restrict__ o,
                                         const float* __restrict__ d,
@@ -291,109 +296,7 @@ __device__ __forceinline__ Ray load_ray(const float* __restrict__ o,
 }
 
 // ---------------------------------------------------------------------
-// Warp per strip (B3, B4)
-// ---------------------------------------------------------------------
-
-template <class Prim>
-__global__ void __launch_bounds__(kStrip * kWarpsPerBlock)
-closest_kernel(const float* __restrict__ packed, int block,
-               const float* __restrict__ o, const float* __restrict__ d,
-               const float* __restrict__ t_cap,
-               const uint8_t* __restrict__ live,
-               const int32_t* __restrict__ cand,
-               const int32_t* __restrict__ counts,
-               const float* __restrict__ nearb, int64_t n_strips, int k_max,
-               float t_min, float* __restrict__ out_t,
-               int32_t* __restrict__ out_idx,
-               int32_t* __restrict__ out_visits) {
-  const int lane = threadIdx.x & (kStrip - 1);
-  const int64_t sg =
-      static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (sg >= n_strips) return;  // whole warps only
-  const int64_t ray = sg * kStrip + lane;
-  const int cnt = counts[sg];
-  float best_t = kTFar;
-  int32_t best_i = -1;
-  int visits = 0;
-  if (cnt > 0) {
-    const Ray r = load_ray(o, d, ray);
-    const float cap = t_cap[ray];
-    const bool lv = live[ray] != 0;
-    // Early-out bound: max over the strip's live rays of
-    // min(best_t, box exit); a strip with no live ray gets 0.
-    float done = warp_max(lv ? cap : 0.0f);
-    const int32_t* c = cand + sg * k_max;
-    const float* nb = nearb + sg * k_max;
-    for (int k = 0; k < cnt; ++k) {
-      if (!(nb[k] < done)) continue;  // warp-uniform
-      const int32_t blk = c[k];
-      const float* w = packed + static_cast<int64_t>(blk) * 16 * block;
-      float c_min = kTFar;
-      int c_lane = 0;
-      for (int l = 0; l < block; ++l) {
-        const float t = test_global<Prim>(r, w, block, l, t_min);
-        if (t < c_min) { c_min = t; c_lane = l; }
-      }
-      if (c_min < best_t) { best_t = c_min; best_i = blk * block + c_lane; }
-      done = warp_max(lv ? fminf(best_t, cap) : 0.0f);
-      ++visits;
-    }
-  }
-  out_t[ray] = best_t;
-  out_idx[ray] = best_i;
-  if (lane == 0) out_visits[sg] = visits;
-}
-
-template <class Prim>
-__global__ void __launch_bounds__(kStrip * kWarpsPerBlock)
-trans_kernel(const float* __restrict__ packed, int block,
-             const float* __restrict__ o, const float* __restrict__ d,
-             const float* __restrict__ t_max,
-             const uint8_t* __restrict__ live,
-             const int32_t* __restrict__ cand,
-             const int32_t* __restrict__ counts, int64_t n_strips, int k_max,
-             float t_min, float* __restrict__ out_tr,
-             int32_t* __restrict__ out_visits) {
-  const int lane = threadIdx.x & (kStrip - 1);
-  const int64_t sg =
-      static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (sg >= n_strips) return;
-  const int64_t ray = sg * kStrip + lane;
-  const int cnt = counts[sg];
-  float tr = 1.0f;
-  int visits = 0;
-  if (cnt > 0) {
-    const Ray r = load_ray(o, d, ray);
-    const float tm = t_max[ray];
-    const bool lv = live[ray] != 0;
-    // Max live transmittance of the strip; the strip stops, at block
-    // boundaries only, once it is <= 1e-6.
-    float lit = warp_max(lv ? 1.0f : 0.0f);
-    const int32_t* c = cand + sg * k_max;
-    for (int k = 0; k < cnt && lit > 1e-6f; ++k) {
-      const float* w = packed + static_cast<int64_t>(c[k]) * 16 * block;
-      const float* f = w + 15 * block;
-      float p = 1.0f;
-      for (int l = 0; l < block; ++l) {
-        const float t = test_global<Prim>(r, w, block, l, t_min);
-        if (t < tm) p = p * __ldg(f + l);
-      }
-      tr = tr * p;
-      lit = warp_max(lv ? tr : 0.0f);
-      ++visits;
-    }
-  }
-  out_tr[ray] = tr;
-  if (lane == 0) out_visits[sg] = visits;
-}
-
-inline unsigned grid_for(int64_t n_strips) {
-  return static_cast<unsigned>((n_strips + kWarpsPerBlock - 1) /
-                               kWarpsPerBlock);
-}
-
-// ---------------------------------------------------------------------
-// Staged (B1, B2, B5, B6)
+// Staged (B1-B6)
 // ---------------------------------------------------------------------
 
 __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
@@ -857,37 +760,9 @@ int64_t staged_smem(int block, int* words) {
 }
 
 // ---------------------------------------------------------------------
-// Launchers.  A staged launch first writes its launch order into the
-// scratch `order`; the warp-per-strip kernels take the strips in id
-// order and leave it alone.
+// Launchers.  Each first writes its launch order into the scratch
+// `order`.
 // ---------------------------------------------------------------------
-
-template <class Prim>
-cudaError_t launch_closest(const float* packed, int block, const float* o,
-                    const float* d, const float* t_cap, const uint8_t* live,
-                    const int32_t* cand, const int32_t* counts,
-                    const float* nearb, int32_t*, int64_t n_strips,
-                    int k_max, float t_min, float* out_t, int32_t* out_idx,
-                    int32_t* out_visits, cudaStream_t stream) {
-  closest_kernel<Prim><<<grid_for(n_strips), kStrip * kWarpsPerBlock, 0,
-                         stream>>>(packed, block, o, d, t_cap, live, cand,
-                                   counts, nearb, n_strips, k_max, t_min,
-                                   out_t, out_idx, out_visits);
-  return cudaSuccess;
-}
-
-template <class Prim>
-cudaError_t launch_trans(const float* packed, int block, const float* o,
-                  const float* d, const float* t_max, const uint8_t* live,
-                  const int32_t* cand, const int32_t* counts, int32_t*,
-                  int64_t n_strips, int k_max, float t_min, float* out_tr,
-                  int32_t* out_visits, cudaStream_t stream) {
-  trans_kernel<Prim><<<grid_for(n_strips), kStrip * kWarpsPerBlock, 0,
-                       stream>>>(packed, block, o, d, t_max, live, cand,
-                                 counts, n_strips, k_max, t_min, out_tr,
-                                 out_visits);
-  return cudaSuccess;
-}
 
 template <class Prim>
 cudaError_t launch_closest_staged(const float* packed, int block, const float* o,
@@ -942,11 +817,9 @@ extern "C" {
 //   packed (NB, 16, block) f32; o, d (n_strips * 32, 3) f32; t_cap/t_max,
 //   live (n_strips * 32) f32 / u8; cand, nearb (n_strips, k_max) i32 /
 //   f32; counts (n_strips) i32.  Scratch: order (n_strips) i32, where
-//   a staged kernel's entry writes its launch order (solr_sweep_order)
-//   before CTA i sweeps strip order[i]; the warp-per-strip kernels
-//   (solr_sweep_warps() == 0) do not touch it.  Outputs: out_t/out_tr
-//   (n_strips * 32), out_idx (n_strips * 32) i32, out_visits (n_strips)
-//   i32.
+//   the entry writes its launch order (solr_sweep_order) before CTA i
+//   sweeps strip order[i].  Outputs: out_t/out_tr (n_strips * 32),
+//   out_idx (n_strips * 32) i32, out_visits (n_strips) i32.
 // Returns the cudaError_t of the launches (0 on success), or
 // cudaErrorInvalidValue for an unknown prim or a block whose staged rows
 // do not fit in shared memory (solr_sweep_smem_bytes).
@@ -961,7 +834,7 @@ int solr_sweep_closest(int prim, const float* packed, int block,
   if (n_strips > 0) {
     auto s = static_cast<cudaStream_t>(stream);
     auto fn = prim == 0   ? launch_closest_staged<WoopT>
-              : prim == 1 ? launch_closest<SphereT>
+              : prim == 1 ? launch_closest_staged<SphereT>
                           : launch_closest_staged<CylT>;
     const cudaError_t err =
         fn(packed, block, o, d, t_cap, live, cand, counts, nearb, order,
@@ -982,7 +855,7 @@ int solr_sweep_transmittance(int prim, const float* packed, int block,
   if (n_strips > 0) {
     auto s = static_cast<cudaStream_t>(stream);
     auto fn = prim == 0   ? launch_trans_staged<WoopT>
-              : prim == 1 ? launch_trans<SphereT>
+              : prim == 1 ? launch_trans_staged<SphereT>
                           : launch_trans_staged<CylT>;
     const cudaError_t err =
         fn(packed, block, o, d, t_max, live, cand, counts, order, n_strips,
@@ -1006,33 +879,33 @@ int solr_sweep_order(const int32_t* counts, int64_t n, int k_max,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Warps per CTA of the kernel that the entry (closest 1:
-// solr_sweep_closest, 0: solr_sweep_transmittance) runs for prim: the
-// staged kernel's warps per strip, 0 for a warp-per-strip kernel (one
-// warp per strip, kWarpsPerBlock strips per CTA), -1 for an unknown
-// prim.
+// Warps per CTA (one CTA per strip) of the kernel that the entry
+// (closest 1: solr_sweep_closest, 0: solr_sweep_transmittance) runs for
+// prim; -1 for an unknown prim.
 int solr_sweep_warps(int closest, int prim) {
   if (prim < 0 || prim > 2) return -1;
-  if (prim == 1) return 0;
   if (closest)
-    return prim == 0 ? StagedShape<WoopT, false>::kWarps
-                     : StagedShape<CylT, false>::kWarps;
-  return prim == 0 ? StagedShape<WoopT, true>::kWarps
-                   : StagedShape<CylT, true>::kWarps;
+    return prim == 0   ? StagedShape<WoopT, false>::kWarps
+           : prim == 1 ? StagedShape<SphereT, false>::kWarps
+                       : StagedShape<CylT, false>::kWarps;
+  return prim == 0   ? StagedShape<WoopT, true>::kWarps
+         : prim == 1 ? StagedShape<SphereT, true>::kWarps
+                     : StagedShape<CylT, true>::kWarps;
 }
 
 // The dynamic shared memory, in bytes, that a launch of the entry for
-// prim at this block takes; 0 for the warp-per-strip kernels, -1 for an
-// unknown prim.  Above solr_sweep_smem_limit() the launch is refused.
+// prim at this block takes; -1 for an unknown prim.  Above
+// solr_sweep_smem_limit() the launch is refused.
 int64_t solr_sweep_smem_bytes(int closest, int prim, int block) {
   int words;
   if (prim < 0 || prim > 2 || block <= 0) return -1;
-  if (prim == 1) return 0;
   if (closest)
-    return prim == 0 ? staged_smem<WoopT, false>(block, &words)
-                     : staged_smem<CylT, false>(block, &words);
-  return prim == 0 ? staged_smem<WoopT, true>(block, &words)
-                   : staged_smem<CylT, true>(block, &words);
+    return prim == 0   ? staged_smem<WoopT, false>(block, &words)
+           : prim == 1 ? staged_smem<SphereT, false>(block, &words)
+                       : staged_smem<CylT, false>(block, &words);
+  return prim == 0   ? staged_smem<WoopT, true>(block, &words)
+         : prim == 1 ? staged_smem<SphereT, true>(block, &words)
+                     : staged_smem<CylT, true>(block, &words);
 }
 
 int64_t solr_sweep_smem_limit() { return kMaxSmem; }

@@ -25,9 +25,9 @@ device of the tensors: CPU tensors go to the plain version, CUDA tensors
 to the hand-written kernels in ``solr_tpu_torch/csrc/sweep.cu``, which
 are built with nvcc at first use and loaded with ctypes.  A build or
 launch failure raises, and so does a BLOCK whose rows do not fit the
-shared memory of the kernel it would run (the triangle and cylinder
-kernels stage them there, and take their strips longest list first);
-nothing falls back to the plain version.  The plain and kernel
+shared memory of the kernel it would run (every kernel stages them
+there, and takes its strips longest list first); nothing falls back to
+the plain version.  The plain and kernel
 versions agree bit for bit on the same device: the same association in
 every primitive test, no FMA contraction, IEEE sqrt and division, the
 same tie rules and product order (ascending lanes within a block).
@@ -84,9 +84,6 @@ def kernel_name(entry: str, prim: str) -> str:
 # incremented only where a wrapper launches that kernel.
 LAUNCHES = {kernel_name(e, p): 0 for p in PRIMS
             for e in ("sweep_closest", "sweep_transmittance")}
-
-# Strips per CTA of the warp-per-strip kernels (kWarpsPerBlock in sweep.cu).
-_WARP_STRIPS_PER_CTA = 4
 
 _SRC = Path(__file__).resolve().parents[1] / "csrc" / "sweep.cu"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "solr_tpu_torch"
@@ -330,30 +327,28 @@ def _check_smem(lib, closest: bool, prim: str, block: int):
 def kernel_shape(entry: str, prim: str, block: int, lib=None) -> dict:
     """The kernel that ``entry`` runs for ``prim`` in ``lib`` (default:
     the built ``csrc/sweep.cu``): its design, "staged" (one CTA of
-    ``warps_per_cta`` warps per strip) or "warp" (one warp per strip, 4
-    strips per CTA), and the dynamic shared memory it takes at this
-    ``block``, in bytes."""
+    ``warps_per_cta`` warps per strip), and the dynamic shared memory it
+    takes at this ``block``, in bytes."""
     lib = lib or _library()
     closest, code = int(entry == "sweep_closest"), PRIMS.index(prim)
-    warps = lib.solr_sweep_warps(closest, code)
-    return dict(design="staged" if warps else "warp",
-                warps_per_cta=warps or _WARP_STRIPS_PER_CTA,
+    return dict(design="staged",
+                warps_per_cta=lib.solr_sweep_warps(closest, code),
                 smem_bytes=lib.solr_sweep_smem_bytes(closest, code, block))
 
 
 def longest_first(counts):
-    """The launch order of the staged kernels, plain version: strip ids
-    (int32) by descending list length, equal lengths in id order (a
-    stable sort), so that the strips that take longest start first.
+    """The kernels' launch order, plain version: strip ids (int32) by
+    descending list length, equal lengths in id order (a stable sort),
+    so that the strips that take longest start first.
     The kernels' entries compute it on the card (:func:`launch_order`)."""
     return torch.argsort(counts.reshape(-1), descending=True,
                          stable=True).to(torch.int32)
 
 
 def launch_order(lib, counts, k_max: int):
-    """The order kernel that every staged launch of ``lib`` runs first,
-    alone, on CUDA ``counts`` (S, G) with entries in [0, ``k_max``]:
-    what :func:`longest_first` returns."""
+    """The order kernel that every launch of ``lib`` runs first, alone,
+    on CUDA ``counts`` (S, G) with entries in [0, ``k_max``]: what
+    :func:`longest_first` returns."""
     counts = _i32(counts)
     order = torch.empty(counts.numel(), dtype=torch.int32,
                         device=counts.device)
@@ -367,9 +362,8 @@ def launch_order(lib, counts, k_max: int):
 def launch_closest(lib, packed, o_t, d_t, t_cap, live, cand, counts, nearb,
                    t_min, prim: str = "tri"):
     """One launch of ``lib``'s closest-hit kernel on CUDA tensors checked
-    by the caller; a staged kernel takes its strips in
-    :func:`longest_first` order.  Returns what :func:`sweep_closest`
-    returns."""
+    by the caller; the kernel takes its strips in :func:`longest_first`
+    order.  Returns what :func:`sweep_closest` returns."""
     s, sb = o_t.shape[:2]
     g, k_max = cand.shape[1:]
     ins = (_f32(packed), _f32(o_t), _f32(d_t), _f32(t_cap),
@@ -391,9 +385,8 @@ def launch_closest(lib, packed, o_t, d_t, t_cap, live, cand, counts, nearb,
 def launch_transmittance(lib, packed, o_t, d_t, t_max, live, cand, counts,
                          t_min, prim: str = "tri"):
     """One launch of ``lib``'s shadow kernel on CUDA tensors checked by
-    the caller; a staged kernel takes its strips in
-    :func:`longest_first` order.  Returns what
-    :func:`sweep_transmittance` returns."""
+    the caller; the kernel takes its strips in :func:`longest_first`
+    order.  Returns what :func:`sweep_transmittance` returns."""
     s, sb = o_t.shape[:2]
     g, k_max = cand.shape[1:]
     ins = (_f32(packed), _f32(o_t), _f32(d_t), _f32(t_max),

@@ -1,41 +1,44 @@
-"""Times the staged sweep kernels of ``csrc/sweep.cu`` step by step on
-the card, at the shapes ``chip_smoke.py`` times them at.
+"""Times the sweep kernels of ``csrc/sweep.cu`` step by step on the
+card, at the shapes ``chip_smoke.py`` times them at.
 
     python -m solr_tpu_torch.sweep_steps [--parent DIR] [--out FILE]
 
-Each step is the shipped source with some of its shape constants (each
-staged kernel's warps per strip, occupancy hint and lanes per shared
-load, and ``kLongestFirst``) set to other values; ``--parent DIR`` adds
-the ``csrc/sweep.cu`` of another checkout of the repository (the parent
-commit, whose entries take no launch order) as step 0.  Every variant
-is compiled with the port's nvcc flags, all of them at once, and called
-through ``sweep.launch_closest`` / ``launch_transmittance`` on the same
-inputs: B1 and B2 on the bench frame's primary and shadow selections
-(1M triangles, 512x512, BLOCK=512), B1 and B2 again on the molecule
-frame's ground (BLOCK=256), B3 and B5 on the molecule frame's primary
-selection and B4 and B6 on its shadow selection (100k atoms,
-BLOCK=256); B2 and B6 with the scene's factors and with fractional
-ones.  No step changes B3 and B4, the warp-per-strip kernels: their
-times show the noise between variants.  Every
-variant's outputs must be bit-equal to the plain versions'.  The
-variants are timed in order and then in reverse order (CUDA events,
-mean of 5 calls after a warm-up), on one card in one process, and both
-passes are reported.  A variant with ``kLongestFirst`` false launches
-no order kernel; for each call the launch order alone is timed too, as
-the order kernel computes it and as ``torch.argsort`` would.
+Each step is the shipped source with some of its constants set to
+other values (a kernel's warps per strip, occupancy hint and lanes per
+shared load, ``kLongestFirst``), and some steps with a piece of it
+replaced: ``SphereT::hit`` with every root computed, as before its root
+skip.  ``--parent DIR`` adds the ``csrc/sweep.cu`` of another checkout
+of the repository with the same C interface (the parent commit) as
+step 0.  Every variant is compiled with the port's nvcc flags, all of
+them at once, and called through ``sweep.launch_closest`` /
+``launch_transmittance`` on the same inputs: B1 and B2 on the bench
+frame's primary and shadow selections (1M triangles, 512x512,
+BLOCK=512), B1 and B2 again on the molecule frame's ground (BLOCK=256),
+B3 and B5 on the molecule frame's primary selection and B4 and B6 on
+its shadow selection (100k atoms, BLOCK=256); B2 and B6 with the
+scene's factors and with fractional ones.  The steps change B3 and B4,
+the sphere kernels.  A step whose strips run in id order takes all six
+kernels out of the launch order; apart from that B1, B2, B5 and B6 are
+the same code in every step, and their times show the noise between
+variants.  Every variant's outputs must be bit-equal to the plain
+versions'.  The variants are timed in order and then in reverse order
+(CUDA events, mean of 5 calls after a warm-up), on one card in one
+process, and both passes are reported, with each kernel's registers
+and spills from ``-Xptxas -v``.  A variant with ``kLongestFirst`` false
+launches no order kernel; for each call the launch order alone is timed
+too, as the order kernel computes it and as ``torch.argsort`` would.
 """
 
 from __future__ import annotations
 
 import argparse
 import concurrent.futures
-import ctypes
+import itertools
 import json
 import re
 import subprocess
 import sys
 import time
-import types
 from pathlib import Path
 
 import torch
@@ -48,69 +51,68 @@ from solr_tpu_torch.molecule_scene import molecule_scene
 from solr_tpu_torch.ops import sweep
 from solr_tpu_torch.ops.traverse import scene_closest_hit
 
-# The steps in the order the design was built: (name, constants that
-# differ from the shipped source).  B1 and B6 keep their shapes in every
-# step but the last.
+# The steps in the order the design was chosen: (name, constants that
+# differ from the shipped source, (shipped text, its replacement) pairs).
+# B1, B2, B5 and B6 keep their shapes in every step.  The shapes are
+# compared with the root skip and the launch order on, as they ship.
 _ID_ORDER = dict(kLongestFirst="false")
-_B2_ENTRY = dict(kB2Warps=4, kB2MinCtas=4, kB2LaneVec=4)
+# SphereT::hit's roots with and without the root skip: the second is
+# the body before it, which computes the square root on every test.
+_ALL_ROOTS = ((
+    """    float t = kTFar;
+    if (valid) {
+      const float sq = sqrtf(disc);
+      const float lo = -b - sq, hi = -b + sq;
+      t = fminf(lo > t_min ? lo : kTFar, hi > t_min ? hi : kTFar);
+    }
+    return t;
+""", """    const float sq = sqrtf(valid ? disc : 1.0f);
+    const float lo = -b - sq, hi = -b + sq;
+    const float t1 = (valid && lo > t_min) ? lo : kTFar;
+    const float t2 = (valid && hi > t_min) ? hi : kTFar;
+    return fminf(t1, t2);
+"""),)
+
+
+def _sphere_shape(warps, ctas, lanes):
+    """B3's and B4's shapes both set to warps / CTAs / lanes per load."""
+    return dict(kB3Warps=warps, kB3MinCtas=ctas, kB3LaneVec=lanes,
+                kB4Warps=warps, kB4MinCtas=ctas, kB4LaneVec=lanes)
+
+
+# B3 as B1 (8 warps / 3 CTAs / 4 lanes per load), B4 as B2 (8 / 3 / 2).
+_ENTRY_SHAPES = dict(kB3Warps=8, kB3MinCtas=3, kB3LaneVec=4,
+                     kB4Warps=8, kB4MinCtas=3, kB4LaneVec=2)
 STEPS = (
-    ("1 B2, B5 staged on the entry's shape (closest 8 warps / 3 CTAs, "
-     "shadow 4 / 4, 4 lanes per load), strips in id order",
-     dict(_ID_ORDER, **_B2_ENTRY, kB5Warps=8, kB5MinCtas=3, kB5LaneVec=4)),
-    ("2 B5 at 4 warps / 4 CTAs",
-     dict(_ID_ORDER, **_B2_ENTRY, kB5LaneVec=4)),
-    ("3 B5 at 8 warps / 2 CTAs",
-     dict(_ID_ORDER, **_B2_ENTRY, kB5Warps=8, kB5MinCtas=2, kB5LaneVec=4)),
-    ("4 B5 at 2 warps / 8 CTAs",
-     dict(_ID_ORDER, **_B2_ENTRY, kB5Warps=2, kB5MinCtas=8, kB5LaneVec=4)),
-    ("5 B5 at 4 warps / 5 CTAs",
-     dict(_ID_ORDER, **_B2_ENTRY, kB5MinCtas=5, kB5LaneVec=4)),
-    ("6 B5 at 4 warps / 4 CTAs, 2 lanes per load",
-     dict(_ID_ORDER, **_B2_ENTRY)),
-    ("7 B2 at 8 warps / 2 CTAs",
-     dict(_ID_ORDER, kB2MinCtas=2, kB2LaneVec=4)),
-    ("8 B2 at 4 warps / 3 CTAs", dict(_ID_ORDER, kB2Warps=4, kB2LaneVec=4)),
-    ("9 B2 at 6 warps / 4 CTAs",
-     dict(_ID_ORDER, kB2Warps=6, kB2MinCtas=4, kB2LaneVec=4)),
-    ("10 B2 at 8 warps / 3 CTAs", dict(_ID_ORDER, kB2LaneVec=4)),
-    ("11 B2 at 8 warps / 3 CTAs, 2 lanes per load", _ID_ORDER),
-    ("12 + strips with the longest lists first (order kernel), all four "
-     "staged kernels (shipped)", {}),
-    ("alt: B2 at 4 lanes per load, longest first", dict(kB2LaneVec=4)),
-    ("alt: B5 at 4 lanes per load, longest first", dict(kB5LaneVec=4)),
-    ("alt: B5 at 8 warps / 2 CTAs, longest first",
-     dict(kB5Warps=8, kB5MinCtas=2)),
-    ("alt: B6 at 2 lanes per load, longest first", dict(kB6LaneVec=2)),
+    ("1 B3, B4 staged on the entries' shapes (B3 as B1: 8 warps / 3 "
+     "CTAs / 4 lanes per load; B4 as B2: 8 / 3 / 2), strips in id order, "
+     "every root computed", dict(_ID_ORDER, **_ENTRY_SHAPES), _ALL_ROOTS),
+    ("2 + roots only where a ray of the warp meets the sphere",
+     dict(_ID_ORDER, **_ENTRY_SHAPES), ()),
+    ("3 + strips with the longest lists first", _ENTRY_SHAPES, ()),
+    *((f"{i} B3, B4 at {w} / {c} / {v}", _sphere_shape(w, c, v), ())
+      for i, (w, c, v) in enumerate(
+          itertools.product((4, 8), (4, 6, 8), (2, 4)), 4)),
+    ("16 B3 at 4 / 4 / 4, B4 at 4 / 6 / 4 (shipped)", {}, ()),
+    ("alt: the shipped shapes, every root computed", {}, _ALL_ROOTS),
+    ("alt: the shipped shapes, strips in id order", _ID_ORDER, ()),
 )
 REPS = 5
 
 
-def variant_source(src: str, consts: dict) -> str:
-    """``src`` with each named constexpr constant set to its new value."""
+def variant_source(src: str, consts: dict, patches=()) -> str:
+    """``src`` with each named constexpr constant set to its new value
+    and each (text, replacement) of ``patches`` applied."""
     for name, value in consts.items():
         src, n = re.subn(rf"(constexpr (?:int|bool) {name} = )[^;]+;",
                          rf"\g<1>{value};", src)
         if n != 1:
             raise ValueError(f"constant {name} not found once in the source")
+    for old, new in patches:
+        if src.count(old) != 1:
+            raise ValueError(f"text not found once in the source: {old!r}")
+        src = src.replace(old, new)
     return src
-
-
-def parent_library(path):
-    """The library built from a parent checkout's ``sweep.cu``, whose
-    entries take no launch order, behind the current entries, which
-    drop it."""
-    lib = ctypes.CDLL(str(path))
-    vp, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
-                         ctypes.c_float)
-    lib.solr_sweep_closest.argtypes = [
-        i32, vp, i32, vp, vp, vp, vp, vp, vp, vp, i64, i32, f32, vp, vp, vp, vp]
-    lib.solr_sweep_transmittance.argtypes = [
-        i32, vp, i32, vp, vp, vp, vp, vp, vp, i64, i32, f32, vp, vp, vp]
-    return types.SimpleNamespace(
-        solr_sweep_closest=lambda *a: lib.solr_sweep_closest(*a[:10],
-                                                             *a[11:]),
-        solr_sweep_transmittance=lambda *a: lib.solr_sweep_transmittance(
-            *a[:9], *a[10:]))
 
 
 def _inputs(device):
@@ -141,7 +143,7 @@ def _inputs(device):
                       sweep_args(scene.sph_accel, o_t, d_t, live, cfg, True)))
         calls.append(("B5 molecule", "sweep_closest", "cyl",
                       sweep_args(scene.cyl_accel, o_t, d_t, live, cfg, True)))
-        spec =(cfg.packet_rays, cfg.packet_max_blocks, cfg.packet_tile_cand,
+        spec = (cfg.packet_rays, cfg.packet_max_blocks, cfg.packet_tile_cand,
                 cfg.packet_exact)
         hit = scene_closest_hit(scene, o_t.reshape(-1, 3), d_t.reshape(-1, 3),
                                 packet=spec)
@@ -166,7 +168,7 @@ def _launcher(entry):
 
 
 def _registers(log: str) -> dict:
-    """Registers and spill bytes per staged kernel from ``-Xptxas -v``:
+    """Registers and spill bytes per kernel from ``-Xptxas -v``:
     {"closest_staged<WoopT>": "80 regs, 0 spill", ...}."""
     out, name, spill = {}, None, "?"
     for line in log.splitlines():
@@ -184,7 +186,8 @@ def _registers(log: str) -> dict:
 
 
 def _demangle(mangled: str) -> str:
-    """closest_staged<CylT> or order_kernel from its mangled name, else
+    """closest_staged<CylT> or order_kernel from its mangled name (also
+    the warp-per-strip kernels of commits before the staged design), else
     the name."""
     for kernel in ("closest_staged", "trans_staged", "closest_kernel",
                    "trans_kernel", "order_kernel"):
@@ -211,15 +214,15 @@ def main(argv=None) -> int:
     src = sweep._SRC.read_text()
     variants = [("0 parent", Path(a.parent) / "solr_tpu_torch" / "csrc"
                  / "sweep.cu")] if a.parent else []
-    variants += [(name, variant_source(src, c)) for name, c in STEPS]
+    variants += [(name, variant_source(src, c, p))
+                 for name, c, p in STEPS]
     t0 = time.time()
     with concurrent.futures.ThreadPoolExecutor(len(variants)) as pool:
         built = list(pool.map(
             lambda v: sweep.compile_library(
                 (v[1].read_text() if isinstance(v[1], Path) else v[1]).encode(),
                 stem="libsolr_sweep_variant", verbose=True), variants))
-    libs = [parent_library(p) if isinstance(v[1], Path)
-            else sweep.load_library(p) for v, (p, _) in zip(variants, built)]
+    libs = [sweep.load_library(p) for p, _ in built]
     build_s = time.time() - t0
     ptxas = {name: _registers(log) for (name, _), (_, log) in
              zip(variants, built)}

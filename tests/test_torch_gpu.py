@@ -2,14 +2,15 @@
 and the bench and molecule frames rendered on the card against the same
 frames on the CPU.
 
-B1 and B5 (closest, tri and cyl) and B2 and B6 (transmittance, tri and
-cyl) run the staged design, which splits a block's lanes over several
-warps and launches the strips with the longest lists first (an order
-kernel, held to a stable sort); their cases add a BLOCK that is not a
-multiple of the slices (200), forced ties (each block's second half a
-copy of its first, and every listed block listed again at once as a
-copy), strips with empty and with K-long lists, fractional shadow
-factors, and a BLOCK whose rows do not fit in shared memory.
+All six kernels (closest and transmittance for tri, sphere and cyl) run
+the staged design, which splits a block's lanes over several warps and
+launches the strips with the longest lists first (an order kernel, held
+to a stable sort); their cases add a BLOCK that is not a multiple of
+the slices (200), forced ties (each block's second half a copy of its
+first, and every listed block listed again at once as a copy), strips
+with empty and with K-long lists, fractional shadow factors, padding
+spheres, rays that start inside spheres, and a BLOCK whose rows do not
+fit in shared memory.
 
 These need a CUDA card and nvcc; without a card they skip.  The file
 imports neither JAX nor solr_tpu, so it runs where only PyTorch is
@@ -351,13 +352,79 @@ def test_staged_closest_cyl_odd_block(odd_block, ties):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("ties", [False, True])
+def test_staged_closest_sphere_odd_block(odd_block, ties):
+    """B3 at block=200 on the reduced molecule frame's primary rays; the
+    last block ends in padding spheres (radius -1), which the forced
+    ties' K-long lists visit; with ``ties``, duplicated spheres inside
+    each block and across listed blocks, an empty list and K-long
+    lists."""
+    scene, o_t, d_t, live = odd_block
+    accel = scene.sph_accel
+    assert accel.packed.shape[2] == 200
+    assert (accel.packed[:, 3] <= 0).any()
+    cand, counts, nearb, _ = pk.strip_interval_select(
+        o_t, d_t, live, accel, 256, 64, RAY_EPS)
+    t_cap = pk.ray_box_exit(o_t, d_t, *_scene_box(accel))
+    packed = accel.packed
+    if ties:
+        packed, cand, counts, nearb = forced_ties(packed, cand, counts, nearb)
+    want = _closest_equal((packed, o_t, d_t, t_cap, live, cand, counts,
+                           nearb, RAY_EPS), "sphere")
+    if ties:  # the earlier copy of a block wins every tie
+        hit = want[1] >= 0
+        assert hit.any() and (want[1][hit] < accel.packed.numel() // 16).all()
+
+
+@pytest.mark.gpu
+def test_staged_closest_sphere_inside(odd_block):
+    """B3 on rays that start inside spheres: strip 1 of tile 0 starts on
+    the centres of 32 atoms and must take each atom's exit root."""
+    scene, o_t, d_t, live = odd_block
+    accel = scene.sph_accel
+    rows = accel.packed.permute(0, 2, 1).reshape(-1, 16)
+    atoms = rows[rows[:, 3] > 0][:32]
+    o_t = o_t.clone()
+    o_t[0, 32:64] = atoms[:, :3]
+    cand, counts, nearb, _ = pk.strip_interval_select(
+        o_t, d_t, live, accel, 256, 64, RAY_EPS)
+    t_cap = pk.ray_box_exit(o_t, d_t, *_scene_box(accel))
+    t, _, _ = _closest_equal((accel.packed, o_t, d_t, t_cap, live, cand,
+                              counts, nearb, RAY_EPS), "sphere")
+    assert (t[0, 32:64] <= atoms[:, 3] * (1 + 1e-6)).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("factors", ["scene", "fractional"])
+def test_staged_transmittance_sphere_odd_block(odd_block, factors, ties):
+    """B4 at block=200 with the scene's and with fractional factors; with
+    ``ties``, duplicated spheres inside each block and across listed
+    blocks (each copy multiplies its factor in), padding spheres, an
+    empty list and K-long lists."""
+    scene, o_t, d_t, live = odd_block
+    accel = scene.sph_accel
+    assert accel.packed.shape[2] == 200
+    tm = torch.full(o_t.shape[:2], 8.0, device=o_t.device)
+    cand, counts, _, _ = pk.strip_interval_select(
+        o_t, d_t, live, accel, 256, 64, RAY_EPS, tm_t=tm)
+    packed = accel.packed
+    if factors == "fractional":
+        packed = _fractional(packed, 7)
+    if ties:
+        packed, cand, counts = forced_ties(packed, cand, counts)
+    _trans_equal((packed, o_t, d_t, tm, live, cand, counts, RAY_EPS),
+                 "sphere")
+
+
+@pytest.mark.gpu
 def test_staged_kernels_reject_blocks_beyond_shared_memory(cuda):
     """A block whose staged rows exceed the card's shared memory raises
     before any launch."""
     accel, o_t, d_t, live, t_cap, cand, counts, nearb = _selection(cuda)
     big = torch.zeros((2, 16, 8192), device=cuda)
     before = dict(sweep.LAUNCHES)
-    for prim in ("tri", "cyl"):  # B1 and B5, B2 and B6
+    for prim in sweep.PRIMS:  # B1, B3 and B5; B2, B4 and B6
         with pytest.raises(ValueError, match="shared memory"):
             sweep.sweep_closest(big, o_t, d_t, t_cap, live,
                                 cand.clamp(max=1), counts, nearb, RAY_EPS,

@@ -1,8 +1,10 @@
 """The helpers that call the sweep kernels outside the frame
 (solr_tpu_torch.kernel_shapes) and the step-by-step timing script
 (solr_tpu_torch.sweep_steps), on the CPU: the inputs they build are the
-ones the frame's sweeps take, and every step of the script applies to
-the committed CUDA source.  The timings themselves need the card."""
+ones the frame's sweeps take, every step of the script applies to the
+committed CUDA source, and chip_smoke.py counts the roots of its bounds
+on the blocks the plain sweep visits.  The timings themselves need the
+card."""
 
 import re
 
@@ -14,7 +16,8 @@ from solr_tpu_torch.constants import PARK_THRESHOLD
 from solr_tpu_torch.kernel_shapes import (fractional, primary_tiles,
                                           shadow_rays, sweep_args,
                                           triangle_hits)
-from solr_tpu_torch.ops import sweep
+from solr_tpu_torch.molecule_scene import molecule_scene
+from solr_tpu_torch.ops import packet, sweep
 from solr_tpu_torch.ops.traverse import POOL_TRIANGLE
 from solr_tpu_torch.sweep_steps import STEPS, _registers, variant_source
 
@@ -28,18 +31,23 @@ def _const(src, name):
 
 @pytest.mark.parametrize("step", range(len(STEPS)))
 def test_each_step_sets_its_constants(step):
-    name, consts = STEPS[step]
+    name, consts, patches = STEPS[step]
     src = sweep._SRC.read_text()
-    out = variant_source(src, consts)
+    out = variant_source(src, consts, patches)
     for key, value in consts.items():
         assert _const(out, key) == str(value)
+    for old, new in patches:
+        assert src.count(old) == 1 and old not in out and new in out
     assert out.count("constexpr") == src.count("constexpr")
-    assert len(out.splitlines()) == len(src.splitlines())
+    assert len(out.splitlines()) == len(src.splitlines()) + sum(
+        new.count("\n") - old.count("\n") for old, new in patches)
 
 
 def test_variant_source_rejects_an_unknown_constant():
     with pytest.raises(ValueError, match="kNoSuchConstant"):
         variant_source(sweep._SRC.read_text(), {"kNoSuchConstant": 1})
+    with pytest.raises(ValueError, match="not found once"):
+        variant_source(sweep._SRC.read_text(), {}, (("no such text", ""),))
 
 
 def test_longest_first_orders_tiles_by_list_length():
@@ -98,3 +106,26 @@ def test_kernel_inputs_are_the_frames():
     assert ((frac >= 0.35) & (frac < 0.95)).all()
     assert torch.equal(fractional(scene.tri_accel.packed)[:, :15],
                        scene.tri_accel.packed[:, :15])
+
+
+@pytest.mark.parametrize("prim", ["sphere", "cyl"])
+def test_bound_counts_roots_where_reached(prim):
+    """chip_smoke's bounds count a sphere's or a cylinder's roots only in
+    the (ray, primitive) pairs that reach them, counted while the plain
+    sweep runs; the sweep's outputs are its own, and every sphere hit
+    reaches its roots."""
+    from chip_smoke import _plain_with_root_pairs
+
+    scene, cam, cfg = molecule_scene(400, 16, width=64, height=64, block=64,
+                                     device="cpu")
+    accel = scene.sph_accel if prim == "sphere" else scene.cyl_accel
+    o_t, d_t, live = primary_tiles(cam, cfg)
+    args = sweep_args(accel, o_t, d_t, live, cfg, True)
+    test = packet.PRIM_T[prim]
+    (t, idx, visits), pairs = _plain_with_root_pairs(
+        sweep.sweep_closest_plain, args, prim)
+    assert packet.PRIM_T[prim] is test
+    want = sweep.sweep_closest_plain(*args, prim=prim)
+    assert all(torch.equal(a, b) for a, b in zip((t, idx, visits), want))
+    hits = int((t < 1e30).sum())
+    assert 0 < hits <= pairs < int(visits.sum()) * 32 * 64

@@ -4,10 +4,10 @@ thread, real barriers), against their plain PyTorch versions: t, idx,
 tr and visits bit-equal, as on the card.  The emulation compiles without
 FMA contraction, as nvcc does with --fmad=false, and runs the kernels'
 own control flow: the staged kernels' lane slices and their combine
-(B1, B2, B5, B6) at a BLOCK that their slices of 2 or 4 lanes do not
-divide, with forced ties, empty and K-long lists, fractional factors,
-and their launch order, the strips with the longest lists first, which
-an order kernel computes.
+(B1-B6) at a BLOCK that their slices of 2 or 4 lanes do not divide,
+with forced ties, empty and K-long lists, fractional factors, padding
+spheres, rays that start inside spheres, and their launch order, the
+strips with the longest lists first, which an order kernel computes.
 
 The card's own runs are tests/test_torch_gpu.py."""
 
@@ -28,6 +28,10 @@ from torch_sweep_helpers import build_emulated, compiler, forced_ties
 torch.set_num_threads(2)
 
 TILES = 2  # 16 strips: 16 emulated CTAs per launch
+SPHERE_ATOMS = 600
+# The sphere cases' list length: forced ties give every strip of tile 1
+# a list this long, and 16 blocks keep those cases quick.
+SPHERE_K = 16
 
 
 @pytest.fixture(scope="module")
@@ -83,20 +87,20 @@ def test_emulated_closest_tri(emulated, monkeypatch, block, ties):
         assert torch.equal(a, b)
 
 
-def _selection(accel, cam, cfg, closest, t_max=None):
+def _selection(accel, cam, cfg, closest, t_max=None, k=64):
     """A selection over ``accel`` of the TILES busiest tiles, as the
-    kernels take it: (o_t, d_t, t_cap or t_max, live, cand, counts and,
-    for closest hits, nearb).  Shadow rays run from the camera to
-    ``t_max``."""
+    kernels take it, with lists of up to ``k`` blocks: (o_t, d_t, t_cap
+    or t_max, live, cand, counts and, for closest hits, nearb).  Shadow
+    rays run from the camera to ``t_max``."""
     o_t, d_t, live = _rays(cam, cfg, accel)
     if closest:
         cand, counts, nearb, _ = pk.strip_interval_select(
-            o_t, d_t, live, accel, 256, 64, RAY_EPS)
+            o_t, d_t, live, accel, 256, k, RAY_EPS)
         t_cap = pk.ray_box_exit(o_t, d_t, *_scene_box(accel))
         return o_t, d_t, t_cap, live, cand, counts, nearb
     tm = torch.full(o_t.shape[:2], t_max)
     cand, counts, _, _ = pk.strip_interval_select(
-        o_t, d_t, live, accel, 256, 64, RAY_EPS, tm_t=tm)
+        o_t, d_t, live, accel, 256, k, RAY_EPS, tm_t=tm)
     return o_t, d_t, tm, live, cand, counts
 
 
@@ -142,31 +146,88 @@ def test_emulated_transmittance_tri(emulated, monkeypatch, block, factors,
                  "tri")
 
 
-@pytest.mark.parametrize("block,ties", [(64, False), (64, True),
-                                        (200, False), (200, True)])
-def test_emulated_closest_cyl(emulated, monkeypatch, block, ties):
-    """B5 (closest_staged on cylinders) on a small molecule's cylinders;
-    the forced ties' lists are longest in tile 1 and empty for strip 0,
-    so the launch order is not the strips' id order."""
-    scene, cam, cfg = molecule_scene(400, 16, width=64, height=64,
-                                     block=block, device="cpu")
-    accel = scene.cyl_accel
-    o_t, d_t, t_cap, live, cand, counts, nearb = _selection(
-        accel, cam, cfg, True)
+def _closest_equal(monkeypatch, emulated, accel, sel, ties, prim):
+    """Kernel against plain version on a closest-hit selection; with
+    ``ties``, forced ties whose lists are longest in tile 1 and empty for
+    strip 0, so the launch order is not the strips' id order.  Returns
+    the plain version's (t, idx, visits)."""
+    o_t, d_t, t_cap, live, cand, counts, nearb = sel
     packed = accel.packed
     if ties:
         packed, cand, counts, nearb = forced_ties(packed, cand, counts, nearb)
         order = sweep.longest_first(counts)
         assert not torch.equal(order, torch.sort(order).values)
     args = (packed, o_t, d_t, t_cap, live, cand, counts, nearb, RAY_EPS)
-    got = _run(monkeypatch, emulated, sweep.launch_closest, args, "cyl")
-    want = sweep.sweep_closest_plain(*args, prim="cyl")
+    got = _run(monkeypatch, emulated, sweep.launch_closest, args, prim)
+    want = sweep.sweep_closest_plain(*args, prim=prim)
     assert (want[0] < 1e30).sum() > 100 and int(want[2].sum()) > 0
     for a, b in zip(got, want):
         assert torch.equal(a, b)
     if ties:  # the earlier copy of a block wins every tie
         hit = want[1] >= 0
         assert hit.any() and (want[1][hit] < accel.packed.numel() // 16).all()
+    return want
+
+
+@pytest.mark.parametrize("block,ties", [(64, False), (64, True),
+                                        (200, False), (200, True)])
+def test_emulated_closest_cyl(emulated, monkeypatch, block, ties):
+    """B5 (closest_staged on cylinders) on a small molecule's cylinders."""
+    scene, cam, cfg = molecule_scene(400, 16, width=64, height=64,
+                                     block=block, device="cpu")
+    accel = scene.cyl_accel
+    _closest_equal(monkeypatch, emulated, accel,
+                   _selection(accel, cam, cfg, True), ties, "cyl")
+
+
+@pytest.mark.parametrize("block,ties", [(64, False), (64, True),
+                                        (200, False), (200, True)])
+def test_emulated_closest_sphere(emulated, monkeypatch, block, ties):
+    """B3 (closest_staged on spheres) on a small molecule's atoms; the
+    last block ends in padding spheres (radius -1 at the origin), which
+    the forced ties' K-long lists visit.  600 atoms: at 400, the rays of
+    the busiest tiles hit only lanes that BLOCK=200's ties overwrite."""
+    scene, cam, cfg = molecule_scene(SPHERE_ATOMS, 16, width=64, height=64,
+                                     block=block, device="cpu")
+    accel = scene.sph_accel
+    _closest_equal(monkeypatch, emulated, accel,
+                   _selection(accel, cam, cfg, True, k=SPHERE_K), ties,
+                   "sphere")
+
+
+def test_emulated_closest_sphere_inside(emulated, monkeypatch):
+    """B3 on rays that start inside spheres: strip 1 of tile 0 starts on
+    the centres of 32 atoms, so each of its rays meets its own atom with
+    lo <= t_min < hi and must take the exit root."""
+    scene, cam, cfg = molecule_scene(SPHERE_ATOMS, 16, width=64, height=64,
+                                     block=64, device="cpu")
+    accel = scene.sph_accel
+    o_t, d_t, live = _rays(cam, cfg, accel)
+    rows = accel.packed.permute(0, 2, 1).reshape(-1, 16)
+    atoms = rows[rows[:, 3] > 0][:32]
+    o_t[0, 32:64] = atoms[:, :3]
+    cand, counts, nearb, _ = pk.strip_interval_select(
+        o_t, d_t, live, accel, 256, 64, RAY_EPS)
+    t_cap = pk.ray_box_exit(o_t, d_t, *_scene_box(accel))
+    t, _, _ = _closest_equal(
+        monkeypatch, emulated, accel,
+        (o_t, d_t, t_cap, live, cand, counts, nearb), False, "sphere")
+    assert (t[0, 32:64] <= atoms[:, 3] * (1 + 1e-6)).all()
+
+
+@pytest.mark.parametrize("block,factors,ties", [
+    (64, "scene", True), (64, "fractional", False),
+    (200, "scene", False), (200, "fractional", True)])
+def test_emulated_transmittance_sphere(emulated, monkeypatch, block, factors,
+                                       ties):
+    """B4 (trans_staged on spheres) on a small molecule's atoms, padding
+    spheres as for B3."""
+    scene, cam, cfg = molecule_scene(SPHERE_ATOMS, 16, width=64, height=64,
+                                     block=block, device="cpu")
+    accel = scene.sph_accel
+    _trans_equal(monkeypatch, emulated, accel,
+                 _selection(accel, cam, cfg, False, 8.0, SPHERE_K), factors,
+                 ties, "sphere")
 
 
 @pytest.mark.parametrize("n,k_max", [(16, 64), (1000, 64), (2077, 5)])
@@ -190,24 +251,25 @@ def test_emulated_launch_order(emulated, monkeypatch, n, k_max):
 
 
 def test_emulated_kernel_shapes(emulated):
-    """The triangle and cylinder entries run the staged kernels, the
-    sphere entries one warp per strip; the staged rows of every BLOCK
-    the frames use fit the card's shared memory per CTA, and B2's at the
-    bench's BLOCK=512, the largest of them, leave room for 4 CTAs in an
-    SM's 228 KB (1 KB reserved per CTA)."""
+    """Every entry runs a staged kernel for every primitive kind; the
+    staged rows of every BLOCK the frames use fit the card's shared
+    memory per CTA, and B2's at the bench's BLOCK=512, the largest of
+    them, leave room for 4 CTAs in an SM's 228 KB (1 KB reserved per
+    CTA).  B3 and B4 stage 4 rows, and 5 with the factor."""
     limit = emulated.solr_sweep_smem_limit()
     for entry in ("sweep_closest", "sweep_transmittance"):
         for prim in sweep.PRIMS:
             for block in (64, 200, 256, 512):
                 shape = sweep.kernel_shape(entry, prim, block, emulated)
-                if prim == "sphere":
-                    assert shape == dict(design="warp", warps_per_cta=4,
-                                         smem_bytes=0)
-                    continue
                 assert shape["design"] == "staged"
+                assert shape["warps_per_cta"] in (2, 4, 6, 8)
                 assert 0 < shape["smem_bytes"] <= limit
     b2 = sweep.kernel_shape("sweep_transmittance", "tri", 512, emulated)
     assert b2["smem_bytes"] == 2 * 13 * 512 * 4 + 2048
     assert 4 * (b2["smem_bytes"] + 1024) <= 228 * 1024
+    for entry, rows in (("sweep_closest", 4), ("sweep_transmittance", 5)):
+        stages = 2 * rows * 256 * 4  # two buffers at the molecule's BLOCK
+        sph = sweep.kernel_shape(entry, "sphere", 256, emulated)
+        assert stages < sph["smem_bytes"] <= stages + 4096
     big = sweep.kernel_shape("sweep_transmittance", "tri", 8192, emulated)
     assert big["smem_bytes"] > limit
