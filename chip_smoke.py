@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py
 
-Needs one CUDA card (sm_90a, an H100) and nvcc; builds the sweep kernels
-from solr_tpu_torch/csrc/ on first use.  Phases, each of which must pass:
+Needs one CUDA card (sm_90a, an H100) and nvcc; builds the sweep and BVH
+walk kernels from solr_tpu_torch/csrc/ on first use, one nvcc per source,
+both started together.  Phases, each of which must pass:
 
 1. the card's name and power limit (nvidia-smi);
 2. build the kernels with nvcc and report the build seconds;
@@ -43,16 +44,39 @@ from solr_tpu_torch/csrc/ on first use.  Phases, each of which must pass:
    the committed solr_tpu CPU frame (tests/data/torch_molecule_ref.npz,
    whose PDB text's sha256 must match), atol 1e-4 outside 0.2% of
    pixels (f32 differences in the recomputed hit distance, amplified in
-   the normals of thin cylinders).
+   the normals of thin cylinders);
+9. ``kernels_walk``: the six BVH walk kernels (csrc/bvh_walk.cu:
+   closest hit and transmittance over the triangle, sphere and cylinder
+   BVHs) against their plain versions, each on the first call that the
+   walk paths below make of it (recorded in one frame of each): t, idx,
+   tr, node visits and lane tests bit-equal; kernel and plain times,
+   visits and tests per ray, and the bound;
+10. ``walk_path``: the bench scene at 1920x1080, 2 bounces: 1080 rows are
+   no whole number of 16-pixel tiles, so every triangle query walks the
+   triangle BVH; one warm-up and three timed frames as in 4; the walk
+   kernels of the triangle pool must launch, and B1, B2 and the
+   triangle pool's brute force must not;
+11. ``molecule_while``: the full molecule frame with traversal="while",
+   one warm-up and three timed frames: all six walk kernels launch and
+   no sweep kernel does;
+12. ``walk_reference``: reduced frames of those two paths on the card
+   against committed solr_tpu CPU frames (tests/data/torch_walk_ref.npz,
+   the bench frame at 64x56; torch_molecule_while_ref.npz), as in 5;
+13. ``cornell``: the gallery's Cornell box (planes and spheres, brute
+   force) built by the port's SceneBuilder, at 64x64 against
+   tests/data/torch_cornell_ref.npz as in 5, then at BASELINE.json
+   config #1's 256x256 and 2 bounces, one warm-up and three timed
+   frames.
 
 Each main path runs with the launch counts set to 0 just before it and
-read just after.  Prints the full record of the run on one line
+read just after; the packet paths (4, 7) must launch no walk kernel.  Prints the full record of the run on one line
 ("record: {...}"), the kernel table as one JSON line (each kernel's
 time, its plain version's, its bound: the larger of the bytes its
 inputs and outputs take over 3.35 TB/s and the f32 operations its
 visited (ray, primitive) tests take over 67 TFLOP/s, a sphere's or a
 cylinder's roots counted only in the pairs of this run that reach
-them; its ceiling: those operations at 33.5e12 single-issue
+them, and for the walks also the slab tests of the nodes visited; for
+the sweeps, its ceiling: those operations at 33.5e12 single-issue
 instructions/s, its tests/s, and its design, "staged" for all six,
 with its warps per CTA),
 the nvidia-smi line, and last {"ok": true, "device": {...}}.  Exits
@@ -80,6 +104,8 @@ BOUNCES = 2
 MOL_ATOMS = 100_000
 MOL_GROUND_RES = 128
 MOL_BLOCK = 256
+WALK_WIDTH, WALK_HEIGHT = 1920, 1080
+CORNELL_SIZE = 256
 
 # The card's published peaks (NVIDIA H100 SXM data sheet, at 700 W):
 # device memory bandwidth and f32 rate outside the tensor cores.  The
@@ -105,6 +131,18 @@ REPLACES = {"sweep_closest": "solr_tpu/ops/pallas_kernels.py:175",
             "sweep_transmittance": "solr_tpu/ops/pallas_kernels.py:255"}
 BODY = {"tri": "_woop_rows :108", "sphere": "_sphere_rows :136",
         "cyl": "_cyl_rows :158"}
+# The walks (solr_tpu_torch/csrc/bvh_walk.cu), counted the same way:
+# per ray, the three divisions of 1/d; per node visited, the slab test's
+# six subtractions and six multiplies; per leaf lane tested, the pool
+# test of TriP (Moller-Trumbore), SphereP or CylP (which also forms the
+# axis, |axis|^2, 1/max(|axis|^2, 1e-8) and r*r of its cylinder); per
+# pair that reaches its roots, as for the sweeps.  The shadow walk's
+# products are not counted.
+WALK_OPS_PER_RAY = 3
+WALK_OPS_PER_VISIT = 12
+WALK_OPS_PER_LANE = {"tri": 52, "sphere": 17, "cyl": 85}
+WALK_REPLACES = {"bvh_closest_hit": "solr_tpu/ops/bvh.py:333",
+                 "bvh_transmittance": "solr_tpu/ops/bvh.py:397"}
 
 
 def _nvidia_smi() -> str:
@@ -308,10 +346,187 @@ def phase_kernels_molecule(scene, cam, cfg, rec):
     _assert_equal(rec)
 
 
-def _reset_counts():
-    from solr_tpu_torch.ops import sweep, traverse
+def _first_walk_calls(scene, cam, cfg):
+    """The arguments of the first call of each walk (entry point x
+    primitive kind) in one frame, read by wrapping the wrappers."""
+    import torch
 
-    for counts in (sweep.LAUNCHES, traverse.NET_STATS):
+    from solr_tpu_torch.ops import bvh
+    from solr_tpu_torch.ops.render import render_sample
+
+    calls, inner = {}, {e: getattr(bvh, e) for e in bvh.ENTRIES}
+
+    def recorder(entry):
+        def call(scene, tree, code, o, d, t_min, t_max, **kw):
+            key = bvh.kernel_name(entry, bvh.POOL_PRIM[code])
+            if key not in calls:
+                calls[key] = (entry, bvh.POOL_PRIM[code], tree, o.clone(),
+                              d.clone(), t_min, torch.as_tensor(
+                                  t_max, dtype=o.dtype, device=o.device)
+                              .expand(o.shape[:-1]).clone())
+            return inner[entry](scene, tree, code, o, d, t_min, t_max, **kw)
+        return call
+
+    for e in bvh.ENTRIES:
+        setattr(bvh, e, recorder(e))
+    try:
+        with torch.no_grad():
+            render_sample(scene, cam, cfg)
+        torch.cuda.synchronize()
+    finally:
+        for e in bvh.ENTRIES:
+            setattr(bvh, e, inner[e])
+    return calls
+
+
+def _walk_root_pairs(scene, prim, o, d, first, cnt, leaf_size):
+    """How many tested (ray, leaf lane) pairs of one walk step reach their
+    roots (_reaches_roots on the lanes' rows)."""
+    import torch
+
+    lanes = torch.arange(leaf_size, device=cnt.device, dtype=cnt.dtype)
+    if prim == "sphere":
+        p = scene.spheres
+        n = p.radius.shape[0]
+        pids = (first[:, None] + lanes).clamp(0, n - 1).long()
+        w = torch.cat([p.center[pids], p.radius[pids][..., None]], -1)
+    else:
+        p = scene.cylinders
+        n = p.radius.shape[0]
+        pids = (first[:, None] + lanes).clamp(0, n - 1).long()
+        axis = p.p1[pids] - p.p0[pids]
+        h2 = (axis[..., 0] * axis[..., 0] + axis[..., 1] * axis[..., 1]
+              + axis[..., 2] * axis[..., 2])
+        w = torch.cat([p.p0[pids], p.radius[pids][..., None], axis,
+                       h2[..., None]], -1)
+    reach = _reaches_roots(prim, o[:, None, :], d[:, None, :],
+                           w.transpose(1, 2))[:, 0, :]
+    return int((reach & (lanes < cnt[:, None])).sum())
+
+
+def _walk_plain_with_root_pairs(plain, args, prim):
+    """The plain walk's outputs on ``args``, and how many of its tested
+    (ray, lane) pairs reach their roots (0 for triangles), counted by
+    wrapping its leaf test."""
+    from solr_tpu_torch.ops import bvh
+
+    if prim == "tri":
+        return plain(*args), 0
+    leaf_t, pairs = bvh._leaf_t, []
+
+    def counting(scene, prim_, o, d, first, cnt, leaf_size, t_min):
+        pairs.append(_walk_root_pairs(scene, prim_, o, d, first, cnt,
+                                      leaf_size))
+        return leaf_t(scene, prim_, o, d, first, cnt, leaf_size, t_min)
+
+    bvh._leaf_t = counting
+    try:
+        out = plain(*args)
+    finally:
+        bvh._leaf_t = leaf_t
+    return out, sum(pairs)
+
+
+def _walk_bound_ms(prim, closest, scene, tree, args, outs, visits, tests,
+                   root_pairs):
+    """(bound ms, "bytes" or "operations") of one walk call: its rays,
+    outputs, node arrays and pool arrays (and the materials' factors for
+    the shadow walk) each counted once against the memory rate, and the
+    WALK_OPS_* operations of this run's visits, tests and root pairs
+    against the f32 rate."""
+    import torch
+
+    p = {"tri": scene.triangles, "sphere": scene.spheres,
+         "cyl": scene.cylinders}[prim]
+    pool = {"tri": ("v0", "v1", "v2"), "sphere": ("center", "radius"),
+            "cyl": ("p0", "p1", "radius")}[prim]
+    tensors = [x for x in list(args) + list(outs)
+               if isinstance(x, torch.Tensor)]
+    tensors += [tree.aabb_min, tree.aabb_max, tree.skip, tree.first_prim,
+                tree.prim_count] + [getattr(p, k) for k in pool]
+    if not closest:
+        m = scene.materials
+        tensors += [p.material, m.emission, m.transparency]
+    nbytes = sum(x.numel() * x.element_size() for x in tensors)
+    n_rays = args[3].shape[0]
+    ops = (n_rays * WALK_OPS_PER_RAY + visits * WALK_OPS_PER_VISIT
+           + tests * WALK_OPS_PER_LANE[prim]
+           + root_pairs * OPS_PER_ROOT_PAIR[prim])
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes > t_ops else "operations")
+
+
+def _check_walk(rec, scene, call):
+    """One walk kernel against its plain version on one recorded call:
+    t or tr, idx, visits and tests bit-equal; times, visits and tests per
+    ray, and the bound."""
+    import torch
+
+    from solr_tpu_torch.kernel_shapes import time_ms
+    from solr_tpu_torch.ops import bvh
+
+    entry, prim, tree, o, d, t_min, t_max = call
+    closest = entry == "bvh_closest_hit"
+    launch = bvh.launch_closest if closest else bvh.launch_transmittance
+    plain = (bvh.bvh_closest_hit_plain if closest
+             else bvh.bvh_transmittance_plain)
+    args = (scene, tree, prim, o, d, t_min, t_max)
+    got = launch(bvh._library(), *args)
+    want, root_pairs = _walk_plain_with_root_pairs(plain, args, prim)
+    torch.cuda.synchronize()
+    visits, tests = int(want[-2].sum()), int(want[-1].sum())
+    n = o.shape[0]
+    entry_rec = dict(
+        name=bvh.kernel_name(entry, prim), entry=entry, prim=prim,
+        equal=all(torch.equal(a, b) for a, b in zip(got, want)),
+        max_abs_err=float((got[0] - want[0]).abs().max()), rays=n,
+        nodes=tree.n_nodes, visits_per_ray=visits / n,
+        tests_per_ray=tests / n, root_pairs=root_pairs,
+        ms=time_ms(lambda: launch(bvh._library(), *args), 5),
+        plain_ms=time_ms(lambda: plain(*args), 1))
+    if closest:
+        entry_rec["hits"] = int((want[0] < 1e30).sum())
+    else:
+        entry_rec["shadowed"] = int((want[0] < 1.0).sum())
+    entry_rec["bound_ms"], entry_rec["bound_by"] = _walk_bound_ms(
+        prim, closest, scene, tree, args, got, visits, tests, root_pairs)
+    rec["walk_kernels"].append(entry_rec)
+
+
+def phase_kernels_walk(scenes, rec):
+    """The six walk kernels on the first calls of the walk paths: the
+    triangle pool's from the 1080p bench frame, the sphere and cylinder
+    pools' from the molecule frame with traversal="while"."""
+    import dataclasses
+
+    scene, cam, cfg = scenes["bench"]
+    calls = _first_walk_calls(scene, cam, _walk_cfg(cfg))
+    for prim in ("tri",):
+        for entry in ("bvh_closest_hit", "bvh_transmittance"):
+            _check_walk(rec, scene, calls[f"{entry}_{prim}"])
+    scene, cam, cfg = scenes["molecule"]
+    calls = _first_walk_calls(scene, cam,
+                              dataclasses.replace(cfg, traversal="while"))
+    for prim in ("sphere", "cyl"):
+        for entry in ("bvh_closest_hit", "bvh_transmittance"):
+            _check_walk(rec, scene, calls[f"{entry}_{prim}"])
+    bad = [k["name"] for k in rec["walk_kernels"] if not k["equal"]]
+    if bad:
+        raise AssertionError(f"walk kernel and plain version disagree: {bad}")
+
+
+def _walk_cfg(cfg):
+    import dataclasses
+
+    return dataclasses.replace(cfg, width=WALK_WIDTH, height=WALK_HEIGHT)
+
+
+def _reset_counts():
+    from solr_tpu_torch.ops import bvh, sweep, traverse
+
+    for counts in (sweep.LAUNCHES, bvh.LAUNCHES, traverse.NET_STATS,
+                   traverse.BRUTE_CALLS):
         for k in counts:
             counts[k] = 0
 
@@ -340,14 +555,16 @@ def _live_rays_per_bounce(scene, cam, cfg):
     return img, live
 
 
-def phase_path(scene, cam, cfg, rec, key, kernels, frames=3):
+def phase_path(scene, cam, cfg, rec, key, kernels, frames=3, idle=(),
+               no_brute=()):
     """One main path: the launch and net counts set to 0, render_sample
     once as a warm-up (counting live rays per bounce) and ``frames``
     timed times, the counts read.  Every kernel in ``kernels`` must have
-    launched."""
+    launched, none in ``idle``, and no pool in ``no_brute`` may have
+    been brute-forced."""
     import torch
 
-    from solr_tpu_torch.ops import sweep, traverse
+    from solr_tpu_torch.ops import bvh, sweep, traverse
     from solr_tpu_torch.ops.render import render_sample
 
     _reset_counts()
@@ -362,24 +579,31 @@ def phase_path(scene, cam, cfg, rec, key, kernels, frames=3):
             img, _ = render_sample(scene, cam, cfg)
             torch.cuda.synchronize()
             times.append(time.time() - t0)
-    launches = dict(sweep.LAUNCHES)
+    launches = {**sweep.LAUNCHES, **bvh.LAUNCHES}
     best = min(times)
     n_lights = scene.lights.position.shape[0]
     rays = cfg.n_pixels * cfg.max_bounces * (1 + n_lights)
     finite = bool(torch.isfinite(img).all())
     rec[key] = dict(
-        size=cfg.width, bounces=cfg.max_bounces,
-        block=scene.tri_accel.block, warmup_s=warm_s,
+        width=cfg.width, height=cfg.height, bounces=cfg.max_bounces,
+        traversal=cfg.traversal,
+        block=scene.tri_accel.block if scene.tri_accel else None,
+        warmup_s=warm_s,
         frame_ms=[t * 1000 for t in times], best_frame_ms=best * 1000,
         rays_per_s=rays / best, live_rays_per_bounce=live,
         digest=float(img.double().sum()), finite=finite, launches=launches,
         net_stats=dict(traverse.NET_STATS),
+        brute_calls=dict(traverse.BRUTE_CALLS),
         peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
     if not finite:
         raise AssertionError(f"{key} image is not finite")
     missing = [k for k in kernels if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on {key}: {missing}")
+    stray = [k for k in idle if launches[k]] + [
+        f"brute force over {k}" for k in no_brute if traverse.BRUTE_CALLS[k]]
+    if stray:
+        raise AssertionError(f"launched or called on {key}: {stray}")
     return launches
 
 
@@ -439,6 +663,62 @@ def phase_molecule_reference(rec, device):
              n_atoms=n_atoms, block=int(ref["block"]), pdb_sha256=sha)
 
 
+def phase_walk_reference(rec, device):
+    """The reduced walk frames on the card against their committed
+    solr_tpu CPU frames."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from solr_tpu_torch.bench_scene import bench_scene
+    from solr_tpu_torch.molecule_scene import molecule_scene
+    from solr_tpu_torch.ops.render import render_sample
+
+    data = os.path.join(ROOT, "tests", "data")
+    ref = np.load(os.path.join(data, "torch_walk_ref.npz"))
+    scene, cam, cfg = bench_scene(int(ref["n_tris"]), block=int(ref["block"]),
+                                  width=int(ref["size"]),
+                                  height=int(ref["height"]),
+                                  bounces=int(ref["bounces"]), device=device)
+    with torch.no_grad():
+        img = render_sample(scene, cam, cfg)[0].cpu().numpy()
+    walk = {}
+    _hold_to(walk, "bench", img, ref["image"], width=cfg.width,
+             height=cfg.height, n_tris=int(ref["n_tris"]))
+    ref = np.load(os.path.join(data, "torch_molecule_while_ref.npz"))
+    scene, cam, cfg = molecule_scene(
+        int(ref["n_atoms"]), int(ref["ground_res"]), width=int(ref["size"]),
+        height=int(ref["size"]), bounces=int(ref["bounces"]),
+        block=int(ref["block"]), device=device)
+    cfg = dataclasses.replace(cfg, traversal=str(ref["traversal"]))
+    with torch.no_grad():
+        img = render_sample(scene, cam, cfg)[0].cpu().numpy()
+    _hold_to(walk, "molecule_while", img, ref["image"], size=cfg.width,
+             n_atoms=int(ref["n_atoms"]))
+    rec["walk_reference"] = walk
+
+
+def phase_cornell(rec, device):
+    """The port's Cornell box at 64x64 against the gallery's, rendered by
+    solr_tpu on the CPU; then BASELINE config #1's frame, timed."""
+    import numpy as np
+    import torch
+
+    from solr_tpu_torch.cornell_scene import cornell_scene
+    from solr_tpu_torch.ops.render import render_sample
+
+    ref = np.load(os.path.join(ROOT, "tests", "data", "torch_cornell_ref.npz"))
+    scene, cam, cfg = cornell_scene(int(ref["size"]), int(ref["size"]),
+                                    int(ref["bounces"]), device=device)
+    with torch.no_grad():
+        img = render_sample(scene, cam, cfg)[0].cpu().numpy()
+    _hold_to(rec, "cornell_reference", img, ref["image"], size=cfg.width)
+    scene, cam, cfg = cornell_scene(CORNELL_SIZE, CORNELL_SIZE, BOUNCES,
+                                    device=device)
+    return phase_path(scene, cam, cfg, rec, "cornell", [])
+
+
 def _kernel_table(rec, paths):
     """The kernels JSON line: each kernel's timed comparison, with its
     launches from the main path whose shapes it was timed at."""
@@ -462,6 +742,16 @@ def _kernel_table(rec, paths):
                 bound_ms=timed["bound_ms"], bound_by=timed["bound_by"],
                 library_ms=None, ceiling_ms=timed["ceiling_ms"],
                 tests_per_s=timed["tests_per_s"]))
+    for k in rec["walk_kernels"]:
+        path = "walk_path" if k["prim"] == "tri" else "molecule_while"
+        table.append(dict(
+            name=k["name"], route="cuda", design="one thread per ray",
+            source="solr_tpu_torch/csrc/bvh_walk.cu",
+            replaces=WALK_REPLACES[k["entry"]], launches=paths[path][k["name"]],
+            max_abs_err=k["max_abs_err"], ms=k["ms"], plain_ms=k["plain_ms"],
+            bound_ms=k["bound_ms"], bound_by=k["bound_by"], library_ms=None,
+            rays=k["rays"], visits_per_ray=k["visits_per_ray"],
+            tests_per_ray=k["tests_per_ray"]))
     return table
 
 
@@ -471,20 +761,28 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
+    import concurrent.futures
+    import dataclasses
+
     from solr_tpu_torch.bench_scene import bench_scene
     from solr_tpu_torch.molecule_scene import molecule_scene
-    from solr_tpu_torch.ops import sweep
+    from solr_tpu_torch.ops import bvh, sweep
 
+    t_start = time.time()
     device = torch.device("cuda:0")
     smi = _nvidia_smi()
     rec = {"nvidia_smi": smi, "torch": torch.__version__,
-           "cuda": torch.version.cuda, "kernels": [], "failed": []}
+           "cuda": torch.version.cuda, "kernels": [], "walk_kernels": [],
+           "failed": []}
     print(f"card: {smi}", flush=True)
 
     t0 = time.time()
-    log = sweep.build(verbose=True)
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        logs = list(pool.map(lambda m: m.build(verbose=True), (sweep, bvh)))
     rec["build_s"] = time.time() - t0
-    print(f"build: {rec['build_s']:.2f} s\n{log.strip()}", flush=True)
+    print(f"build: {rec['build_s']:.2f} s", flush=True)
+    for log in logs:
+        print(log.strip(), flush=True)
 
     paths = {}
     scenes = {}
@@ -517,18 +815,37 @@ def main() -> int:
         print(f"molecule scene: {rec['molecule_scene']}", flush=True)
 
     tri = ["sweep_closest", "sweep_transmittance"]
+    walks = list(bvh.LAUNCHES)
+    tri_walks = [bvh.kernel_name(e, "tri") for e in bvh.ENTRIES]
+
+    def molecule_while():
+        scene, cam, cfg = scenes["molecule"]
+        return phase_path(scene, cam, dataclasses.replace(
+            cfg, traversal="while"), rec, "molecule_while", walks,
+            idle=list(sweep.LAUNCHES))
+
     steps = (
         ("bench_scene", bench),
         ("kernels", lambda: phase_kernels(*scenes["bench"], rec)),
         ("main_path", lambda: paths.update(main_path=phase_path(
-            *scenes["bench"], rec, "main_path", tri))),
+            *scenes["bench"], rec, "main_path", tri, idle=walks))),
         ("reference", lambda: phase_reference(rec, device)),
-        ("molecule_scene", lambda: (scenes.pop("bench"), molecule())),
+        ("molecule_scene", molecule),
         ("kernels_molecule",
          lambda: phase_kernels_molecule(*scenes["molecule"], rec)),
         ("molecule_path", lambda: paths.update(molecule_path=phase_path(
-            *scenes["molecule"], rec, "molecule_path", list(sweep.LAUNCHES)))),
+            *scenes["molecule"], rec, "molecule_path", list(sweep.LAUNCHES),
+            idle=walks))),
         ("molecule_reference", lambda: phase_molecule_reference(rec, device)),
+        ("kernels_walk", lambda: phase_kernels_walk(scenes, rec)),
+        ("walk_path", lambda: paths.update(walk_path=phase_path(
+            scenes["bench"][0], scenes["bench"][1],
+            _walk_cfg(scenes["bench"][2]), rec, "walk_path", tri_walks,
+            idle=tri, no_brute=["tri"]))),
+        ("molecule_while", lambda: paths.update(
+            molecule_while=molecule_while())),
+        ("walk_reference", lambda: phase_walk_reference(rec, device)),
+        ("cornell", lambda: paths.update(cornell=phase_cornell(rec, device))),
     )
     for name, fn in steps:
         try:
@@ -537,6 +854,7 @@ def main() -> int:
         except Exception:  # every phase runs; any failure fails the run
             rec["failed"].append(name)
             print(f"phase {name}: FAILED\n{traceback.format_exc()}", flush=True)
+    rec["total_s"] = time.time() - t_start
     print(f"record: {json.dumps(rec)}", flush=True)
     if rec["failed"]:
         print(f"chip_smoke: failed phases {rec['failed']}", file=sys.stderr)

@@ -13,6 +13,17 @@ NORMAL_EPS = 1e-12      # normalization guard
 # (negative radius, degenerate triangle) that never hit.
 PAD_ALIGN = 8
 
+# Primitives per BVH leaf.
+BVH_LEAF_SIZE = 8
+
+# Pool codes, in the order traversal visits the pools (a tie across
+# pools goes to the lower code).
+POOL_SPHERE = 0
+POOL_TRIANGLE = 1
+POOL_CYLINDER = 2
+POOL_ELLIPSOID = 3
+POOL_PLANE = 4
+
 # Reserved material conventions.
 DEFAULT_MATERIAL = 0
 

@@ -13,9 +13,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from solr_tpu_torch.types import (Camera, CameraMode, Cylinders, Lights,
-                                  Materials, RenderConfig, Scene, SceneInfo,
-                                  Spheres, Textures, Triangles, TriAccel)
+from solr_tpu_torch.types import (BVH, Camera, CameraMode, Cylinders,
+                                  Ellipsoids, Lights, Materials, Planes,
+                                  RenderConfig, Scene, SceneInfo, Spheres,
+                                  Textures, Triangles, TriAccel)
 
 __all__ = ["scene_from_numpy", "camera_from_numpy",
            "config_from_reference_fields"]
@@ -28,73 +29,92 @@ def _t(x, device, dtype=None):
     return torch.as_tensor(np.array(a), dtype=dtype, device=device)
 
 
-def _empty(tree, key) -> bool:
-    pool = tree.get(key)
-    if pool is None:
-        return True
-    first = next(iter(pool.values()))
-    return np.asarray(first).shape[0] == 0
-
-
-def scene_from_numpy(tree: dict, device) -> Scene:
+def scene_from_numpy(tree: dict, device, dtype=torch.float32) -> Scene:
     """Build a Scene from the reference's Scene flattened to numpy.
 
-    ``tree`` has the reference's field names: spheres, triangles,
-    cylinders, materials, lights, textures, info, tri_accel, sph_accel
-    and cyl_accel (each None or an accelerator), and the ellipsoids and
-    planes pools, which must be empty.  The BVH node arrays are ignored:
-    the packet path needs only the accelerators.
+    ``tree`` has the reference's field names: the spheres, triangles,
+    cylinders, ellipsoids and planes pools, materials, lights, textures
+    (which must be empty), info, tri_bvh, sph_bvh and cyl_bvh (each None
+    or a BVH), and tri_accel, sph_accel and cyl_accel (each None or an
+    accelerator).  Float leaves become ``dtype`` (float64 for the f64
+    parity runs), integer leaves int32.
     """
     dev = torch.device(device)
-    for key in ("ellipsoids", "planes"):
-        if not _empty(tree, key):
-            raise NotImplementedError(f"the {key} pool is not ported")
-    if not _empty(tree, "textures") and np.asarray(
-            tree["textures"]["offset"]).shape[0] > 0:
+
+    def fl(x):
+        return _t(x, dev, dtype)
+
+    def ix(x):
+        return _t(x, dev, torch.int32)
+
+    tex = tree.get("textures")
+    if tex is not None and np.asarray(tex["offset"]).shape[0] > 0:
         raise NotImplementedError("textures are not ported")
 
     m = tree["materials"]
     materials = Materials(
-        color=_t(m["color"], dev), specular=_t(m["specular"], dev),
-        reflection=_t(m["reflection"], dev), ior=_t(m["ior"], dev),
-        transparency=_t(m["transparency"], dev),
-        emission=_t(m["emission"], dev),
-        procedural=_t(m["procedural"], dev, torch.int32),
-        procedural_scale=_t(m["procedural_scale"], dev),
+        color=fl(m["color"]), specular=fl(m["specular"]),
+        reflection=fl(m["reflection"]), ior=fl(m["ior"]),
+        transparency=fl(m["transparency"]),
+        emission=fl(m["emission"]),
+        procedural=ix(m["procedural"]),
+        procedural_scale=fl(m["procedural_scale"]),
     )
     s = tree["spheres"]
-    spheres = Spheres(center=_t(s["center"], dev), radius=_t(s["radius"], dev),
-                      material=_t(s["material"], dev, torch.int32))
+    spheres = Spheres(center=fl(s["center"]), radius=fl(s["radius"]),
+                      material=ix(s["material"]))
     tr = tree["triangles"]
-    triangles = Triangles(**{k: _t(tr[k], dev) for k in (
+    triangles = Triangles(**{k: fl(tr[k]) for k in (
         "v0", "v1", "v2", "n0", "n1", "n2", "uv0", "uv1", "uv2")},
-        material=_t(tr["material"], dev, torch.int32))
+        material=ix(tr["material"]))
     c = tree["cylinders"]
-    cylinders = Cylinders(p0=_t(c["p0"], dev), p1=_t(c["p1"], dev),
-                          radius=_t(c["radius"], dev),
-                          material=_t(c["material"], dev, torch.int32))
+    cylinders = Cylinders(p0=fl(c["p0"]), p1=fl(c["p1"]),
+                          radius=fl(c["radius"]),
+                          material=ix(c["material"]))
+    e = tree["ellipsoids"]
+    ellipsoids = Ellipsoids(center=fl(e["center"]),
+                            radii=fl(e["radii"]),
+                            material=ix(e["material"]))
+    pl = tree["planes"]
+    planes = Planes(axis=ix(pl["axis"]),
+                    origin=fl(pl["origin"]),
+                    half_extents=fl(pl["half_extents"]),
+                    material=ix(pl["material"]))
     li = tree["lights"]
-    lights = Lights(position=_t(li["position"], dev),
-                    color=_t(li["color"], dev), radius=_t(li["radius"], dev))
-    info = SceneInfo(**{k: _t(v, dev) for k, v in tree["info"].items()})
+    lights = Lights(position=fl(li["position"]),
+                    color=fl(li["color"]), radius=fl(li["radius"]))
+    info = SceneInfo(**{k: fl(v) for k, v in tree["info"].items()})
 
     def accel(key):
         a = tree.get(key)
         if a is None:
             return None
-        return TriAccel(packed=_t(a["packed"], dev),
-                        block_bounds=_t(a["block_bounds"], dev),
+        return TriAccel(packed=fl(a["packed"]),
+                        block_bounds=fl(a["block_bounds"]),
                         block=int(a["block"]))
 
+    def bvh(key):
+        b = tree.get(key)
+        if b is None:
+            return None
+        return BVH(**{k: ix(v) if np.issubdtype(np.asarray(v).dtype,
+                                                 np.integer) else fl(v)
+                      for k, v in b.items()
+                      if k not in ("max_depth", "leaf_size")},
+                   max_depth=int(b["max_depth"]),
+                   leaf_size=int(b["leaf_size"]))
+
     return Scene(spheres=spheres, triangles=triangles, cylinders=cylinders,
-                 materials=materials, lights=lights, textures=Textures(),
-                 info=info, tri_accel=accel("tri_accel"),
+                 ellipsoids=ellipsoids, planes=planes, materials=materials,
+                 lights=lights, textures=Textures(), info=info,
+                 tri_bvh=bvh("tri_bvh"), sph_bvh=bvh("sph_bvh"),
+                 cyl_bvh=bvh("cyl_bvh"), tri_accel=accel("tri_accel"),
                  sph_accel=accel("sph_accel"), cyl_accel=accel("cyl_accel"))
 
 
-def camera_from_numpy(tree: dict, device) -> Camera:
+def camera_from_numpy(tree: dict, device, dtype=torch.float32) -> Camera:
     """Camera from the reference's Camera flattened to numpy."""
-    return Camera(**{k: _t(v, device, torch.float32) for k, v in tree.items()})
+    return Camera(**{k: _t(v, device, dtype) for k, v in tree.items()})
 
 
 # Reference RenderConfig fields the port does not have, with the only
@@ -103,7 +123,6 @@ _UNPORTED_DEFAULTS = {
     "sky_texture": -1,
     "fog": False,
     "antialias_jitter": False,
-    "use_bvh": True,
 }
 
 
@@ -123,9 +142,5 @@ def config_from_reference_fields(fields: dict) -> RenderConfig:
     for name, default in _UNPORTED_DEFAULTS.items():
         if name in fields and fields.pop(name) != default:
             raise NotImplementedError(f"RenderConfig.{name} is not ported")
-    # The packet path is the port's only triangle traversal.
-    traversal = fields.pop("traversal", "auto")
-    if traversal not in ("auto", "packet"):
-        raise NotImplementedError(f"traversal={traversal!r} is not ported")
     fields["camera_mode"] = CameraMode(int(fields.get("camera_mode", 0)))
     return RenderConfig(**fields)

@@ -2,12 +2,14 @@
 
     python -m solr_tpu_torch.frame_profile [--scene bench|molecule]
         [--n-tris N] [--n-atoms N] [--ground-res R] [--size S]
-        [--block B] [--out FILE]
+        [--height H] [--traversal auto|packet|while] [--block B]
+        [--out FILE]
 
 Builds the bench frame (bench_scene.py; by default the full 1M-triangle
 512x512 frame at BLOCK=512) or the molecule frame (molecule_scene.py; by
 default 100k atoms over a res-128 ground, 512x512, BLOCK=256) on cuda:0,
-renders one warm-up frame, then:
+``--size`` pixels wide and ``--height`` (default ``--size``) high, with
+the given traversal, renders one warm-up frame, then:
 
 1. three plain frames, each timed on the host clock up to a device sync;
 2. on a CUDA device, one frame under ``torch.profiler``: the number of
@@ -16,7 +18,8 @@ renders one warm-up frame, then:
 3. one instrumented frame: each phase in ``PHASES`` timed on the host
    clock with a device sync on both sides, and the exactness net's
    counters (``traverse.NET_STATS``) read around each net call.  The
-   sweep wrappers are timed per kernel ("kernel sweep_closest_sphere").
+   sweep and walk wrappers are timed per kernel ("kernel
+   sweep_closest_sphere", "kernel bvh_closest_hit_sphere").
 
 The phases nest (the net calls the pool brute force when a union
 overflows), so their seconds do not add up to the frame.  The syncs make
@@ -28,6 +31,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import dataclasses
 import contextlib
 import functools
 import inspect
@@ -38,7 +42,7 @@ import torch
 
 from solr_tpu_torch.bench_scene import bench_scene
 from solr_tpu_torch.molecule_scene import molecule_scene
-from solr_tpu_torch.ops import packet, render, sweep, traverse
+from solr_tpu_torch.ops import bvh, packet, render, sweep, traverse
 
 __all__ = ["PHASES", "profile_frame"]
 
@@ -51,6 +55,8 @@ PHASES = (
     (packet, "strip_interval_select", "strip_interval_select"),
     (sweep, "sweep_closest", "kernel sweep_closest"),
     (sweep, "sweep_transmittance", "kernel sweep_transmittance"),
+    (bvh, "bvh_closest_hit", "kernel bvh_closest_hit"),
+    (bvh, "bvh_transmittance", "kernel bvh_transmittance"),
     (traverse, "_compacted_net", "exactness net"),
     (traverse, "_pool_closest", "pool_closest (small pools, net overflows)"),
     (traverse, "_pool_transmittance_brute",
@@ -95,14 +101,20 @@ def _instrumented(device, seconds, calls, net_calls):
     saved = []
 
     def timed(fn, label, is_net):
-        sig = inspect.signature(fn) if fn.__module__ == sweep.__name__ else None
+        kernels = fn.__module__ in (sweep.__name__, bvh.__name__)
+        sig = inspect.signature(fn) if kernels else None
 
         @functools.wraps(fn)
         def call(*args, **kwargs):
             key = label
             if sig is not None:  # one label per kernel of the wrapper
-                prim = sig.bind(*args, **kwargs).arguments.get("prim", "tri")
-                key = "kernel " + sweep.kernel_name(fn.__name__, prim)
+                a = sig.bind(*args, **kwargs).arguments
+                if fn.__module__ == bvh.__name__:
+                    key = "kernel " + bvh.kernel_name(
+                        fn.__name__, bvh.POOL_PRIM[a["pool_code"]])
+                else:
+                    key = "kernel " + sweep.kernel_name(
+                        fn.__name__, a.get("prim", "tri"))
             before = dict(traverse.NET_STATS)
             _sync(device)
             t0 = time.perf_counter()
@@ -161,27 +173,33 @@ def main(argv=None) -> int:
     ap.add_argument("--n-atoms", type=int, default=100_000)
     ap.add_argument("--ground-res", type=int, default=128)
     ap.add_argument("--size", type=int, default=512)
+    ap.add_argument("--height", type=int, default=None)
+    ap.add_argument("--traversal", choices=("auto", "packet", "while"),
+                    default="auto")
     ap.add_argument("--block", type=int, default=None,
                     help="primitives per block (bench 512, molecule 256)")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     device = torch.device("cuda:0")
+    height = args.height or args.size
     t0 = time.perf_counter()
     if args.scene == "bench":
         block = args.block or 512
         scene, cam, cfg = bench_scene(args.n_tris, block=block,
-                                      width=args.size, height=args.size,
+                                      width=args.size, height=height,
                                       device=device)
         rec = dict(scene="bench", n_tris=args.n_tris)
     else:
         block = args.block or 256
         scene, cam, cfg = molecule_scene(args.n_atoms, args.ground_res,
-                                         width=args.size, height=args.size,
+                                         width=args.size, height=height,
                                          block=block, device=device)
         rec = dict(scene="molecule", n_atoms=args.n_atoms,
                    ground_res=args.ground_res)
+    cfg = dataclasses.replace(cfg, traversal=args.traversal)
     _sync(device)
-    rec.update(size=args.size, block=block,
+    rec.update(size=args.size, height=height, traversal=args.traversal,
+               block=block,
                scene_build_s=time.perf_counter() - t0,
                pools={k: int(v) for k, v in (
                    ("spheres", scene.spheres.radius.shape[0]),

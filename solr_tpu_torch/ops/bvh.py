@@ -1,0 +1,565 @@
+"""BVH build, refit and the per-ray stackless walk (counterpart of
+solr_tpu/ops/bvh.py).
+
+The BVH is a median-split tree over a Morton-ordered pool, flattened in
+DFS preorder with skip pointers: a ray that hits node i goes on to
+i + 1, one that misses jumps to ``skip[i]``.  It is built on the host in
+numpy (``build_bvh``, the reference's numpy path, whose node arrays its
+native builder reproduces) and refitted on the device (``bvh_refit``).
+
+Two walks, each with a plain PyTorch version and a wrapper, for the
+sphere, triangle and cylinder pools:
+
+* ``bvh_closest_hit`` (replaces ``bvh_closest_hit``, a ``lax.while_loop``
+  at solr_tpu/ops/bvh.py:333): the closest primitive with
+  t_min < t <= t_max.  A box is entered when its slab interval meets
+  [t_min, min(best, t_max)]; inside a leaf the lowest lane wins a tie,
+  and across leaves, visited in DFS order, a hit replaces the best only
+  when strictly nearer.
+* ``bvh_transmittance`` (replaces ``bvh_transmittance`` at
+  solr_tpu/ops/bvh.py:397): the product over every occluder with
+  t < t_max of its material's transparency (1 for an emissive one).  A
+  leaf's factors multiply in ascending lane order and the leaf product
+  then multiplies into the ray's; the walk stops once that is <= 1e-6.
+
+Both also count, per ray, the nodes visited and the leaf lanes tested.
+CPU tensors take the plain versions; CUDA tensors take the hand-written
+kernels of ``solr_tpu_torch/csrc/bvh_walk.cu``, built with nvcc at first
+use (``sweep.compile_library``, the same flags) and loaded with ctypes.
+A build or launch failure raises; nothing falls back.  Kernel and plain
+version agree bit for bit on the same device: the same association in
+every primitive test and in the slab test, no FMA contraction, IEEE
+division and square root.
+
+The plain walks are masked step loops: every step takes one node per
+ray; every ``_CHECK_EVERY`` steps one host sync drops the rays whose
+walk has ended.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import threading
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from solr_tpu_torch.constants import (BVH_LEAF_SIZE, POOL_CYLINDER,
+                                      POOL_SPHERE, POOL_TRIANGLE, T_FAR)
+from solr_tpu_torch.ops import intersect as isect
+from solr_tpu_torch.ops import sweep
+from solr_tpu_torch.types import BVH
+
+__all__ = [
+    "LAUNCHES",
+    "PRIMS",
+    "build",
+    "build_bvh",
+    "bvh_closest_hit",
+    "bvh_closest_hit_plain",
+    "bvh_refit",
+    "bvh_transmittance",
+    "bvh_transmittance_plain",
+    "kernel_name",
+    "launch_closest",
+    "launch_transmittance",
+    "load_library",
+    "morton_codes",
+    "morton_order",
+    "pool_aabbs",
+]
+
+_AABB_PAD = 1e-5
+
+# Primitive kinds in the order of their codes in csrc/bvh_walk.cu, and
+# the pool each walks.
+PRIMS = ("tri", "sphere", "cyl")
+_PRIM_POOL = {"tri": POOL_TRIANGLE, "sphere": POOL_SPHERE,
+              "cyl": POOL_CYLINDER}
+POOL_PRIM = {c: p for p, c in _PRIM_POOL.items()}
+ENTRIES = ("bvh_closest_hit", "bvh_transmittance")
+
+
+def kernel_name(entry: str, prim: str) -> str:
+    """One walk kernel's name: the entry point and the primitive kind
+    ("bvh_closest_hit_tri", ...)."""
+    return f"{entry}_{prim}"
+
+
+# Kernel launch counts, one per kernel (entry point x primitive kind);
+# incremented only where a wrapper launches that kernel.
+LAUNCHES = {kernel_name(e, p): 0 for p in PRIMS for e in ENTRIES}
+
+_SRC = Path(__file__).resolve().parents[1] / "csrc" / "bvh_walk.cu"
+_lib = None
+_lock = threading.Lock()
+
+# Steps of the plain walks between two checks for finished rays.
+_CHECK_EVERY = 8
+
+
+# --------------------------------------------------------------------------
+# Build (host, numpy)
+# --------------------------------------------------------------------------
+
+
+def _expand_bits(v: np.ndarray) -> np.ndarray:
+    """Spread the low 10 bits of v to every 3rd bit."""
+    v = v.astype(np.uint64)
+    v = (v * np.uint64(0x00010001)) & np.uint64(0xFF0000FF)
+    v = (v * np.uint64(0x00000101)) & np.uint64(0x0F00F00F)
+    v = (v * np.uint64(0x00000011)) & np.uint64(0xC30C30C3)
+    v = (v * np.uint64(0x00000005)) & np.uint64(0x49249249)
+    return v
+
+
+def morton_codes(centroids: np.ndarray) -> np.ndarray:
+    """30-bit 3-D Morton codes of points quantized into a 1024^3 grid."""
+    lo = centroids.min(axis=0)
+    hi = centroids.max(axis=0)
+    span = np.maximum(hi - lo, 1e-12)
+    q = np.clip(((centroids - lo) / span) * 1023.0, 0, 1023).astype(np.uint32)
+    return ((_expand_bits(q[:, 0]) << np.uint64(2))
+            | (_expand_bits(q[:, 1]) << np.uint64(1))
+            | _expand_bits(q[:, 2]))
+
+
+def morton_order(amin: np.ndarray, amax: np.ndarray) -> np.ndarray:
+    """The stable Morton order of AABBs (N, 3) by their centroids: the
+    order ``build_bvh`` puts a pool in."""
+    return np.argsort(morton_codes(0.5 * (amin + amax)),
+                      kind="stable").astype(np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def _subtree_nodes(m: int, leaf_size: int) -> int:
+    """Nodes of the median-split subtree over m primitives: a node over
+    more than leaf_size splits into m // 2 and m - m // 2."""
+    if m <= leaf_size:
+        return 1
+    return (1 + _subtree_nodes(m // 2, leaf_size)
+            + _subtree_nodes(m - m // 2, leaf_size))
+
+
+def _preorder_ranges(n: int, leaf_size: int):
+    """(starts, ends, skips, depths) of the median-split tree over n
+    primitives in DFS preorder: the reference's recursion
+    (bvh.py:118-138) built level by level.  A subtree's shape depends
+    only on its size, so a node's right child sits after its left
+    child's whole subtree."""
+    k = _subtree_nodes(n, leaf_size)
+    starts, ends, skips, depths = (np.empty(k, np.int32) for _ in range(4))
+    s, e, idx = (np.array([v], np.int64) for v in (0, n, 0))
+    depth = 0
+    while s.size:
+        m = e - s
+        sizes, inv = np.unique(m, return_inverse=True)
+        nodes = np.array([_subtree_nodes(int(x), leaf_size) for x in sizes])
+        starts[idx], ends[idx], depths[idx] = s, e, depth
+        skips[idx] = idx + nodes[inv.reshape(-1)]
+        inner = m > leaf_size
+        s, e, idx, m = s[inner], e[inner], idx[inner], m[inner]
+        mid = s + m // 2  # = (s + e) // 2
+        half = np.array([_subtree_nodes(int(x), leaf_size) for x in m // 2],
+                        np.int64)
+        s, e = np.concatenate([s, mid]), np.concatenate([mid, e])
+        idx = np.concatenate([idx + 1, idx + 1 + half])
+        depth += 1
+    return starts, ends, skips, depths
+
+
+def build_bvh(aabb_min, aabb_max, leaf_size: int = BVH_LEAF_SIZE,
+              device="cuda"):
+    """Build the median-split BVH over primitives given their AABBs
+    (N, 3), on the host.  Returns (bvh with tensors on ``device``,
+    order): leaf ranges index the reordered pool ``pool[order]``."""
+    aabb_min = np.asarray(aabb_min, np.float32)
+    aabb_max = np.asarray(aabb_max, np.float32)
+    n = aabb_min.shape[0]
+    if n == 0:
+        raise ValueError("cannot build a BVH over 0 primitives")
+    order = morton_order(aabb_min, aabb_max)
+    smin, smax = aabb_min[order], aabb_max[order]
+    starts, ends, skips, depths = _preorder_ranges(n, leaf_size)
+    is_leaf = ends - starts <= leaf_size
+    k = starts.shape[0]
+    nmin = np.empty((k, 3), np.float32)
+    nmax = np.empty((k, 3), np.float32)
+    # Leaves reduce their sorted primitives; leaf ranges ascend and
+    # partition the pool.  Inner nodes join their two children, deepest
+    # level first.
+    leaf_ids = np.nonzero(is_leaf)[0]
+    nmin[leaf_ids] = np.minimum.reduceat(smin, starts[leaf_ids], axis=0)
+    nmax[leaf_ids] = np.maximum.reduceat(smax, starts[leaf_ids], axis=0)
+    for lvl in range(int(depths.max()) - 1, -1, -1):
+        ids = np.nonzero((depths == lvl) & ~is_leaf)[0]
+        left = ids + 1
+        right = skips[left]
+        nmin[ids] = np.minimum(nmin[left], nmin[right])
+        nmax[ids] = np.maximum(nmax[left], nmax[right])
+    nmin -= _AABB_PAD
+    nmax += _AABB_PAD
+    return (_assemble_bvh(starts, ends, skips, depths, nmin, nmax, leaf_size,
+                          device), order)
+
+
+def _assemble_bvh(starts, ends, skips, depths, nmin, nmax, leaf_size: int,
+                  device) -> BVH:
+    """The BVH from its flattened node arrays, with the leaf view."""
+    counts = ends - starts
+    is_leaf = counts <= leaf_size
+    leaf_ids = np.nonzero(is_leaf)[0]
+    lmin, lmax = nmin[leaf_ids], nmax[leaf_ids]
+    n_leaves = len(leaf_ids)
+    pad = -(-n_leaves // 128) * 128 - n_leaves
+    lc = np.concatenate([0.5 * (lmin + lmax),
+                         np.full((pad, 3), 1e30, np.float32)])
+    lr = np.concatenate([0.5 * np.linalg.norm(lmax - lmin, axis=-1),
+                         np.zeros(pad, np.float32)])
+    lfirst = np.concatenate([starts[leaf_ids], np.zeros(pad, np.int32)])
+    lcount = np.concatenate([counts[leaf_ids], np.zeros(pad, np.int32)])
+
+    def ten(x, dtype):
+        return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype,
+                               device=device)
+
+    f32, i32 = torch.float32, torch.int32
+    return BVH(
+        aabb_min=ten(nmin, f32), aabb_max=ten(nmax, f32),
+        skip=ten(skips, i32),
+        first_prim=ten(np.where(is_leaf, starts, -1), i32),
+        prim_count=ten(np.where(is_leaf, counts, 0), i32),
+        depth=ten(depths, i32), leaf_center=ten(lc, f32),
+        leaf_radius=ten(lr, f32), leaf_first=ten(lfirst, i32),
+        leaf_count=ten(lcount, i32), max_depth=int(depths.max()),
+        leaf_size=int(leaf_size))
+
+
+def pool_aabbs(scene, pool_code: int):
+    """Per-primitive AABBs (numpy (N, 3) each) of an accelerated pool."""
+    def host(x):
+        return x.detach().cpu().numpy()
+
+    if pool_code == POOL_SPHERE:
+        c = host(scene.spheres.center)
+        r = host(scene.spheres.radius)[:, None]
+        return c - r, c + r
+    if pool_code == POOL_TRIANGLE:
+        v0, v1, v2 = (host(getattr(scene.triangles, k))
+                      for k in ("v0", "v1", "v2"))
+        return (np.minimum(np.minimum(v0, v1), v2),
+                np.maximum(np.maximum(v0, v1), v2))
+    if pool_code == POOL_CYLINDER:
+        p0, p1 = host(scene.cylinders.p0), host(scene.cylinders.p1)
+        r = host(scene.cylinders.radius)[:, None]
+        return np.minimum(p0, p1) - r, np.maximum(p0, p1) + r
+    raise ValueError(f"pool {pool_code} is not BVH-accelerated")
+
+
+@torch.no_grad()
+def bvh_refit(bvh: BVH, prim_min, prim_max) -> BVH:
+    """Node AABBs recomputed from primitive bounds (N, 3) at fixed
+    topology, deepest level first.  The BVH is a derived accelerator and
+    carries no gradient."""
+    k, leaf_size = bvh.n_nodes, bvh.leaf_size
+    is_leaf = bvh.first_prim >= 0
+    lane = torch.arange(leaf_size, device=prim_min.device)
+    pidx = (bvh.first_prim[:, None] + lane).clamp(0, prim_min.shape[0] - 1)
+    mask = (lane < bvh.prim_count[:, None])[..., None]
+    inf = torch.tensor(float("inf"), device=prim_min.device)
+    nmin = torch.where(mask, prim_min[pidx], inf).amin(1)
+    nmax = torch.where(mask, prim_max[pidx], -inf).amax(1)
+    nmin = torch.where(is_leaf[:, None], nmin, inf)
+    nmax = torch.where(is_leaf[:, None], nmax, -inf)
+    left = (torch.arange(k, device=prim_min.device) + 1).clamp(max=k - 1)
+    right = bvh.skip[left].long().clamp(0, k - 1)
+    for lvl in range(bvh.max_depth - 1, -1, -1):
+        sel = ((bvh.depth == lvl) & ~is_leaf)[:, None]
+        nmin = torch.where(sel, torch.minimum(nmin[left], nmin[right]), nmin)
+        nmax = torch.where(sel, torch.maximum(nmax[left], nmax[right]), nmax)
+    return bvh.replace(aabb_min=nmin - _AABB_PAD, aabb_max=nmax + _AABB_PAD)
+
+
+# --------------------------------------------------------------------------
+# Plain walks
+# --------------------------------------------------------------------------
+
+
+def _pool_size(scene, prim: str) -> int:
+    return {"tri": scene.triangles.v0, "sphere": scene.spheres.radius,
+            "cyl": scene.cylinders.radius}[prim].shape[0]
+
+
+def _leaf_t(scene, prim: str, o, d, first, cnt, leaf_size: int, t_min):
+    """t of each ray (R, 3) against the ``leaf_size`` lanes from
+    ``first`` (R,): (R, leaf_size), T_FAR where the lane is not below
+    ``cnt`` (R,); the pool tests the brute force takes
+    (ops/intersect.py).  Also returns the lanes' pool rows."""
+    lanes = torch.arange(leaf_size, device=cnt.device, dtype=cnt.dtype)
+    pids = (first[:, None] + lanes).clamp(0, _pool_size(scene, prim) - 1).long()
+    ob, db = o[:, None, :], d[:, None, :]
+    if prim == "sphere":
+        p = scene.spheres
+        t = isect.sphere_t_p(ob, db, p.center[pids], p.radius[pids], t_min)
+    elif prim == "tri":
+        p = scene.triangles
+        t = isect.triangle_t_p(ob, db, p.v0[pids], p.v1[pids], p.v2[pids],
+                               t_min)
+    else:
+        p = scene.cylinders
+        t = isect.cylinder_t_p(ob, db, p.p0[pids], p.p1[pids],
+                               p.radius[pids], t_min)
+    return torch.where(lanes < cnt[:, None], t, torch.full_like(t, T_FAR)), pids
+
+
+def _walk(scene, bvh: BVH, prim, o, d, t_min, t_max, closest: bool):
+    """The masked step loop of both walks.  Returns (value, idx or None,
+    visits, tests), each of the rays' shape."""
+    r_shape = o.shape[:-1]
+    o = o.reshape(-1, 3)
+    d = d.reshape(-1, 3)
+    n_rays, dev, k = o.shape[0], o.device, bvh.n_nodes
+    tm = torch.as_tensor(t_max, dtype=o.dtype, device=dev).expand(
+        r_shape).reshape(-1)
+    inv_d = 1.0 / torch.where(d.abs() > 1e-12, d, torch.full_like(d, 1e-12))
+    value = torch.full((n_rays,), T_FAR if closest else 1.0, dtype=o.dtype,
+                       device=dev)
+    best_i = torch.zeros(n_rays, dtype=torch.int32, device=dev)
+    visits = torch.zeros(n_rays, dtype=torch.int32, device=dev)
+    tests = torch.zeros(n_rays, dtype=torch.int32, device=dev)
+    ptr = torch.zeros(n_rays, dtype=torch.int64, device=dev)
+    ids = torch.arange(n_rays, device=dev)
+    mats = scene.materials
+    pool = {"tri": scene.triangles, "sphere": scene.spheres,
+            "cyl": scene.cylinders}[prim]
+    # The rays still walking, compacted: their state and inputs.
+    st = [ptr, value, best_i, visits, tests, o, d, inv_d, tm]
+    while ids.numel():
+        p, val, bi, vis, tst, oc, dc, ic, tmc = st
+        for _ in range(_CHECK_EVERY):
+            alive = p < k
+            sp = p.clamp(max=k - 1)
+            limit = torch.minimum(val, tmc) if closest else tmc
+            hit = isect.aabb_hit(oc, ic, bvh.aabb_min[sp], bvh.aabb_max[sp],
+                                 t_min, limit) & alive
+            first = bvh.first_prim[sp]
+            cnt = torch.where(hit, bvh.prim_count[sp], 0)
+            t, pids = _leaf_t(scene, prim, oc, dc, first, cnt, bvh.leaf_size,
+                              t_min)
+            if closest:
+                t = torch.where(t <= limit[:, None], t, torch.full_like(t, T_FAR))
+                # Lowest lane first among equal t (a strict < in
+                # ascending lanes), then a strict < against the best.
+                lm = torch.full_like(val, T_FAR)
+                la = torch.zeros_like(bi)
+                for j in range(bvh.leaf_size):
+                    better = t[:, j] < lm
+                    lm = torch.where(better, t[:, j], lm)
+                    la = torch.where(better, j, la)
+                better = lm < val
+                val = torch.where(better, lm, val)
+                bi = torch.where(better, first + la, bi)
+            else:
+                occ = t < tmc[:, None]  # lanes past cnt are T_FAR
+                m = pool.material[pids].long()
+                f = torch.where(mats.emission[m] > 0.0,
+                                torch.ones_like(mats.transparency[m]),
+                                mats.transparency[m])
+                prod = torch.ones_like(val)
+                for j in range(bvh.leaf_size):
+                    prod = prod * torch.where(occ[:, j], f[:, j],
+                                              torch.ones_like(prod))
+                val = val * prod
+            nxt = torch.where(hit & (first < 0), sp + 1, bvh.skip[sp].long())
+            p = torch.where(alive, nxt, p)
+            if not closest:  # a ray in full shadow stops walking
+                p = torch.where(val <= 1e-6, torch.full_like(p, k), p)
+            vis = vis + alive.to(torch.int32)
+            tst = tst + cnt
+        done = p >= k
+        fin = ids[done]
+        value[fin], best_i[fin] = val[done], bi[done]
+        visits[fin], tests[fin] = vis[done], tst[done]
+        keep = ~done
+        ids = ids[keep]  # the host sync of this check
+        st = [x[keep] for x in (p, val, bi, vis, tst, oc, dc, ic, tmc)]
+    return (value.reshape(r_shape), best_i.reshape(r_shape) if closest
+            else None, visits.reshape(r_shape), tests.reshape(r_shape))
+
+
+def bvh_closest_hit_plain(scene, bvh: BVH, prim: str, o, d, t_min,
+                          t_max=T_FAR):
+    """Plain PyTorch closest-hit walk of the pool of kind ``prim``.
+    Returns (t, idx, visits, tests), of the rays' shape: T_FAR and idx 0
+    on a miss."""
+    return _walk(scene, bvh, prim, o, d, t_min, t_max, True)
+
+
+def bvh_transmittance_plain(scene, bvh: BVH, prim: str, o, d, t_min,
+                            t_max):
+    """Plain PyTorch shadow walk of the pool of kind ``prim``.  Returns
+    (tr in [0, 1], visits, tests), of the rays' shape."""
+    tr, _, visits, tests = _walk(scene, bvh, prim, o, d, t_min, t_max, False)
+    return tr, visits, tests
+
+
+# --------------------------------------------------------------------------
+# CUDA build and wrappers
+# --------------------------------------------------------------------------
+
+
+def load_library(path):
+    """Load a compiled walk library and declare its C entry points."""
+    lib = ctypes.CDLL(str(path))
+    vp, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
+                         ctypes.c_float)
+    nodes = [vp] * 5 + [i32]
+    lib.solr_bvh_closest.argtypes = [i32] + nodes + [vp] * 7 + [
+        i64, f32] + [vp] * 5
+    lib.solr_bvh_closest.restype = i32
+    lib.solr_bvh_transmittance.argtypes = [i32] + nodes + [vp] * 9 + [
+        i64, f32] + [vp] * 4
+    lib.solr_bvh_transmittance.restype = i32
+    return lib
+
+
+def build(verbose: bool = False) -> str:
+    """Compile ``csrc/bvh_walk.cu`` for sm_90a (once per source and flag
+    set) and load it.  Returns the compiler's output when it built, ''
+    when the library was already there.  Raises on any failure."""
+    global _lib
+    with _lock:
+        path, log = sweep.compile_library(_SRC.read_bytes(),
+                                          stem="libsolr_bvh_walk",
+                                          verbose=verbose)
+        if _lib is None:
+            _lib = load_library(path)
+        return log
+
+
+def _library():
+    if _lib is None:
+        build()
+    return _lib
+
+
+def _ptr(x):
+    return ctypes.c_void_p(x.data_ptr())
+
+
+def _walk_inputs(scene, bvh: BVH, prim: str, o, d, t_max):
+    """The contiguous device arrays a walk kernel reads, and the flat
+    rays: (node arrays, pool arrays, o, d, t_max)."""
+    if prim not in PRIMS:
+        raise ValueError(f"prim must be one of {PRIMS}, got {prim!r}")
+    if o.shape != d.shape or o.shape[-1] != 3:
+        raise ValueError("o and d must both be (..., 3)")
+    dev = o.device
+
+    def f32(x):
+        return x.to(device=dev, dtype=torch.float32).contiguous()
+
+    def i32(x):
+        return x.to(device=dev, dtype=torch.int32).contiguous()
+
+    nodes = (f32(bvh.aabb_min), f32(bvh.aabb_max), i32(bvh.skip),
+             i32(bvh.first_prim), i32(bvh.prim_count))
+    if prim == "tri":
+        p = scene.triangles
+        arrays = (p.v0, p.v1, p.v2)
+    elif prim == "sphere":
+        p = scene.spheres
+        arrays = (p.center, p.radius, p.radius)
+    else:
+        p = scene.cylinders
+        arrays = (p.p0, p.p1, p.radius)
+    pool = tuple(f32(a) for a in arrays) + (i32(p.material),)
+    r_shape = o.shape[:-1]
+    tm = torch.as_tensor(t_max, dtype=torch.float32, device=dev).expand(
+        r_shape).reshape(-1).contiguous()
+    return (nodes, pool, f32(o.reshape(-1, 3)), f32(d.reshape(-1, 3)), tm)
+
+
+def launch_closest(lib, scene, bvh: BVH, prim: str, o, d, t_min,
+                   t_max=T_FAR):
+    """One launch of ``lib``'s closest-hit walk on CUDA tensors.
+    Returns what :func:`bvh_closest_hit_plain` returns."""
+    nodes, pool, of, df, tm = _walk_inputs(scene, bvh, prim, o, d, t_max)
+    n = of.shape[0]
+    out_t = torch.empty(n, dtype=torch.float32, device=of.device)
+    out_i, vis, tst = (torch.empty(n, dtype=torch.int32, device=of.device)
+                       for _ in range(3))
+    stream = torch.cuda.current_stream(of.device).cuda_stream
+    err = lib.solr_bvh_closest(
+        PRIMS.index(prim), *(_ptr(x) for x in nodes), bvh.n_nodes,
+        *(_ptr(x) for x in pool), _ptr(of), _ptr(df), _ptr(tm), n,
+        float(t_min), _ptr(out_t), _ptr(out_i), _ptr(vis), _ptr(tst),
+        ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"{kernel_name('bvh_closest_hit', prim)} kernel "
+                           f"launch failed: cudaError {err}")
+    r_shape = o.shape[:-1]
+    return tuple(x.reshape(r_shape) for x in (out_t, out_i, vis, tst))
+
+
+def launch_transmittance(lib, scene, bvh: BVH, prim: str, o, d, t_min,
+                         t_max):
+    """One launch of ``lib``'s shadow walk on CUDA tensors.  Returns
+    what :func:`bvh_transmittance_plain` returns."""
+    nodes, pool, of, df, tm = _walk_inputs(scene, bvh, prim, o, d, t_max)
+    mats = scene.materials
+    emission = mats.emission.to(torch.float32).contiguous()
+    transparency = mats.transparency.to(torch.float32).contiguous()
+    n = of.shape[0]
+    out_tr = torch.empty(n, dtype=torch.float32, device=of.device)
+    vis, tst = (torch.empty(n, dtype=torch.int32, device=of.device)
+                for _ in range(2))
+    stream = torch.cuda.current_stream(of.device).cuda_stream
+    err = lib.solr_bvh_transmittance(
+        PRIMS.index(prim), *(_ptr(x) for x in nodes), bvh.n_nodes,
+        *(_ptr(x) for x in pool), _ptr(emission), _ptr(transparency),
+        _ptr(of), _ptr(df), _ptr(tm), n, float(t_min), _ptr(out_tr),
+        _ptr(vis), _ptr(tst), ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"{kernel_name('bvh_transmittance', prim)} kernel "
+                           f"launch failed: cudaError {err}")
+    r_shape = o.shape[:-1]
+    return tuple(x.reshape(r_shape) for x in (out_tr, vis, tst))
+
+
+def _kernel_device(o) -> bool:
+    """True for CUDA rays (the kernel), False for CPU ones (the plain
+    version); other devices raise."""
+    if o.device.type == "cpu":
+        return False
+    if o.device.type != "cuda":
+        raise ValueError(f"no BVH walk kernel for device {o.device}")
+    return True
+
+
+def bvh_closest_hit(scene, bvh: BVH, pool_code: int, o, d, t_min,
+                    t_max=T_FAR):
+    """Closest hit within one BVH-accelerated pool (traverse.POOL_*
+    code) for rays o, d (..., 3) and t_max, a number or of the rays'
+    shape.  Returns (t, idx): T_FAR and idx 0 on a miss."""
+    prim = POOL_PRIM[pool_code]
+    if not _kernel_device(o):
+        return bvh_closest_hit_plain(scene, bvh, prim, o, d, t_min, t_max)[:2]
+    out = launch_closest(_library(), scene, bvh, prim, o, d, t_min, t_max)
+    LAUNCHES[kernel_name("bvh_closest_hit", prim)] += 1
+    return out[:2]
+
+
+def bvh_transmittance(scene, bvh: BVH, pool_code: int, o, d, t_min, t_max):
+    """Shadow transmittance in [0, 1] through one BVH-accelerated pool:
+    the product over every occluder with t_min < t < t_max of its
+    material's transparency, emissive primitives never occluding."""
+    prim = POOL_PRIM[pool_code]
+    if not _kernel_device(o):
+        return bvh_transmittance_plain(scene, bvh, prim, o, d, t_min, t_max)[0]
+    out = launch_transmittance(_library(), scene, bvh, prim, o, d, t_min,
+                               t_max)
+    LAUNCHES[kernel_name("bvh_transmittance", prim)] += 1
+    return out[0]

@@ -86,7 +86,8 @@ def trace_rays(scene: Scene, o, d, cfg: RenderConfig, packet=None):
             o = torch.where(park, torch.full_like(o, PARK_POS), o)
             d = torch.where(park, torch.full_like(d, PARK_DIR), d)
 
-        hit = scene_closest_hit(scene, o, d, packet=packet)
+        hit = scene_closest_hit(scene, o, d, use_bvh=cfg.use_bvh,
+                                packet=packet)
         valid = hit.valid & live
         surf = surface_at(scene, hit, o, d)
         local = phong_shade(scene, surf, d, cfg, packet=packet)
@@ -131,13 +132,14 @@ def trace_rays(scene: Scene, o, d, cfg: RenderConfig, packet=None):
 
 def trace_rays_tiled(scene: Scene, o, d, cfg: RenderConfig):
     """Trace a row-major pixel block with the packet tile swizzle when
-    the scene and frame allow it.  As in the reference (render.py:273),
-    only a scene with a triangle accelerator takes packets; its sphere
-    and cylinder pools then take them too.  A scene of accelerated
-    spheres or cylinders alone needs the per-ray BVH walk (ROADMAP A14),
-    and traversal raises for it."""
+    the scene and frame allow it, under the reference's condition
+    (render.py:273-285): a triangle BVH, ``use_bvh``, traversal "auto"
+    or "packet", and whole tiles.  Its sphere and cylinder pools then
+    take packets too.  Otherwise the rays go in pixel order and every
+    accelerated pool takes the per-ray BVH walk."""
     n = o.shape[0]
-    if scene.tri_accel is None or n % cfg.width != 0:
+    if (scene.tri_bvh is None or not cfg.use_bvh
+            or cfg.traversal not in ("auto", "packet") or n % cfg.width != 0):
         return trace_rays(scene, o, d, cfg)
     h_loc = n // cfg.width
     if cfg.width % cfg.packet_tile_w or h_loc % cfg.packet_tile_h:

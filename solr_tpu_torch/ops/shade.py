@@ -1,6 +1,9 @@
 """Local shading: Phong lighting with hard shadows (counterpart of
-solr_tpu/ops/shade.py).  Soft shadows (``shadow_samples > 1``) are not
-ported yet (ROADMAP A11) and raise."""
+solr_tpu/ops/shade.py).  The reference's soft shadows jitter the light
+per ray with a random key (``shadow_samples > 1`` and a key); without a
+key, as ``render_sample`` calls it, it takes the hard path whatever
+``shadow_samples`` says (reference shade.py:99), and so does the port,
+which has no keyed path yet (ROADMAP A11)."""
 
 from __future__ import annotations
 
@@ -33,8 +36,6 @@ def phong_shade(scene: Scene, surf: SurfaceInfo, view_dir, cfg: RenderConfig,
 
     with shadow_l = 1 - shadow_intensity * (1 - transmittance_l).
     """
-    if cfg.shadows and cfg.shadow_samples > 1:
-        raise NotImplementedError("soft shadows are not ported")
     info = scene.info
     mats = scene.materials
     m = surf.material
@@ -69,7 +70,7 @@ def phong_shade(scene: Scene, surf: SurfaceInfo, view_dir, cfg: RenderConfig,
             t_max = dist - RAY_EPS
             t_max = torch.where(invalid[..., 0], torch.ones_like(t_max), t_max)
             trans = scene_transmittance(scene, origin, sdir, t_max,
-                                        packet=packet)
+                                        use_bvh=cfg.use_bvh, packet=packet)
             shadow = 1.0 - info.shadow_intensity * (1.0 - trans)
         else:
             shadow = torch.ones_like(ndotl)

@@ -1,17 +1,21 @@
 """Scene-level closest-hit and shadow queries (counterpart of
 solr_tpu/ops/traverse.py).
 
-The scene is split into typed pools: spheres, triangles and capped
-cylinders, visited in that code order (the strict ``<`` across pools
-makes the earlier pool win a tie).  A pool with an accelerator takes the
-packet path: per-strip interval selection
-(:mod:`solr_tpu_torch.ops.packet`), the sweep kernels of its primitive
-kind (:mod:`solr_tpu_torch.ops.sweep`) and the union-block exactness net
-for the rays whose drop certificate fails.  Small pools (the bench's
-spheres) are brute-forced.  Where a sphere or cylinder pool has an
-accelerator but the rays do not come in packets (a scene without a
-triangle accelerator, see ops/render.py), the reference walks its
-per-ray BVH, which is not ported (ROADMAP A14): the port raises there.
+The scene is split into typed pools: spheres, triangles, capped
+cylinders, ellipsoids and planes, visited in that code order (the strict
+``<`` across pools makes the earlier pool win a tie).  Each pool takes
+one of three paths, as in the reference (traverse.py:290-313 for the
+closest hit, :790-812 for shadows):
+
+* the packet path, where the pool has a BVH and its packet accelerator
+  and the rays come in whole tiles: per-strip interval selection
+  (:mod:`solr_tpu_torch.ops.packet`), the sweep kernels of its primitive
+  kind (:mod:`solr_tpu_torch.ops.sweep`) and the union-block exactness
+  net for the rays whose drop certificate fails;
+* else the per-ray BVH walk (:mod:`solr_tpu_torch.ops.bvh`), where the
+  pool has a BVH;
+* else brute force over the whole pool (small pools, ellipsoids and
+  planes).
 
 Two phases, as in the reference: traversal runs detached under
 ``torch.no_grad``, then the hit ``t`` of the selected primitive is
@@ -26,7 +30,10 @@ from typing import Any
 
 import torch
 
-from solr_tpu_torch.constants import PARK_THRESHOLD, RAY_EPS, T_FAR
+from solr_tpu_torch.constants import (PARK_THRESHOLD, POOL_CYLINDER,
+                                      POOL_ELLIPSOID, POOL_PLANE, POOL_SPHERE,
+                                      POOL_TRIANGLE, RAY_EPS, T_FAR)
+from solr_tpu_torch.ops import bvh as bvh_mod
 from solr_tpu_torch.ops import intersect as isect
 from solr_tpu_torch.ops import packet as pk
 from solr_tpu_torch.ops import sweep
@@ -34,17 +41,19 @@ from solr_tpu_torch.ops.vecmath import cross, dot, normalize, spherical_uv
 from solr_tpu_torch.types import Scene
 
 __all__ = ["Hit", "SurfaceInfo", "POOL_SPHERE", "POOL_TRIANGLE",
-           "POOL_CYLINDER", "scene_closest_hit", "scene_transmittance",
-           "surface_at"]
+           "POOL_CYLINDER", "POOL_ELLIPSOID", "POOL_PLANE", "BRUTE_CALLS",
+           "scene_closest_hit", "scene_transmittance", "surface_at"]
 
-POOL_SPHERE = 0
-POOL_TRIANGLE = 1
-POOL_CYLINDER = 2
-
-# The sweep kernels' primitive kind of each pool.
+# The sweep kernels' primitive kind of each accelerated pool.
 _POOL_PRIM = {POOL_SPHERE: "sphere", POOL_TRIANGLE: "tri",
               POOL_CYLINDER: "cyl"}
 _PRIM_POOL = {p: c for c, p in _POOL_PRIM.items()}
+_POOL_NAME = {**_POOL_PRIM, POOL_ELLIPSOID: "ellipsoid",
+              POOL_PLANE: "plane"}
+
+# Brute-force sweeps over a whole pool since the caller last zeroed
+# these, closest-hit and shadow together, by pool.
+BRUTE_CALLS = {name: 0 for name in _POOL_NAME.values()}
 
 # Brute-force sweeps take the primitives in chunks of at least
 # _PRIM_CHUNK, and of as many more as keep the (rays x chunk) matrices
@@ -94,17 +103,27 @@ class SurfaceInfo:
 def _pool_sizes(scene: Scene):
     return {POOL_SPHERE: scene.spheres.radius.shape[0],
             POOL_TRIANGLE: scene.triangles.v0.shape[0],
-            POOL_CYLINDER: scene.cylinders.radius.shape[0]}
+            POOL_CYLINDER: scene.cylinders.radius.shape[0],
+            POOL_ELLIPSOID: scene.ellipsoids.center.shape[0],
+            POOL_PLANE: scene.planes.axis.shape[0]}
 
 
 def _pool(scene: Scene, code: int):
     return {POOL_SPHERE: scene.spheres, POOL_TRIANGLE: scene.triangles,
-            POOL_CYLINDER: scene.cylinders}[code]
+            POOL_CYLINDER: scene.cylinders, POOL_ELLIPSOID: scene.ellipsoids,
+            POOL_PLANE: scene.planes}[code]
 
 
 def _pool_accel(scene: Scene, code: int):
     return {POOL_SPHERE: scene.sph_accel, POOL_TRIANGLE: scene.tri_accel,
-            POOL_CYLINDER: scene.cyl_accel}[code]
+            POOL_CYLINDER: scene.cyl_accel}.get(code)
+
+
+def _pool_bvh(scene: Scene, code: int, use_bvh: bool):
+    if not use_bvh:
+        return None
+    return {POOL_SPHERE: scene.sph_bvh, POOL_TRIANGLE: scene.tri_bvh,
+            POOL_CYLINDER: scene.cyl_bvh}.get(code)
 
 
 def _chunked_min(t_fn, n: int, r_shape, like):
@@ -134,6 +153,13 @@ def _pool_t_chunk(scene: Scene, code: int, o, d, start, chunk, t_min):
         p = scene.cylinders
         return isect.cylinder_t(o, d, p.p0[rows], p.p1[rows], p.radius[rows],
                                 t_min)
+    if code == POOL_ELLIPSOID:
+        p = scene.ellipsoids
+        return isect.ellipsoid_t(o, d, p.center[rows], p.radii[rows], t_min)
+    if code == POOL_PLANE:
+        p = scene.planes
+        return isect.plane_t(o, d, p.axis[rows], p.origin[rows],
+                             p.half_extents[rows], t_min)
     p = scene.triangles
     return isect.triangle_t(o, d, p.v0[rows], p.v1[rows], p.v2[rows], t_min)
 
@@ -149,6 +175,7 @@ def _pool_closest(o, d, scene: Scene, code: int, t_min, t_max):
     if n == 0:
         return (torch.full(r_shape, T_FAR, dtype=o.dtype, device=o.device),
                 torch.zeros(r_shape, dtype=torch.int32, device=o.device))
+    BRUTE_CALLS[_POOL_NAME[code]] += 1
     best_t, best_i = _chunked_min(
         lambda s, c: _pool_t_chunk(scene, code, o, d, s, c, t_min),
         n, r_shape, o)
@@ -157,12 +184,13 @@ def _pool_closest(o, d, scene: Scene, code: int, t_min, t_max):
 
 
 def scene_closest_hit(scene: Scene, o, d, t_min=RAY_EPS, t_max=T_FAR,
-                      packet=None) -> Hit:
-    """Closest hit across every pool.  ``packet`` = (tile_rays, K, Kt,
-    exact) when the rays come in tile-coherent groups of tile_rays."""
+                      use_bvh: bool = True, packet=None) -> Hit:
+    """Closest hit across every pool.  ``use_bvh`` lets accelerated
+    pools use their BVHs; ``packet`` = (tile_rays, K, Kt, exact) when the
+    rays come in tile-coherent groups of tile_rays."""
     with torch.no_grad():
         raw = _scene_closest_hit_raw(scene, o.detach(), d.detach(), t_min,
-                                     t_max, packet)
+                                     t_max, use_bvh, packet)
     t = _recompute_t(scene, o, d, raw.pool, raw.idx, t_min)
     # Keep the traversal t on a miss and on rare recompute disagreements
     # (f32 tangency); the two agree whenever both hit.
@@ -189,27 +217,32 @@ def _recompute_t(scene: Scene, o, d, pool, idx, t_min):
         i = idx.clamp(0, sizes[POOL_CYLINDER] - 1).long()
         t = torch.where(pool == POOL_CYLINDER, isect.cylinder_t_p(
             o, d, p.p0[i], p.p1[i], p.radius[i], t_min), t)
+    if sizes[POOL_ELLIPSOID]:
+        p = scene.ellipsoids
+        i = idx.clamp(0, sizes[POOL_ELLIPSOID] - 1).long()
+        t = torch.where(pool == POOL_ELLIPSOID, isect.ellipsoid_t_p(
+            o, d, p.center[i], p.radii[i], t_min), t)
+    if sizes[POOL_PLANE]:
+        p = scene.planes
+        i = idx.clamp(0, sizes[POOL_PLANE] - 1).long()
+        t = torch.where(pool == POOL_PLANE, isect.plane_t_p(
+            o, d, p.axis[i], p.origin[i], p.half_extents[i], t_min), t)
     return t
 
 
-def _packet_ok(scene: Scene, code: int, o, packet) -> bool:
-    """Whether the pool takes the packet path: it has an accelerator and
-    the rays come in whole tiles.  A triangle pool without it is
-    brute-forced; an accelerated sphere or cylinder pool without it
-    raises, since the reference walks its BVH there (ROADMAP A14)."""
-    if _pool_accel(scene, code) is None:
-        return False
-    if packet is not None and o.shape[0] % packet[0] == 0:
-        return True
-    if code == POOL_TRIANGLE:
-        return False
-    raise NotImplementedError(
-        f"the accelerated {_POOL_PRIM[code]} pool outside the packet path "
-        "takes the per-ray BVH walk, which is not ported (ROADMAP A14); "
-        "the packet path needs a triangle accelerator (ops/render.py)")
+def _packet_ok(scene: Scene, code: int, o, packet, bvh) -> bool:
+    """Whether the pool takes the packet path, as in the reference: it
+    has a BVH (``bvh``, None without one or without use_bvh) and its
+    packet accelerator, and the rays come in whole tiles.  (The
+    reference derives a missing triangle accelerator on the fly; the
+    port's builder and converter always carry one with the BVH.)"""
+    return (bvh is not None and packet is not None
+            and _pool_accel(scene, code) is not None
+            and o.shape[0] % packet[0] == 0)
 
 
-def _scene_closest_hit_raw(scene: Scene, o, d, t_min, t_max, packet) -> Hit:
+def _scene_closest_hit_raw(scene: Scene, o, d, t_min, t_max, use_bvh,
+                           packet) -> Hit:
     r_shape = o.shape[:-1]
     best_t = torch.full(r_shape, T_FAR, dtype=o.dtype, device=o.device)
     best_pool = torch.full(r_shape, -1, dtype=torch.int32, device=o.device)
@@ -217,9 +250,13 @@ def _scene_closest_hit_raw(scene: Scene, o, d, t_min, t_max, packet) -> Hit:
     for code, size in _pool_sizes(scene).items():
         if size == 0:
             continue
-        if _packet_ok(scene, code, o, packet) and o.dim() == 2:
+        bvh = _pool_bvh(scene, code, use_bvh)
+        if _packet_ok(scene, code, o, packet, bvh) and o.dim() == 2:
             t, i = _tri_packet_closest(scene, o, d, t_min, packet,
                                        _POOL_PRIM[code])
+        elif bvh is not None:
+            t, i = bvh_mod.bvh_closest_hit(scene, bvh, code, o, d, t_min,
+                                           t_max)
         else:
             t, i = _pool_closest(o, d, scene, code, t_min, t_max)
         better = t < best_t
@@ -385,7 +422,7 @@ def _tri_packet_closest(scene: Scene, o, d, t_min, packet, prim="tri"):
 
 
 def scene_transmittance(scene: Scene, o, d, t_max, t_min=RAY_EPS,
-                        packet=None):
+                        use_bvh: bool = True, packet=None):
     """Shadow-ray transmittance in [0, 1]: the product over occluding
     primitives of their material transparency (emissive primitives are
     the lights and never occlude).  o/d (R, 3) or (R, L, 3)."""
@@ -393,13 +430,20 @@ def scene_transmittance(scene: Scene, o, d, t_max, t_min=RAY_EPS,
     for code, size in _pool_sizes(scene).items():
         if size == 0:
             continue
-        if _packet_ok(scene, code, o, packet):
+        bvh = _pool_bvh(scene, code, use_bvh)
+        if _packet_ok(scene, code, o, packet, bvh):
             # Detached inputs: the accelerated pool's occluder
             # transparency carries no gradient, as in the reference.
             with torch.no_grad():
                 trans = trans * _tri_packet_transmittance(
                     scene, o.detach(), d.detach(), t_max.detach(), t_min,
                     packet, _POOL_PRIM[code])
+            continue
+        if bvh is not None:
+            with torch.no_grad():
+                trans = trans * bvh_mod.bvh_transmittance(
+                    scene, bvh, code, o.detach(), d.detach(), t_min,
+                    t_max.detach())
             continue
         trans = trans * _pool_transmittance_brute(scene, code, o, d, t_max,
                                                   t_min)
@@ -457,6 +501,7 @@ def _pool_transmittance_brute(scene: Scene, code: int, o, d, t_max,
     trans = torch.ones(o.shape[:-1], dtype=o.dtype, device=o.device)
     if size == 0:
         return trans
+    BRUTE_CALLS[_POOL_NAME[code]] += 1
     mats = scene.materials
     chunk = _prim_chunk(o[..., 0].numel(), size)
     for ci in range((size + chunk - 1) // chunk):
@@ -531,6 +576,29 @@ def surface_at(scene: Scene, hit: Hit, o, d) -> SurfaceInfo:
         uvc = torch.stack([spherical_uv(n_side)[..., 0], s], -1)
         normal, shading, uv, material = blend(
             hit.pool == POOL_CYLINDER, n, n, uvc, p.material[i].long())
+
+    if sizes[POOL_ELLIPSOID]:
+        p = scene.ellipsoids
+        i = hit.idx.clamp(0, sizes[POOL_ELLIPSOID] - 1).long()
+        rad = torch.clamp(p.radii[i], min=1e-6)
+        local = (point - p.center[i]) / rad
+        n = normalize(local / rad)
+        normal, shading, uv, material = blend(
+            hit.pool == POOL_ELLIPSOID, n, n, spherical_uv(local),
+            p.material[i].long())
+
+    if sizes[POOL_PLANE]:
+        p = scene.planes
+        i = hit.idx.clamp(0, sizes[POOL_PLANE] - 1).long()
+        ax = p.axis[i].long()
+        n = torch.eye(3, dtype=o.dtype, device=o.device)[ax]
+        # The two in-plane axes, ascending: UV across the rectangle.
+        in_plane = torch.tensor([[1, 2], [0, 2], [0, 1]],
+                                device=o.device)[ax]
+        pu = torch.gather(point - p.origin[i], -1, in_plane)
+        uvp = 0.5 + 0.5 * pu / torch.clamp(p.half_extents[i], min=1e-6)
+        normal, shading, uv, material = blend(
+            hit.pool == POOL_PLANE, n, n, uvp, p.material[i].long())
 
     # Flip normals to oppose the incoming ray; record backface hits.
     backface = dot(d, normal) > 0.0

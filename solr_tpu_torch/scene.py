@@ -1,12 +1,13 @@
-"""SceneBuilder: scene construction (counterpart of solr_tpu/scene.py,
-for the pools the port has: materials, spheres, triangle meshes, capped
-cylinders and emissive-sphere lights).
+"""SceneBuilder: scene construction (counterpart of solr_tpu/scene.py):
+materials, spheres, triangle meshes and soups, capped cylinders,
+axis-aligned ellipsoids and planes, and emissive-sphere lights.
 
 ``build`` freezes the host-side numpy state into a :class:`Scene` on the
-requested device (the card unless the caller asks for another).  Each
-sphere, triangle or cylinder pool of at least ``bvh_threshold``
-primitives is put in Morton order and gets its packet accelerator; BVH
-node arrays are not built, since the packet path needs only the order.
+requested device (the card unless the caller asks for another).  With
+``use_bvh``, each sphere, triangle or cylinder pool of at least
+``bvh_threshold`` primitives gets its BVH (``ops.bvh.build_bvh``), which
+puts the pool in Morton order, and its packet accelerator.  Ellipsoids
+and planes are always brute-forced, as in the reference.
 
 The order is the stable argsort of the 30-bit Morton codes of the
 primitives' AABB centroids, the numpy path of
@@ -15,9 +16,10 @@ AABBs: a triangle's vertex min/max, a sphere's c -+ r, a cylinder's
 min/max(p0, p1) -+ r (reference scene.py:426-448).  The reference
 prefers its native LBVH builder (native/src/lbvh.cc:79-88), which
 computes the same float32 codes and sorts them with ``std::stable_sort``,
-so it gives the same order; tests/test_torch_scene.py holds the two
-builders to that.  Lights are collected from the emissive spheres before
-the reorder, as in the reference.
+so it gives the same order and node arrays; tests/test_torch_scene.py
+and tests/test_torch_bvh.py hold the builders to that.  Lights are
+collected from the emissive spheres and then the emissive ellipsoids
+before the reorder, as in the reference.
 """
 
 from __future__ import annotations
@@ -28,11 +30,12 @@ import numpy as np
 import torch
 
 from solr_tpu_torch.constants import PAD_ALIGN
+from solr_tpu_torch.ops.bvh import build_bvh, morton_codes, morton_order
 from solr_tpu_torch.ops.packet import (build_cyl_accel, build_sph_accel,
                                        build_tri_accel)
-from solr_tpu_torch.types import (Cylinders, Lights, Materials,
-                                  ProceduralKind, Scene, SceneInfo, Spheres,
-                                  Textures, Triangles)
+from solr_tpu_torch.types import (Cylinders, Ellipsoids, Lights, Materials,
+                                  PlaneAxis, Planes, ProceduralKind, Scene,
+                                  SceneInfo, Spheres, Textures, Triangles)
 
 __all__ = ["SceneBuilder", "morton_codes", "morton_order"]
 
@@ -50,33 +53,6 @@ def _pad_rows(arr: np.ndarray, n_pad: int, fill) -> np.ndarray:
     return np.concatenate([arr, pad], 0)
 
 
-def _expand_bits(v: np.ndarray) -> np.ndarray:
-    """Spread the low 10 bits of v to every 3rd bit."""
-    v = v.astype(np.uint64)
-    v = (v * np.uint64(0x00010001)) & np.uint64(0xFF0000FF)
-    v = (v * np.uint64(0x00000101)) & np.uint64(0x0F00F00F)
-    v = (v * np.uint64(0x00000011)) & np.uint64(0xC30C30C3)
-    v = (v * np.uint64(0x00000005)) & np.uint64(0x49249249)
-    return v
-
-
-def morton_order(amin: np.ndarray, amax: np.ndarray) -> np.ndarray:
-    """The stable Morton order of AABBs (N, 3), as build_bvh orders
-    them."""
-    return np.argsort(morton_codes(0.5 * (amin + amax)), kind="stable")
-
-
-def morton_codes(centroids: np.ndarray) -> np.ndarray:
-    """30-bit 3-D Morton codes of points quantized into a 1024^3 grid."""
-    lo = centroids.min(axis=0)
-    hi = centroids.max(axis=0)
-    span = np.maximum(hi - lo, 1e-12)
-    q = np.clip(((centroids - lo) / span) * 1023.0, 0, 1023).astype(np.uint32)
-    return ((_expand_bits(q[:, 0]) << np.uint64(2))
-            | (_expand_bits(q[:, 1]) << np.uint64(1))
-            | _expand_bits(q[:, 2]))
-
-
 class SceneBuilder:
     """Accumulates materials and primitives and freezes a Scene.  Ids
     follow the reference: material 0 is the default material."""
@@ -86,6 +62,8 @@ class SceneBuilder:
         self._spheres = []
         self._triangles = []  # bulk blocks of per-triangle arrays
         self._cylinders = []
+        self._ellipsoids = []
+        self._planes = []
         self.add_material(color=(0.8, 0.8, 0.8, 1.0))
 
     def add_material(self, color=(0.8, 0.8, 0.8, 1.0), specular: float = 0.0,
@@ -109,9 +87,25 @@ class SceneBuilder:
                               int(material)))
         return len(self._spheres) - 1
 
-    def _add_triangles(self, v0, v1, v2, material=0,
-                       normals: Optional[np.ndarray] = None,
-                       uvs: Optional[np.ndarray] = None) -> int:
+    def add_triangle(self, v0, v1, v2, material: int = 0, normals=None,
+                     uvs=None) -> int:
+        """One triangle; optional per-vertex normals (3 x (3,)) and uvs
+        (3 x (2,)).  Returns its id."""
+        n = None if normals is None else np.stack(
+            [np.asarray(x, _F32) for x in normals])[None]
+        u = None if uvs is None else np.stack(
+            [np.asarray(x, _F32) for x in uvs])[None]
+        return self.add_triangles_raw(*(np.asarray(v, _F32)[None]
+                                        for v in (v0, v1, v2)),
+                                      material=material, normals=n, uvs=u)
+
+    def add_triangles_raw(self, v0, v1, v2, material=0,
+                          normals: Optional[np.ndarray] = None,
+                          uvs: Optional[np.ndarray] = None) -> int:
+        """Triangle soup: (K, 3) vertex arrays, a scalar or (K,) material,
+        optional per-vertex normals (K, 3, 3) and uvs (K, 3, 2); without
+        normals each triangle gets its geometric normal.  Returns the id
+        of the first triangle."""
         v0, v1, v2 = (np.atleast_2d(np.asarray(v, _F32))
                       for v in (v0, v1, v2))
         k = v0.shape[0]
@@ -148,13 +142,28 @@ class SceneBuilder:
         if uvs is not None:
             uvs = np.asarray(uvs, _F32)
             u = np.stack([uvs[faces[:, i]] for i in range(3)], 1)
-        return self._add_triangles(v0, v1, v2, material, n, u)
+        return self.add_triangles_raw(v0, v1, v2, material, n, u)
 
     def add_cylinder(self, p0, p1, radius: float, material: int = 0) -> int:
         """Capped cylinder from p0 to p1."""
         self._cylinders.append((np.asarray(p0, _F32), np.asarray(p1, _F32),
                                 float(radius), int(material)))
         return len(self._cylinders) - 1
+
+    def add_ellipsoid(self, center, radii, material: int = 0) -> int:
+        """Axis-aligned ellipsoid with semi-axes ``radii`` (3,)."""
+        self._ellipsoids.append((np.asarray(center, _F32),
+                                 np.asarray(radii, _F32), int(material)))
+        return len(self._ellipsoids) - 1
+
+    def add_plane(self, axis: PlaneAxis, origin, half_extents,
+                  material: int = 0) -> int:
+        """Axis-aligned rectangle normal to ``axis``, centred at
+        ``origin``, with half sizes (2,) along the two other axes in
+        ascending order."""
+        self._planes.append((int(axis), np.asarray(origin, _F32),
+                             np.asarray(half_extents, _F32), int(material)))
+        return len(self._planes) - 1
 
     def add_light(self, position, color=(1.0, 1.0, 1.0, 1.0),
                   intensity: float = 1.0, radius: float = 0.1) -> int:
@@ -163,8 +172,8 @@ class SceneBuilder:
         mat = self.add_material(color=color, emission=float(intensity))
         return self.add_sphere(position, radius, mat)
 
-    def build(self, block: int = 256, bvh_threshold: int = 64,
-              device="cuda") -> Scene:
+    def build(self, block: int = 256, use_bvh: bool = True,
+              bvh_threshold: int = 64, device="cuda") -> Scene:
         """Freeze into a Scene on ``device``.  ``block`` is the packet
         accelerators' primitives per block."""
         dt = _F32
@@ -173,6 +182,13 @@ class SceneBuilder:
         def ten(x, dtype=torch.float32):
             return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype,
                                    device=dev)
+
+        def rows(items, i, shape):
+            return (np.stack([np.asarray(it[i], dt) for it in items]) if items
+                    else np.zeros((0,) + shape, dt))
+
+        def ids(items, i):
+            return np.asarray([it[i] for it in items], np.int32)
 
         mats = self._mat
         materials = Materials(
@@ -186,16 +202,14 @@ class SceneBuilder:
             procedural_scale=ten([m["procedural_scale"] for m in mats]),
         )
 
-        n_sph = len(self._spheres)
-        sph_c = (np.stack([s[0] for s in self._spheres]) if n_sph
-                 else np.zeros((0, 3), dt))
+        sph_c = rows(self._spheres, 0, (3,))
         sph_r = np.asarray([s[1] for s in self._spheres], dt)
-        sph_m = np.asarray([s[2] for s in self._spheres], np.int32)
-        n_cyl = len(self._cylinders)
-        cyl = [np.asarray([c[0] for c in self._cylinders], dt).reshape(-1, 3),
-               np.asarray([c[1] for c in self._cylinders], dt).reshape(-1, 3),
+        sph_m = ids(self._spheres, 2)
+        cyl = [rows(self._cylinders, 0, (3,)), rows(self._cylinders, 1, (3,)),
                np.asarray([c[2] for c in self._cylinders], dt),
-               np.asarray([c[3] for c in self._cylinders], np.int32)]
+               ids(self._cylinders, 3)]
+        ell_c, ell_r = rows(self._ellipsoids, 0, (3,)), rows(self._ellipsoids, 1, (3,))
+        ell_m = ids(self._ellipsoids, 2)
 
         if self._triangles:
             tri = [np.concatenate([blk[i] for blk in self._triangles])
@@ -203,13 +217,16 @@ class SceneBuilder:
         else:
             tri = [np.zeros((0, 3), dt)] * 6 + [np.zeros((0, 2), dt)] * 3 \
                 + [np.zeros((0,), np.int32)]
-        n_tri = tri[0].shape[0]
+        n_sph, n_tri, n_cyl = len(sph_r), tri[0].shape[0], len(cyl[2])
 
-        # Lights from emissive spheres, in insertion order.
+        # Lights from emissive spheres, then emissive ellipsoids (their
+        # mean semi-axis as the radius), in insertion order.
         emis = np.asarray([m["emission"] for m in mats], dt)
         colors = np.stack([m["color"] for m in mats])
         lp, lc, lr = [], [], []
-        for c, r, m in zip(sph_c, sph_r, sph_m):
+        for c, r, m in list(zip(sph_c, sph_r, sph_m)) + [
+                (c, float(np.mean(r3)), m)
+                for c, r3, m in zip(ell_c, ell_r, ell_m)]:
             if emis[m] > 0:
                 lp.append(c)
                 lc.append(colors[m] * emis[m])
@@ -220,24 +237,29 @@ class SceneBuilder:
             radius=ten(np.asarray(lr, dt)),
         )
 
-        # Morton order of each pool the packet path accelerates.
-        accel_tri = n_tri >= bvh_threshold
-        accel_sph = n_sph >= bvh_threshold
-        accel_cyl = n_cyl >= bvh_threshold
-        if accel_tri:
-            v0, v1, v2 = tri[0], tri[1], tri[2]
-            order = morton_order(np.minimum(np.minimum(v0, v1), v2),
-                                 np.maximum(np.maximum(v0, v1), v2))
+        # The BVH of each large pool, which puts the pool in its order.
+        def bvh(n, amin, amax):
+            if not use_bvh or n < bvh_threshold:
+                return None, None
+            return build_bvh(amin, amax, device=dev)
+
+        v0, v1, v2 = tri[:3]
+        tri_bvh, order = bvh(n_tri, np.minimum(np.minimum(v0, v1), v2),
+                             np.maximum(np.maximum(v0, v1), v2))
+        if order is not None:
             tri = [a[order] for a in tri]
-        if accel_sph:
-            order = morton_order(sph_c - sph_r[:, None], sph_c + sph_r[:, None])
+        sph_bvh, order = bvh(n_sph, sph_c - sph_r[:, None],
+                             sph_c + sph_r[:, None])
+        if order is not None:
             sph_c, sph_r, sph_m = sph_c[order], sph_r[order], sph_m[order]
-        if accel_cyl:
-            p0, p1, r = cyl[0], cyl[1], cyl[2][:, None]
-            order = morton_order(np.minimum(p0, p1) - r, np.maximum(p0, p1) + r)
+        p0, p1, r = cyl[0], cyl[1], cyl[2][:, None]
+        cyl_bvh, order = bvh(n_cyl, np.minimum(p0, p1) - r,
+                             np.maximum(p0, p1) + r)
+        if order is not None:
             cyl = [a[order] for a in cyl]
 
         ns, nt, nc = _pad_to(n_sph), _pad_to(n_tri), _pad_to(n_cyl)
+        ne, npl = _pad_to(len(self._ellipsoids)), _pad_to(len(self._planes))
         spheres = Spheres(center=ten(_pad_rows(sph_c, ns, 0.0)),
                           radius=ten(_pad_rows(sph_r, ns, -1.0)),
                           material=ten(_pad_rows(sph_m, ns, 0), torch.int32))
@@ -248,13 +270,24 @@ class SceneBuilder:
                               p1=ten(_pad_rows(cyl[1], nc, 0.0)),
                               radius=ten(_pad_rows(cyl[2], nc, -1.0)),
                               material=ten(_pad_rows(cyl[3], nc, 0), torch.int32))
+        ellipsoids = Ellipsoids(
+            center=ten(_pad_rows(ell_c, ne, 0.0)),
+            radii=ten(_pad_rows(ell_r, ne, -1.0)),
+            material=ten(_pad_rows(ell_m, ne, 0), torch.int32))
+        planes = Planes(
+            axis=ten(_pad_rows(ids(self._planes, 0), npl, 0), torch.int32),
+            origin=ten(_pad_rows(rows(self._planes, 1, (3,)), npl, 0.0)),
+            half_extents=ten(_pad_rows(rows(self._planes, 2, (2,)), npl, -1.0)),
+            material=ten(_pad_rows(ids(self._planes, 3), npl, 0), torch.int32))
         return Scene(
             spheres=spheres, triangles=triangles, cylinders=cylinders,
-            materials=materials, lights=lights, textures=Textures(),
+            ellipsoids=ellipsoids, planes=planes, materials=materials,
+            lights=lights, textures=Textures(),
             info=SceneInfo.create(device=dev),
+            tri_bvh=tri_bvh, sph_bvh=sph_bvh, cyl_bvh=cyl_bvh,
             tri_accel=(build_tri_accel(triangles, materials, block)
-                       if accel_tri else None),
+                       if tri_bvh is not None else None),
             sph_accel=(build_sph_accel(spheres, materials, block)
-                       if accel_sph else None),
+                       if sph_bvh is not None else None),
             cyl_accel=(build_cyl_accel(cylinders, materials, block)
-                       if accel_cyl else None))
+                       if cyl_bvh is not None else None))

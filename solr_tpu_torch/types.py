@@ -6,10 +6,11 @@ reference.  Anything that changes the shape of the work (resolution,
 bounce cap, packet widths) lives in the plain-Python ``RenderConfig``;
 everything continuously variable is a tensor field.
 
-Only the parts the bench and molecule frames use are here: spheres,
-triangles and cylinders, materials without texture maps, point lights,
-and the packet accelerators of the three pools.  Ellipsoids, planes and
-textures are not ported yet (ROADMAP A11, A16).
+All five primitive pools are here (spheres, triangles, capped
+cylinders, axis-aligned ellipsoids and planes), materials without
+texture maps, point lights, and the two accelerators of the sphere,
+triangle and cylinder pools: the per-ray BVH and the packet blocks.
+Textures are not ported yet (ROADMAP A11).
 
 Entry points put their tensors on the card unless the caller asks for
 another device.
@@ -25,6 +26,7 @@ import torch
 
 __all__ = [
     "CameraMode",
+    "PlaneAxis",
     "ProceduralKind",
     "Camera",
     "SceneInfo",
@@ -33,8 +35,11 @@ __all__ = [
     "Spheres",
     "Triangles",
     "Cylinders",
+    "Ellipsoids",
+    "Planes",
     "Lights",
     "Textures",
+    "BVH",
     "TriAccel",
     "Scene",
 ]
@@ -52,6 +57,15 @@ class CameraMode(enum.IntEnum):
     SIDE_BY_SIDE = 2
     FISHEYE = 3
     VOLUME = 4  # reserved
+
+
+class PlaneAxis(enum.IntEnum):
+    """Axis-aligned plane orientation: the value is the index of the
+    normal axis."""
+
+    YZ = 0
+    XZ = 1
+    XY = 2
 
 
 class ProceduralKind(enum.IntEnum):
@@ -124,7 +138,11 @@ class SceneInfo:
 
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
-    """Shape-defining render settings.  The packet fields are the
+    """Shape-defining render settings.  ``use_bvh`` lets the sphere,
+    triangle and cylinder pools use their BVHs; ``traversal`` picks how
+    rays walk them: "auto" and "packet" take the packet path where the
+    frame comes in whole tiles and the scene has a triangle BVH, "while"
+    always takes the per-ray walk.  The packet fields are the
     reference's: 16x16-pixel tiles, per-strip list width K
     (``packet_max_blocks``), tile prefilter width Kt
     (``packet_tile_cand``) and the exactness net switch."""
@@ -137,6 +155,8 @@ class RenderConfig:
     shadow_samples: int = 1
     gradient_background: bool = False
     compact_rays: bool = True
+    use_bvh: bool = True
+    traversal: str = "auto"  # "auto" | "packet" | "while"
     packet_tile_w: int = 16
     packet_tile_h: int = 16
     packet_max_blocks: int = 64
@@ -198,6 +218,24 @@ class Cylinders:
 
 
 @_frozen
+class Ellipsoids:
+    center: torch.Tensor  # (N, 3)
+    radii: torch.Tensor  # (N, 3) semi-axes; padding < 0
+    material: torch.Tensor  # (N,) int32
+
+
+@_frozen
+class Planes:
+    """Axis-aligned bounded rectangles."""
+
+    axis: torch.Tensor  # (N,) int32 PlaneAxis, the normal axis
+    origin: torch.Tensor  # (N, 3) rectangle centre
+    half_extents: torch.Tensor  # (N, 2) along the two in-plane axes in
+    #                             ascending order; padding < 0
+    material: torch.Tensor  # (N,) int32
+
+
+@_frozen
 class Lights:
     position: torch.Tensor  # (L, 3)
     color: torch.Tensor  # (L, 4) rgb * intensity
@@ -210,6 +248,34 @@ class Textures:
     sampling paths raise until ROADMAP A11."""
 
     count: int = 0
+
+
+@_frozen
+class BVH:
+    """Median-split BVH over a Morton-ordered pool, flattened in DFS
+    preorder with skip pointers.  For node i a hit continues at i + 1
+    (first child or leaf payload) and a miss jumps to ``skip[i]``
+    (``n_nodes`` when the walk is done).  A leaf covers the pool rows
+    ``first_prim .. first_prim + prim_count``.  The leaf view lists the
+    leaves alone, padded to a multiple of 128 with count-0 entries
+    parked at +1e30."""
+
+    aabb_min: torch.Tensor  # (K, 3) float32
+    aabb_max: torch.Tensor  # (K, 3)
+    skip: torch.Tensor  # (K,) int32
+    first_prim: torch.Tensor  # (K,) int32, -1 for inner nodes
+    prim_count: torch.Tensor  # (K,) int32, 0 for inner nodes
+    depth: torch.Tensor  # (K,) int32
+    leaf_center: torch.Tensor  # (L, 3) leaf bounding-sphere centres
+    leaf_radius: torch.Tensor  # (L,)
+    leaf_first: torch.Tensor  # (L,) int32
+    leaf_count: torch.Tensor  # (L,) int32, 0 for padding
+    max_depth: int
+    leaf_size: int
+
+    @property
+    def n_nodes(self) -> int:
+        return self.skip.shape[0]
 
 
 @_frozen
@@ -233,10 +299,15 @@ class Scene:
     spheres: Spheres
     triangles: Triangles
     cylinders: Cylinders
+    ellipsoids: Ellipsoids
+    planes: Planes
     materials: Materials
     lights: Lights
     textures: Textures
     info: SceneInfo
+    tri_bvh: Optional[BVH] = None
+    sph_bvh: Optional[BVH] = None
+    cyl_bvh: Optional[BVH] = None
     tri_accel: Optional[TriAccel] = None
     sph_accel: Optional[TriAccel] = None
     cyl_accel: Optional[TriAccel] = None

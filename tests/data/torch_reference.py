@@ -2,16 +2,25 @@
 
 Helpers the ``tests/test_torch_*.py`` files share (the reference scenes
 built from the same arrays as the port's, and flattening reference
-objects to numpy), plus the script that wrote ``torch_bench_ref.npz``
-and ``torch_molecule_ref.npz``: a reduced bench frame and a reduced
-molecule frame rendered by ``solr_tpu`` on the CPU, which
-``chip_smoke.py`` holds the port's frames on the GPU against.
+objects to numpy), plus the script that wrote the reduced frames
+that ``chip_smoke.py`` holds the port's frames on the GPU against, each
+rendered by ``solr_tpu`` on the CPU:
 
-    JAX_PLATFORMS=cpu python tests/data/torch_reference.py [bench] [molecule]
+* ``torch_bench_ref.npz``: the bench frame at 64x64 (packets);
+* ``torch_molecule_ref.npz``: the molecule frame at 64x64 (packets);
+* ``torch_walk_ref.npz``: the bench frame at 64x56, a height that is
+  not a multiple of the 16-pixel tile, so the triangle pool takes the
+  per-ray BVH walk;
+* ``torch_molecule_while_ref.npz``: the molecule frame at 64x64 with
+  traversal="while", so all three pools walk their BVHs;
+* ``torch_cornell_ref.npz``: the gallery's Cornell box at 64x64
+  (planes and spheres, brute force).
 
-(both when no frame is named).  The script sets SOLR_PACKET_BLOCK
-before importing ``solr_tpu``, so run it as its own process, once per
-frame whose BLOCK differs.
+    JAX_PLATFORMS=cpu python tests/data/torch_reference.py [name ...]
+
+with names from ``FRAMES`` (all when none is named).  The script sets
+SOLR_PACKET_BLOCK before importing ``solr_tpu``, so it runs each frame
+in a process of its own.
 """
 
 from __future__ import annotations
@@ -44,6 +53,17 @@ MOL_GROUND_RES = 32
 MOL_SIZE = 64
 MOL_BLOCK = 256
 MOL_BOUNCES = 2
+
+# The walk frames: the reduced bench frame at a height that is not a
+# multiple of 16, and the reduced molecule frame with traversal="while".
+WALK_REF_FILE = os.path.join(HERE, "torch_walk_ref.npz")
+WALK_HEIGHT = 56
+MOL_WHILE_REF_FILE = os.path.join(HERE, "torch_molecule_while_ref.npz")
+
+# The gallery's Cornell box (solr_tpu/scenes/gallery.py:24-42) at 64x64.
+CORNELL_REF_FILE = os.path.join(HERE, "torch_cornell_ref.npz")
+CORNELL_SIZE = 64
+CORNELL_BOUNCES = 2
 
 
 def pdb_sha256(text: str) -> str:
@@ -127,23 +147,27 @@ def _setup(block):
     return jax
 
 
-def write_bench_ref():
-    jax = _setup(REF_BLOCK)
+def _save(path, img, **meta):
+    import jax
+
+    assert np.isfinite(img).all()
+    np.savez_compressed(path, image=img, jax_version=jax.__version__, **meta)
+    print(f"wrote {path}: digest {float(img.sum())!r}")
+
+
+def write_bench_ref(height=REF_SIZE, path=REF_FILE):
+    _setup(REF_BLOCK)
     from solr_tpu_torch.bench_scene import bench_scene_arrays
 
     arrays = bench_scene_arrays(REF_TRIS)
-    scene, cam, cfg = reference_bench_scene(arrays, REF_SIZE, REF_SIZE,
+    scene, cam, cfg = reference_bench_scene(arrays, REF_SIZE, height,
                                             REF_BOUNCES)
-    img = reference_render(scene, cam, cfg)
-    assert np.isfinite(img).all()
-    np.savez_compressed(REF_FILE, image=img, n_tris=REF_TRIS, size=REF_SIZE,
-                        block=REF_BLOCK, bounces=REF_BOUNCES,
-                        jax_version=jax.__version__)
-    print(f"wrote {REF_FILE}: digest {float(img.sum())!r}")
+    _save(path, reference_render(scene, cam, cfg), n_tris=REF_TRIS,
+          size=REF_SIZE, height=height, block=REF_BLOCK, bounces=REF_BOUNCES)
 
 
-def write_molecule_ref():
-    jax = _setup(MOL_BLOCK)
+def write_molecule_ref(traversal="auto", path=MOL_REF_FILE):
+    _setup(MOL_BLOCK)
     from solr_tpu_torch.molecule_scene import molecule_scene_parts
 
     parts = molecule_scene_parts(MOL_ATOMS, MOL_GROUND_RES)
@@ -151,17 +175,32 @@ def write_molecule_ref():
         scene, cam, cfg = reference_molecule_scene(parts, MOL_SIZE, MOL_SIZE,
                                                    MOL_BOUNCES, tmp)
     assert None not in (scene.tri_accel, scene.sph_accel, scene.cyl_accel)
-    img = reference_render(scene, cam, cfg)
-    assert np.isfinite(img).all()
-    np.savez_compressed(
-        MOL_REF_FILE, image=img, n_atoms=MOL_ATOMS,
-        ground_res=MOL_GROUND_RES, size=MOL_SIZE, block=MOL_BLOCK,
-        bounces=MOL_BOUNCES, pdb_sha256=pdb_sha256(parts["pdb"]),
-        jax_version=jax.__version__)
-    print(f"wrote {MOL_REF_FILE}: digest {float(img.sum())!r}")
+    cfg = dataclasses.replace(cfg, traversal=traversal)
+    _save(path, reference_render(scene, cam, cfg), n_atoms=MOL_ATOMS,
+          ground_res=MOL_GROUND_RES, size=MOL_SIZE, block=MOL_BLOCK,
+          bounces=MOL_BOUNCES, traversal=traversal,
+          pdb_sha256=pdb_sha256(parts["pdb"]))
 
 
-FRAMES = {"bench": write_bench_ref, "molecule": write_molecule_ref}
+def write_cornell_ref():
+    _setup(256)
+    import solr_tpu as st
+    from solr_tpu.scenes import make_scene
+
+    demo = make_scene("cornell", seed=0)
+    cfg = st.RenderConfig(width=CORNELL_SIZE, height=CORNELL_SIZE,
+                          max_bounces=CORNELL_BOUNCES)
+    _save(CORNELL_REF_FILE, reference_render(demo.scene, demo.camera, cfg),
+          size=CORNELL_SIZE, bounces=CORNELL_BOUNCES)
+
+
+FRAMES = {
+    "bench": write_bench_ref,
+    "molecule": write_molecule_ref,
+    "walk": lambda: write_bench_ref(WALK_HEIGHT, WALK_REF_FILE),
+    "molecule_while": lambda: write_molecule_ref("while", MOL_WHILE_REF_FILE),
+    "cornell": write_cornell_ref,
+}
 
 
 def main(argv):

@@ -1,0 +1,220 @@
+"""The port's BVH module (solr_tpu_torch/ops/bvh.py) against solr_tpu's
+on the CPU: the build, the refit, the pool bounds, both walks, and the
+walk against the brute force.
+
+Tolerances, from what differs between the two CPU builds:
+* The build and the refit are exact: numpy on both sides, min and max
+  are exact, and the box padding is one float32 subtraction.
+* The walks share the reference's node arrays and visit order, and test
+  leaves with the pool tests of tests/test_torch_ops.py.  In float32, XLA
+  contracts a*b + c into FMAs and the port rounds each product: t at
+  rtol 1e-6 for triangles; for spheres and capped cylinders at rtol
+  5e-4, the cylinder bound of tests/test_torch_ops.py, since the walk's
+  rays include grazing ones, where the roots' cancellation in
+  -b -+ sqrt(disc) magnifies the last bits (measured 1.5e-5 for a
+  sphere); hit/miss agreeing on more than 99.9% of the rays (a grazing
+  ray may flip).  In float64 those differences vanish and both walks
+  agree on every ray: idx exactly, t and the transmittance at rtol
+  1e-6.
+* Transmittance multiplies a leaf's factors in ascending lane order, the
+  reference with jnp.prod (ROADMAP C3): rtol 1e-6 with fractional
+  factors.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import solr_tpu as st
+from solr_tpu.ops import bvh as jbvh
+
+from data.torch_reference import numpy_tree
+from scenes_fixtures import random_sphere_field, random_tri_field
+from solr_tpu_torch.bench_scene import bench_scene_arrays
+from solr_tpu_torch.constants import RAY_EPS
+from solr_tpu_torch.convert import (camera_from_numpy, config_from_reference_fields,
+                                    scene_from_numpy)
+from solr_tpu_torch.ops import bvh
+from solr_tpu_torch.ops.render import render_sample
+
+# Several test workers share the cores: keep each one's intra-op pool small.
+torch.set_num_threads(2)
+
+FIELDS = ("aabb_min", "aabb_max", "skip", "first_prim", "prim_count",
+          "depth", "leaf_center", "leaf_radius", "leaf_first", "leaf_count")
+BVH_OF = {0: "sph_bvh", 1: "tri_bvh", 2: "cyl_bvh"}
+PRIM_OF = {0: "sphere", 1: "tri", 2: "cyl"}
+RTOL_F32 = {0: 5e-4, 1: 1e-6, 2: 5e-4}
+
+
+def _assert_same_bvh(port, ref):
+    for f in FIELDS:
+        a, b = np.asarray(getattr(ref, f)), getattr(port, f).numpy()
+        assert a.dtype == b.dtype, f
+        np.testing.assert_array_equal(b, a, err_msg=f)
+    assert (port.max_depth, port.leaf_size) == (ref.max_depth, ref.leaf_size)
+
+
+def _terrain_aabbs():
+    a = bench_scene_arrays(20_000)
+    v = a["vertices"][a["faces"]]
+    return v.min(1), v.max(1)
+
+
+def _random_aabbs(n):
+    c = np.random.default_rng(n).uniform(-5, 5, (n, 3)).astype(np.float32)
+    return c - 0.1, c + 0.3
+
+
+@pytest.mark.parametrize("backend", ["numpy", "auto"])
+@pytest.mark.parametrize("case", ["1", "9", "17", "777", "terrain"])
+def test_build_matches_reference(case, backend):
+    """Node arrays and order equal to both reference builders ("auto"
+    takes its native LBVH)."""
+    amin, amax = _terrain_aabbs() if case == "terrain" else _random_aabbs(
+        int(case))
+    ref, ref_order = jbvh.build_bvh(amin, amax, 8, backend=backend)
+    port, order = bvh.build_bvh(amin, amax, 8, device="cpu")
+    np.testing.assert_array_equal(order, ref_order)
+    _assert_same_bvh(port, ref)
+
+
+def _scenes(kind, f64=False, ties=False):
+    """A reference scene with a BVH on the pool of ``kind``, fractional
+    transparencies and one emissive material, and the port's copy."""
+    rng = np.random.default_rng(3)
+    b = st.SceneBuilder()
+    mats = [b.add_material(color=(0.8, 0.7, 0.6, 1.0),
+                           transparency=float(rng.uniform(0.35, 0.95)),
+                           emission=0.5 if i == 2 else 0.0)
+            for i in range(4)]
+    n = 150
+    c = rng.uniform(-2.0, 2.0, (n, 3)) + [0.0, 0.0, 6.0]
+    for i in range(n):
+        m = mats[i % 4]
+        for _ in range(2 if ties else 1):
+            if kind == "tri":
+                b.add_triangle(c[i], c[i] + [0.6, 0.1, 0.2],
+                               c[i] + [0.1, 0.7, -0.2], m)
+            elif kind == "sphere":
+                b.add_sphere(c[i], 0.2 + 0.2 * (i % 3), m)
+            else:
+                b.add_cylinder(c[i], c[i] + [0.4, 0.5 * (i % 2), 0.2], 0.12, m)
+    scene = b.build(bvh_threshold=64)
+    if f64:
+        scene = jax.tree.map(lambda x: x.astype(jnp.float64)
+                             if jnp.issubdtype(x.dtype, jnp.floating) else x,
+                             scene)
+    port = scene_from_numpy(numpy_tree(scene), "cpu",
+                            torch.float64 if f64 else torch.float32)
+    return scene, port
+
+
+def _rays(dtype, n=1500):
+    """Rays from a box in front of the field into it."""
+    rng = np.random.default_rng(5)
+    o = rng.uniform(-1, 1, (n, 3)) + [0.0, 0.0, 1.0]
+    d = rng.uniform(-2.2, 2.2, (n, 3)) + [0.0, 0.0, 6.0] - o
+    d = d / np.linalg.norm(d, axis=-1, keepdims=True)
+    return o.astype(dtype), d.astype(dtype)
+
+
+CASES = [(code, f64, ties) for code in (0, 1, 2) for f64 in (False, True)
+         for ties in (False, True)]
+IDS = [f"{PRIM_OF[c]}-{'f64' if f else 'f32'}{'-ties' if t else ''}"
+       for c, f, t in CASES]
+
+
+@pytest.mark.parametrize("code,f64,ties", CASES, ids=IDS)
+def test_closest_walk_matches_reference(code, f64, ties):
+    ref_scene, scene = _scenes(PRIM_OF[code], f64, ties)
+    o, d = _rays(np.float64 if f64 else np.float32)
+    jt, ji = jbvh.bvh_closest_hit(ref_scene, getattr(ref_scene, BVH_OF[code]),
+                                  code, jnp.asarray(o), jnp.asarray(d),
+                                  RAY_EPS, 3e38)
+    t, i = bvh.bvh_closest_hit(scene, getattr(scene, BVH_OF[code]), code,
+                               torch.from_numpy(o), torch.from_numpy(d),
+                               RAY_EPS)
+    jt, ji, t, i = np.asarray(jt), np.asarray(ji), t.numpy(), i.numpy()
+    hit = jt < 1e30
+    assert hit.sum() > 200
+    if f64:
+        np.testing.assert_array_equal(t < 1e30, hit)
+        np.testing.assert_array_equal(i, ji)
+        np.testing.assert_allclose(t[hit], jt[hit], rtol=1e-6)
+    else:
+        both = hit & (t < 1e30)
+        assert (both == hit).mean() > 0.999
+        np.testing.assert_allclose(t[both], jt[both], rtol=RTOL_F32[code])
+    if ties:  # every primitive twice: the first copy wins
+        assert (i[hit] % 2 == 0).all()
+
+
+@pytest.mark.parametrize("code,f64", [(c, f) for c in (0, 1, 2)
+                                      for f in (False, True)],
+                         ids=[f"{PRIM_OF[c]}-{'f64' if f else 'f32'}"
+                              for c in (0, 1, 2) for f in (False, True)])
+def test_transmittance_walk_matches_reference(code, f64):
+    """Fractional factors, and emissive occluders (factor 1)."""
+    ref_scene, scene = _scenes(PRIM_OF[code], f64)
+    o, d = _rays(np.float64 if f64 else np.float32)
+    tm = np.random.default_rng(7).uniform(2.0, 12.0, o.shape[0]).astype(o.dtype)
+    jtr = jbvh.bvh_transmittance(ref_scene, getattr(ref_scene, BVH_OF[code]),
+                                 code, jnp.asarray(o), jnp.asarray(d),
+                                 RAY_EPS, jnp.asarray(tm))
+    tr = bvh.bvh_transmittance(scene, getattr(scene, BVH_OF[code]), code,
+                               torch.from_numpy(o), torch.from_numpy(d),
+                               RAY_EPS, torch.from_numpy(tm))
+    jtr = np.asarray(jtr)
+    assert ((jtr > 0.0) & (jtr < 1.0)).sum() > 100
+    np.testing.assert_allclose(tr.numpy(), jtr, rtol=1e-6, atol=1e-7)
+
+
+def test_pool_aabbs_and_refit_match_reference():
+    """Per-primitive bounds of each pool, and the refit after the
+    primitives move."""
+    for kind, code in (("tri", 1), ("sphere", 0), ("cyl", 2)):
+        ref_scene, scene = _scenes(kind)
+        ref_min, ref_max = jbvh.pool_aabbs(ref_scene, code)
+        pmin, pmax = bvh.pool_aabbs(scene, code)
+        np.testing.assert_array_equal(pmin, np.asarray(ref_min))
+        np.testing.assert_array_equal(pmax, np.asarray(ref_max))
+        shift = np.random.default_rng(code).uniform(
+            -0.3, 0.3, pmin.shape).astype(np.float32)
+        ref = jbvh.bvh_refit(getattr(ref_scene, BVH_OF[code]),
+                             jnp.asarray(pmin + shift),
+                             jnp.asarray(pmax + shift))
+        port = bvh.bvh_refit(getattr(scene, BVH_OF[code]),
+                             torch.from_numpy(pmin + shift),
+                             torch.from_numpy(pmax + shift))
+        _assert_same_bvh(port, ref)
+
+
+def test_converted_scene_carries_the_bvhs():
+    ref = random_tri_field(300).build(bvh_threshold=64)
+    scene = scene_from_numpy(numpy_tree(ref), "cpu")
+    _assert_same_bvh(scene.tri_bvh, ref.tri_bvh)
+    assert scene.sph_bvh is None and scene.cyl_bvh is None
+
+
+@pytest.mark.parametrize("field", ["spheres", "tris"])
+def test_walk_render_equals_brute(field):
+    """The render with the BVH walk equals the one with the brute force
+    (tests/test_render_vs_oracle.py:113-134): same tests, same tie
+    rules."""
+    b = random_sphere_field(256) if field == "spheres" else random_tri_field(256)
+    cam = camera_from_numpy(numpy_tree(st.Camera.create(
+        position=(0, 0, -6.0), fov=1.0)), "cpu")
+    imgs = []
+    for use_bvh in (True, False):
+        ref = b.build(bvh_threshold=64, use_bvh=use_bvh)
+        scene = scene_from_numpy(numpy_tree(ref), "cpu")
+        cfg = config_from_reference_fields(dataclasses.asdict(
+            st.RenderConfig(width=32, height=32, max_bounces=2,
+                            use_bvh=use_bvh, traversal="while")))
+        imgs.append(render_sample(scene, cam, cfg)[0].numpy())
+    np.testing.assert_allclose(imgs[0], imgs[1], atol=2e-5)

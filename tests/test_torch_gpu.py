@@ -1,6 +1,6 @@
-"""The sweep kernels on the card against their plain PyTorch versions,
-and the bench and molecule frames rendered on the card against the same
-frames on the CPU.
+"""The sweep and BVH walk kernels on the card against their plain
+PyTorch versions, and the bench and molecule frames rendered on the card
+against the same frames on the CPU.
 
 All six kernels (closest and transmittance for tri, sphere and cyl) run
 the staged design, which splits a block's lanes over several warps and
@@ -10,7 +10,11 @@ the slices (200), forced ties (each block's second half a copy of its
 first, and every listed block listed again at once as a copy), strips
 with empty and with K-long lists, fractional shadow factors, padding
 spheres, rays that start inside spheres, and a BLOCK whose rows do not
-fit in shared memory.
+fit in shared memory.  The six walk kernels (closest hit and
+transmittance over the triangle, sphere and cylinder BVHs) run on camera
+and shadow rays with fractional and emissive materials, and on scenes
+with every primitive twice (ties within a leaf and across leaves); the
+molecule frame with traversal="while" launches all six.
 
 These need a CUDA card and nvcc; without a card they skip.  The file
 imports neither JAX nor solr_tpu, so it runs where only PyTorch is
@@ -25,6 +29,8 @@ pixels: the plain PyTorch code around the kernels runs through other
 elementwise and reduction kernels on the two devices.
 """
 
+import dataclasses
+
 import pytest
 import torch
 
@@ -32,11 +38,14 @@ from solr_tpu_torch.bench_scene import bench_scene
 from solr_tpu_torch.constants import RAY_EPS
 from solr_tpu_torch.kernel_shapes import primary_tiles
 from solr_tpu_torch.molecule_scene import molecule_scene
+from solr_tpu_torch.ops import bvh
 from solr_tpu_torch.ops import packet as pk
 from solr_tpu_torch.ops import sweep
 from solr_tpu_torch.ops.camera import camera_rays
 from solr_tpu_torch.ops.render import render_sample
-from solr_tpu_torch.ops.traverse import _scene_box
+from solr_tpu_torch.ops.traverse import _scene_box, scene_closest_hit
+from torch_bvh_helpers import (cross_leaf_pairs, fractional_materials,
+                               shadow_rays_to_light, tie_scene)
 from torch_sweep_helpers import forced_ties
 
 N_TRIS, SIZE, BLOCK = 20_000, 64, 512
@@ -454,3 +463,105 @@ def test_launch_order_matches_stable_sort(cuda, counts):
     got = sweep.launch_order(sweep._library(), c, 64)
     torch.cuda.synchronize()
     assert torch.equal(got, sweep.longest_first(c))
+
+
+# --------------------------------------------------------------------------
+# The per-ray BVH walk kernels (csrc/bvh_walk.cu)
+# --------------------------------------------------------------------------
+
+BVH_OF = {"tri": "tri_bvh", "sphere": "sph_bvh", "cyl": "cyl_bvh"}
+
+
+@pytest.fixture(scope="module")
+def walk(cuda):
+    """The reduced molecule scene on the card with fractional and
+    emissive materials, its camera rays in pixel order, and shadow rays
+    toward its light from their hits."""
+    bvh.build()
+    scene, cam, cfg = molecule_scene(N_ATOMS, GROUND_RES, width=SIZE,
+                                     height=SIZE, device=cuda)
+    scene = fractional_materials(scene)
+    o, d = camera_rays(cam, cfg)
+    with torch.no_grad():
+        hit = scene_closest_hit(scene, o, d)
+    return (scene, o, d) + shadow_rays_to_light(scene, o, d, hit)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("prim", bvh.PRIMS)
+def test_walk_closest_kernel_matches_plain(walk, prim):
+    scene, o, d = walk[:3]
+    tree = getattr(scene, BVH_OF[prim])
+    name = bvh.kernel_name("bvh_closest_hit", prim)
+    before = bvh.LAUNCHES[name]
+    got = bvh.bvh_closest_hit(scene, tree, bvh._PRIM_POOL[prim], o, d,
+                              RAY_EPS)
+    assert bvh.LAUNCHES[name] == before + 1
+    want = bvh.bvh_closest_hit_plain(scene, tree, prim, o, d, RAY_EPS)
+    assert (got[0] < 1e30).any()
+    for a, b in zip(got, want):  # t, idx
+        assert torch.equal(a, b)
+    lib_out = bvh.launch_closest(bvh._library(), scene, tree, prim, o, d,
+                                 RAY_EPS)
+    for a, b in zip(lib_out[2:], want[2:]):  # visits, tests
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rays", ["shadow", "camera"])
+@pytest.mark.parametrize("prim", bvh.PRIMS)
+def test_walk_transmittance_kernel_matches_plain(walk, prim, rays):
+    scene, o, d, so, sd, tm = walk
+    if rays == "camera":  # to t_max = 100: across the ground and molecule
+        so, sd, tm = o, d, torch.full(o.shape[:1], 100.0, device=o.device)
+    tree = getattr(scene, BVH_OF[prim])
+    name = bvh.kernel_name("bvh_transmittance", prim)
+    before = bvh.LAUNCHES[name]
+    got = bvh.bvh_transmittance(scene, tree, bvh._PRIM_POOL[prim], so, sd,
+                                RAY_EPS, tm)
+    assert bvh.LAUNCHES[name] == before + 1
+    want = bvh.bvh_transmittance_plain(scene, tree, prim, so, sd, RAY_EPS, tm)
+    assert torch.equal(got, want[0])
+    lib_out = bvh.launch_transmittance(bvh._library(), scene, tree, prim, so,
+                                       sd, RAY_EPS, tm)
+    for a, b in zip(lib_out[1:], want[1:]):  # visits, tests
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("prim", bvh.PRIMS)
+def test_walk_closest_ties(cuda, prim):
+    """Every primitive twice: the first copy wins, within a leaf and
+    across neighbouring leaves, on the card as in the plain version."""
+    bvh.build()
+    scene, o, d = tie_scene(prim, SIZE, device=cuda)
+    tree = getattr(scene, BVH_OF[prim])
+    got = bvh.launch_closest(bvh._library(), scene, tree, prim, o, d, RAY_EPS)
+    want = bvh.bvh_closest_hit_plain(scene, tree, prim, o, d, RAY_EPS)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    hit = want[0] < 1e30
+    assert (want[1][hit] % 2 == 0).all()
+    assert cross_leaf_pairs(tree, want[1][hit]) > 0
+
+
+@pytest.mark.gpu
+def test_while_frame_on_card_matches_cpu(cuda):
+    """The reduced molecule frame with traversal="while": all six walk
+    kernels launch on the card, no sweep kernel does, and the image
+    agrees with the CPU's within the frame budget."""
+    imgs = []
+    for dev in ("cpu", cuda):
+        scene, cam, cfg = molecule_scene(N_ATOMS, GROUND_RES, width=SIZE,
+                                         height=SIZE, device=dev)
+        cfg = dataclasses.replace(cfg, traversal="while")
+        before, sweeps = dict(bvh.LAUNCHES), dict(sweep.LAUNCHES)
+        with torch.no_grad():
+            imgs.append(render_sample(scene, cam, cfg)[0].cpu())
+        if dev != "cpu":
+            assert min(bvh.LAUNCHES[k] - before[k] for k in before) > 0
+            assert sweeps == sweep.LAUNCHES
+    cpu, card = imgs
+    assert torch.isfinite(card).all()
+    err = (card - cpu).abs().amax(-1)
+    assert float((err > 1e-4).float().mean()) <= 0.002

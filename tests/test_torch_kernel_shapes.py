@@ -3,7 +3,8 @@
 (solr_tpu_torch.sweep_steps), on the CPU: the inputs they build are the
 ones the frame's sweeps take, every step of the script applies to the
 committed CUDA source, and chip_smoke.py counts the roots of its bounds
-on the blocks the plain sweep visits.  The timings themselves need the
+on the blocks the plain sweep visits and the leaf lanes the plain BVH
+walk tests.  The timings themselves need the
 card."""
 
 import re
@@ -129,3 +130,29 @@ def test_bound_counts_roots_where_reached(prim):
     assert all(torch.equal(a, b) for a, b in zip((t, idx, visits), want))
     hits = int((t < 1e30).sum())
     assert 0 < hits <= pairs < int(visits.sum()) * 32 * 64
+
+
+@pytest.mark.parametrize("prim", ["sphere", "cyl"])
+def test_walk_bound_counts_roots_where_reached(prim):
+    """The same for the BVH walks: chip_smoke counts a sphere's or a
+    cylinder's roots only in the tested (ray, leaf lane) pairs that reach
+    them, while the plain walk runs; the walk's outputs are its own, and
+    every hit reaches its roots."""
+    from chip_smoke import _walk_plain_with_root_pairs
+    from solr_tpu_torch.constants import RAY_EPS
+    from solr_tpu_torch.ops import bvh
+    from solr_tpu_torch.ops.camera import camera_rays
+
+    scene, cam, cfg = molecule_scene(400, 16, width=48, height=48,
+                                     device="cpu")
+    tree = scene.sph_bvh if prim == "sphere" else scene.cyl_bvh
+    o, d = camera_rays(cam, cfg)
+    args = (scene, tree, prim, o, d, RAY_EPS)
+    leaf_t = bvh._leaf_t
+    out, pairs = _walk_plain_with_root_pairs(bvh.bvh_closest_hit_plain, args,
+                                             prim)
+    assert bvh._leaf_t is leaf_t
+    want = bvh.bvh_closest_hit_plain(*args)
+    assert all(torch.equal(a, b) for a, b in zip(out, want))
+    hits = int((out[0] < 1e30).sum())
+    assert 0 < hits <= pairs < int(out[3].sum())

@@ -1,0 +1,311 @@
+"""The ellipsoid and plane pools and the frames they complete, in the
+port against solr_tpu on the CPU: the new intersections and slab test,
+the builder's new entry points, whole frames over every primitive and
+traversal, the reference's three golden images, its oracle's Cornell and
+mesh cases, and hard shadows with ``shadow_samples > 1`` and no key.
+
+Tolerances:
+* Intersections: t at rtol 1e-5 where both hit, as tests/test_torch_ops.py
+  holds spheres and triangles, and hit/miss on more than 99.9% of the
+  rays, as it holds cylinders: a ray that grazes an ellipsoid (disc ~ 0)
+  or passes within an ulp of a rectangle's edge may flip between the
+  two builds (seen once in a run of the whole port suite).  The slab
+  test exactly (no products to contract).
+* Frames: atol 1e-4 outside 0.2% of pixels (ROADMAP C1: XLA on the CPU
+  contracts a*b + c into FMAs, the port rounds each product).  Two
+  scenes go past that budget in float32 through C1 alone, so they are
+  held to it in float64, where both packages render the same arithmetic
+  without the contraction (0 pixels over 1e-4): the 100-sphere field
+  with traversal="while" (9 of 1,024 pixels over 1e-4 in float32, at
+  most 5.0e-4, the same with the brute force) and the knot (8 of 1,024,
+  at most 1.7e-3; thin cylinders magnify the recomputed t in their
+  normals).
+* Goldens: max |diff| <= 3.5/255 (tests/test_goldens.py:54) on every
+  pixel but those an edge flip changes: in terrain_96 one pixel, (36,
+  78), takes the neighbouring triangle (depth 37.7986 against the
+  reference's 37.7930) and reads 69.6/255 off; those flips are held to
+  the 0.2% budget.
+* Oracle: tests/test_render_vs_oracle.py's own check (numpy float64).
+"""
+
+import dataclasses
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import solr_tpu as st
+from solr_tpu.ops import intersect as jis
+from solr_tpu.oracle.cpu_tracer import oracle_render
+from solr_tpu.scenes import make_scene
+from solr_tpu.types import PlaneAxis as JPlaneAxis
+
+from data.torch_reference import numpy_tree, reference_render
+from scenes_fixtures import (cornell_box, cornell_camera, random_sphere_field,
+                             random_tri_field, tri_quad_scene)
+from solr_tpu_torch.convert import (camera_from_numpy,
+                                    config_from_reference_fields,
+                                    scene_from_numpy)
+from solr_tpu_torch.ops import intersect as tis
+from solr_tpu_torch.ops.render import render_sample
+from solr_tpu_torch.scene import SceneBuilder
+from solr_tpu_torch.types import PlaneAxis
+from test_render_vs_oracle import assert_images_match
+
+# Several test workers share the cores: keep each one's intra-op pool small.
+torch.set_num_threads(2)
+
+ATOL = 1e-4
+BUDGET = 0.002
+GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "goldens")
+
+
+def _to_f64(tree):
+    return jax.tree.map(lambda x: x.astype(jnp.float64)
+                        if jnp.issubdtype(x.dtype, jnp.floating) else x, tree)
+
+
+def _port_render(jscene, jcam, jcfg, dtype=torch.float32):
+    scene = scene_from_numpy(numpy_tree(jscene), "cpu", dtype)
+    cam = camera_from_numpy(numpy_tree(jcam), "cpu", dtype)
+    cfg = config_from_reference_fields(dataclasses.asdict(jcfg))
+    return render_sample(scene, cam, cfg)[0].numpy()
+
+
+def _mismatch(img, ref):
+    assert img.shape == ref.shape and np.isfinite(img).all()
+    return (np.abs(img - ref).max(-1) > ATOL).mean()
+
+
+# --------------------------------------------------------------------------
+# Intersections
+# --------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def pool_rays():
+    rng = np.random.default_rng(11)
+    n = 3000
+    o = rng.uniform(-1, 1, (n, 3)).astype(np.float32)
+    c = (rng.uniform(-1, 1, (n, 3)) + [0, 0, 5]).astype(np.float32)
+    target = c + rng.normal(0.0, 0.6, (n, 3))  # ray i toward primitive i
+    d = target - o
+    d = (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
+    radii = rng.uniform(-0.2, 1.0, (n, 3)).astype(np.float32)
+    axis = rng.integers(0, 3, n).astype(np.int32)
+    half = rng.uniform(-0.2, 1.2, (n, 2)).astype(np.float32)
+    return o, d, c, radii, axis, half
+
+
+def _assert_t(ref, port):
+    ref, port = np.asarray(ref), port.numpy()
+    hit, hit_port = ref < 1e30, port < 1e30
+    assert 200 < hit.sum() < hit.size
+    assert (hit == hit_port).mean() > 0.999
+    both = hit & hit_port
+    np.testing.assert_allclose(port[both], ref[both], rtol=1e-5)
+
+
+@pytest.mark.parametrize("form", ["pairwise", "matrix"])
+def test_ellipsoid_matches_reference(pool_rays, form):
+    o, d, c, radii, _, _ = pool_rays
+    if form == "pairwise":
+        fj, ft, args = jis.ellipsoid_t_p, tis.ellipsoid_t_p, (o, d, c, radii)
+    else:  # 300 rays x 400 ellipsoids
+        fj, ft = jis.ellipsoid_t, tis.ellipsoid_t
+        args = (o[:300], d[:300], c[:400], radii[:400])
+    _assert_t(fj(*(jnp.asarray(a) for a in args), 1e-4),
+              ft(*(torch.from_numpy(a) for a in args), 1e-4))
+
+
+@pytest.mark.parametrize("form", ["pairwise", "matrix"])
+def test_plane_matches_reference(pool_rays, form):
+    o, d, c, _, axis, half = pool_rays
+    if form == "pairwise":
+        fj, ft, args = jis.plane_t_p, tis.plane_t_p, (o, d, axis, c, half)
+    else:
+        fj, ft = jis.plane_t, tis.plane_t
+        args = (o[:300], d[:300], axis[:400], c[:400], half[:400])
+    _assert_t(fj(*(jnp.asarray(a) for a in args), 1e-4),
+              ft(*(torch.from_numpy(a) for a in args), 1e-4))
+
+
+def test_aabb_hit_matches_reference(pool_rays):
+    o, d, c, radii, _, _ = pool_rays
+    inv_d = (1.0 / np.where(np.abs(d) > 1e-12, d, 1e-12)).astype(np.float32)
+    lo, hi = c - np.abs(radii), c + np.abs(radii)
+    t_max = np.random.default_rng(2).uniform(1, 8, o.shape[0]).astype(np.float32)
+    ref = jis.aabb_hit(*(jnp.asarray(a) for a in (o, inv_d, lo, hi)), 1e-4,
+                       jnp.asarray(t_max))
+    port = tis.aabb_hit(*(torch.from_numpy(a) for a in (o, inv_d, lo, hi)),
+                        1e-4, torch.from_numpy(t_max))
+    assert 200 < int(port.sum()) < port.numel()
+    np.testing.assert_array_equal(port.numpy(), np.asarray(ref))
+
+
+# --------------------------------------------------------------------------
+# The builder's new entry points
+# --------------------------------------------------------------------------
+
+
+def _fill(b, axes):
+    """The same calls on either builder: planes, an emissive ellipsoid
+    (a light), ellipsoids, single triangles with normals and uvs, a
+    triangle soup, and sphere and cylinder pools big enough for BVHs."""
+    rng = np.random.default_rng(4)
+    m = b.add_material(color=(0.7, 0.6, 0.5, 1.0), specular=0.3)
+    lamp = b.add_material(color=(1.0, 0.9, 0.8, 1.0), emission=2.0)
+    b.add_plane(axes.XZ, (0.0, -1.0, 1.0), (3.0, 2.0), m)
+    b.add_plane(axes.YZ, (-2.0, 0.0, 1.0), (1.0, 2.5), m)
+    b.add_ellipsoid((0.0, 2.0, 1.0), (0.3, 0.1, 0.2), lamp)
+    b.add_ellipsoid((0.5, 0.0, 2.0), (0.6, 0.3, 0.4), m)
+    b.add_triangle((0, 0, 3), (1, 0, 3), (0, 1, 3), m,
+                   normals=((0, 0, -1), (0, 0.2, -1), (0.2, 0, -1)),
+                   uvs=((0, 0), (1, 0), (0, 1)))
+    v = rng.uniform(-2, 2, (90, 3, 3)) + [0, 0, 4]
+    b.add_triangles_raw(v[:, 0], v[:, 1], v[:, 2], m)
+    for p in rng.uniform(-2, 2, (70, 3)):
+        b.add_sphere(p, 0.2, m)
+        b.add_cylinder(p, p + [0.2, 0.3, 0.1], 0.05, m)
+    b.add_light((0.0, 4.0, -1.0), intensity=1.0)
+
+
+def test_builder_new_pools_match_reference():
+    ref = st.SceneBuilder()
+    _fill(ref, JPlaneAxis)
+    ref = ref.build()
+    port = SceneBuilder()
+    _fill(port, PlaneAxis)
+    port = port.build(device="cpu")
+    fields = {"spheres": ("center", "radius", "material"),
+              "triangles": ("v0", "v1", "v2", "n0", "n1", "n2", "uv0", "uv1",
+                            "uv2", "material"),
+              "cylinders": ("p0", "p1", "radius", "material"),
+              "ellipsoids": ("center", "radii", "material"),
+              "planes": ("axis", "origin", "half_extents", "material"),
+              "lights": ("position", "color", "radius")}
+    for pool, names in fields.items():
+        for f in names:
+            a = np.asarray(getattr(getattr(ref, pool), f))
+            b = getattr(getattr(port, pool), f).numpy()
+            np.testing.assert_array_equal(b, a.astype(b.dtype),
+                                          err_msg=f"{pool}.{f}")
+    assert port.lights.position.shape[0] == 2  # the light sphere, the lamp
+    for key in ("tri_bvh", "sph_bvh", "cyl_bvh"):
+        for f in ("aabb_min", "aabb_max", "skip", "first_prim", "prim_count"):
+            np.testing.assert_array_equal(
+                getattr(getattr(port, key), f).numpy(),
+                np.asarray(getattr(getattr(ref, key), f)), err_msg=key)
+
+
+def test_build_without_bvh_keeps_insertion_order():
+    b = SceneBuilder()
+    for i in range(70):
+        b.add_sphere((float(-i), 0.0, 5.0), 0.3)
+    scene = b.build(use_bvh=False, device="cpu")
+    assert scene.sph_bvh is None and scene.sph_accel is None
+    assert scene.spheres.center[:70, 0].tolist() == [float(-i) for i in range(70)]
+
+
+# --------------------------------------------------------------------------
+# Whole frames
+# --------------------------------------------------------------------------
+
+
+def _mesh_case():
+    return (random_tri_field(300).build(bvh_threshold=64),
+            st.Camera.create(position=(0, 0, -6.0), fov=1.0),
+            st.RenderConfig(width=40, height=24, max_bounces=2), False)
+
+
+def _sphere_case():
+    return (random_sphere_field(100).build(bvh_threshold=64),
+            st.Camera.create(position=(0, 0, -6.0), fov=1.0),
+            st.RenderConfig(width=32, height=32, max_bounces=2,
+                            traversal="while"), True)
+
+
+def _knot_case():
+    demo = make_scene("knot", seed=0)
+    return (demo.scene, demo.camera,
+            st.RenderConfig(width=32, height=32, max_bounces=2), True)
+
+
+@pytest.mark.parametrize("make", [_mesh_case, _sphere_case, _knot_case],
+                         ids=["mesh-40x24-auto", "spheres-while", "knot"])
+def test_walk_frames_match_reference(make):
+    """A 40x24 frame over a 300-triangle mesh (24 rows: no whole tiles,
+    so "auto" walks the triangle BVH), 100 spheres and no mesh with
+    traversal="while", and the gallery's knot (96 cylinders and 97
+    spheres, both walked, over a plane)."""
+    jscene, jcam, jcfg, f64 = make()
+    if f64:
+        jscene, jcam = _to_f64(jscene), _to_f64(jcam)
+    ref = reference_render(jscene, jcam, jcfg)
+    img = _port_render(jscene, jcam, jcfg,
+                       torch.float64 if f64 else torch.float32)
+    assert _mismatch(img.astype(np.float32), ref) <= BUDGET
+
+
+@pytest.mark.parametrize("name", ["cornell", "terrain", "glass"])
+def test_goldens(name):
+    """tests/goldens/{name}_96.png: the gallery scene at 96x96, 3
+    bounces, as tests/test_goldens.py renders it with solr_tpu."""
+    from solr_tpu.io.image import load_image
+
+    demo = make_scene(name, seed=0)
+    img = _port_render(demo.scene, demo.camera,
+                       st.RenderConfig(width=96, height=96, max_bounces=3))
+    img = np.clip(img[..., :3], 0.0, 1.0)
+    golden = np.asarray(load_image(os.path.join(GOLDEN_DIR, f"{name}_96.png")))
+    diff = np.abs(img - golden[..., :3].astype(np.float32) / 255.0).max(-1)
+    flips = diff > 3.5 / 255.0
+    assert flips.mean() <= BUDGET, f"{name}: {np.argwhere(flips).tolist()}"
+    assert diff[~flips].max() <= 3.5 / 255.0
+
+
+ORACLE_CASES = {
+    "cornell-diffuse": (lambda: cornell_box(n_spheres=8, reflective=False,
+                                            transparent=False), 48, 2, {}),
+    "cornell-reflective-transparent": (lambda: cornell_box(n_spheres=8), 48,
+                                       3, {}),
+    "cornell-checker": (lambda: cornell_box(n_spheres=4, checker=True), 48,
+                        2, {}),
+    "cornell-no-shadows": (lambda: cornell_box(n_spheres=4), 32, 2,
+                           {"shadows": False}),
+    "mesh-tri-quad": (tri_quad_scene, 32, 1, {}),
+    "mesh-tri-field": (lambda: random_tri_field(300), 32, 2, {}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ORACLE_CASES))
+def test_oracle_cases(name):
+    """tests/test_render_vs_oracle.py's TestCornell and TestMeshes, with
+    the port in place of solr_tpu."""
+    make, size, bounces, extra = ORACLE_CASES[name]
+    if name.startswith("cornell"):
+        jscene, jcam = make().build(), cornell_camera()
+    elif name == "mesh-tri-quad":
+        jscene, jcam = make().build(), st.Camera.create(position=(0, 0, -2.0))
+    else:
+        jscene = make().build(bvh_threshold=64)
+        assert jscene.tri_bvh is not None
+        jcam = st.Camera.create(position=(0, 0, -6.0), fov=1.0)
+    jcfg = st.RenderConfig(width=size, height=size, max_bounces=bounces,
+                           **extra)
+    assert_images_match(_port_render(jscene, jcam, jcfg),
+                        oracle_render(jscene, jcam, jcfg))
+
+
+def test_soft_shadow_samples_without_key_render_hard():
+    """shadow_samples=4 and no key: the reference renders hard shadows
+    (solr_tpu/ops/shade.py:99), and so does the port (ROADMAP C8)."""
+    jscene = cornell_box(n_spheres=4).build()
+    jcfg = st.RenderConfig(width=32, height=32, max_bounces=2,
+                           shadow_samples=4)
+    ref = reference_render(jscene, cornell_camera(), jcfg)
+    img = _port_render(jscene, cornell_camera(), jcfg)
+    assert _mismatch(img, ref) <= BUDGET

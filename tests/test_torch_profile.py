@@ -57,3 +57,16 @@ def test_net_keeps_the_frame_exact_when_lists_are_short():
         img, _ = render_sample(scene, cam, short)
     assert traverse.NET_STATS["needy_rays"] > needy_full
     torch.testing.assert_close(img, full, rtol=0.0, atol=0.0)
+
+
+def test_profile_times_the_walks_per_kernel():
+    """With traversal="while" the walk wrappers are timed per kernel."""
+    scene, cam, cfg = bench_scene(4_000, block=64, width=32, height=24,
+                                  bounces=2, device="cpu")
+    cfg = dataclasses.replace(cfg, traversal="while")
+    rec = profile_frame(scene, cam, cfg, frames=1)
+    assert rec["instrumented_digest"] == rec["digest"]
+    phases = rec["phases"]
+    assert phases["kernel bvh_closest_hit_tri"]["calls"] == cfg.max_bounces
+    assert phases["kernel bvh_transmittance_tri"]["calls"] == cfg.max_bounces
+    assert "kernel sweep_closest" not in phases

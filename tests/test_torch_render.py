@@ -21,10 +21,13 @@ import torch
 import solr_tpu as st
 from solr_tpu.ops import packet as jpk
 
-from data.torch_reference import (REF_FILE, numpy_tree, reference_bench_scene,
-                                  reference_render)
+from data.torch_reference import (CORNELL_REF_FILE, MOL_WHILE_REF_FILE,
+                                  REF_FILE, WALK_REF_FILE, numpy_tree,
+                                  reference_bench_scene, reference_render)
 from scenes_fixtures import random_sphere_field, tri_quad_scene
 from solr_tpu_torch.bench_scene import bench_scene, bench_scene_arrays
+from solr_tpu_torch.cornell_scene import cornell_scene
+from solr_tpu_torch.molecule_scene import molecule_scene
 from solr_tpu_torch.convert import (camera_from_numpy, scene_from_numpy,
                                     config_from_reference_fields)
 from solr_tpu_torch.ops.render import accumulate, render_sample
@@ -81,6 +84,42 @@ def test_committed_reference_frame():
     scene, cam, cfg = bench_scene(int(ref["n_tris"]), block=int(ref["block"]),
                                   width=size, height=size,
                                   bounces=int(ref["bounces"]), device="cpu")
+    assert_image_close(render_sample(scene, cam, cfg)[0].numpy(), ref["image"])
+
+
+def _walk_frame(ref):
+    scene, cam, cfg = bench_scene(int(ref["n_tris"]), block=int(ref["block"]),
+                                  width=int(ref["size"]),
+                                  height=int(ref["height"]),
+                                  bounces=int(ref["bounces"]), device="cpu")
+    return scene, cam, cfg
+
+
+def _molecule_while_frame(ref):
+    scene, cam, cfg = molecule_scene(
+        int(ref["n_atoms"]), int(ref["ground_res"]), width=int(ref["size"]),
+        height=int(ref["size"]), bounces=int(ref["bounces"]),
+        block=int(ref["block"]), device="cpu")
+    return scene, cam, dataclasses.replace(cfg, traversal=str(ref["traversal"]))
+
+
+def _cornell_frame(ref):
+    return cornell_scene(int(ref["size"]), int(ref["size"]),
+                         int(ref["bounces"]), device="cpu")
+
+
+@pytest.mark.parametrize("path,make", [
+    (WALK_REF_FILE, _walk_frame), (MOL_WHILE_REF_FILE, _molecule_while_frame),
+    (CORNELL_REF_FILE, _cornell_frame)], ids=["walk", "molecule-while",
+                                              "cornell"])
+def test_committed_walk_and_cornell_frames(path, make):
+    """The frames chip_smoke.py's walk_reference and cornell phases hold
+    the card to, on the CPU: the bench frame at a height that is not a
+    multiple of 16 (the triangle BVH walk), the molecule frame with
+    traversal="while" (all three walks) and the port's own Cornell box
+    against the gallery's (planes)."""
+    ref = np.load(path)
+    scene, cam, cfg = make(ref)
     assert_image_close(render_sample(scene, cam, cfg)[0].numpy(), ref["image"])
 
 

@@ -1,7 +1,9 @@
-"""Helpers of the sweep kernel tests: inputs with forced ties, and a CPU
-emulation of the CUDA kernels in solr_tpu_torch/csrc/sweep.cu.
+"""Helpers of the kernel tests: inputs with forced ties, and a CPU
+emulation of the CUDA kernels in solr_tpu_torch/csrc/sweep.cu and
+bvh_walk.cu.
 
-The emulation compiles sweep.cu with the host's C++ compiler against a
+The emulation compiles a kernel source with the host's C++ compiler
+against a
 stand-in for the CUDA runtime: one std::thread per CUDA thread, the
 CTAs of a launch one after another, __syncthreads, __syncwarp and the
 warp shuffles and matches as real barriers, cp.async as a plain copy,
@@ -55,6 +57,7 @@ enum { cudaSuccess = 0, cudaErrorInvalidValue = 1,
 using std::max;
 using std::min;
 inline int __ffs(unsigned x) { return __builtin_ffs(x); }
+template <class T> inline T __ldg(const T* p) { return *p; }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 template <class T> cudaError_t cudaFuncSetAttribute(T, int, int) { return 0; }
 inline cudaError_t cudaGetLastError() { return 0; }
@@ -127,9 +130,9 @@ inline void emu_launch(unsigned grid, unsigned block, int64_t smem,
 
 
 def emulated_source(src: str) -> str:
-    """``src`` (sweep.cu) rewritten for the stand-in runtime: launches
-    call emu_launch, cp.async copies at once, the dynamic shared array is
-    the emulator's buffer."""
+    """``src`` (sweep.cu or bvh_walk.cu) rewritten for the stand-in
+    runtime: launches call emu_launch, cp.async copies at once, the
+    dynamic shared array is the emulator's buffer."""
     def launch(m):
         grid, block, smem = (x.strip() for x in m.group(2).split(",")[:3])
         return (f"emu_launch({grid}, {block}, {smem}, "
@@ -138,7 +141,7 @@ def emulated_source(src: str) -> str:
     out, n = re.subn(r"([\w<>]+)<<<(.*?)>>>\((.*?)\);", launch, src,
                      flags=re.S)
     assert n >= 3, "kernel launches not found"
-    for size in (16, 4):
+    for size in (16, 4) if "cp.async" in src else ():
         out, n = re.subn(
             rf'asm volatile\("cp\.async\.\w+\.shared\.global \[%0\], '
             rf'\[%1\], {size};\\n" ::"r"\(s\),\s*"l"\(src\)\);',
@@ -161,9 +164,9 @@ def build_emulated(src_path: Path, out_dir: Path) -> Path:
     shared library's path."""
     out_dir.mkdir(parents=True, exist_ok=True)
     (out_dir / "cuda_runtime.h").write_text(_RUNTIME)
-    cpp = out_dir / "sweep_emulated.cpp"
+    cpp = out_dir / f"{src_path.stem}_emulated.cpp"
     cpp.write_text(emulated_source(src_path.read_text()))
-    lib = out_dir / "libsweep_emulated.so"
+    lib = out_dir / f"lib{src_path.stem}_emulated.so"
     res = subprocess.run(
         [compiler(), "-std=c++17", "-O1", "-ffp-contract=off", "-shared",
          "-fPIC", "-Wno-unknown-pragmas", f"-I{out_dir}", "-o", str(lib),
