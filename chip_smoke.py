@@ -66,10 +66,33 @@ both started together.  Phases, each of which must pass:
    force) built by the port's SceneBuilder, at 64x64 against
    tests/data/torch_cornell_ref.npz as in 5, then at BASELINE.json
    config #1's 256x256 and 2 bounces, one warm-up and three timed
-   frames.
+   frames;
+14. ``grad_reference``: gradients on the card against the committed
+   solr_tpu CPU gradients (tests/data/torch_grad_ref.npz): the inverse
+   demo's scene at 64x64 over the pixels outside the stored silhouette
+   mask, every leaf (|port - ref| <= tol x max|ref|: 1e-3 for sphere
+   geometry, 1e-4 for the others); the reduced bench frame with
+   packets (64x64) and with the walk (64x56) against the stored target:
+   the vertex-gradient L1 totals within rtol 1e-3 and, over the rows
+   the reference touches, the L1 of the difference within 5e-3 of the
+   reference's (whole rows move where an f32 edge flip changes a hit);
+15. ``grad_main_path``: gradient steps through the full bench frame
+   (packets): with_params, render_sample, the MSE against 0.8 x the
+   frame's own image, backward, over vertices, sphere centres and radii,
+   albedo and light position; one warm-up and three timed steps, ms for
+   the refresh, forward and backward, peak memory, the rows with a
+   non-zero vertex gradient, and one backward's device profile; every
+   gradient finite, the vertex gradients non-zero, B1 and B2 launched
+   and no walk kernel;
+16. ``grad_walk_path``: the same at 1920x1080 (the walk): the triangle
+   walk kernels launch, B1 and B2 do not;
+17. ``inverse``: ``python -m solr_tpu_torch.inverse`` on the card at
+   128x128: 60 steps, the loss must fall 20x; with ``--geometry`` 300
+   steps, the centre error must fall 5x; ms per step and its parts,
+   the final errors.
 
 Each main path runs with the launch counts set to 0 just before it and
-read just after; the packet paths (4, 7) must launch no walk kernel.  Prints the full record of the run on one line
+read just after; the packet paths (4, 7, 15) must launch no walk kernel.  Prints the full record of the run on one line
 ("record: {...}"), the kernel table as one JSON line (each kernel's
 time, its plain version's, its bound: the larger of the bytes its
 inputs and outputs take over 3.35 TB/s and the f32 operations its
@@ -143,6 +166,19 @@ WALK_OPS_PER_VISIT = 12
 WALK_OPS_PER_LANE = {"tri": 52, "sphere": 17, "cyl": 85}
 WALK_REPLACES = {"bvh_closest_hit": "solr_tpu/ops/bvh.py:333",
                  "bvh_transmittance": "solr_tpu/ops/bvh.py:397"}
+# Gradient checks: per-leaf f32 tolerances of the inverse scene, the
+# vertex L1 total's rtol and the rows' L1 difference bound of the bench
+# frames, the leaves a gradient step trains, the inverse demo's runs.
+GRAD_TOL = {"sphere_center": 1e-3, "sphere_radius": 1e-3, "albedo": 1e-4,
+            "ior": 1e-4, "light_position": 1e-4}
+GRAD_L1_RTOL = 1e-3
+GRAD_ROWS_L1 = 5e-3
+GRAD_KEYS = ("vertices", "sphere_center", "sphere_radius", "albedo",
+             "light_position")
+GRAD_STEPS = 3
+INVERSE_SIZE = 128
+INVERSE_RUNS = (("inverse", ["--steps", "60"]),
+                ("inverse_geometry", ["--steps", "300", "--geometry"]))
 
 
 def _nvidia_smi() -> str:
@@ -719,6 +755,273 @@ def phase_cornell(rec, device):
     return phase_path(scene, cam, cfg, rec, "cornell", [])
 
 
+def _sync(device):
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _leaves(params, keys=None):
+    """Fresh copies of a Scene.params tree; those under ``keys`` (all when
+    None) are leaf tensors that require grad."""
+    def leaf(x, grad):
+        return x.detach().clone().requires_grad_(grad)
+
+    return {k: (tuple(leaf(x, keys is None or k in keys) for x in v)
+                if isinstance(v, tuple) else leaf(v, keys is None or k in keys))
+            for k, v in params.items()}
+
+
+def _grad_leaf_list(tree):
+    """The tensors of a Scene.params-like tree, flat."""
+    out = []
+    for v in tree.values():
+        out += list(v) if isinstance(v, tuple) else [v]
+    return out
+
+
+def _grad_tree(p):
+    import torch
+
+    def g(x):
+        return torch.zeros_like(x) if x.grad is None else x.grad
+
+    return {k: tuple(g(x) for x in v) if isinstance(v, tuple) else g(v)
+            for k, v in p.items()}
+
+
+def _hold_grads_inverse(ref, device):
+    """The inverse scene's masked gradients against the reference's."""
+    import numpy as np
+    import torch
+
+    from solr_tpu_torch import inverse
+    from solr_tpu_torch.ops.render import render_sample
+    from solr_tpu_torch.types import RenderConfig
+
+    size = int(ref["inverse_size"])
+    scene, cam = inverse.build_scene(device)
+    cfg = RenderConfig(width=size, height=size, max_bounces=BOUNCES)
+    with torch.no_grad():
+        img, _ = render_sample(scene, cam, cfg)
+        start, _ = inverse.perturb(scene.params, True)
+        _, start_depth = render_sample(scene.with_params(start), cam, cfg)
+    target = img[..., :3] * float(ref["target_scale"])
+    keep = ~torch.as_tensor(ref["inverse_mask"], device=device)
+    p = _leaves(scene.params)
+    img, depth = render_sample(scene.with_params(p), cam, cfg)
+    loss = inverse.rgbd_loss(img, depth, target, start_depth, True, keep)
+    loss.backward()
+    g = _grad_tree(p)
+    out = dict(size=size, masked=int((~keep).sum()), loss=float(loss),
+               ref_loss=float(ref["inverse_loss"]), leaves={})
+    bad = []
+    for k, tol in GRAD_TOL.items():
+        got = g[k].double().cpu().numpy()
+        want = ref[f"inverse_{k}"].astype(np.float64)
+        scale = float(np.abs(want).max())
+        err = float(np.abs(got - want).max())
+        out["leaves"][k] = dict(max_err=err, ref_max=scale, tol=tol,
+                                finite=bool(np.isfinite(got).all()))
+        if not np.isfinite(got).all() or err > tol * scale:
+            bad.append(k)
+    return out, bad
+
+
+def _hold_grads_bench(ref, name, device):
+    """A reduced bench frame's vertex gradients against the reference's
+    non-zero rows."""
+    import numpy as np
+    import torch
+
+    from solr_tpu_torch.bench_scene import bench_scene
+    from solr_tpu_torch.ops.render import render_sample
+
+    scene, cam, cfg = bench_scene(
+        int(ref["n_tris"]), block=int(ref["block"]), width=int(ref["size"]),
+        height=int(ref[f"{name}_height"]), bounces=int(ref["bounces"]),
+        device=device)
+    target = torch.as_tensor(ref[f"{name}_target"], device=device)
+    p = _leaves(scene.params)
+    img, _ = render_sample(scene.with_params(p), cam, cfg)
+    loss = ((img[..., :3] - target) ** 2).mean()
+    loss.backward()
+    g = _grad_tree(p)
+    l1 = l1_ref = diff = 0.0
+    rows = ref_rows = shared = 0
+    for i in range(3):
+        got = g["vertices"][i].double().cpu().numpy()
+        idx = ref[f"{name}_v{i}_idx"]
+        want = ref[f"{name}_v{i}_rows"].astype(np.float64)
+        touched = np.abs(got).sum(-1) > 0
+        l1 += float(np.abs(got).sum())
+        l1_ref += float(np.abs(want).sum())
+        diff += float(np.abs(got[idx] - want).sum())
+        rows += int(touched.sum())
+        ref_rows += len(idx)
+        shared += int(touched[idx].sum())
+    finite = all(bool(torch.isfinite(x).all()) for x in
+                 list(g["vertices"]) + [g[k] for k in GRAD_TOL])
+    out = dict(width=cfg.width, height=cfg.height, loss=float(loss),
+               ref_loss=float(ref[f"{name}_loss"]), vertex_l1=l1,
+               ref_vertex_l1=l1_ref, l1_rel_err=abs(l1 / l1_ref - 1.0),
+               rows_l1_rel_err=diff / l1_ref, rows=rows, ref_rows=ref_rows,
+               shared_rows=shared, finite=finite)
+    bad = (not finite or out["l1_rel_err"] > GRAD_L1_RTOL
+           or out["rows_l1_rel_err"] > GRAD_ROWS_L1)
+    return out, bad
+
+
+def phase_grad_reference(rec, device):
+    """Gradients on ``device`` against the committed solr_tpu CPU
+    gradients (tests/data/torch_grad_ref.npz)."""
+    import numpy as np
+
+    ref = np.load(os.path.join(ROOT, "tests", "data", "torch_grad_ref.npz"))
+    out, bad = _hold_grads_inverse(ref, device)
+    res = {"inverse": out}
+    for name in ("bench", "walk"):
+        res[name], failed = _hold_grads_bench(ref, name, device)
+        if failed:
+            bad.append(name)
+    rec["grad_reference"] = res
+    if bad:
+        raise AssertionError(f"gradients differ from the reference: {bad}: "
+                             f"{res}")
+
+
+def _device_profile(fn, top=8):
+    """Device busy time and the largest kernels of ``fn()`` under
+    torch.profiler, and the device time of its accumulating index writes
+    (the backward of ``x[i]`` gathers) by the shapes of the table
+    written and of the values."""
+    import collections
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        fn()
+        _sync("cuda")
+    wall = time.perf_counter() - t0
+    index_puts = sorted(
+        (dict(table=e.input_shapes[0], values=e.input_shapes[2],
+              ms=e.device_time_total / 1e3, calls=e.count)
+         for e in prof.key_averages(group_by_input_shape=True)
+         if e.key == "aten::_index_put_impl_"), key=lambda r: -r["ms"])
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    by_name = collections.defaultdict(lambda: [0.0, 0])
+    for e in kernels:
+        by_name[e.name][0] += e.time_range.elapsed_us() / 1e3
+        by_name[e.name][1] += 1
+    largest = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    return dict(wall_ms=wall * 1e3, device_kernels=len(kernels),
+                device_busy_ms=busy,
+                largest=[dict(name=n[:100], ms=ms, launches=c)
+                         for n, (ms, c) in largest],
+                index_puts=index_puts[:top])
+
+
+def phase_grad_path(scene, cam, cfg, rec, key, kernels, idle=(),
+                    steps=GRAD_STEPS):
+    """Gradient steps through one main path: the MSE of render_sample
+    against 0.8 x the frame's own image over GRAD_KEYS.  A step is
+    with_params (refresh), render_sample and the loss (forward) and
+    backward, each timed with a sync on each side.  The launch counts
+    are set to 0 just before the warm-up step and read after the last;
+    every kernel in ``kernels`` must have launched, none in ``idle``;
+    every gradient must be finite and the vertex gradients non-zero.
+    One more backward runs under torch.profiler."""
+    import torch
+
+    from solr_tpu_torch.ops import bvh, sweep
+    from solr_tpu_torch.ops.render import render_sample
+
+    device = scene.device
+    with torch.no_grad():
+        target = render_sample(scene, cam, cfg)[0][..., :3] * 0.8
+    p = _leaves(scene.params, GRAD_KEYS)
+
+    def forward():
+        _sync(device)
+        t0 = time.perf_counter()
+        s = scene.with_params(p)
+        _sync(device)
+        t1 = time.perf_counter()
+        img, _ = render_sample(s, cam, cfg)
+        loss = ((img[..., :3] - target) ** 2).mean()
+        _sync(device)
+        return loss, (t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3
+
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    parts = []
+    for _ in range(1 + steps):
+        for x in _grad_leaf_list(p):
+            x.grad = None
+        loss, refresh_ms, forward_ms = forward()
+        t0 = time.perf_counter()
+        loss.backward()
+        _sync(device)
+        parts.append(dict(refresh_ms=refresh_ms, forward_ms=forward_ms,
+                          backward_ms=(time.perf_counter() - t0) * 1e3))
+    launches = {**sweep.LAUNCHES, **bvh.LAUNCHES}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    g = _grad_tree(p)
+    finite = all(bool(torch.isfinite(x).all()) for x in _grad_leaf_list(g))
+    rows = int(sum((x.abs().sum(-1) > 0) for x in g["vertices"]).gt(0).sum())
+    timed = parts[1:]
+    for x in _grad_leaf_list(p):
+        x.grad = None
+    loss, _, _ = forward()
+    profile = _device_profile(loss.backward)
+    rec[key] = dict(
+        width=cfg.width, height=cfg.height, bounces=cfg.max_bounces,
+        triangles=int(scene.triangles.v0.shape[0]), loss=float(loss),
+        steps=parts, step_ms=[sum(q.values()) for q in timed],
+        best_step_ms=min(sum(q.values()) for q in timed),
+        best={k: min(q[k] for q in timed) for k in timed[0]},
+        peak_mem_gb=peak, vertex_rows_with_grad=rows, finite=finite,
+        launches=launches, backward_profile=profile)
+    if not finite or rows == 0:
+        raise AssertionError(f"{key}: gradients not finite or no vertex "
+                             f"gradient: {rec[key]}")
+    missing = [k for k in kernels if launches[k] <= 0]
+    stray = [k for k in idle if launches[k]]
+    if missing or stray:
+        raise AssertionError(f"{key}: kernels never launched {missing}, "
+                             f"launched {stray}")
+    return launches
+
+
+def phase_inverse(rec):
+    """The inverse demo on the card at INVERSE_SIZE: each run of
+    INVERSE_RUNS from a fresh checkpoint directory; the demo itself
+    raises when it misses its bar."""
+    import shutil
+
+    from solr_tpu_torch import inverse
+
+    out = os.path.join(ROOT, "build", "chip_smoke_inverse")
+    shutil.rmtree(out, ignore_errors=True)
+    res = {}
+    for name, args in INVERSE_RUNS:
+        try:
+            res[name] = inverse.main(args + [
+                "--size", str(INVERSE_SIZE), "--device", "cuda",
+                "--ckpt-dir", os.path.join(out, name, "ckpt"),
+                "--metrics", os.path.join(out, name, "metrics.jsonl"),
+                "--out", os.path.join(out, name, "inverse.png")])
+        except SystemExit as e:
+            rec["inverse"] = res
+            raise AssertionError(f"{name}: {e}") from None
+    rec["inverse"] = res
+
+
 def _kernel_table(rec, paths):
     """The kernels JSON line: each kernel's timed comparison, with its
     launches from the main path whose shapes it was timed at."""
@@ -846,6 +1149,14 @@ def main() -> int:
             molecule_while=molecule_while())),
         ("walk_reference", lambda: phase_walk_reference(rec, device)),
         ("cornell", lambda: paths.update(cornell=phase_cornell(rec, device))),
+        ("grad_reference", lambda: phase_grad_reference(rec, device)),
+        ("grad_main_path", lambda: paths.update(grad_main_path=phase_grad_path(
+            *scenes["bench"], rec, "grad_main_path", tri, idle=walks))),
+        ("grad_walk_path", lambda: paths.update(grad_walk_path=phase_grad_path(
+            scenes["bench"][0], scenes["bench"][1],
+            _walk_cfg(scenes["bench"][2]), rec, "grad_walk_path", tri_walks,
+            idle=tri))),
+        ("inverse", lambda: phase_inverse(rec)),
     )
     for name, fn in steps:
         try:

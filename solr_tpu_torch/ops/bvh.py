@@ -529,6 +529,23 @@ def launch_transmittance(lib, scene, bvh: BVH, prim: str, o, d, t_min,
     return tuple(x.reshape(r_shape) for x in (out_tr, vis, tst))
 
 
+def _pool_tensors(scene, prim: str, shadow: bool):
+    """The scene tensors a walk reads: the pool's geometry, and for the
+    shadow walk its materials' emission and transparency."""
+    if prim == "tri":
+        p = scene.triangles
+        geo = (p.v0, p.v1, p.v2)
+    elif prim == "sphere":
+        p = scene.spheres
+        geo = (p.center, p.radius)
+    else:
+        p = scene.cylinders
+        geo = (p.p0, p.p1, p.radius)
+    if shadow:
+        geo += (scene.materials.emission, scene.materials.transparency)
+    return geo
+
+
 def _kernel_device(o) -> bool:
     """True for CUDA rays (the kernel), False for CPU ones (the plain
     version); other devices raise."""
@@ -543,8 +560,11 @@ def bvh_closest_hit(scene, bvh: BVH, pool_code: int, o, d, t_min,
                     t_max=T_FAR):
     """Closest hit within one BVH-accelerated pool (traverse.POOL_*
     code) for rays o, d (..., 3) and t_max, a number or of the rays'
-    shape.  Returns (t, idx): T_FAR and idx 0 on a miss."""
+    shape.  Returns (t, idx): T_FAR and idx 0 on a miss.  Raises under
+    grad mode on an input that requires grad (sweep.check_detached)."""
     prim = POOL_PRIM[pool_code]
+    sweep.check_detached(kernel_name("bvh_closest_hit", prim), o, d, t_max,
+                         *_pool_tensors(scene, prim, False))
     if not _kernel_device(o):
         return bvh_closest_hit_plain(scene, bvh, prim, o, d, t_min, t_max)[:2]
     out = launch_closest(_library(), scene, bvh, prim, o, d, t_min, t_max)
@@ -555,8 +575,11 @@ def bvh_closest_hit(scene, bvh: BVH, pool_code: int, o, d, t_min,
 def bvh_transmittance(scene, bvh: BVH, pool_code: int, o, d, t_min, t_max):
     """Shadow transmittance in [0, 1] through one BVH-accelerated pool:
     the product over every occluder with t_min < t < t_max of its
-    material's transparency, emissive primitives never occluding."""
+    material's transparency, emissive primitives never occluding.
+    Raises under grad mode on an input that requires grad."""
     prim = POOL_PRIM[pool_code]
+    sweep.check_detached(kernel_name("bvh_transmittance", prim), o, d, t_max,
+                         *_pool_tensors(scene, prim, True))
     if not _kernel_device(o):
         return bvh_transmittance_plain(scene, bvh, prim, o, d, t_min, t_max)[0]
     out = launch_transmittance(_library(), scene, bvh, prim, o, d, t_min,

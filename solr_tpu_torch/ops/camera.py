@@ -42,11 +42,15 @@ def _make_rays(camera: Camera, u, v):
     return o, d
 
 
-def camera_rays(camera: Camera, cfg: RenderConfig):
-    """Primary rays ((R, 3), (R, 3)) in row-major pixel order."""
+def camera_rays(camera: Camera, cfg: RenderConfig, dtype=None):
+    """Primary rays ((R, 3), (R, 3)) in row-major pixel order.  The
+    image-plane coordinates are computed in ``dtype`` (the camera's when
+    None) and then widened to the camera's, as the reference computes
+    them in the scene info's dtype (render.py:306, :322)."""
     if cfg.camera_mode != CameraMode.MONO:
         raise NotImplementedError(f"camera mode {cfg.camera_mode!r}")
-    dev = camera.position.device
-    u, v = _ndc(pixel_grid(cfg, dev, camera.position.dtype), cfg)
-    return _make_rays(camera, u, v)
+    dev, cam_dt = camera.position.device, camera.position.dtype
+    u, v = _ndc(pixel_grid(cfg, dev, cam_dt if dtype is None else dtype), cfg)
+    wide = torch.promote_types(u.dtype, cam_dt)
+    return _make_rays(camera, u.to(wide), v.to(wide))
 

@@ -485,14 +485,18 @@ def _shadow_factor(material, materials):
                        materials.transparency[m])
 
 
+@torch.no_grad()
 def build_tri_accel(triangles, materials, block: int) -> TriAccel:
     """The triangle accelerator; row 15 of ``packed`` carries the shadow
-    factor."""
+    factor.  The three builders run under ``torch.no_grad``: an
+    accelerator is detached traversal data, built from inputs that may
+    require grad (``Scene.refresh_accel``) without keeping a graph."""
     packed, centers, half = block_pack(
         triangles, _shadow_factor(triangles.material, materials), block)
     return _group_blocks(packed, centers, half, block)
 
 
+@torch.no_grad()
 def build_sph_accel(spheres, materials, block: int) -> TriAccel:
     """The sphere-pool accelerator (the sweeps' ``prim="sphere"``)."""
     packed, centers, half = sphere_pack(
@@ -500,6 +504,7 @@ def build_sph_accel(spheres, materials, block: int) -> TriAccel:
     return _group_blocks(packed, centers, half, block)
 
 
+@torch.no_grad()
 def build_cyl_accel(cylinders, materials, block: int) -> TriAccel:
     """The cylinder-pool accelerator (the sweeps' ``prim="cyl"``)."""
     packed, centers, half = cylinder_pack(

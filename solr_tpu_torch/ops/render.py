@@ -155,8 +155,11 @@ def trace_rays_tiled(scene: Scene, o, d, cfg: RenderConfig):
 
 
 def render_sample(scene: Scene, camera: Camera, cfg: RenderConfig):
-    """One sample: (image (H, W, 4), depth (H, W))."""
-    o, d = camera_rays(camera, cfg)
+    """One sample: (image (H, W, 4), depth (H, W)).  The pixel grid is
+    in the scene info's dtype, as in the reference: an f64 scene with
+    f32 info (the reference's SceneBuilder(dtype=float64)) draws its
+    pixel centres in f32."""
+    o, d = camera_rays(camera, cfg, scene.info.background_color.dtype)
     color, t = trace_rays_tiled(scene, o, d, cfg)
     return color.reshape(cfg.height, cfg.width, 4), t.reshape(cfg.height, cfg.width)
 

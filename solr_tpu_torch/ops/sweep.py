@@ -55,6 +55,7 @@ __all__ = [
     "LAUNCHES",
     "PRIMS",
     "build",
+    "check_detached",
     "compile_library",
     "kernel_name",
     "kernel_shape",
@@ -270,6 +271,22 @@ def _library():
     return _lib
 
 
+def check_detached(name: str, *tensors):
+    """Raise if grad mode is on and any of ``tensors`` requires grad.
+
+    The differentiability contract: traversal runs detached and the hit
+    distance is recomputed with autograd afterwards, so no kernel needs
+    a backward pass.  A kernel wrapper called on a tensor that requires
+    grad, with grad mode on, breaks that contract; this guard says so
+    rather than returning a result with no gradient."""
+    if torch.is_grad_enabled() and any(
+            isinstance(x, torch.Tensor) and x.requires_grad for x in tensors):
+        raise RuntimeError(
+            f"{name} has no backward: call it under torch.no_grad() on "
+            f"detached tensors (traversal runs detached, the hit distance "
+            f"is recomputed with autograd)")
+
+
 def _check_inputs(packed, o_t, d_t, ray_vals, live, cand, counts, prim,
                   nearb=None):
     if prim not in PRIMS:
@@ -411,8 +428,11 @@ def sweep_closest(packed, o_t, d_t, t_cap, live, cand, counts, nearb, t_min,
     t_cap (S, SB) per-ray box exit; live (S, SB) bool; cand (S, G, K)
     block ids per strip sorted by entry; counts (S, G); nearb (S, G, K)
     ascending entry bounds.  Returns (t (S, SB), prim idx (S, SB), -1 on
-    a miss, visits (S,)).
+    a miss, visits (S,)).  Raises under grad mode on an input that
+    requires grad (:func:`check_detached`).
     """
+    check_detached(kernel_name("sweep_closest", prim), packed, o_t, d_t,
+                   t_cap, nearb)
     if packed.device.type == "cpu":
         return sweep_closest_plain(packed, o_t, d_t, t_cap, live, cand,
                                    counts, nearb, t_min, prim)
@@ -433,7 +453,10 @@ def sweep_transmittance(packed, o_t, d_t, t_max, live, cand, counts, t_min,
 
     t_max (S, SB) per-ray segment length; other arguments as for
     :func:`sweep_closest`.  Returns (tr (S, SB) in [0, 1], visits (S,)).
+    Raises under grad mode on an input that requires grad.
     """
+    check_detached(kernel_name("sweep_transmittance", prim), packed, o_t,
+                   d_t, t_max)
     if packed.device.type == "cpu":
         return sweep_transmittance_plain(packed, o_t, d_t, t_max, live, cand,
                                          counts, t_min, prim)

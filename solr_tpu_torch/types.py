@@ -315,3 +315,57 @@ class Scene:
     @property
     def device(self) -> torch.device:
         return self.materials.color.device
+
+    # ---- the parameters inverse rendering optimizes ----
+
+    @property
+    def params(self) -> dict:
+        """The gradient targets, with the reference's keys and structure:
+        sphere centres and radii, triangle vertices as (v0, v1, v2),
+        material colors (albedo) and IoR, light positions."""
+        return {
+            "sphere_center": self.spheres.center,
+            "sphere_radius": self.spheres.radius,
+            "vertices": (self.triangles.v0, self.triangles.v1,
+                         self.triangles.v2),
+            "albedo": self.materials.color,
+            "ior": self.materials.ior,
+            "light_position": self.lights.position,
+        }
+
+    def with_params(self, params: dict) -> "Scene":
+        """The scene with the fields of :attr:`params` replaced by
+        ``params`` (same structure), its packet accelerators refreshed
+        from the new values.  The BVHs are not refitted, as in the
+        reference (ROADMAP C9)."""
+        v0, v1, v2 = params["vertices"]
+        scene = self.replace(
+            spheres=self.spheres.replace(center=params["sphere_center"],
+                                         radius=params["sphere_radius"]),
+            triangles=self.triangles.replace(v0=v0, v1=v1, v2=v2),
+            materials=self.materials.replace(color=params["albedo"],
+                                             ior=params["ior"]),
+            lights=self.lights.replace(position=params["light_position"]),
+        )
+        return scene.refresh_accel()
+
+    def refresh_accel(self) -> "Scene":
+        """Rebuild the packet accelerators that the scene has from its
+        pools and materials, each with its own ``block``.  The builders
+        run under ``torch.no_grad``: the accelerators are detached
+        traversal data and carry no graph."""
+        from solr_tpu_torch.ops.packet import (build_cyl_accel,
+                                               build_sph_accel,
+                                               build_tri_accel)
+
+        updates = {}
+        if self.tri_accel is not None:
+            updates["tri_accel"] = build_tri_accel(
+                self.triangles, self.materials, self.tri_accel.block)
+        if self.sph_accel is not None:
+            updates["sph_accel"] = build_sph_accel(
+                self.spheres, self.materials, self.sph_accel.block)
+        if self.cyl_accel is not None:
+            updates["cyl_accel"] = build_cyl_accel(
+                self.cylinders, self.materials, self.cyl_accel.block)
+        return self.replace(**updates) if updates else self

@@ -14,7 +14,15 @@ rendered by ``solr_tpu`` on the CPU:
 * ``torch_molecule_while_ref.npz``: the molecule frame at 64x64 with
   traversal="while", so all three pools walk their BVHs;
 * ``torch_cornell_ref.npz``: the gallery's Cornell box at 64x64
-  (planes and spheres, brute force).
+  (planes and spheres, brute force);
+* ``torch_grad_ref.npz``: gradients by ``jax.grad`` of ``solr_tpu``
+  (float32) for three reduced cases: examples/inverse.py's scene at
+  64x64 from its perturbed start (the RGB-D loss over the pixels
+  outside the silhouette mask, which the file also stores), and the
+  reduced bench frame with packets (64x64) and with the walk (64x56),
+  each the MSE against 0.8 times its own image (stored as the target).
+  Vertex gradients are stored as their non-zero rows and those rows'
+  indices.
 
     JAX_PLATFORMS=cpu python tests/data/torch_reference.py [name ...]
 
@@ -59,6 +67,23 @@ MOL_BOUNCES = 2
 WALK_REF_FILE = os.path.join(HERE, "torch_walk_ref.npz")
 WALK_HEIGHT = 56
 MOL_WHILE_REF_FILE = os.path.join(HERE, "torch_molecule_while_ref.npz")
+
+# The gradient references (the "grads" entry).
+GRAD_REF_FILE = os.path.join(HERE, "torch_grad_ref.npz")
+GRAD_INVERSE_SIZE = 64
+# A pixel is left out of a gradient comparison when its primary or
+# bounce-1 ray meets a sphere with 0 <= disc < SILHOUETTE_REL * r^2 (disc
+# = b^2 - c of the sphere test with a unit direction): there dt/dc grows
+# as 1/sqrt(disc), so the last bits of disc decide the pixel's gradient
+# (ROADMAP C10).
+SILHOUETTE_REL = 1e-2
+# The inverse demo's depth weight and perturbations (examples/inverse.py).
+INVERSE_DEPTH_WEIGHT = 0.05
+INVERSE_ALBEDO_SHIFT = [[0.25, -0.2, 0.15], [-0.1, 0.25, -0.2]]
+INVERSE_LIGHT_SHIFT = [[-2.0, 0.0, 1.5]]
+INVERSE_CENTER_SHIFT = [[0.15, -0.12, 0.1], [-0.12, 0.1, -0.08]]
+INVERSE_RADIUS_SCALE = [1.12, 0.9]
+GRAD_TARGET_SCALE = 0.8
 
 # The gallery's Cornell box (solr_tpu/scenes/gallery.py:24-42) at 64x64.
 CORNELL_REF_FILE = os.path.join(HERE, "torch_cornell_ref.npz")
@@ -135,6 +160,208 @@ def reference_render(scene, cam, cfg):
     return np.asarray(img, np.float32)
 
 
+def reference_inverse_scene():
+    """examples/inverse.py's ``build_scene``, built by ``solr_tpu``
+    (importing the example would set its JAX cache and import optax)."""
+    import solr_tpu as st
+
+    b = st.SceneBuilder()
+    floor = b.add_material(color=(0.75, 0.75, 0.75, 1.0),
+                           procedural=st.types.ProceduralKind.CHECKER,
+                           procedural_scale=8.0)
+    red = b.add_material(color=(0.85, 0.25, 0.2, 1.0), specular=0.4)
+    teal = b.add_material(color=(0.15, 0.6, 0.65, 1.0), specular=0.6,
+                          specular_power=30.0)
+    b.add_plane(st.types.PlaneAxis.XZ, (0.0, -1.0, 0.0), (12.0, 12.0),
+                floor)
+    b.add_sphere((-1.1, 0.0, 0.8), 1.0, red)
+    b.add_sphere((1.2, -0.3, 0.0), 0.7, teal)
+    b.add_light((3.0, 6.0, -4.0), intensity=1.0, radius=0.2)
+    cam = st.Camera.create(position=(0.0, 1.2, -5.0),
+                           angles=(0.18, 0.0, 0.0), fov=1.0)
+    return b.build(), cam
+
+
+def inverse_start(params):
+    """examples/inverse.py's perturbed start with ``--geometry``: albedos,
+    light, the two spheres' centres and radii."""
+    import jax.numpy as jnp
+
+    def shift(x):
+        return jnp.asarray(x, params["albedo"].dtype)
+
+    start = dict(params)
+    start["albedo"] = params["albedo"].at[1:3, :3].add(
+        shift(INVERSE_ALBEDO_SHIFT))
+    start["light_position"] = params["light_position"] + shift(
+        INVERSE_LIGHT_SHIFT)
+    start["sphere_center"] = params["sphere_center"].at[0:2].add(
+        shift(INVERSE_CENTER_SHIFT))
+    start["sphere_radius"] = params["sphere_radius"].at[0:2].mul(
+        shift(INVERSE_RADIUS_SCALE))
+    return start
+
+
+def silhouette_mask(scene, cam, cfg, rel=SILHOUETTE_REL):
+    """(H, W) bool, True where the pixel's primary or bounce-1 ray meets
+    a sphere with 0 <= disc < rel * r^2, from ``solr_tpu``'s own rays:
+    the camera's, and the continuation of the rays that stay live after
+    the first hit, formed as trace_rays forms it."""
+    import jax.numpy as jnp
+
+    from solr_tpu.constants import RAY_EPS
+    from solr_tpu.ops.camera import camera_rays
+    from solr_tpu.ops.traverse import scene_closest_hit, surface_at
+    from solr_tpu.ops.vecmath import normalize, reflect, refract
+
+    dtype = scene.info.background_color.dtype
+    o, d = camera_rays(cam, cfg, None, dtype)
+    sph = scene.spheres
+    r2 = jnp.where(sph.radius > 0.0, sph.radius * sph.radius, -1.0)
+
+    def grazing(o, d):
+        oc = o[:, None, :] - sph.center[None]
+        b = jnp.sum(oc * d[:, None, :], -1)
+        disc = b * b - (jnp.sum(oc * oc, -1) - r2[None])
+        ahead = -b + jnp.sqrt(jnp.maximum(disc, 0.0)) > RAY_EPS
+        return jnp.any((disc >= 0.0) & (disc < rel * r2[None]) & ahead
+                       & (r2[None] > 0.0), -1)
+
+    mask = grazing(o, d)
+    hit = scene_closest_hit(scene, o, d, use_bvh=cfg.use_bvh)
+    surf = surface_at(scene, hit, o, d)
+    mats = scene.materials
+    m = surf.material
+    has_refr = mats.transparency[m] > 1e-4
+    live = hit.valid & ((mats.transparency[m] > 1e-4)
+                        | (mats.reflection[m] > 1e-4))
+    n = surf.shading_normal
+    eta = jnp.where(surf.backface, mats.ior[m],
+                    1.0 / jnp.maximum(mats.ior[m], 1e-3))
+    nd = normalize(jnp.where(has_refr[..., None], refract(d, n, eta)[0],
+                             reflect(d, n)))
+    mask = mask | (live & grazing(surf.point + nd * (RAY_EPS * 4.0), nd))
+    return np.asarray(mask).reshape(cfg.height, cfg.width)
+
+
+def reference_grads(scene, cam, cfg, params, target, target_depth=None,
+                    mask=None, jit=False):
+    """``jax.grad`` of the RGB MSE against ``target`` (over the pixels
+    outside ``mask``), plus with ``target_depth`` the inverse demo's
+    depth term, at ``params``.  Eager by default: under jit XLA rewrites
+    the f32 pixel grid's arithmetic and flips pixels at plane edges and
+    silhouettes, which op-by-op evaluation (the port's) does not."""
+    import jax
+    import jax.numpy as jnp
+
+    from solr_tpu.ops.render import render_sample
+
+    keep = (jnp.ones(target.shape[:2], bool) if mask is None
+            else ~jnp.asarray(mask))
+    w = keep[..., None].astype(target.dtype)
+
+    def loss(p):
+        img, depth = render_sample(scene.with_params(p), cam, cfg)
+        lo = jnp.sum(w * (img[..., :3] - target) ** 2) / (
+            jnp.sum(keep) * 3)
+        if target_depth is not None:
+            both = (target_depth < 1e29) & (depth < 1e29) & keep
+            dres = jnp.where(both, depth - target_depth, 0.0)
+            lo = lo + INVERSE_DEPTH_WEIGHT * jnp.sum(dres ** 2) / jnp.sum(keep)
+        return lo
+
+    fn = jax.value_and_grad(loss)
+    return (jax.jit(fn) if jit else fn)(params)
+
+
+def reference_inverse_case(cfg, f64=False):
+    """The inverse-scene gradient case: the true scene against
+    GRAD_TARGET_SCALE times its own image, plus the demo's depth term
+    against the depth of its perturbed start (a gradient on every
+    leaf), over the pixels outside the silhouette mask.  Returns the
+    scene, camera, RGB target, target depth, mask, loss and grads."""
+    import jax
+    import jax.numpy as jnp
+
+    from solr_tpu.ops.render import render_sample
+
+    scene, cam = reference_inverse_scene()
+    if f64:
+        scene, cam = jax.tree.map(
+            lambda x: x.astype(jnp.float64)
+            if jnp.issubdtype(x.dtype, jnp.floating) else x, (scene, cam))
+    img, _ = render_sample(scene, cam, cfg)
+    _, start_depth = render_sample(
+        scene.with_params(inverse_start(scene.params)), cam, cfg)
+    target = img[..., :3] * GRAD_TARGET_SCALE
+    mask = silhouette_mask(scene, cam, cfg)
+    loss, grads = reference_grads(scene, cam, cfg, scene.params, target,
+                                  start_depth, mask)
+    return dict(scene=scene, cam=cam, target=target, depth=start_depth,
+                mask=mask, loss=loss, grads=grads)
+
+
+def _sparse_rows(g):
+    """(indices, rows) of the non-zero rows of an (N, 3) gradient."""
+    g = np.asarray(g)
+    idx = np.nonzero(np.abs(g).sum(-1) > 0.0)[0].astype(np.int32)
+    return idx, g[idx].astype(np.float32)
+
+
+def _grad_entries(prefix, grads):
+    out = {}
+    for k, v in grads.items():
+        if k == "vertices":
+            for i, vi in enumerate(v):
+                idx, rows = _sparse_rows(vi)
+                out[f"{prefix}_v{i}_idx"] = idx
+                out[f"{prefix}_v{i}_rows"] = rows
+        else:
+            out[f"{prefix}_{k}"] = np.asarray(v, np.float32)
+    return out
+
+
+def write_grad_ref():
+    """The three gradient cases ``chip_smoke.py``'s grad_reference phase
+    holds the card to."""
+    _setup(REF_BLOCK)
+    import jax
+
+    from solr_tpu_torch.bench_scene import bench_scene_arrays
+
+    import solr_tpu as st
+    from solr_tpu.ops.render import render_sample
+
+    out = {}
+    cfg = st.RenderConfig(width=GRAD_INVERSE_SIZE, height=GRAD_INVERSE_SIZE,
+                          max_bounces=2)
+    case = reference_inverse_case(cfg)
+    mask = case["mask"]
+    out.update(_grad_entries("inverse", case["grads"]), inverse_mask=mask,
+               inverse_loss=np.float64(case["loss"]))
+    arrays = bench_scene_arrays(REF_TRIS)
+    for name, height in (("bench", REF_SIZE), ("walk", WALK_HEIGHT)):
+        scene, cam, cfg = reference_bench_scene(arrays, REF_SIZE, height,
+                                                REF_BOUNCES)
+        img, _ = jax.jit(render_sample, static_argnums=2)(scene, cam, cfg)
+        target = jax.lax.stop_gradient(img[..., :3]) * GRAD_TARGET_SCALE
+        loss, g = reference_grads(scene, cam, cfg, scene.params, target,
+                                  jit=True)
+        out.update(_grad_entries(name, g))
+        out[f"{name}_loss"] = np.float64(loss)
+        out[f"{name}_height"] = np.int32(height)
+        out[f"{name}_target"] = np.asarray(target, np.float32)
+        print(f"{name}: loss {float(loss)!r}, "
+              f"{len(out[f'{name}_v0_idx'])} vertex rows")
+    np.savez_compressed(
+        GRAD_REF_FILE, n_tris=REF_TRIS, size=REF_SIZE, block=REF_BLOCK,
+        bounces=REF_BOUNCES, inverse_size=GRAD_INVERSE_SIZE,
+        silhouette_rel=SILHOUETTE_REL, target_scale=GRAD_TARGET_SCALE,
+        jax_version=jax.__version__, **out)
+    print(f"wrote {GRAD_REF_FILE}: inverse mask {int(mask.sum())} of "
+          f"{mask.size} pixels")
+
+
 def _setup(block):
     os.environ["SOLR_PACKET_BLOCK"] = str(block)
     sys.path.insert(0, os.path.abspath(os.path.join(HERE, "..", "..")))
@@ -200,6 +427,7 @@ FRAMES = {
     "walk": lambda: write_bench_ref(WALK_HEIGHT, WALK_REF_FILE),
     "molecule_while": lambda: write_molecule_ref("while", MOL_WHILE_REF_FILE),
     "cornell": write_cornell_ref,
+    "grads": write_grad_ref,
 }
 
 

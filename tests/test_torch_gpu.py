@@ -14,7 +14,9 @@ fit in shared memory.  The six walk kernels (closest hit and
 transmittance over the triangle, sphere and cylinder BVHs) run on camera
 and shadow rays with fractional and emissive materials, and on scenes
 with every primitive twice (ties within a leaf and across leaves); the
-molecule frame with traversal="while" launches all six.
+molecule frame with traversal="while" launches all six.  A gradient step
+through the reduced bench frame on the card (packets and walk) agrees
+with the same step on the CPU.
 
 These need a CUDA card and nvcc; without a card they skip.  The file
 imports neither JAX nor solr_tpu, so it runs where only PyTorch is
@@ -565,3 +567,45 @@ def test_while_frame_on_card_matches_cpu(cuda):
     assert torch.isfinite(card).all()
     err = (card - cpu).abs().amax(-1)
     assert float((err > 1e-4).float().mean()) <= 0.002
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("height", [SIZE, 56], ids=["packets", "walk"])
+def test_gradients_on_card_match_cpu(cuda, height):
+    """A gradient step through the reduced bench frame with packets (B1,
+    B2) and with the walk (64x56): on the card the kernels launch under
+    autograd with detached inputs, and the vertex-gradient L1 total
+    agrees with the CPU's within rtol 1e-3, the albedo and light
+    gradients within 1e-2 of their largest entry (on the CPU the port and
+    solr_tpu differ by 2e-3 and 3e-3 there, through f32 edge flips; the
+    two devices' elementwise kernels can flip edges too)."""
+    grads = []
+    for dev in ("cpu", cuda):
+        scene, cam, cfg = bench_scene(N_TRIS, block=BLOCK, width=SIZE,
+                                      height=height, device=dev)
+        with torch.no_grad():
+            target = render_sample(scene, cam, cfg)[0][..., :3] * 0.8
+        p = {k: (tuple(x.detach().clone().requires_grad_() for x in v)
+                 if isinstance(v, tuple)
+                 else v.detach().clone().requires_grad_())
+             for k, v in scene.params.items()}
+        before = {**sweep.LAUNCHES, **bvh.LAUNCHES}
+        img, _ = render_sample(scene.with_params(p), cam, cfg)
+        ((img[..., :3] - target) ** 2).mean().backward()
+        if dev != "cpu":
+            kernels = (("sweep_closest", "sweep_transmittance")
+                       if height == SIZE else
+                       ("bvh_closest_hit_tri", "bvh_transmittance_tri"))
+            after = {**sweep.LAUNCHES, **bvh.LAUNCHES}
+            assert min(after[k] - before[k] for k in kernels) > 0
+        grads.append({
+            "l1": sum(float(x.grad.abs().sum()) for x in p["vertices"]),
+            "albedo": p["albedo"].grad.cpu(),
+            "light": p["light_position"].grad.cpu()})
+    cpu, card = grads
+    assert cpu["l1"] > 0
+    assert abs(card["l1"] / cpu["l1"] - 1.0) <= 1e-3
+    for k in ("albedo", "light"):
+        assert torch.isfinite(card[k]).all()
+        scale = float(cpu[k].abs().max())
+        assert float((card[k] - cpu[k]).abs().max()) <= 1e-2 * scale

@@ -20,7 +20,8 @@ def test_imports_with_jax_blocked():
         "solr_tpu_torch.frame_profile, solr_tpu_torch.molecule_scene, "
         "solr_tpu_torch.io.pdb, solr_tpu_torch.kernel_shapes, "
         "solr_tpu_torch.sweep_steps, solr_tpu_torch.ops.bvh, "
-        "solr_tpu_torch.cornell_scene, chip_smoke\n"
+        "solr_tpu_torch.cornell_scene, solr_tpu_torch.utils, "
+        "solr_tpu_torch.inverse, chip_smoke\n"
         "from solr_tpu_torch.bench_scene import bench_scene\n"
         "from solr_tpu_torch.ops.render import render_sample\n"
         "s, c, cfg = bench_scene(2000, block=128, width=32, height=32,\n"
