@@ -89,7 +89,30 @@ both started together.  Phases, each of which must pass:
 17. ``inverse``: ``python -m solr_tpu_torch.inverse`` on the card at
    128x128: 60 steps, the loss must fall 20x; with ``--geometry`` 300
    steps, the centre error must fall 5x; ms per step and its parts,
-   the final errors.
+   the final errors;
+18. ``stereo_path``: BASELINE config #5's single-card frame: the bench
+   scene at 1920x1080 SIDE_BY_SIDE with 32x8-pixel tiles (a strip is one
+   pixel row), 2 bounces, packets, as in 4 (B1 and B2 launch, no walk
+   kernel; when the warm-up frame takes over STEREO_SLOW_S seconds, one
+   timed frame instead of three, and the record says so); then the same
+   frame with traversal="while" (``stereo_while``): the triangle walks
+   launch, B1 and B2 do not;
+19. ``stereo_reference``: the side-by-side bench frame cut to 20,000
+   triangles at 128x64 with 32x8 tiles, and the gallery's anaglyph
+   Cornell box at 64x64, against committed solr_tpu CPU frames
+   (tests/data/torch_stereo_ref.npz, torch_anaglyph_ref.npz), as in 5;
+20. ``textured_path``: BASELINE config #3, ``render(textured_scene(1920,
+   1080), key=Key.seed(0), spp=4)`` (3 bounces, 4 soft-shadow samples,
+   antialiasing jitter, fog, sky, six texture maps, ambient occlusion;
+   1080 rows: the triangle walk), one warm-up and three timed frames: ms
+   per frame and per sample, peak memory, the digest, the launch counts
+   (the triangle walks must launch), and one more frame under
+   torch.profiler for the device kernels per frame and the device busy
+   share (its device time over the best timed frame);
+21. ``textured_reference``: the textured scene at 64x64 without a key
+   (hard shadows, no jitter; ambient occlusion), with FISHEYE, and with
+   a lens (aperture 0.1) and DEPTH_OF_FIELD, against
+   tests/data/torch_textured_ref.npz, as in 5.
 
 Each main path runs with the launch counts set to 0 just before it and
 read just after; the packet paths (4, 7, 15) must launch no walk kernel.  Prints the full record of the run on one line
@@ -129,6 +152,11 @@ MOL_GROUND_RES = 128
 MOL_BLOCK = 256
 WALK_WIDTH, WALK_HEIGHT = 1920, 1080
 CORNELL_SIZE = 256
+# BASELINE config #5's single-card frame: 32x8 tiles (tools/stereo_1080p.py).
+STEREO_TILE = (32, 8)
+STEREO_SLOW_S = 60.0
+# BASELINE config #3's frame: samples per pixel.
+TEXTURED_SPP = 4
 
 # The card's published peaks (NVIDIA H100 SXM data sheet, at 700 W):
 # device memory bandwidth and f32 rate outside the tensor cores.  The
@@ -592,12 +620,12 @@ def _live_rays_per_bounce(scene, cam, cfg):
 
 
 def phase_path(scene, cam, cfg, rec, key, kernels, frames=3, idle=(),
-               no_brute=()):
+               no_brute=(), slow_s=None):
     """One main path: the launch and net counts set to 0, render_sample
     once as a warm-up (counting live rays per bounce) and ``frames``
-    timed times, the counts read.  Every kernel in ``kernels`` must have
-    launched, none in ``idle``, and no pool in ``no_brute`` may have
-    been brute-forced."""
+    timed times (one when the warm-up took over ``slow_s`` seconds), the
+    counts read.  Every kernel in ``kernels`` must have launched, none in
+    ``idle``, and no pool in ``no_brute`` may have been brute-forced."""
     import torch
 
     from solr_tpu_torch.ops import bvh, sweep, traverse
@@ -609,6 +637,9 @@ def phase_path(scene, cam, cfg, rec, key, kernels, frames=3, idle=(),
     with torch.no_grad():
         img, live = _live_rays_per_bounce(scene, cam, cfg)
         warm_s = time.time() - t0
+        cut = slow_s is not None and warm_s > slow_s
+        if cut:
+            frames = 1
         times = []
         for _ in range(frames):
             t0 = time.time()
@@ -622,9 +653,12 @@ def phase_path(scene, cam, cfg, rec, key, kernels, frames=3, idle=(),
     finite = bool(torch.isfinite(img).all())
     rec[key] = dict(
         width=cfg.width, height=cfg.height, bounces=cfg.max_bounces,
-        traversal=cfg.traversal,
+        traversal=cfg.traversal, camera_mode=cfg.camera_mode.name,
+        tile=[cfg.packet_tile_w, cfg.packet_tile_h],
         block=scene.tri_accel.block if scene.tri_accel else None,
-        warmup_s=warm_s,
+        warmup_s=warm_s, timed_frames=frames,
+        frames_cut=(f"warm-up {warm_s:.1f} s > {slow_s} s: one timed frame"
+                    if cut else None),
         frame_ms=[t * 1000 for t in times], best_frame_ms=best * 1000,
         rays_per_s=rays / best, live_rays_per_bounce=live,
         digest=float(img.double().sum()), finite=finite, launches=launches,
@@ -753,6 +787,158 @@ def phase_cornell(rec, device):
     scene, cam, cfg = cornell_scene(CORNELL_SIZE, CORNELL_SIZE, BOUNCES,
                                     device=device)
     return phase_path(scene, cam, cfg, rec, "cornell", [])
+
+
+def _stereo_cfg(cfg, width=WALK_WIDTH, height=WALK_HEIGHT):
+    import dataclasses
+
+    from solr_tpu_torch.types import CameraMode
+
+    return dataclasses.replace(
+        cfg, width=width, height=height, camera_mode=CameraMode.SIDE_BY_SIDE,
+        packet_tile_w=STEREO_TILE[0], packet_tile_h=STEREO_TILE[1])
+
+
+def phase_stereo_reference(rec, device):
+    """The reduced side-by-side bench frame (32x8 tiles) and the
+    anaglyph Cornell box on the card against their committed solr_tpu
+    CPU frames."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from solr_tpu_torch.bench_scene import bench_scene
+    from solr_tpu_torch.cornell_scene import cornell_scene
+    from solr_tpu_torch.ops.render import render_sample
+    from solr_tpu_torch.types import CameraMode
+
+    data = os.path.join(ROOT, "tests", "data")
+    ref = np.load(os.path.join(data, "torch_stereo_ref.npz"))
+    scene, cam, cfg = bench_scene(int(ref["n_tris"]), block=int(ref["block"]),
+                                  bounces=int(ref["bounces"]), device=device)
+    cfg = _stereo_cfg(cfg, int(ref["width"]), int(ref["height"]))
+    assert [cfg.packet_tile_w, cfg.packet_tile_h] == [int(ref["tile_w"]),
+                                                      int(ref["tile_h"])]
+    out = {}
+    with torch.no_grad():
+        img = render_sample(scene, cam, cfg)[0].cpu().numpy()
+    _hold_to(out, "side_by_side", img, ref["image"], width=cfg.width,
+             height=cfg.height, tile=[cfg.packet_tile_w, cfg.packet_tile_h])
+    ref = np.load(os.path.join(data, "torch_anaglyph_ref.npz"))
+    size = int(ref["size"])
+    scene, cam, cfg = cornell_scene(size, size, int(ref["bounces"]),
+                                    device=device)
+    cfg = dataclasses.replace(cfg, camera_mode=CameraMode.ANAGLYPH)
+    with torch.no_grad():
+        img = render_sample(scene, cam, cfg)[0].cpu().numpy()
+    _hold_to(out, "anaglyph", img, ref["image"], size=size)
+    rec["stereo_reference"] = out
+
+
+def phase_textured_path(rec, device, kernels, frames=3):
+    """BASELINE config #3 at 1920x1080 through ``render`` with a key and
+    TEXTURED_SPP samples: the launch counts set to 0, one warm-up and
+    ``frames`` timed frames, the counts read (every kernel in
+    ``kernels`` must have launched); then one frame under
+    torch.profiler."""
+    import torch
+
+    from solr_tpu_torch.ops import bvh, sweep, traverse
+    from solr_tpu_torch.ops.render import render
+    from solr_tpu_torch.ops.rng import Key
+    from solr_tpu_torch.textured_scene import textured_scene
+
+    t0 = time.time()
+    scene, cam, cfg = textured_scene(WALK_WIDTH, WALK_HEIGHT, device=device)
+    _sync(device)
+    build_s = time.time() - t0
+    key = Key.seed(0, device)
+
+    def frame():
+        return render(scene, cam, cfg, key, spp=TEXTURED_SPP)
+
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        t0 = time.time()
+        img = frame()
+        _sync(device)
+        warm_s = time.time() - t0
+        times = []
+        for _ in range(frames):
+            t0 = time.time()
+            img = frame()
+            _sync(device)
+            times.append(time.time() - t0)
+        launches = {**sweep.LAUNCHES, **bvh.LAUNCHES}
+        brute = dict(traverse.BRUTE_CALLS)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        profile = _device_profile(frame)
+    best = min(times)
+    finite = bool(torch.isfinite(img).all())
+    rec["textured_path"] = dict(
+        width=cfg.width, height=cfg.height, bounces=cfg.max_bounces,
+        spp=TEXTURED_SPP, shadow_samples=cfg.shadow_samples,
+        postfx=cfg.postfx.mode.name, triangles=int(scene.triangles.v0.shape[0]),
+        textures=scene.textures.count, scene_build_s=build_s, warmup_s=warm_s,
+        frame_ms=[t * 1e3 for t in times], best_frame_ms=best * 1e3,
+        best_sample_ms=best * 1e3 / TEXTURED_SPP,
+        device_kernels_per_frame=profile["device_kernels"],
+        # The profiler slows the host, not the kernels: the profiled
+        # frame's device time over the best unprofiled frame.
+        device_busy_share=profile["device_busy_ms"] / (best * 1e3),
+        profile=profile, digest=float(img.double().sum()), finite=finite,
+        launches=launches, brute_calls=brute, peak_mem_gb=peak)
+    if not finite:
+        raise AssertionError("textured_path image is not finite")
+    missing = [k for k in kernels if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on textured_path: "
+                             f"{missing}")
+    return launches
+
+
+def phase_textured_reference(rec, device):
+    """The textured scene at 64x64 without a key, plain, with FISHEYE and
+    with a lens and DEPTH_OF_FIELD, against the committed solr_tpu CPU
+    frames."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from solr_tpu_torch.ops.render import render
+    from solr_tpu_torch.textured_scene import textured_scene
+    from solr_tpu_torch.types import CameraMode, PostFxConfig, PostFxMode
+
+    ref = np.load(os.path.join(ROOT, "tests", "data",
+                               "torch_textured_ref.npz"))
+    size = int(ref["size"])
+    scene, cam, cfg = textured_scene(size, size, int(ref["bounces"]),
+                                     device=device)
+    lens = cam.replace(
+        aperture=torch.tensor(float(ref["aperture"]), device=device),
+        focal_distance=torch.tensor(float(ref["focal"]), device=device))
+    cases = {
+        "image": (cam, cfg),
+        "image_fisheye": (cam, dataclasses.replace(
+            cfg, camera_mode=CameraMode.FISHEYE)),
+        "image_dof": (lens, dataclasses.replace(cfg, postfx=PostFxConfig(
+            mode=PostFxMode.DEPTH_OF_FIELD))),
+    }
+    out, bad = {}, []
+    for name, (c, f) in cases.items():
+        with torch.no_grad():
+            img = render(scene, c, f).cpu().numpy()
+        try:
+            _hold_to(out, name, img, ref[name], size=size)
+        except AssertionError:
+            bad.append(name)
+    rec["textured_reference"] = out
+    if bad:
+        raise AssertionError(f"textured frames differ from the reference: "
+                             f"{bad}: {out}")
 
 
 def _sync(device):
@@ -1157,6 +1343,18 @@ def main() -> int:
             _walk_cfg(scenes["bench"][2]), rec, "grad_walk_path", tri_walks,
             idle=tri))),
         ("inverse", lambda: phase_inverse(rec)),
+        ("stereo_path", lambda: paths.update(stereo_path=phase_path(
+            scenes["bench"][0], scenes["bench"][1],
+            _stereo_cfg(scenes["bench"][2]), rec, "stereo_path", tri,
+            idle=walks, slow_s=STEREO_SLOW_S))),
+        ("stereo_while", lambda: paths.update(stereo_while=phase_path(
+            scenes["bench"][0], scenes["bench"][1], dataclasses.replace(
+                _stereo_cfg(scenes["bench"][2]), traversal="while"), rec,
+            "stereo_while", tri_walks, idle=tri, no_brute=["tri"]))),
+        ("stereo_reference", lambda: phase_stereo_reference(rec, device)),
+        ("textured_path", lambda: paths.update(
+            textured_path=phase_textured_path(rec, device, tri_walks))),
+        ("textured_reference", lambda: phase_textured_reference(rec, device)),
     )
     for name, fn in steps:
         try:

@@ -4,8 +4,6 @@ arrays, into this package's objects leaf by leaf.
 
 The caller flattens (a dataclass becomes a dict of its fields, an array
 becomes a numpy array); this module takes numpy only and imports no JAX.
-Parts of the reference the port does not have yet raise
-``NotImplementedError`` when they are not empty.
 """
 
 from __future__ import annotations
@@ -13,8 +11,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from solr_tpu_torch.types import (BVH, Camera, CameraMode, Cylinders,
-                                  Ellipsoids, Lights, Materials, Planes,
+from solr_tpu_torch.types import (BVH, TEXTURE_SLOTS, Camera, CameraMode,
+                                  Cylinders, Ellipsoids, Lights, Materials,
+                                  Planes, PostFxConfig, PostFxMode,
                                   RenderConfig, Scene, SceneInfo, Spheres,
                                   Textures, Triangles, TriAccel)
 
@@ -33,8 +32,8 @@ def scene_from_numpy(tree: dict, device, dtype=torch.float32) -> Scene:
     """Build a Scene from the reference's Scene flattened to numpy.
 
     ``tree`` has the reference's field names: the spheres, triangles,
-    cylinders, ellipsoids and planes pools, materials, lights, textures
-    (which must be empty), info, tri_bvh, sph_bvh and cyl_bvh (each None
+    cylinders, ellipsoids and planes pools, materials, lights, textures,
+    info, tri_bvh, sph_bvh and cyl_bvh (each None
     or a BVH), and tri_accel, sph_accel and cyl_accel (each None or an
     accelerator).  Float leaves become ``dtype`` (float64 for the f64
     parity runs), integer leaves int32.
@@ -47,9 +46,10 @@ def scene_from_numpy(tree: dict, device, dtype=torch.float32) -> Scene:
     def ix(x):
         return _t(x, dev, torch.int32)
 
-    tex = tree.get("textures")
-    if tex is not None and np.asarray(tex["offset"]).shape[0] > 0:
-        raise NotImplementedError("textures are not ported")
+    tex = tree["textures"]
+    textures = Textures(atlas=_t(tex["atlas"], dev, torch.uint8),
+                        offset=ix(tex["offset"]), width=ix(tex["width"]),
+                        height=ix(tex["height"]))
 
     m = tree["materials"]
     materials = Materials(
@@ -57,6 +57,7 @@ def scene_from_numpy(tree: dict, device, dtype=torch.float32) -> Scene:
         reflection=fl(m["reflection"]), ior=fl(m["ior"]),
         transparency=fl(m["transparency"]),
         emission=fl(m["emission"]),
+        **{f"texture_{k}": ix(m[f"texture_{k}"]) for k in TEXTURE_SLOTS},
         procedural=ix(m["procedural"]),
         procedural_scale=fl(m["procedural_scale"]),
     )
@@ -106,7 +107,7 @@ def scene_from_numpy(tree: dict, device, dtype=torch.float32) -> Scene:
 
     return Scene(spheres=spheres, triangles=triangles, cylinders=cylinders,
                  ellipsoids=ellipsoids, planes=planes, materials=materials,
-                 lights=lights, textures=Textures(), info=info,
+                 lights=lights, textures=textures, info=info,
                  tri_bvh=bvh("tri_bvh"), sph_bvh=bvh("sph_bvh"),
                  cyl_bvh=bvh("cyl_bvh"), tri_accel=accel("tri_accel"),
                  sph_accel=accel("sph_accel"), cyl_accel=accel("cyl_accel"))
@@ -117,30 +118,18 @@ def camera_from_numpy(tree: dict, device, dtype=torch.float32) -> Camera:
     return Camera(**{k: _t(v, device, dtype) for k, v in tree.items()})
 
 
-# Reference RenderConfig fields the port does not have, with the only
-# value it supports for each.
-_UNPORTED_DEFAULTS = {
-    "sky_texture": -1,
-    "fog": False,
-    "antialias_jitter": False,
-}
-
-
 def config_from_reference_fields(fields: dict) -> RenderConfig:
     """RenderConfig from the reference RenderConfig's fields (a dict, as
-    ``dataclasses.asdict`` gives it).  Fields the port does not have must
-    hold their default; ``ray_block`` and ``backend`` are never read by
-    the reference and are dropped."""
+    ``dataclasses.asdict`` gives it).  ``ray_block`` and ``backend`` are
+    never read by the reference and are dropped."""
     fields = dict(fields)
     for name in ("ray_block", "backend"):
         fields.pop(name, None)
     postfx = fields.pop("postfx", None)
     if postfx is not None:
-        mode = postfx["mode"] if isinstance(postfx, dict) else postfx.mode
-        if int(mode) != 0:
-            raise NotImplementedError("post-processing is not ported")
-    for name, default in _UNPORTED_DEFAULTS.items():
-        if name in fields and fields.pop(name) != default:
-            raise NotImplementedError(f"RenderConfig.{name} is not ported")
+        if not isinstance(postfx, dict):
+            postfx = {"mode": postfx.mode, "samples": postfx.samples}
+        fields["postfx"] = PostFxConfig(mode=PostFxMode(int(postfx["mode"])),
+                                        samples=int(postfx["samples"]))
     fields["camera_mode"] = CameraMode(int(fields.get("camera_mode", 0)))
     return RenderConfig(**fields)

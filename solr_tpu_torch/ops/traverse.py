@@ -37,6 +37,7 @@ from solr_tpu_torch.ops import bvh as bvh_mod
 from solr_tpu_torch.ops import intersect as isect
 from solr_tpu_torch.ops import packet as pk
 from solr_tpu_torch.ops import sweep
+from solr_tpu_torch.ops.textures import apply_normal_maps
 from solr_tpu_torch.ops.vecmath import cross, dot, normalize, spherical_uv
 from solr_tpu_torch.types import Scene
 
@@ -518,9 +519,10 @@ def _pool_transmittance_brute(scene: Scene, code: int, o, d, t_max,
 
 
 def surface_at(scene: Scene, hit: Hit, o, d) -> SurfaceInfo:
-    """Point, normals, UV and material at the selected hits."""
-    if scene.textures.count > 0:
-        raise NotImplementedError("normal and bump maps are not ported")
+    """Point, normals, UV and material at the selected hits.  The
+    material's normal and bump maps perturb the shading normal before
+    the normals are flipped to oppose the ray, so the flip still holds
+    for the perturbed normal."""
     t = torch.where(hit.valid, hit.t, torch.ones_like(hit.t))
     point = o + t[..., None] * d
     r_shape = o.shape[:-1]
@@ -599,6 +601,9 @@ def surface_at(scene: Scene, hit: Hit, o, d) -> SurfaceInfo:
         uvp = 0.5 + 0.5 * pu / torch.clamp(p.half_extents[i], min=1e-6)
         normal, shading, uv, material = blend(
             hit.pool == POOL_PLANE, n, n, uvp, p.material[i].long())
+
+    if scene.textures.count > 0:
+        shading = apply_normal_maps(scene, material, uv, shading)
 
     # Flip normals to oppose the incoming ray; record backface hits.
     backface = dot(d, normal) > 0.0

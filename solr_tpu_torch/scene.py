@@ -1,6 +1,7 @@
 """SceneBuilder: scene construction (counterpart of solr_tpu/scene.py):
-materials, spheres, triangle meshes and soups, capped cylinders,
-axis-aligned ellipsoids and planes, and emissive-sphere lights.
+materials with texture slots, textures, spheres, triangle meshes and
+soups, capped cylinders, axis-aligned ellipsoids and planes, and
+emissive-sphere lights.
 
 ``build`` freezes the host-side numpy state into a :class:`Scene` on the
 requested device (the card unless the caller asks for another).  With
@@ -33,9 +34,10 @@ from solr_tpu_torch.constants import PAD_ALIGN
 from solr_tpu_torch.ops.bvh import build_bvh, morton_codes, morton_order
 from solr_tpu_torch.ops.packet import (build_cyl_accel, build_sph_accel,
                                        build_tri_accel)
-from solr_tpu_torch.types import (Cylinders, Ellipsoids, Lights, Materials,
-                                  PlaneAxis, Planes, ProceduralKind, Scene,
-                                  SceneInfo, Spheres, Textures, Triangles)
+from solr_tpu_torch.types import (TEXTURE_SLOTS, Cylinders, Ellipsoids,
+                                  Lights, Materials, PlaneAxis, Planes,
+                                  ProceduralKind, Scene, SceneInfo, Spheres,
+                                  Textures, Triangles)
 
 __all__ = ["SceneBuilder", "morton_codes", "morton_order"]
 
@@ -64,23 +66,52 @@ class SceneBuilder:
         self._cylinders = []
         self._ellipsoids = []
         self._planes = []
+        self._tex_data = []  # (H, W, 4) uint8 images
         self.add_material(color=(0.8, 0.8, 0.8, 1.0))
 
     def add_material(self, color=(0.8, 0.8, 0.8, 1.0), specular: float = 0.0,
                      specular_power: float = 50.0, reflection: float = 0.0,
                      ior: float = 1.0, transparency: float = 0.0,
-                     emission: float = 0.0,
+                     emission: float = 0.0, texture_diffuse: int = -1,
+                     texture_normal: int = -1, texture_bump: int = -1,
+                     texture_specular: int = -1, texture_reflection: int = -1,
+                     texture_transparency: int = -1,
                      procedural: ProceduralKind = ProceduralKind.NONE,
                      procedural_scale: float = 8.0) -> int:
+        """A material; each ``texture_*`` is a texture id from
+        :meth:`add_texture` or -1 for none."""
         self._mat.append(dict(
             color=np.asarray(color, _F32),
             specular=np.asarray([specular, specular_power], _F32),
             reflection=float(reflection), ior=float(ior),
             transparency=float(transparency), emission=float(emission),
+            texture_diffuse=int(texture_diffuse),
+            texture_normal=int(texture_normal),
+            texture_bump=int(texture_bump),
+            texture_specular=int(texture_specular),
+            texture_reflection=int(texture_reflection),
+            texture_transparency=int(texture_transparency),
             procedural=int(procedural),
             procedural_scale=float(procedural_scale),
         ))
         return len(self._mat) - 1
+
+    def add_texture(self, image) -> int:
+        """An (H, W), (H, W, 3) or (H, W, 4) image, uint8 or float in
+        [0, 1] (scaled by 255 and truncated); gray becomes RGB and a
+        missing alpha 255.  Returns its texture id."""
+        img = np.asarray(image)
+        if img.dtype != np.uint8:
+            img = np.clip(img * 255.0, 0, 255).astype(np.uint8)
+        if img.ndim == 2:
+            img = img[..., None]
+        if img.shape[-1] == 1:
+            img = np.repeat(img, 3, axis=-1)
+        if img.shape[-1] == 3:
+            img = np.concatenate(
+                [img, np.full(img.shape[:2] + (1,), 255, np.uint8)], -1)
+        self._tex_data.append(img)
+        return len(self._tex_data) - 1
 
     def add_sphere(self, center, radius: float, material: int = 0) -> int:
         self._spheres.append((np.asarray(center, _F32), float(radius),
@@ -198,9 +229,22 @@ class SceneBuilder:
             ior=ten([m["ior"] for m in mats]),
             transparency=ten([m["transparency"] for m in mats]),
             emission=ten([m["emission"] for m in mats]),
+            **{f"texture_{k}": ten([m[f"texture_{k}"] for m in mats],
+                                   torch.int32) for k in TEXTURE_SLOTS},
             procedural=ten([m["procedural"] for m in mats], torch.int32),
             procedural_scale=ten([m["procedural_scale"] for m in mats]),
         )
+        # The atlas: every texture's texels, row by row, in id order.
+        sizes = [img.shape[0] * img.shape[1] for img in self._tex_data]
+        textures = Textures(
+            atlas=ten(np.concatenate([img.reshape(-1, 4)
+                                      for img in self._tex_data])
+                      if sizes else np.zeros((0, 4), np.uint8), torch.uint8),
+            offset=ten(np.cumsum([0] + sizes[:-1]) if sizes else [],
+                       torch.int32),
+            width=ten([img.shape[1] for img in self._tex_data], torch.int32),
+            height=ten([img.shape[0] for img in self._tex_data],
+                       torch.int32))
 
         sph_c = rows(self._spheres, 0, (3,))
         sph_r = np.asarray([s[1] for s in self._spheres], dt)
@@ -282,7 +326,7 @@ class SceneBuilder:
         return Scene(
             spheres=spheres, triangles=triangles, cylinders=cylinders,
             ellipsoids=ellipsoids, planes=planes, materials=materials,
-            lights=lights, textures=Textures(),
+            lights=lights, textures=textures,
             info=SceneInfo.create(device=dev),
             tri_bvh=tri_bvh, sph_bvh=sph_bvh, cyl_bvh=cyl_bvh,
             tri_accel=(build_tri_accel(triangles, materials, block)

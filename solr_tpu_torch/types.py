@@ -7,10 +7,10 @@ bounce cap, packet widths) lives in the plain-Python ``RenderConfig``;
 everything continuously variable is a tensor field.
 
 All five primitive pools are here (spheres, triangles, capped
-cylinders, axis-aligned ellipsoids and planes), materials without
-texture maps, point lights, and the two accelerators of the sphere,
-triangle and cylinder pools: the per-ray BVH and the packet blocks.
-Textures are not ported yet (ROADMAP A11).
+cylinders, axis-aligned ellipsoids and planes), materials with their six
+texture slots, the texture atlas, point lights, and the two accelerators
+of the sphere, triangle and cylinder pools: the per-ray BVH and the
+packet blocks.
 
 Entry points put their tensors on the card unless the caller asks for
 another device.
@@ -26,12 +26,15 @@ import torch
 
 __all__ = [
     "CameraMode",
+    "PostFxMode",
     "PlaneAxis",
     "ProceduralKind",
     "Camera",
     "SceneInfo",
+    "PostFxConfig",
     "RenderConfig",
     "Materials",
+    "TEXTURE_SLOTS",
     "Spheres",
     "Triangles",
     "Cylinders",
@@ -59,6 +62,14 @@ class CameraMode(enum.IntEnum):
     VOLUME = 4  # reserved
 
 
+class PostFxMode(enum.IntEnum):
+    NONE = 0
+    DEPTH_OF_FIELD = 1
+    AMBIENT_OCCLUSION = 2
+    ENLIGHTMENT = 3
+    CARTOON = 4
+
+
 class PlaneAxis(enum.IntEnum):
     """Axis-aligned plane orientation: the value is the index of the
     normal axis."""
@@ -84,13 +95,17 @@ def _vec(x, device, dtype=torch.float32):
 
 @_frozen
 class Camera:
-    """Pinhole camera: rays leave the eye toward +z in camera space and
-    ``angles`` (rx, ry, rz) rotate camera space into world space."""
+    """Pinhole or thin-lens camera: rays leave the eye toward +z in
+    camera space and ``angles`` (rx, ry, rz) rotate camera space into
+    world space.  With ``aperture`` > 0 the origins spread over a lens
+    of that radius and the rays meet at ``focal_distance``; the stereo
+    modes shift each eye by ``eye_separation`` along the camera's
+    right axis."""
 
     position: torch.Tensor  # (3,)
     angles: torch.Tensor  # (3,) Euler angles, applied X then Y then Z
     fov: torch.Tensor  # () vertical field of view in radians
-    aperture: torch.Tensor  # () lens radius (only 0 is ported)
+    aperture: torch.Tensor  # () lens radius, 0 for a pinhole
     focal_distance: torch.Tensor  # ()
     eye_separation: torch.Tensor  # ()
 
@@ -137,6 +152,15 @@ class SceneInfo:
 
 
 @dataclasses.dataclass(frozen=True)
+class PostFxConfig:
+    """The post-processing pass and its gather samples (depth of field,
+    ambient occlusion, enlightment)."""
+
+    mode: PostFxMode = PostFxMode.NONE
+    samples: int = 16
+
+
+@dataclasses.dataclass(frozen=True)
 class RenderConfig:
     """Shape-defining render settings.  ``use_bvh`` lets the sphere,
     triangle and cylinder pools use their BVHs; ``traversal`` picks how
@@ -145,7 +169,13 @@ class RenderConfig:
     always takes the per-ray walk.  The packet fields are the
     reference's: 16x16-pixel tiles, per-strip list width K
     (``packet_max_blocks``), tile prefilter width Kt
-    (``packet_tile_cand``) and the exactness net switch."""
+    (``packet_tile_cand``) and the exactness net switch.
+    ``shadow_samples`` > 1 jitters the light within its radius when the
+    renderer is given a key (soft shadows); ``sky_texture`` is the
+    texture id of a spherical sky (-1: none); ``fog`` fades shading with
+    the distance travelled between ``SceneInfo.fog_start`` and
+    ``view_distance``; ``antialias_jitter`` jitters each pixel's ray
+    within the pixel when the renderer is given a key."""
 
     width: int = 256
     height: int = 256
@@ -154,7 +184,11 @@ class RenderConfig:
     shadows: bool = True
     shadow_samples: int = 1
     gradient_background: bool = False
+    sky_texture: int = -1
+    fog: bool = False
+    antialias_jitter: bool = False
     compact_rays: bool = True
+    postfx: PostFxConfig = PostFxConfig()
     use_bvh: bool = True
     traversal: str = "auto"  # "auto" | "packet" | "while"
     packet_tile_w: int = 16
@@ -180,12 +214,27 @@ class Materials:
     ior: torch.Tensor  # (M,)
     transparency: torch.Tensor  # (M,)
     emission: torch.Tensor  # (M,) > 0 marks a light source
+    # Texture ids (int32, -1 for none).  The diffuse map multiplies the
+    # color, the normal and bump maps perturb the shading normal, and the
+    # luminance of the specular, reflection and transparency maps scales
+    # those weights.
+    texture_diffuse: torch.Tensor  # (M,)
+    texture_normal: torch.Tensor  # (M,)
+    texture_bump: torch.Tensor  # (M,)
+    texture_specular: torch.Tensor  # (M,)
+    texture_reflection: torch.Tensor  # (M,)
+    texture_transparency: torch.Tensor  # (M,)
     procedural: torch.Tensor  # (M,) int32 ProceduralKind
     procedural_scale: torch.Tensor  # (M,)
 
     @property
     def count(self) -> int:
         return self.color.shape[0]
+
+
+# The material's texture slots, each the field ``texture_<slot>``.
+TEXTURE_SLOTS = ("diffuse", "normal", "bump", "specular", "reflection",
+                 "transparency")
 
 
 @_frozen
@@ -244,10 +293,17 @@ class Lights:
 
 @_frozen
 class Textures:
-    """Texture atlas.  Only the empty atlas is ported; the texture
-    sampling paths raise until ROADMAP A11."""
+    """Flat texture atlas: every texture's RGBA8 texels, row by row,
+    one after another; texture t starts at texel ``offset[t]``."""
 
-    count: int = 0
+    atlas: torch.Tensor  # (N, 4) uint8
+    offset: torch.Tensor  # (T,) int32
+    width: torch.Tensor  # (T,) int32
+    height: torch.Tensor  # (T,) int32
+
+    @property
+    def count(self) -> int:
+        return self.offset.shape[0]
 
 
 @_frozen

@@ -15,6 +15,16 @@ rendered by ``solr_tpu`` on the CPU:
   traversal="while", so all three pools walk their BVHs;
 * ``torch_cornell_ref.npz``: the gallery's Cornell box at 64x64
   (planes and spheres, brute force);
+* ``torch_stereo_ref.npz``: the bench frame cut to 20,000 triangles at
+  128x64, SIDE_BY_SIDE, with 32x8-pixel packet tiles (BASELINE config
+  #5's single-card tiles: a strip is one pixel row);
+* ``torch_anaglyph_ref.npz``: the gallery's anaglyph scene (the Cornell
+  box, red/cyan) at 64x64;
+* ``torch_textured_ref.npz``: ``solr_tpu_torch.textured_scene`` (BASELINE
+  config #3) at 64x64 without a key (hard shadows, no jitter), with
+  ambient occlusion (``image``), once more with FISHEYE
+  (``image_fisheye``), and once with a lens (aperture 0.1) and depth of
+  field (``image_dof``);
 * ``torch_grad_ref.npz``: gradients by ``jax.grad`` of ``solr_tpu``
   (float32) for three reduced cases: examples/inverse.py's scene at
   64x64 from its perturbed start (the RGB-D loss over the pixels
@@ -85,6 +95,21 @@ INVERSE_CENTER_SHIFT = [[0.15, -0.12, 0.1], [-0.12, 0.1, -0.08]]
 INVERSE_RADIUS_SCALE = [1.12, 0.9]
 GRAD_TARGET_SCALE = 0.8
 
+# The stereo frame: the reduced bench scene at 128x64, side by side,
+# with 32x8 tiles.
+STEREO_REF_FILE = os.path.join(HERE, "torch_stereo_ref.npz")
+STEREO_WIDTH, STEREO_HEIGHT = 128, 64
+STEREO_TILE = (32, 8)
+# The anaglyph Cornell box and the textured frame.
+ANAGLYPH_REF_FILE = os.path.join(HERE, "torch_anaglyph_ref.npz")
+TEXTURED_REF_FILE = os.path.join(HERE, "torch_textured_ref.npz")
+TEXTURED_SIZE = 64
+TEXTURED_BOUNCES = 3
+TEXTURED_BLOCK = 256
+# The textured frame's lens for the depth-of-field case.
+TEXTURED_APERTURE = 0.1
+TEXTURED_FOCAL = 7.0
+
 # The gallery's Cornell box (solr_tpu/scenes/gallery.py:24-42) at 64x64.
 CORNELL_REF_FILE = os.path.join(HERE, "torch_cornell_ref.npz")
 CORNELL_SIZE = 64
@@ -148,6 +173,53 @@ def reference_molecule_scene(parts, width, height, bounces, pdb_dir):
     cfg = st.RenderConfig(width=width, height=height, max_bounces=bounces,
                           **parts["config"])
     return scene, cam, cfg
+
+
+def stereo_config(cfg, width=STEREO_WIDTH, height=STEREO_HEIGHT):
+    """A bench RenderConfig (either package's) as config #5's stereo
+    frame: SIDE_BY_SIDE with 32x8 tiles, at ``width`` x ``height``."""
+    return dataclasses.replace(
+        cfg, width=width, height=height, camera_mode=type(cfg.camera_mode)(2),
+        packet_tile_w=STEREO_TILE[0], packet_tile_h=STEREO_TILE[1])
+
+
+def reference_textured_scene(parts, width, height, bounces, **cfg_over):
+    """``solr_tpu_torch.textured_scene``'s frame built by ``solr_tpu``
+    from ``textured_scene_parts`` output, in the port's order; the
+    config fields in ``cfg_over`` replace the scene's own."""
+    import solr_tpu as st
+
+    b = st.SceneBuilder()
+    tid = {name: b.add_texture(parts["textures"][name])
+           for name in parts["texture_order"]}
+
+    def maps(m):
+        return {slot: tid[name] for slot, name in m.items()}
+
+    terrain = b.add_material(**parts["terrain_material"],
+                             **maps(parts["terrain_maps"]))
+    b.add_mesh(parts["vertices"], parts["faces"], terrain, uvs=parts["uvs"])
+    for i, (mat, (c, r)) in enumerate(zip(parts["glass_materials"],
+                                          parts["glass_spheres"])):
+        g = b.add_material(**mat, **maps(parts["glass_maps"].get(i, {})))
+        b.add_sphere(c, r, g)
+    b.add_ellipsoid(*parts["ellipsoid"],
+                    b.add_material(**parts["amber_material"],
+                                   **maps(parts["amber_maps"])))
+    mirror = b.add_material(**parts["mirror_material"],
+                            **maps(parts["mirror_maps"]))
+    axis, origin, half = parts["mirror_plane"]
+    b.add_plane(st.types.PlaneAxis(int(axis)), origin, half, mirror)
+    b.add_light(**parts["light"])
+    b.info = st.SceneInfo.create(**parts["info"])
+    scene = b.build()
+    c = dict(parts["config"])
+    mode = st.types.PostFxMode(int(c.pop("postfx_mode")))
+    cfg = st.RenderConfig(width=width, height=height, max_bounces=bounces,
+                          sky_texture=tid[parts["sky"]],
+                          postfx=st.types.PostFxConfig(mode=mode), **c)
+    cfg = dataclasses.replace(cfg, **cfg_over)
+    return scene, st.Camera.create(**parts["camera"]), cfg
 
 
 def reference_render(scene, cam, cfg):
@@ -421,6 +493,81 @@ def write_cornell_ref():
           size=CORNELL_SIZE, bounces=CORNELL_BOUNCES)
 
 
+def reference_full_render(scene, cam, cfg, key=None, spp=1, jit=True):
+    """``solr_tpu.render`` (samples and post-processing), jitted or
+    (``jit=False``) op by op with every ``lax`` loop unrolled; the image
+    as numpy."""
+    import jax
+
+    from solr_tpu.ops.render import render
+
+    if not jit:
+        with jax.disable_jit():
+            return np.asarray(render(scene, cam, cfg, key, spp), np.float32)
+    img = jax.jit(render, static_argnames=("cfg", "spp"))(
+        scene, cam, cfg, key, spp=spp)
+    return np.asarray(img, np.float32)
+
+
+def write_stereo_ref():
+    _setup(REF_BLOCK)
+    from solr_tpu_torch.bench_scene import bench_scene_arrays
+
+    scene, cam, cfg = reference_bench_scene(bench_scene_arrays(REF_TRIS),
+                                            REF_SIZE, REF_SIZE, REF_BOUNCES)
+    cfg = stereo_config(cfg)
+    _save(STEREO_REF_FILE, reference_render(scene, cam, cfg),
+          n_tris=REF_TRIS, width=cfg.width, height=cfg.height,
+          tile_w=cfg.packet_tile_w, tile_h=cfg.packet_tile_h,
+          block=REF_BLOCK, bounces=REF_BOUNCES)
+
+
+def write_anaglyph_ref():
+    _setup(256)
+    import solr_tpu as st
+    from solr_tpu.scenes import make_scene
+
+    demo = make_scene("anaglyph", seed=0)
+    cfg = dataclasses.replace(demo.default_config, width=CORNELL_SIZE,
+                              height=CORNELL_SIZE,
+                              max_bounces=CORNELL_BOUNCES)
+    assert cfg.camera_mode == st.CameraMode.ANAGLYPH
+    _save(ANAGLYPH_REF_FILE, reference_render(demo.scene, demo.camera, cfg),
+          size=CORNELL_SIZE, bounces=CORNELL_BOUNCES)
+
+
+def write_textured_ref():
+    _setup(TEXTURED_BLOCK)
+    import jax
+
+    import solr_tpu as st
+    from solr_tpu_torch.textured_scene import textured_scene_parts
+
+    # Rendered op by op: under jit, XLA contracts the texture and bump
+    # arithmetic into FMAs and moves 0.7% of the 64x64 frame's pixels
+    # by up to 6.4e-4 from the reference's own op-by-op frame (ROADMAP
+    # C1), which the port matches to 1.3e-5.
+    parts = textured_scene_parts()
+    scene, cam, cfg = reference_textured_scene(
+        parts, TEXTURED_SIZE, TEXTURED_SIZE, TEXTURED_BOUNCES)
+    out = {"image": reference_full_render(scene, cam, cfg, jit=False)}
+    fish = dataclasses.replace(cfg, camera_mode=st.CameraMode.FISHEYE)
+    out["image_fisheye"] = reference_full_render(scene, cam, fish, jit=False)
+    lens = cam.replace(aperture=jax.numpy.float32(TEXTURED_APERTURE),
+                       focal_distance=jax.numpy.float32(TEXTURED_FOCAL))
+    dof = dataclasses.replace(cfg, postfx=st.types.PostFxConfig(
+        mode=st.types.PostFxMode.DEPTH_OF_FIELD))
+    out["image_dof"] = reference_full_render(scene, lens, dof, jit=False)
+    for k, img in out.items():
+        assert np.isfinite(img).all()
+        print(f"{k}: digest {float(img.sum())!r}")
+    np.savez_compressed(TEXTURED_REF_FILE, size=TEXTURED_SIZE,
+                        bounces=TEXTURED_BOUNCES, block=TEXTURED_BLOCK,
+                        aperture=TEXTURED_APERTURE, focal=TEXTURED_FOCAL,
+                        jax_version=jax.__version__, **out)
+    print(f"wrote {TEXTURED_REF_FILE}")
+
+
 FRAMES = {
     "bench": write_bench_ref,
     "molecule": write_molecule_ref,
@@ -428,6 +575,9 @@ FRAMES = {
     "molecule_while": lambda: write_molecule_ref("while", MOL_WHILE_REF_FILE),
     "cornell": write_cornell_ref,
     "grads": write_grad_ref,
+    "stereo": write_stereo_ref,
+    "anaglyph": write_anaglyph_ref,
+    "textured": write_textured_ref,
 }
 
 

@@ -16,7 +16,15 @@ and shadow rays with fractional and emissive materials, and on scenes
 with every primitive twice (ties within a leaf and across leaves); the
 molecule frame with traversal="while" launches all six.  A gradient step
 through the reduced bench frame on the card (packets and walk) agrees
-with the same step on the CPU.
+with the same step on the CPU.  The camera modes and texture features
+render on the card against the committed solr_tpu CPU frames
+(tests/data/torch_stereo_ref.npz, torch_anaglyph_ref.npz,
+torch_textured_ref.npz) within the frame budget: the side-by-side bench
+frame at 32x8 tiles (which must launch B1 and B2 and no walk kernel),
+the anaglyph Cornell box, and the textured scene (BASELINE config #3)
+plain, with the fisheye and with a lens and depth of field; the
+textured frame with a key (soft shadows, jitter, 2 samples) renders
+finite on the card.
 
 These need a CUDA card and nvcc; without a card they skip.  The file
 imports neither JAX nor solr_tpu, so it runs where only PyTorch is
@@ -32,20 +40,26 @@ elementwise and reduction kernels on the two devices.
 """
 
 import dataclasses
+import os
 
+import numpy as np
 import pytest
 import torch
 
 from solr_tpu_torch.bench_scene import bench_scene
 from solr_tpu_torch.constants import RAY_EPS
+from solr_tpu_torch.cornell_scene import cornell_scene
 from solr_tpu_torch.kernel_shapes import primary_tiles
 from solr_tpu_torch.molecule_scene import molecule_scene
 from solr_tpu_torch.ops import bvh
 from solr_tpu_torch.ops import packet as pk
 from solr_tpu_torch.ops import sweep
 from solr_tpu_torch.ops.camera import camera_rays
-from solr_tpu_torch.ops.render import render_sample
+from solr_tpu_torch.ops.render import render, render_sample
+from solr_tpu_torch.ops.rng import Key
 from solr_tpu_torch.ops.traverse import _scene_box, scene_closest_hit
+from solr_tpu_torch.textured_scene import textured_scene
+from solr_tpu_torch.types import CameraMode, PostFxConfig, PostFxMode
 from torch_bvh_helpers import (cross_leaf_pairs, fractional_materials,
                                shadow_rays_to_light, tie_scene)
 from torch_sweep_helpers import forced_ties
@@ -609,3 +623,80 @@ def test_gradients_on_card_match_cpu(cuda, height):
         assert torch.isfinite(card[k]).all()
         scale = float(cpu[k].abs().max())
         assert float((card[k] - cpu[k]).abs().max()) <= 1e-2 * scale
+
+
+DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
+
+
+def _held(img, ref):
+    """The frame budget: atol 1e-4 outside 0.2% of pixels."""
+    img = img.cpu().numpy()
+    assert np.isfinite(img).all()
+    err = np.abs(img - ref).max(-1)
+    assert float((err > 1e-4).mean()) <= 0.002, float((err > 1e-4).mean())
+
+
+@pytest.mark.gpu
+def test_stereo_frame_on_card_matches_reference(cuda):
+    """BASELINE config #5's frame reduced: side by side, 32x8 tiles,
+    packets (B1 and B2, no walk kernel)."""
+    ref = np.load(os.path.join(DATA, "torch_stereo_ref.npz"))
+    scene, cam, cfg = bench_scene(int(ref["n_tris"]), block=int(ref["block"]),
+                                  width=int(ref["width"]),
+                                  height=int(ref["height"]), device=cuda)
+    cfg = dataclasses.replace(cfg, camera_mode=CameraMode.SIDE_BY_SIDE,
+                              packet_tile_w=int(ref["tile_w"]),
+                              packet_tile_h=int(ref["tile_h"]))
+    before = {**sweep.LAUNCHES, **bvh.LAUNCHES}
+    with torch.no_grad():
+        img = render_sample(scene, cam, cfg)[0]
+    after = {**sweep.LAUNCHES, **bvh.LAUNCHES}
+    assert min(after[k] - before[k]
+               for k in ("sweep_closest", "sweep_transmittance")) > 0
+    assert all(after[k] == before[k] for k in bvh.LAUNCHES)
+    _held(img, ref["image"])
+
+
+@pytest.mark.gpu
+def test_anaglyph_on_card_matches_reference(cuda):
+    ref = np.load(os.path.join(DATA, "torch_anaglyph_ref.npz"))
+    size = int(ref["size"])
+    scene, cam, cfg = cornell_scene(size, size, int(ref["bounces"]),
+                                    device=cuda)
+    cfg = dataclasses.replace(cfg, camera_mode=CameraMode.ANAGLYPH)
+    with torch.no_grad():
+        _held(render_sample(scene, cam, cfg)[0], ref["image"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["image", "image_fisheye", "image_dof"])
+def test_textured_on_card_matches_reference(cuda, case):
+    """The textured frame without a key (hard shadows, no jitter), with
+    its ambient occlusion; with the fisheye; with a lens and depth of
+    field in place of the occlusion."""
+    ref = np.load(os.path.join(DATA, "torch_textured_ref.npz"))
+    size = int(ref["size"])
+    scene, cam, cfg = textured_scene(size, size, int(ref["bounces"]),
+                                     device=cuda)
+    if case == "image_fisheye":
+        cfg = dataclasses.replace(cfg, camera_mode=CameraMode.FISHEYE)
+    if case == "image_dof":
+        cam = cam.replace(
+            aperture=torch.tensor(float(ref["aperture"]), device=cuda),
+            focal_distance=torch.tensor(float(ref["focal"]), device=cuda))
+        cfg = dataclasses.replace(cfg, postfx=PostFxConfig(
+            mode=PostFxMode.DEPTH_OF_FIELD))
+    with torch.no_grad():
+        _held(render(scene, cam, cfg), ref[case])
+
+
+@pytest.mark.gpu
+def test_textured_with_key_on_card(cuda):
+    """Soft shadows, jitter and two samples from a key on the card: a
+    finite frame that differs from the keyless one."""
+    scene, cam, cfg = textured_scene(64, 48, device=cuda)
+    with torch.no_grad():
+        img = render(scene, cam, cfg, Key.seed(0, cuda), spp=2)
+        hard = render(scene, cam, cfg)
+    assert img.shape == (48, 64, 4) and torch.isfinite(img).all()
+    assert float((img - hard).abs().max()) > 1e-2

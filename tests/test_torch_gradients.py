@@ -22,6 +22,9 @@ Tolerances, elementwise per leaf: |g_port - g_ref| <= tol * max|g_ref|.
   tests/test_gradients.py.
 * BVH traversals against brute force: vertex-gradient L1 totals within
   rtol 1e-3, as tests/test_gradients.py.
+* The reduced textured scene (BASELINE config #3: a bump map, a normal
+  map, fog and soft shadows drawn through ``JaxKey``), f64, over the
+  pixels outside the silhouette mask: 1e-6 on every leaf.
 * Refreshed accelerators against the reference's ``refresh_accel``:
   tests/test_torch_packet.py's tolerances for ``packed`` and the block
   bounds; against the port's own builders, equal.
@@ -29,6 +32,7 @@ Tolerances, elementwise per leaf: |g_port - g_ref| <= tol * max|g_ref|.
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -39,7 +43,8 @@ from solr_tpu.ops.render import render_sample as j_render
 
 from data.torch_reference import (numpy_tree, reference_grads,
                                   reference_inverse_case,
-                                  reference_inverse_scene)
+                                  reference_inverse_scene,
+                                  reference_textured_scene, silhouette_mask)
 from test_torch_packet import _rows_close
 from scenes_fixtures import (cornell_box, random_cylinder_field,
                              random_sphere_field, random_tri_field)
@@ -52,7 +57,9 @@ from solr_tpu_torch.kernel_shapes import primary_tiles, sweep_args
 from solr_tpu_torch.ops import bvh, packet, sweep
 from solr_tpu_torch.ops.render import render_sample
 from solr_tpu_torch.scene import SceneBuilder
+from solr_tpu_torch.textured_scene import textured_scene_parts
 from solr_tpu_torch.types import PlaneAxis
+from torch_rng_helpers import JaxKey
 
 # Several test workers share the cores: keep each one's intra-op pool small.
 torch.set_num_threads(2)
@@ -271,6 +278,63 @@ def test_inverse_grads_unmasked_are_finite():
     for k in LEAVES:
         assert np.isfinite(g[k]).all(), k
     assert np.abs(g["sphere_center"]).max() > 0
+
+
+# --------------------------------------------------------------------------
+# The new paths: normal and bump maps, fog, soft shadows
+# --------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def textured_case():
+    """The textured scene cut to a 12-cell ground at 24x24, 2 bounces,
+    2 soft-shadow samples and fog, f64, against 0.8 x its own image over
+    the pixels outside the silhouette mask: eager ``jax.grad`` of
+    solr_tpu with a key, and the port with the same key's draws."""
+    jscene, jcam, jcfg = reference_textured_scene(
+        textured_scene_parts(ground_res=12), 24, 24, 2, shadow_samples=2,
+        antialias_jitter=False)
+    jscene, jcam = jax.tree.map(
+        lambda x: x.astype(jnp.float64)
+        if jnp.issubdtype(x.dtype, jnp.floating) else x, (jscene, jcam))
+    key = jax.random.PRNGKey(1)
+    img, _ = j_render(jscene, jcam, jcfg, key)
+    target = img[..., :3] * 0.8
+    mask = silhouette_mask(jscene, jcam, jcfg)
+    keep = ~jnp.asarray(mask)
+    w = keep[..., None].astype(target.dtype)
+
+    def loss(p):
+        im, _ = j_render(jscene.with_params(p), jcam, jcfg, key)
+        return jnp.sum(w * (im[..., :3] - target) ** 2) / (jnp.sum(keep) * 3)
+
+    l_ref, g_ref = jax.value_and_grad(loss)(jscene.params)
+    scene, cam, cfg = (port_scene(jscene, torch.float64),
+                       port_camera(jcam, torch.float64), port_cfg(jcfg))
+    assert cfg.fog and cfg.shadow_samples == 2
+    assert int(scene.materials.texture_bump.max()) >= 0
+    t_target = torch.as_tensor(np.array(target))
+    t_keep = torch.as_tensor(np.array(keep))[..., None]
+    p = leaf_params(scene.params)
+    im, _ = render_sample(scene.with_params(p), cam, cfg, JaxKey(key))
+    lo = (t_keep * (im[..., :3] - t_target) ** 2).sum() / (t_keep.sum() * 3)
+    lo.backward()
+    return dict(l_ref=float(l_ref), g_ref=g_ref, l_port=float(lo.detach()),
+                g_port=grads_of(p), mask=mask)
+
+
+@pytest.mark.parametrize("leaf", LEAVES + ("vertices",))
+def test_textured_grads_match_reference_f64(textured_case, leaf):
+    assert textured_case["mask"].mean() < 0.05
+    np.testing.assert_allclose(textured_case["l_port"], textured_case["l_ref"],
+                               rtol=1e-12)
+    got, want = textured_case["g_port"][leaf], textured_case["g_ref"][leaf]
+    if leaf == "vertices":
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert_leaf_close(g, w, 1e-6, f"v{i}")
+        assert max(np.abs(g).max() for g in got) > 0
+    else:
+        assert_leaf_close(got, want, 1e-6, leaf)
 
 
 # --------------------------------------------------------------------------

@@ -21,13 +21,19 @@ def test_imports_with_jax_blocked():
         "solr_tpu_torch.io.pdb, solr_tpu_torch.kernel_shapes, "
         "solr_tpu_torch.sweep_steps, solr_tpu_torch.ops.bvh, "
         "solr_tpu_torch.cornell_scene, solr_tpu_torch.utils, "
-        "solr_tpu_torch.inverse, chip_smoke\n"
+        "solr_tpu_torch.inverse, solr_tpu_torch.textured_scene, "
+        "solr_tpu_torch.ops.postfx, solr_tpu_torch.ops.rng, chip_smoke\n"
         "from solr_tpu_torch.bench_scene import bench_scene\n"
         "from solr_tpu_torch.ops.render import render_sample\n"
         "s, c, cfg = bench_scene(2000, block=128, width=32, height=32,\n"
         "                         device='cpu')\n"
         "img, _ = render_sample(s, c, cfg)\n"
         "assert img.shape == (32, 32, 4)\n"
+        "from solr_tpu_torch import Key, render\n"
+        "from solr_tpu_torch.textured_scene import textured_scene\n"
+        "s, c, cfg = textured_scene(24, 16, ground_res=8, device='cpu')\n"
+        "assert render(s, c, cfg, Key.seed(0, 'cpu'), spp=2).shape == "
+        "(16, 24, 4)\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'solr_tpu.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
     )

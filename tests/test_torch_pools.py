@@ -50,10 +50,11 @@ from solr_tpu_torch.convert import (camera_from_numpy,
                                     config_from_reference_fields,
                                     scene_from_numpy)
 from solr_tpu_torch.ops import intersect as tis
-from solr_tpu_torch.ops.render import render_sample
+from solr_tpu_torch.ops.render import render, render_sample
 from solr_tpu_torch.scene import SceneBuilder
 from solr_tpu_torch.types import PlaneAxis
 from test_render_vs_oracle import assert_images_match
+from torch_rng_helpers import JaxKey
 
 # Several test workers share the cores: keep each one's intra-op pool small.
 torch.set_num_threads(2)
@@ -253,12 +254,17 @@ def test_walk_frames_match_reference(make):
 @pytest.mark.parametrize("name", ["cornell", "terrain", "glass"])
 def test_goldens(name):
     """tests/goldens/{name}_96.png: the gallery scene at 96x96, 3
-    bounces, as tests/test_goldens.py renders it with solr_tpu."""
+    bounces, through the port's ``render`` with the key
+    tests/test_goldens.py renders it with (PRNGKey(0), replayed through
+    JaxKey)."""
     from solr_tpu.io.image import load_image
 
     demo = make_scene(name, seed=0)
-    img = _port_render(demo.scene, demo.camera,
-                       st.RenderConfig(width=96, height=96, max_bounces=3))
+    jcfg = st.RenderConfig(width=96, height=96, max_bounces=3)
+    img = render(scene_from_numpy(numpy_tree(demo.scene), "cpu"),
+                 camera_from_numpy(numpy_tree(demo.camera), "cpu"),
+                 config_from_reference_fields(dataclasses.asdict(jcfg)),
+                 key=JaxKey(0)).numpy()
     img = np.clip(img[..., :3], 0.0, 1.0)
     golden = np.asarray(load_image(os.path.join(GOLDEN_DIR, f"{name}_96.png")))
     diff = np.abs(img - golden[..., :3].astype(np.float32) / 255.0).max(-1)

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 import solr_tpu as st
+from solr_tpu.ops import camera as jcamera
 from solr_tpu.ops import packet as jpk
 from solr_tpu.ops.bvh import build_bvh
 
@@ -22,7 +23,9 @@ from scenes_fixtures import (random_cylinder_field, random_sphere_field,
                              random_tri_field)
 from solr_tpu_torch.bench_scene import bench_scene, bench_scene_arrays
 from solr_tpu_torch.convert import config_from_reference_fields, scene_from_numpy
+from solr_tpu_torch.ops.render import render_sample
 from solr_tpu_torch.scene import SceneBuilder
+from solr_tpu_torch.types import Camera
 
 # Several test workers share the cores: keep each one's intra-op pool small.
 torch.set_num_threads(2)
@@ -155,18 +158,31 @@ def test_native_and_numpy_orders_agree():
 
 
 def test_unported_parts_raise():
-    """Textures, fog and a sky texture are not ported yet (ROADMAP A11).
-    (Planes, ellipsoids, traversal="while" and accelerated sphere pools
-    without a mesh, which raised until the BVH walk was ported, are held
-    to the reference in tests/test_torch_pools.py and test_torch_bvh.py.)"""
+    """Textures, fog and a sky texture, which raised here until they were
+    ported (ROADMAP A11), now carry across; what neither package renders,
+    the reserved VOLUME camera mode, raises in both.  (The texture
+    features themselves are held to the reference in
+    tests/test_torch_textures.py and test_torch_effects.py.)"""
     textured = st.SceneBuilder()
-    textured.add_texture(np.zeros((4, 4, 3), np.uint8))
-    textured.add_sphere((0.0, 0.0, 3.0), 1.0)
-    with pytest.raises(NotImplementedError, match="textures"):
-        scene_from_numpy(numpy_tree(textured.build()), "cpu")
-    for ref in (st.RenderConfig(fog=True), st.RenderConfig(sky_texture=0)):
-        with pytest.raises(NotImplementedError):
-            config_from_reference_fields(dataclasses.asdict(ref))
+    tid = textured.add_texture(np.zeros((4, 4, 3), np.uint8))
+    textured.add_sphere((0.0, 0.0, 3.0), 1.0,
+                        textured.add_material(texture_diffuse=tid))
+    ref = textured.build()
+    scene = scene_from_numpy(numpy_tree(ref), "cpu")
+    assert scene.textures.count == 1
+    np.testing.assert_array_equal(scene.textures.atlas.numpy(),
+                                  np.asarray(ref.textures.atlas))
+    for ref_cfg in (st.RenderConfig(fog=True),
+                    st.RenderConfig(sky_texture=0)):
+        cfg = config_from_reference_fields(dataclasses.asdict(ref_cfg))
+        assert (cfg.fog, cfg.sky_texture) == (ref_cfg.fog, ref_cfg.sky_texture)
+    volume = st.RenderConfig(width=8, height=8,
+                             camera_mode=st.CameraMode.VOLUME)
+    with pytest.raises(NotImplementedError):
+        jcamera.camera_rays(st.Camera.create(), volume)
+    with pytest.raises(NotImplementedError):
+        render_sample(scene, Camera.create(device="cpu"),
+                      config_from_reference_fields(dataclasses.asdict(volume)))
 
 
 def test_config_carries_the_packet_fields():
