@@ -112,10 +112,46 @@ both started together.  Phases, each of which must pass:
 21. ``textured_reference``: the textured scene at 64x64 without a key
    (hard shadows, no jitter; ambient occlusion), with FISHEYE, and with
    a lens (aperture 0.1) and DEPTH_OF_FIELD, against
-   tests/data/torch_textured_ref.npz, as in 5.
+   tests/data/torch_textured_ref.npz, as in 5;
+22. ``parallel_path``: BASELINE config #5 sharded
+   (``solr_tpu_torch.parallel``): four spawned ranks share the card on
+   gloo (NCCL refuses two ranks on one device); rank 0 builds the bench
+   scene and ``broadcast_scene`` sends it to the others; ``shard_render``
+   at 1920x1080 SIDE_BY_SIDE, 2 bounces, 32x9 tiles (270-row bands), a
+   warm-up and a timed frame, must equal a one-process render_sample of
+   the same configuration at atol 1e-6, and every rank must launch B1
+   and B2 and no walk kernel; ms, peak memory and launches per rank
+   ("4 ranks sharing one card", not a scaling figure);
+23. ``parallel_grads``: in the same ranks, at 480x288 (72-row bands),
+   ``sharded_loss_grad`` with "psum" and "reduce_scatter" against the
+   one-process loss (rtol 1e-5) and gradients (every leaf rtol 1e-4,
+   atol 1e-6), then three ``make_sharded_train_step`` steps in each mode
+   (Adam at 1e-2; ZeRO-1 against psum at rtol 1e-4, atol 1e-6; every
+   loss finite); B1 and B2 launch in every rank;
+24. ``parallel_ring``: in the same ranks, ``ring_closest_hit`` of
+   16,384 rays against 20,000 random triangles, against the brute-force
+   ``triangle_t`` minimum on the card: hit ids equal, t rtol 1e-6, at
+   least 20 hits;
+25. ``parallel_nccl``: with two or more cards, 22's frame over min(4,
+   cards) cards under NCCL, held as in 22; with one, ``shard_render``
+   under NCCL at world size 1 on 18's frame, which it must equal
+   (atol 1e-6);
+26. ``resumable``: a spawned worker renders the bench frame through
+   ``resumable_render`` in 64-row chunks and is SIGKILLed after its
+   first heartbeat; a second worker resumes the directory, and its frame
+   must equal an uninterrupted resumable_render of the same chunks bit
+   for bit, and render_sample as in 5 (the pixels that differ at all
+   are reported: a row band regroups the packets, and an edge-grazing
+   ray can flip, ROADMAP C13); the same directory run again with
+   128-row chunks must start over (ROADMAP C5), held the same way.
+
+Every spawned rank or worker must end within CHILD_DEADLINE_S seconds,
+or its phase fails.
 
 Each main path runs with the launch counts set to 0 just before it and
-read just after; the packet paths (4, 7, 15) must launch no walk kernel.  Prints the full record of the run on one line
+read just after (22 and 23 in each rank); the packet paths (4, 7, 15,
+18, 22, 23) must launch no walk kernel.  Prints the full record of the
+run on one line
 ("record: {...}"), the kernel table as one JSON line (each kernel's
 time, its plain version's, its bound: the larger of the bytes its
 inputs and outputs take over 3.35 TB/s and the f32 operations its
@@ -207,6 +243,28 @@ GRAD_STEPS = 3
 INVERSE_SIZE = 128
 INVERSE_RUNS = (("inverse", ["--steps", "60"]),
                 ("inverse_geometry", ["--steps", "300", "--geometry"]))
+# BASELINE config #5 sharded (tools/stereo_1080p.py:20-22, :43-55,
+# :147-160): four ranks; 32x9 tiles, so that 9 divides the 270-row bands
+# of the 1080p frame and the 72-row bands of the 480x288 gradient frame.
+PAR_RANKS = 4
+PAR_TILE = (32, 9)
+PAR_GRAD_SIZE = (480, 288)
+PAR_TRAIN_STEPS = 3
+PAR_LR = 1e-2
+# test_parallel.py's tolerances: frames; loss; gradient and parameter
+# leaves (rtol, atol).
+PAR_FRAME_ATOL = 1e-6
+PAR_LOSS_RTOL = 1e-5
+PAR_LEAF_TOL = (1e-4, 1e-6)
+# The ring: a random triangle field (tests/scenes_fixtures.py
+# random_tri_field) and rays, made here with numpy from a seed.
+RING_TRIS, RING_RAYS, RING_SEED = 20_000, 16_384, 5
+RING_T_RTOL = 1e-6
+RING_MIN_HITS = 20
+# Resumable row bands: the bench frame at SIZE in RESUME_ROWS-row chunks.
+RESUME_ROWS = 64
+# Every spawned rank or child must end by then.
+CHILD_DEADLINE_S = 600.0
 
 
 def _nvidia_smi() -> str:
@@ -620,12 +678,13 @@ def _live_rays_per_bounce(scene, cam, cfg):
 
 
 def phase_path(scene, cam, cfg, rec, key, kernels, frames=3, idle=(),
-               no_brute=(), slow_s=None):
+               no_brute=(), slow_s=None, keep=None):
     """One main path: the launch and net counts set to 0, render_sample
     once as a warm-up (counting live rays per bounce) and ``frames``
     timed times (one when the warm-up took over ``slow_s`` seconds), the
     counts read.  Every kernel in ``kernels`` must have launched, none in
-    ``idle``, and no pool in ``no_brute`` may have been brute-forced."""
+    ``idle``, and no pool in ``no_brute`` may have been brute-forced.
+    With ``keep`` (a dict), the last image is kept there under ``key``."""
     import torch
 
     from solr_tpu_torch.ops import bvh, sweep, traverse
@@ -667,6 +726,8 @@ def phase_path(scene, cam, cfg, rec, key, kernels, frames=3, idle=(),
         peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
     if not finite:
         raise AssertionError(f"{key} image is not finite")
+    if keep is not None:
+        keep[key] = img
     missing = [k for k in kernels if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on {key}: {missing}")
@@ -1208,6 +1269,525 @@ def phase_inverse(rec):
     rec["inverse"] = res
 
 
+# ---------------------------------------------------------------------------
+# parallel/ (BASELINE config #5 sharded) and resumable row bands
+# ---------------------------------------------------------------------------
+
+
+def _par_cfg(cfg, width, height):
+    """The sharded phases' side-by-side configuration: PAR_TILE tiles."""
+    import dataclasses
+
+    return dataclasses.replace(_stereo_cfg(cfg, width, height),
+                               packet_tile_w=PAR_TILE[0],
+                               packet_tile_h=PAR_TILE[1])
+
+
+def _flat_leaves(tree):
+    """(name, tensor) of a Scene.params-like tree, in key order."""
+    out = []
+    for k in sorted(tree):
+        v = tree[k]
+        out += ([(f"{k}[{i}]", x) for i, x in enumerate(v)]
+                if isinstance(v, tuple) else [(k, v)])
+    return out
+
+
+def _digest(tree):
+    return [float(x.double().sum()) for _, x in _flat_leaves(tree)]
+
+
+def _worst(got, want, rtol, atol):
+    """max over leaves of |got - want| - (atol + rtol |want|): <= 0 when
+    every element is within tolerance; and the largest relative error."""
+    worst, rel = float("-inf"), 0.0
+    for (_, a), (_, b) in zip(_flat_leaves(got), _flat_leaves(want)):
+        a, b = a.double(), b.double()
+        err = (a - b).abs()
+        worst = max(worst, float((err - (atol + rtol * b.abs())).max()))
+        rel = max(rel, float((err / b.abs().clamp(min=1e-30)).max()))
+    return worst, rel
+
+
+def _ring_case():
+    """(v0, v1, v2, o, d) as numpy: RING_TRIS random triangles in a box
+    (random_tri_field's layout) and RING_RAYS rays shot into it."""
+    import numpy as np
+
+    rng = np.random.default_rng(RING_SEED)
+    c = rng.uniform(-10, 10, (RING_TRIS, 3)) + np.array([0, 0, 15.0])
+    d1 = rng.normal(0, 0.5, (RING_TRIS, 3))
+    d2 = rng.normal(0, 0.5, (RING_TRIS, 3))
+    o = rng.uniform(-2, 2, (RING_RAYS, 3))
+    o[:, 2] = -20.0
+    d = rng.normal(size=(RING_RAYS, 3))
+    d[:, 2] = np.abs(d[:, 2]) * 6 + 2
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return tuple(x.astype(np.float32) for x in (c, c + d1, c + d2, o, d))
+
+
+def _timed(fn, device):
+    """(result, ms) of ``fn()`` between two syncs, the ranks lined up by
+    a barrier first."""
+    import torch.distributed as dist
+
+    dist.barrier()
+    _sync(device)
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(device)
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _launched():
+    """The kernels launched since the counts were set to 0, and how
+    often."""
+    from solr_tpu_torch.ops import bvh, sweep
+
+    return {k: v for k, v in {**sweep.LAUNCHES, **bvh.LAUNCHES}.items() if v}
+
+
+def _peak_gb(device, reset=False):
+    import torch
+
+    if device.type != "cuda":
+        return None
+    if reset:
+        torch.cuda.reset_peak_memory_stats(device)
+    return torch.cuda.max_memory_allocated(device) / 2**30
+
+
+def _parallel_rank(rank, world, device, n_tris, frame_cfg, grad_cfg=None,
+                   target=None, ring=None):
+    """One rank of the sharded phases on ``device`` ("cuda" alone: the
+    rank's own card): rank 0 builds the bench scene of ``n_tris``
+    triangles and broadcasts it; then the sharded frame (a warm-up and a
+    timed frame), with ``grad_cfg`` the sharded loss and gradients in
+    both modes and PAR_TRAIN_STEPS train steps in each, with ``ring``
+    the geometry ring.  Rank 0 returns the arrays, the others digests."""
+    entered = time.time()
+    import functools
+
+    import torch
+
+    from solr_tpu_torch.bench_scene import bench_scene
+    from solr_tpu_torch.parallel import (broadcast_scene, init_zero_opt_state,
+                                         make_mesh, make_sharded_train_step,
+                                         shard_render, sharded_loss_grad)
+    from solr_tpu_torch.parallel.ring import ring_closest_hit
+
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_mesh(device_type=device.type)
+    t0 = time.perf_counter()
+    scene = cam = None
+    if rank == 0:
+        scene, cam, _ = bench_scene(n_tris, block=BLOCK, device=device)
+    scene = broadcast_scene(scene, 0, mesh, device)
+    cam = broadcast_scene(cam, 0, mesh, device)
+    _sync(device)
+    out = {"rank": rank, "device": str(device), "entered": entered,
+           "scene_s": time.perf_counter() - t0}
+
+    _reset_counts()
+    _peak_gb(device, reset=True)
+    ms = []
+    with torch.no_grad():
+        for _ in range(2):
+            (img, _), t = _timed(lambda: shard_render(scene, cam, frame_cfg,
+                                                      mesh), device)
+            ms.append(t)
+    out["frame"] = dict(
+        warmup_ms=ms[0], frame_ms=ms[1], digest=float(img.double().sum()),
+        launches=_launched(),
+        peak_mem_gb=_peak_gb(device),
+        image=img.cpu().numpy() if rank == 0 else None)
+    del img
+    if grad_cfg is None:
+        return out
+
+    target = torch.as_tensor(target, device=device)
+    _reset_counts()
+    _peak_gb(device, reset=True)
+    grads = {}
+    for mode in ("psum", "reduce_scatter"):
+        (loss, g), t = _timed(lambda: sharded_loss_grad(
+            scene, cam, grad_cfg, target, mesh, mode), device)
+        grads[mode] = dict(loss=float(loss), ms=t, digest=_digest(g),
+                           grads=({k: x.cpu() for k, x in _flat_leaves(g)}
+                                  if rank == 0 else None))
+    opt = functools.partial(torch.optim.Adam, lr=PAR_LR)
+    train, final = {}, {}
+    for mode in ("psum", "reduce_scatter"):
+        step, opt = make_sharded_train_step(scene, cam, grad_cfg, mesh, opt,
+                                            mode)
+        params = {k: tuple(x.clone() for x in v) if isinstance(v, tuple)
+                  else v.clone() for k, v in scene.params.items()}
+        state = (opt([x for _, x in _flat_leaves(params)]) if mode == "psum"
+                 else init_zero_opt_state(scene, opt, mesh))
+        losses, step_ms = [], []
+        for _ in range(PAR_TRAIN_STEPS):
+            (params, state, loss), t = _timed(
+                lambda: step(params, state, target), device)
+            losses.append(float(loss))
+            step_ms.append(t)
+        train[mode] = dict(losses=losses, step_ms=step_ms)
+        final[mode] = params
+    train["worst"], train["max_rel"] = _worst(
+        final["reduce_scatter"], final["psum"], *PAR_LEAF_TOL)
+    out["grads"] = dict(modes=grads, train=train,
+                        launches=_launched(),
+                        peak_mem_gb=_peak_gb(device))
+
+    from types import SimpleNamespace
+
+    v0, v1, v2, o, d = (torch.as_tensor(x, device=device) for x in ring)
+    pool = SimpleNamespace(triangles=SimpleNamespace(v0=v0, v1=v1, v2=v2))
+    (t, i), ms_ring = _timed(lambda: ring_closest_hit(pool, o, d, mesh),
+                             device)
+    out["ring"] = dict(ms=ms_ring, digest=[float(t.double().sum()),
+                                           int(i.sum())],
+                       t=t.cpu().numpy() if rank == 0 else None,
+                       i=i.cpu().numpy() if rank == 0 else None)
+    return out
+
+
+def _check_ranks(results, name, digest, launches=None, kernels=(),
+                 idle=()):
+    """Every rank's ``digest(result)`` equal to rank 0's; with
+    ``launches(result)``, every kernel in ``kernels`` launched and none
+    in ``idle`` in every rank."""
+    bad = [r["rank"] for r in results if digest(r) != digest(results[0])]
+    if bad:
+        raise AssertionError(f"{name}: ranks {bad} differ from rank 0")
+    for r in results if launches else ():
+        counts = launches(r)
+        missing = [k for k in kernels if counts.get(k, 0) <= 0]
+        stray = [k for k in idle if counts.get(k, 0)]
+        if missing or stray:
+            raise AssertionError(f"{name}, rank {r['rank']}: never "
+                                 f"launched {missing}, launched {stray}")
+
+
+def phase_parallel(scenes, rec, par, device):
+    """``parallel_path``: the single-process references on the card (the
+    sharded frame's configuration, the gradient frame's loss and
+    gradients, the ring's brute force), then PAR_RANKS ranks sharing the
+    card on gloo run _parallel_rank; the frame is held to the
+    single-process one.  The gradients and the ring are checked by
+    phase_parallel_grads and phase_parallel_ring from ``par``."""
+    import numpy as np
+    import torch
+
+    from solr_tpu_torch.ops import bvh, intersect
+    from solr_tpu_torch.ops.render import render_sample
+    from solr_tpu_torch.parallel import sharded_loss_grad
+    from solr_tpu_torch.parallel.launch import spawn_group
+
+    scene, cam, cfg = scenes["bench"]
+    frame_cfg = _par_cfg(cfg, WALK_WIDTH, WALK_HEIGHT)
+    grad_cfg = _par_cfg(cfg, *PAR_GRAD_SIZE)
+    t0 = time.perf_counter()
+    _reset_counts()
+    with torch.no_grad():
+        want = render_sample(scene, cam, frame_cfg)[0]
+        _sync(device)
+        single_ms = (time.perf_counter() - t0) * 1e3
+        single_launches = _launched()
+        target = render_sample(scene, cam, grad_cfg)[0][..., :3] * 0.7
+    par["frame"] = want.cpu().numpy()
+    loss, grads = sharded_loss_grad(scene, cam, grad_cfg, target)
+    par["loss"], par["grads"] = float(loss), grads
+    ring = _ring_case()
+    v0, v1, v2, o, d = (torch.as_tensor(x, device=device) for x in ring)
+    t_ref, i_ref = [], []
+    with torch.no_grad():
+        for s0 in range(0, o.shape[0], 1024):
+            tm = intersect.triangle_t(o[s0:s0 + 1024], d[s0:s0 + 1024], v0,
+                                      v1, v2, 1e-4)
+            t_ref.append(tm.min(-1).values)
+            i_ref.append(tm.argmin(-1))
+    par["ring_ref"] = (torch.cat(t_ref).cpu().numpy(),
+                       torch.cat(i_ref).cpu().numpy())
+    del want, grads, tm
+    if device.type == "cuda":
+        torch.cuda.empty_cache()  # the ranks share the card
+
+    t0, spawned = time.perf_counter(), time.time()
+    group = spawn_group(_parallel_rank, PAR_RANKS,
+                        (str(device), scene.triangles.v0.shape[0], frame_cfg,
+                         grad_cfg, target.cpu().numpy(), ring),
+                        backend="gloo", device=device,
+                        timeout_s=CHILD_DEADLINE_S)
+    results = group.join()
+    group_s = time.perf_counter() - t0
+    par["ranks"] = results
+    img = results[0]["frame"]["image"]
+    err = float(np.abs(img - par["frame"]).max())
+    walks = list(bvh.LAUNCHES)
+    rec["parallel_path"] = dict(
+        ranks=PAR_RANKS, backend="gloo",
+        note=f"{PAR_RANKS} ranks sharing one card ({device}) on gloo; "
+             "not a scaling figure",
+        width=frame_cfg.width, height=frame_cfg.height,
+        camera_mode=frame_cfg.camera_mode.name, tile=list(PAR_TILE),
+        band_rows=frame_cfg.height // PAR_RANKS, group_s=group_s,
+        rank_start_s=[r["entered"] - spawned for r in results],
+        scene_s=[r["scene_s"] for r in results],
+        warmup_ms=[r["frame"]["warmup_ms"] for r in results],
+        frame_ms=[r["frame"]["frame_ms"] for r in results],
+        peak_mem_gb=[r["frame"]["peak_mem_gb"] for r in results],
+        launches=[r["frame"]["launches"] for r in results],
+        digest=results[0]["frame"]["digest"],
+        single_digest=float(par["frame"].astype(np.float64).sum()),
+        single_ms=single_ms, single_launches=single_launches,
+        max_abs_err=err, atol=PAR_FRAME_ATOL)
+    _check_ranks(results, "parallel_path", lambda r: r["frame"]["digest"],
+                 lambda r: r["frame"]["launches"],
+                 ["sweep_closest", "sweep_transmittance"], walks)
+    if not np.isfinite(img).all() or err > PAR_FRAME_ATOL:
+        raise AssertionError(f"parallel_path: sharded frame differs from the "
+                             f"single-process frame by {err}")
+
+
+def phase_parallel_grads(rec, par):
+    """The sharded loss and gradients of both modes against the
+    single-process ones; ZeRO-1 against psum over the train steps."""
+    import math
+
+    from solr_tpu_torch.ops import bvh
+
+    ranks = par["ranks"]
+    _check_ranks(ranks, "parallel_grads", lambda r: [
+        r["grads"]["modes"][m]["digest"] for m in ("psum", "reduce_scatter")],
+        lambda r: r["grads"]["launches"],
+        ["sweep_closest", "sweep_transmittance"], list(bvh.LAUNCHES))
+    g0 = ranks[0]["grads"]
+    out = dict(width=PAR_GRAD_SIZE[0], height=PAR_GRAD_SIZE[1],
+               single_loss=par["loss"], ranks=PAR_RANKS, backend="gloo",
+               peak_mem_gb=[r["grads"]["peak_mem_gb"] for r in ranks],
+               launches=[r["grads"]["launches"] for r in ranks])
+    want = {k: x.cpu() for k, x in _flat_leaves(par["grads"])}
+    bad = []
+    for mode, res in g0["modes"].items():
+        worst, rel = _worst(res["grads"], want, *PAR_LEAF_TOL)
+        loss_rel = abs(res["loss"] - par["loss"]) / abs(par["loss"])
+        out[mode] = dict(loss=res["loss"], loss_rel=loss_rel,
+                         ms=[r["grads"]["modes"][mode]["ms"] for r in ranks],
+                         worst=worst, max_rel=rel)
+        if worst > 0 or loss_rel > PAR_LOSS_RTOL:
+            bad.append(mode)
+    train = g0["train"]
+    out["train"] = dict(
+        {m: dict(losses=train[m]["losses"],
+                 step_ms=[r["grads"]["train"][m]["step_ms"] for r in ranks])
+         for m in ("psum", "reduce_scatter")},
+        worst=train["worst"], max_rel=train["max_rel"])
+    rec["parallel_grads"] = out
+    finite = all(math.isfinite(x) for m in ("psum", "reduce_scatter")
+                 for x in train[m]["losses"])
+    if bad or train["worst"] > 0 or not finite:
+        raise AssertionError(f"parallel_grads: {bad or 'train'} off: {out}")
+
+
+def phase_parallel_ring(rec, par):
+    import numpy as np
+
+    ranks = par["ranks"]
+    _check_ranks(ranks, "parallel_ring", lambda r: r["ring"]["digest"])
+    t_ref, i_ref = par["ring_ref"]
+    t, i = ranks[0]["ring"]["t"], ranks[0]["ring"]["i"]
+    hit = t_ref < 1e30
+    rel = float((np.abs(t[hit] - t_ref[hit]) / np.abs(t_ref[hit])).max())
+    ids = int((i[hit] != i_ref[hit]).sum())
+    rec["parallel_ring"] = dict(
+        triangles=RING_TRIS, rays=RING_RAYS, ranks=PAR_RANKS, hits=int(hit.sum()),
+        id_mismatches=ids, t_max_rel=rel,
+        ms=[r["ring"]["ms"] for r in ranks])
+    if hit.sum() < RING_MIN_HITS or ids or rel > RING_T_RTOL or (
+            i[~hit] != -1).any():
+        raise AssertionError(f"parallel_ring: {rec['parallel_ring']}")
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def phase_parallel_nccl(scenes, rec, par, images, device):
+    """Under NCCL: the parallel_path frame over min(4, cards) cards when
+    the machine has two or more; else shard_render at world size 1 on
+    stereo_path's frame, which it must equal."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from solr_tpu_torch.parallel import (initialize_distributed, make_mesh,
+                                         shard_render)
+    from solr_tpu_torch.parallel.launch import spawn_group
+
+    scene, cam, cfg = scenes["bench"]
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        world = min(4, cards)
+        frame_cfg = _par_cfg(cfg, WALK_WIDTH, WALK_HEIGHT)
+        results = spawn_group(_parallel_rank, world,
+                              ("cuda", scene.triangles.v0.shape[0],
+                               frame_cfg), backend="nccl", device="cuda",
+                              timeout_s=CHILD_DEADLINE_S).join()
+        img, want = results[0]["frame"]["image"], par["frame"]
+        _check_ranks(results, "parallel_nccl", lambda r: r["frame"]["digest"],
+                     lambda r: r["frame"]["launches"],
+                     ["sweep_closest", "sweep_transmittance"])
+        why = f"{cards} cards"
+    else:
+        world = 1
+        frame_cfg = _stereo_cfg(cfg)
+        initialize_distributed(f"localhost:{_free_port()}", 1, 0,
+                               backend="nccl", device=device, retries=1,
+                               timeout_s=CHILD_DEADLINE_S)
+        try:
+            with torch.no_grad():
+                img = shard_render(scene, cam, frame_cfg,
+                                   make_mesh(device_type="cuda"))[0]
+            img = img.cpu().numpy()
+        finally:
+            dist.destroy_process_group()
+        want = images["stereo_path"].cpu().numpy()
+        why = ("one card: NCCL refuses two ranks on one device, so the "
+               "multi-rank phases run on gloo")
+    err = float(np.abs(img - want).max())
+    rec["parallel_nccl"] = dict(
+        nccl_ranks=world, why=why, width=frame_cfg.width,
+        height=frame_cfg.height,
+        tile=[frame_cfg.packet_tile_w, frame_cfg.packet_tile_h],
+        digest=float(img.astype(np.float64).sum()),
+        ref_digest=float(want.astype(np.float64).sum()), max_abs_err=err)
+    if err > PAR_FRAME_ATOL:
+        raise AssertionError(f"parallel_nccl: {rec['parallel_nccl']}")
+
+
+def _resumable_child(device, n_tris, cfg, directory, heartbeat, events, out):
+    """A worker of the resumable phase: the bench frame of ``n_tris``
+    triangles at ``cfg`` through resumable_render in RESUME_ROWS-row
+    chunks; its events go to ``events`` (JSON lines), its frame to
+    ``out`` (.npy)."""
+    import numpy as np
+
+    from solr_tpu_torch.bench_scene import bench_scene
+    from solr_tpu_torch.utils.resumable import resumable_render
+
+    scene, cam, _ = bench_scene(n_tris, block=BLOCK, device=device)
+
+    def log(event, **fields):
+        with open(events, "a") as f:
+            f.write(json.dumps(dict(event=event, **fields)) + "\n")
+
+    img, _ = resumable_render(scene, cam, cfg, directory,
+                              rows_per_chunk=RESUME_ROWS, heartbeat=heartbeat,
+                              log=log)
+    np.save(out, img.cpu().numpy())
+
+
+def _against(img, ref):
+    """Pixels of ``img`` off ``ref`` (any difference; past
+    MISMATCH_ATOL) and the largest difference."""
+    import numpy as np
+
+    err = np.abs(img - ref).max(-1)
+    return dict(differ=int((err > 0).sum()),
+                past_atol=int((err > MISMATCH_ATOL).sum()),
+                max_abs_err=float(err.max()))
+
+
+def phase_resumable(scenes, rec, device):
+    """A worker renders the bench frame in RESUME_ROWS-row checkpointed
+    chunks and is SIGKILLed after its first heartbeat; a second worker
+    resumes the directory.  Its frame must equal an uninterrupted
+    resumable_render of the same chunks bit for bit, and render_sample
+    within the frame budget (row bands regroup the packets, and an
+    edge-grazing ray can flip where a net chunk overflows: ROADMAP
+    C13).  Then the same directory with twice the chunk height must
+    start over (ROADMAP C5), within the same budget."""
+    import multiprocessing
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from solr_tpu_torch.ops.render import render_sample
+    from solr_tpu_torch.utils.checkpoint import latest_step
+    from solr_tpu_torch.utils.resumable import resumable_render
+
+    scene, cam, cfg = scenes["bench"]
+    n_chunks = cfg.height // RESUME_ROWS
+    ctx = multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory(prefix="solr_resume_") as tmp:
+        ckpt, beat = os.path.join(tmp, "ckpt"), os.path.join(tmp, "beat")
+        events, out = os.path.join(tmp, "events"), os.path.join(tmp, "f.npy")
+        args = (str(device), scene.triangles.v0.shape[0], cfg, ckpt, beat,
+                events, out)
+        t0 = time.perf_counter()
+        first = ctx.Process(target=_resumable_child, args=args)
+        first.start()
+        deadline = time.monotonic() + CHILD_DEADLINE_S
+        while not os.path.exists(beat) and first.is_alive():
+            if time.monotonic() > deadline:
+                break
+            time.sleep(0.02)
+        first.kill()
+        first.join()
+        killed_at = latest_step(ckpt)
+        second = ctx.Process(target=_resumable_child, args=args)
+        second.start()
+        second.join(CHILD_DEADLINE_S)
+        if second.is_alive():
+            second.kill()
+            second.join()
+        child_s = time.perf_counter() - t0
+        if second.exitcode != 0 or not killed_at or killed_at >= n_chunks:
+            raise AssertionError(f"resumable: killed at chunk {killed_at} of "
+                                 f"{n_chunks}, relaunch exit "
+                                 f"{second.exitcode}")
+        img = np.load(out)
+        with open(events) as f:
+            seen = [json.loads(line) for line in f]
+        with torch.no_grad():
+            want = render_sample(scene, cam, cfg)[0].cpu().numpy()
+        whole = resumable_render(scene, cam, cfg, os.path.join(tmp, "whole"),
+                                 rows_per_chunk=RESUME_ROWS)[0].cpu().numpy()
+        again = []
+        t0 = time.perf_counter()
+        img2 = resumable_render(
+            scene, cam, cfg, ckpt, rows_per_chunk=2 * RESUME_ROWS,
+            log=lambda event, **f: again.append(event))[0].cpu().numpy()
+        rerun_s = time.perf_counter() - t0
+    resumed = [e for e in seen if e["event"] == "resumed"]
+    rec["resumable"] = r = dict(
+        width=cfg.width, height=cfg.height, rows_per_chunk=RESUME_ROWS,
+        chunks=n_chunks, killed_after_chunks=killed_at, resumed=resumed,
+        chunks_rendered_after_kill=sum(
+            e["event"] == "chunk_done" for e in seen[seen.index(resumed[0]):])
+        if resumed else None,
+        children_s=child_s,
+        equal_to_uninterrupted=bool(np.array_equal(img, whole)),
+        against_render_sample=_against(img, want),
+        c5_events=sorted(set(again)), c5_rerun_s=rerun_s,
+        c5_against_render_sample=_against(img2, want))
+    budget = MISMATCH_BUDGET * cfg.n_pixels
+    if (not resumed or resumed[0]["from_chunk"] != killed_at
+            or not r["equal_to_uninterrupted"]
+            or r["against_render_sample"]["past_atol"] > budget
+            or "resumed" in again or "stale_checkpoint_discarded" not in again
+            or r["c5_against_render_sample"]["past_atol"] > budget):
+        raise AssertionError(f"resumable: {r}")
+
+
 def _kernel_table(rec, paths):
     """The kernels JSON line: each kernel's timed comparison, with its
     launches from the main path whose shapes it was timed at."""
@@ -1275,6 +1855,8 @@ def main() -> int:
 
     paths = {}
     scenes = {}
+    images = {}
+    par = {}
 
     def bench():
         t0 = time.time()
@@ -1346,7 +1928,7 @@ def main() -> int:
         ("stereo_path", lambda: paths.update(stereo_path=phase_path(
             scenes["bench"][0], scenes["bench"][1],
             _stereo_cfg(scenes["bench"][2]), rec, "stereo_path", tri,
-            idle=walks, slow_s=STEREO_SLOW_S))),
+            idle=walks, slow_s=STEREO_SLOW_S, keep=images))),
         ("stereo_while", lambda: paths.update(stereo_while=phase_path(
             scenes["bench"][0], scenes["bench"][1], dataclasses.replace(
                 _stereo_cfg(scenes["bench"][2]), traversal="while"), rec,
@@ -1355,14 +1937,23 @@ def main() -> int:
         ("textured_path", lambda: paths.update(
             textured_path=phase_textured_path(rec, device, tri_walks))),
         ("textured_reference", lambda: phase_textured_reference(rec, device)),
+        ("parallel_path", lambda: phase_parallel(scenes, rec, par, device)),
+        ("parallel_grads", lambda: phase_parallel_grads(rec, par)),
+        ("parallel_ring", lambda: phase_parallel_ring(rec, par)),
+        ("parallel_nccl", lambda: phase_parallel_nccl(scenes, rec, par, images,
+                                                      device)),
+        ("resumable", lambda: phase_resumable(scenes, rec, device)),
     )
+    rec["phase_s"] = {}
     for name, fn in steps:
+        t0 = time.time()
         try:
             fn()
             print(f"phase {name}: ok", flush=True)
         except Exception:  # every phase runs; any failure fails the run
             rec["failed"].append(name)
             print(f"phase {name}: FAILED\n{traceback.format_exc()}", flush=True)
+        rec["phase_s"][name] = time.time() - t0
     rec["total_s"] = time.time() - t_start
     print(f"record: {json.dumps(rec)}", flush=True)
     if rec["failed"]:

@@ -9,8 +9,12 @@ their draws at the same places.  The draws themselves differ (PyTorch's
 generators are not threefry; ROADMAP C6), and a key's draws on the card
 differ from its draws on the CPU.
 
-Anything with the same three methods (``split``, ``uniform``,
-``normal``) can stand in for a key.
+``fold_in(i)`` is the per-device key of a sharded render: each rank
+folds its linear index into the frame's key, as the reference folds in
+``jax.random.fold_in(key, axis_index)``.
+
+Anything with the same four methods (``split``, ``fold_in``,
+``uniform``, ``normal``) can stand in for a key.
 """
 
 from __future__ import annotations
@@ -20,6 +24,9 @@ import torch
 __all__ = ["Key"]
 
 _MASK = (1 << 64) - 1
+# Folds mix their index with this constant, so fold_in(i) never equals
+# a child of split() (those mix i + 1, a small number).
+_FOLD = 0xF01D_1A7E_5EED_0000
 
 
 def _mix(x: int) -> int:
@@ -48,6 +55,12 @@ class Key:
         key's own draws."""
         return [Key(_mix(self.state ^ _mix(i + 1)), self.device)
                 for i in range(n)]
+
+    def fold_in(self, i: int) -> "Key":
+        """The child key of ``(this key, i)``: the same ``i`` gives the
+        same key every time, different ``i`` independent keys."""
+        return Key(_mix(self.state ^ _mix(_FOLD ^ (int(i) & _MASK))),
+                   self.device)
 
     def _generator(self) -> torch.Generator:
         g = torch.Generator(self.device)

@@ -9,7 +9,8 @@ Tolerances: origins and directions at rtol 1e-6 and, for components
 near zero, atol 2.5e-7 (two float32 ulps at 1: sin, cos and atan2 of
 the fisheye and the lens round differently in the two libraries, by up
 to 1.9e-7 on a component of 0.09; the rest is the same arithmetic).
-The f64 camera over an f32 pixel grid is held to the same tolerance.  The port's own ``Key``: equal draws from equal keys, exact.
+The f64 camera over an f32 pixel grid is held to the same tolerance.  The port's own ``Key``: equal draws from equal keys (and folds),
+exact.
 """
 
 import dataclasses
@@ -144,6 +145,31 @@ def test_key_is_a_value():
     assert not torch.equal(c1.uniform((5, 2)), c2.uniform((5, 2)))
     assert k.split(3)[:2][0].state == c1.state
     assert a.dtype == torch.float32 and (a >= 0).all() and (a < 1).all()
+
+
+def test_fold_in_is_a_value():
+    """fold_in(i) (the per-rank key of a sharded render): the same
+    (key, i) gives the same key and draws, other i and the split
+    children other keys."""
+    k = Key.seed(3, "cpu")
+    f = k.fold_in(2)
+    assert f.state == Key.seed(3, "cpu").fold_in(2).state
+    assert torch.equal(f.uniform((5, 2)), k.fold_in(2).uniform((5, 2)))
+    folds = [k.fold_in(i) for i in range(8)]
+    states = {x.state for x in folds} | {c.state for c in k.split(8)}
+    assert len(states | {k.state}) == 17
+    assert not torch.equal(folds[0].uniform((5, 2)), folds[1].uniform((5, 2)))
+    assert f.device == k.device
+
+
+@pytest.mark.parametrize("i", [0, 1, 7])
+def test_jaxkey_fold_in_matches_jax(i):
+    key = jax.random.PRNGKey(11)
+    want = jax.random.uniform(jax.random.fold_in(key, i), (4, 3), jnp.float32)
+    got = JaxKey(key).fold_in(i).uniform((4, 3))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert not np.array_equal(JaxKey(key).fold_in(i + 1).uniform((4, 3)),
+                              got.numpy())
 
 
 def test_key_defaults_to_the_card():

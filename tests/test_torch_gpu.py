@@ -24,7 +24,8 @@ frame at 32x8 tiles (which must launch B1 and B2 and no walk kernel),
 the anaglyph Cornell box, and the textured scene (BASELINE config #3)
 plain, with the fisheye and with a lens and depth of field; the
 textured frame with a key (soft shadows, jitter, 2 samples) renders
-finite on the card.
+finite on the card.  ``shard_render`` over two gloo ranks sharing the
+card equals the one-process frame, with B1 and B2 launched in both.
 
 These need a CUDA card and nvcc; without a card they skip.  The file
 imports neither JAX nor solr_tpu, so it runs where only PyTorch is
@@ -60,8 +61,10 @@ from solr_tpu_torch.ops.rng import Key
 from solr_tpu_torch.ops.traverse import _scene_box, scene_closest_hit
 from solr_tpu_torch.textured_scene import textured_scene
 from solr_tpu_torch.types import CameraMode, PostFxConfig, PostFxMode
+from solr_tpu_torch.parallel.launch import spawn_group
 from torch_bvh_helpers import (cross_leaf_pairs, fractional_materials,
                                shadow_rays_to_light, tie_scene)
+from torch_parallel_helpers import gpu_frame
 from torch_sweep_helpers import forced_ties
 
 N_TRIS, SIZE, BLOCK = 20_000, 64, 512
@@ -700,3 +703,23 @@ def test_textured_with_key_on_card(cuda):
         hard = render(scene, cam, cfg)
     assert img.shape == (48, 64, 4) and torch.isfinite(img).all()
     assert float((img - hard).abs().max()) > 1e-2
+
+
+@pytest.mark.gpu
+def test_shard_render_two_ranks_share_the_card(cuda):
+    """shard_render over two gloo ranks that share the card (NCCL
+    refuses two ranks on one device), on the reduced bench frame side by
+    side with 32x9 tiles (36-row bands): equal to the one-process frame
+    at atol 1e-6, and both ranks launch B1 and B2."""
+    scene, cam, cfg = bench_scene(N_TRIS, block=BLOCK, width=128, height=72,
+                                  device=cuda)
+    cfg = dataclasses.replace(cfg, camera_mode=CameraMode.SIDE_BY_SIDE,
+                              packet_tile_w=32, packet_tile_h=9)
+    group = spawn_group(gpu_frame, 2, (N_TRIS, BLOCK, cfg), backend="gloo",
+                        device="cuda:0", timeout_s=300)
+    with torch.no_grad():
+        want = render_sample(scene, cam, cfg)[0].cpu().numpy()
+    for img, launches in group.join():
+        np.testing.assert_allclose(img, want, atol=1e-6)
+        assert min(launches["sweep_closest"],
+                   launches["sweep_transmittance"]) > 0

@@ -22,7 +22,10 @@ def test_imports_with_jax_blocked():
         "solr_tpu_torch.sweep_steps, solr_tpu_torch.ops.bvh, "
         "solr_tpu_torch.cornell_scene, solr_tpu_torch.utils, "
         "solr_tpu_torch.inverse, solr_tpu_torch.textured_scene, "
-        "solr_tpu_torch.ops.postfx, solr_tpu_torch.ops.rng, chip_smoke\n"
+        "solr_tpu_torch.ops.postfx, solr_tpu_torch.ops.rng, "
+        "solr_tpu_torch.parallel, solr_tpu_torch.parallel.launch, "
+        "solr_tpu_torch.utils.logging, solr_tpu_torch.utils.resumable, "
+        "chip_smoke\n"
         "from solr_tpu_torch.bench_scene import bench_scene\n"
         "from solr_tpu_torch.ops.render import render_sample\n"
         "s, c, cfg = bench_scene(2000, block=128, width=32, height=32,\n"
@@ -62,3 +65,19 @@ def test_no_jax_or_reference_imports_in_source():
                 if top in ("jax", "jaxlib", "solr_tpu"):
                     bad.append(f"{path}: {m}")
     assert not bad, bad
+
+
+def test_parallel_helpers_import_no_jax():
+    """Spawned ranks import tests/torch_parallel_helpers.py, also on the
+    card's host, which has no JAX: its module-level imports take none
+    (the keyed scenario imports JAX inside a rank)."""
+    path = os.path.join(ROOT, "tests", "torch_parallel_helpers.py")
+    tree = ast.parse(open(path).read(), path)
+    mods = []
+    for node in tree.body:
+        if isinstance(node, ast.Import):
+            mods += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            mods.append(node.module)
+    assert not [m for m in mods if m.split(".")[0] in
+                ("jax", "jaxlib", "solr_tpu", "torch_rng_helpers")], mods

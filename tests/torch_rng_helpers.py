@@ -1,10 +1,10 @@
 """``JaxKey``: a ``jax.random`` key behind the port's key interface.
 
-``solr_tpu_torch`` takes its random draws from a key with three methods
-(``split``, ``uniform``, ``normal``; solr_tpu_torch/ops/rng.py).  A
-JaxKey answers them with ``jax.random.split``, ``uniform`` and
-``normal`` on the wrapped key and returns torch tensors on the CPU, so
-the port, handed a JaxKey, makes exactly the draws that ``solr_tpu``
+``solr_tpu_torch`` takes its random draws from a key with four methods
+(``split``, ``fold_in``, ``uniform``, ``normal``;
+solr_tpu_torch/ops/rng.py).  A JaxKey answers them with
+``jax.random.split``, ``fold_in``, ``uniform`` and ``normal`` on the
+wrapped key and returns torch tensors on the CPU, so the port, handed a JaxKey, makes exactly the draws that ``solr_tpu``
 makes from the same key, and a stochastic frame can be held to the
 reference pixel by pixel.  The port itself never sees JAX.
 """
@@ -28,6 +28,9 @@ class JaxKey:
 
     def split(self, n: int = 2) -> list:
         return [JaxKey(k) for k in jax.random.split(self.key, n)]
+
+    def fold_in(self, i: int) -> "JaxKey":
+        return JaxKey(jax.random.fold_in(self.key, i))
 
     def uniform(self, shape, dtype=torch.float32) -> torch.Tensor:
         return torch.as_tensor(np.array(jax.random.uniform(
