@@ -48,9 +48,14 @@ both started together.  Phases, each of which must pass:
 9. ``kernels_walk``: the six BVH walk kernels (csrc/bvh_walk.cu:
    closest hit and transmittance over the triangle, sphere and cylinder
    BVHs) against their plain versions, each on the first call that the
-   walk paths below make of it (recorded in one frame of each): t, idx,
-   tr, node visits and lane tests bit-equal; kernel and plain times,
-   visits and tests per ray, and the bound;
+   walk paths below make of it (recorded in one frame of each; the
+   triangle kernels also on the first calls of the textured frame of
+   20): t, idx, tr, node visits and lane tests bit-equal (the triangle
+   closest hit: all four to the near-first plain walk, t and idx also to
+   the DFS walk); kernel and plain times, the triangle kernels' repack
+   timed apart, visits and tests per ray under the DFS walk's order and
+   the kernel's, the bound at both, and each kernel's registers and
+   stack from nvcc -Xptxas -v;
 10. ``walk_path``: the bench scene at 1920x1080, 2 bounces: 1080 rows are
    no whole number of 16-pixel tiles, so every triangle query walks the
    triangle BVH; one warm-up and three timed frames as in 4; the walk
@@ -143,7 +148,11 @@ both started together.  Phases, each of which must pass:
    for bit, and render_sample as in 5 (the pixels that differ at all
    are reported: a row band regroups the packets, and an edge-grazing
    ray can flip, ROADMAP C13); the same directory run again with
-   128-row chunks must start over (ROADMAP C5), held the same way.
+   128-row chunks must start over (ROADMAP C5), held the same way;
+27. ``walk_profiles``: one more frame of 10 and of 18's ``stereo_while``
+   under torch.profiler, after every timed phase: device kernels per
+   frame and the device busy share (device time over the best timed
+   frame).
 
 Every spawned rank or worker must end within CHILD_DEADLINE_S seconds,
 or its phase fails.
@@ -221,13 +230,15 @@ BODY = {"tri": "_woop_rows :108", "sphere": "_sphere_rows :136",
 # The walks (solr_tpu_torch/csrc/bvh_walk.cu), counted the same way:
 # per ray, the three divisions of 1/d; per node visited, the slab test's
 # six subtractions and six multiplies; per leaf lane tested, the pool
-# test of TriP (Moller-Trumbore), SphereP or CylP (which also forms the
-# axis, |axis|^2, 1/max(|axis|^2, 1e-8) and r*r of its cylinder); per
-# pair that reaches its roots, as for the sweeps.  The shadow walk's
-# products are not counted.
+# test: Moller-Trumbore with its two edges formed (52), SphereP or CylP
+# (which also forms the axis, |axis|^2, 1/max(|axis|^2, 1e-8) and r*r of
+# its cylinder); per pair that reaches its roots, as for the sweeps.
+# The shadow walk's products are not counted.  The triangle kernels read
+# the edges from pack_triangles: their own bound counts 46 per lane.
 WALK_OPS_PER_RAY = 3
 WALK_OPS_PER_VISIT = 12
 WALK_OPS_PER_LANE = {"tri": 52, "sphere": 17, "cyl": 85}
+PACKED_TRI_OPS_PER_LANE = 46
 WALK_REPLACES = {"bvh_closest_hit": "solr_tpu/ops/bvh.py:333",
                  "bvh_transmittance": "solr_tpu/ops/bvh.py:397"}
 # Gradient checks: per-leaf f32 tolerances of the inverse scene, the
@@ -468,39 +479,6 @@ def phase_kernels_molecule(scene, cam, cfg, rec):
     _assert_equal(rec)
 
 
-def _first_walk_calls(scene, cam, cfg):
-    """The arguments of the first call of each walk (entry point x
-    primitive kind) in one frame, read by wrapping the wrappers."""
-    import torch
-
-    from solr_tpu_torch.ops import bvh
-    from solr_tpu_torch.ops.render import render_sample
-
-    calls, inner = {}, {e: getattr(bvh, e) for e in bvh.ENTRIES}
-
-    def recorder(entry):
-        def call(scene, tree, code, o, d, t_min, t_max, **kw):
-            key = bvh.kernel_name(entry, bvh.POOL_PRIM[code])
-            if key not in calls:
-                calls[key] = (entry, bvh.POOL_PRIM[code], tree, o.clone(),
-                              d.clone(), t_min, torch.as_tensor(
-                                  t_max, dtype=o.dtype, device=o.device)
-                              .expand(o.shape[:-1]).clone())
-            return inner[entry](scene, tree, code, o, d, t_min, t_max, **kw)
-        return call
-
-    for e in bvh.ENTRIES:
-        setattr(bvh, e, recorder(e))
-    try:
-        with torch.no_grad():
-            render_sample(scene, cam, cfg)
-        torch.cuda.synchronize()
-    finally:
-        for e in bvh.ENTRIES:
-            setattr(bvh, e, inner[e])
-    return calls
-
-
 def _walk_root_pairs(scene, prim, o, d, first, cnt, leaf_size):
     """How many tested (ray, leaf lane) pairs of one walk step reach their
     roots (_reaches_roots on the lanes' rows)."""
@@ -550,12 +528,12 @@ def _walk_plain_with_root_pairs(plain, args, prim):
 
 
 def _walk_bound_ms(prim, closest, scene, tree, args, outs, visits, tests,
-                   root_pairs):
+                   root_pairs, ops_per_lane=None):
     """(bound ms, "bytes" or "operations") of one walk call: its rays,
     outputs, node arrays and pool arrays (and the materials' factors for
     the shadow walk) each counted once against the memory rate, and the
     WALK_OPS_* operations of this run's visits, tests and root pairs
-    against the f32 rate."""
+    (``ops_per_lane`` per test where given) against the f32 rate."""
     import torch
 
     p = {"tri": scene.triangles, "sphere": scene.spheres,
@@ -572,17 +550,41 @@ def _walk_bound_ms(prim, closest, scene, tree, args, outs, visits, tests,
     nbytes = sum(x.numel() * x.element_size() for x in tensors)
     n_rays = args[3].shape[0]
     ops = (n_rays * WALK_OPS_PER_RAY + visits * WALK_OPS_PER_VISIT
-           + tests * WALK_OPS_PER_LANE[prim]
+           + tests * (ops_per_lane or WALK_OPS_PER_LANE[prim])
            + root_pairs * OPS_PER_ROOT_PAIR[prim])
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes > t_ops else "operations")
 
 
-def _check_walk(rec, scene, call):
+# Each walk kernel's function in csrc/bvh_walk.cu, as its mangled name
+# holds it, and its design.
+WALK_FUNCTION = {"bvh_closest_hit_tri": "closest_tri",
+                 "bvh_transmittance_tri": "trans_tri",
+                 "bvh_closest_hit_sphere": "closest_walkI7SphereP",
+                 "bvh_transmittance_sphere": "trans_walkI7SphereP",
+                 "bvh_closest_hit_cyl": "closest_walkI4CylP",
+                 "bvh_transmittance_cyl": "trans_walkI4CylP"}
+WALK_DESIGN = {
+    "bvh_closest_hit_tri": "packed child pairs, near child first, stack",
+    "bvh_transmittance_tri": "packed child pairs, DFS order, stack"}
+
+
+def _walk_usage(rec, name):
+    fn = WALK_FUNCTION[name]
+    hit = [u for k, u in rec.get("bvh_ptxas", {}).items() if fn in k]
+    return hit[0] if hit else None
+
+
+def _check_walk(rec, scene, call, label=None):
     """One walk kernel against its plain version on one recorded call:
-    t or tr, idx, visits and tests bit-equal; times, visits and tests per
-    ray, and the bound."""
+    t or tr, idx, visits and tests bit-equal (the triangle closest hit:
+    all four to the near-first plain walk, t and idx to the DFS walk);
+    times, visits and tests per ray under both orders, and the bound at
+    the DFS walk's counts (the yardstick across PRs) and at the
+    kernel's own.  The triangle kernels' repack (pack_nodes and
+    pack_triangles, built anew) is timed apart from the kernel, which
+    reads the cached layouts."""
     import torch
 
     from solr_tpu_torch.kernel_shapes import time_ms
@@ -591,49 +593,83 @@ def _check_walk(rec, scene, call):
     entry, prim, tree, o, d, t_min, t_max = call
     closest = entry == "bvh_closest_hit"
     launch = bvh.launch_closest if closest else bvh.launch_transmittance
-    plain = (bvh.bvh_closest_hit_plain if closest
-             else bvh.bvh_transmittance_plain)
+    dfs_plain = (bvh.bvh_closest_hit_plain if closest
+                 else bvh.bvh_transmittance_plain)
+    near = closest and prim == "tri"
+    plain = bvh.bvh_closest_hit_ordered_plain if near else dfs_plain
     args = (scene, tree, prim, o, d, t_min, t_max)
     got = launch(bvh._library(), *args)
-    want, root_pairs = _walk_plain_with_root_pairs(plain, args, prim)
+    dfs, root_pairs = _walk_plain_with_root_pairs(dfs_plain, args, prim)
+    own = plain(*args) if near else dfs
     torch.cuda.synchronize()
-    visits, tests = int(want[-2].sum()), int(want[-1].sum())
+    equal = all(torch.equal(a, b) for a, b in zip(got, own))
+    if near:
+        equal &= all(torch.equal(a, b) for a, b in zip(got[:2], dfs[:2]))
+    visits, tests = int(dfs[-2].sum()), int(dfs[-1].sum())
+    own_visits, own_tests = int(own[-2].sum()), int(own[-1].sum())
     n = o.shape[0]
+    name = bvh.kernel_name(entry, prim)
     entry_rec = dict(
-        name=bvh.kernel_name(entry, prim), entry=entry, prim=prim,
-        equal=all(torch.equal(a, b) for a, b in zip(got, want)),
-        max_abs_err=float((got[0] - want[0]).abs().max()), rays=n,
-        nodes=tree.n_nodes, visits_per_ray=visits / n,
-        tests_per_ray=tests / n, root_pairs=root_pairs,
+        name=name, entry=entry, prim=prim, label=label,
+        design=WALK_DESIGN.get(name, "one thread per ray, skip pointers"),
+        equal=equal, max_abs_err=float((got[0] - own[0]).abs().max()),
+        rays=n, nodes=tree.n_nodes, visits_per_ray=visits / n,
+        tests_per_ray=tests / n, own_visits_per_ray=own_visits / n,
+        own_tests_per_ray=own_tests / n, root_pairs=root_pairs,
         ms=time_ms(lambda: launch(bvh._library(), *args), 5),
-        plain_ms=time_ms(lambda: plain(*args), 1))
+        plain_ms=time_ms(lambda: plain(*args), 1), ptxas=_walk_usage(
+            rec, name))
+    if near:
+        entry_rec["dfs_plain_ms"] = time_ms(lambda: dfs_plain(*args), 1)
+    if prim == "tri":
+        entry_rec["repack_ms"] = time_ms(
+            lambda: (bvh.pack_nodes(tree), bvh.pack_triangles(scene)), 5)
     if closest:
-        entry_rec["hits"] = int((want[0] < 1e30).sum())
+        entry_rec["hits"] = int((own[0] < 1e30).sum())
     else:
-        entry_rec["shadowed"] = int((want[0] < 1.0).sum())
+        entry_rec["shadowed"] = int((own[0] < 1.0).sum())
+        entry_rec["stopped"] = int((own[0] <= 1e-6).sum())
     entry_rec["bound_ms"], entry_rec["bound_by"] = _walk_bound_ms(
         prim, closest, scene, tree, args, got, visits, tests, root_pairs)
+    entry_rec["own_bound_ms"], entry_rec["own_bound_by"] = _walk_bound_ms(
+        prim, closest, scene, tree, args, got, own_visits, own_tests,
+        root_pairs, PACKED_TRI_OPS_PER_LANE if prim == "tri" else None)
     rec["walk_kernels"].append(entry_rec)
 
 
-def phase_kernels_walk(scenes, rec):
+def phase_kernels_walk(scenes, rec, device):
     """The six walk kernels on the first calls of the walk paths: the
-    triangle pool's from the 1080p bench frame, the sphere and cylinder
-    pools' from the molecule frame with traversal="while"."""
+    triangle pool's from the 1080p bench frame and from the textured
+    frame (render with a key and TEXTURED_SPP samples: 3 bounces, 4
+    shadow samples), the sphere and cylinder pools' from the molecule
+    frame with traversal="while"."""
     import dataclasses
 
+    from solr_tpu_torch.kernel_shapes import first_walk_calls
+    from solr_tpu_torch.ops.render import render, render_sample
+    from solr_tpu_torch.ops.rng import Key
+    from solr_tpu_torch.textured_scene import textured_scene
+
     scene, cam, cfg = scenes["bench"]
-    calls = _first_walk_calls(scene, cam, _walk_cfg(cfg))
-    for prim in ("tri",):
-        for entry in ("bvh_closest_hit", "bvh_transmittance"):
-            _check_walk(rec, scene, calls[f"{entry}_{prim}"])
+    calls = first_walk_calls(lambda: render_sample(scene, cam,
+                                                    _walk_cfg(cfg)))
+    for entry in ("bvh_closest_hit", "bvh_transmittance"):
+        _check_walk(rec, scene, calls[f"{entry}_tri"])
+    tex, tcam, tcfg = textured_scene(WALK_WIDTH, WALK_HEIGHT, device=device)
+    calls = first_walk_calls(lambda: render(tex, tcam, tcfg,
+                                             Key.seed(0, device),
+                                             spp=TEXTURED_SPP))
+    for entry in ("bvh_closest_hit", "bvh_transmittance"):
+        _check_walk(rec, tex, calls[f"{entry}_tri"], "textured frame")
+    del tex, calls
     scene, cam, cfg = scenes["molecule"]
-    calls = _first_walk_calls(scene, cam,
-                              dataclasses.replace(cfg, traversal="while"))
+    calls = first_walk_calls(lambda: render_sample(
+        scene, cam, dataclasses.replace(cfg, traversal="while")))
     for prim in ("sphere", "cyl"):
         for entry in ("bvh_closest_hit", "bvh_transmittance"):
             _check_walk(rec, scene, calls[f"{entry}_{prim}"])
-    bad = [k["name"] for k in rec["walk_kernels"] if not k["equal"]]
+    bad = [(k["name"], k["label"]) for k in rec["walk_kernels"]
+           if not k["equal"]]
     if bad:
         raise AssertionError(f"walk kernel and plain version disagree: {bad}")
 
@@ -1788,6 +1824,29 @@ def phase_resumable(scenes, rec, device):
         raise AssertionError(f"resumable: {r}")
 
 
+def phase_walk_profiles(scenes, rec):
+    """One more frame of ``walk_path`` and of ``stereo_while`` under
+    torch.profiler, last, so that no profiler session runs before a
+    timed phase: device kernels per frame and the device busy share (the
+    profiled frame's device time over the phase's best timed frame)."""
+    import dataclasses
+
+    import torch
+
+    from solr_tpu_torch.ops.render import render_sample
+
+    scene, cam, cfg = scenes["bench"]
+    for key, c in (("walk_path", _walk_cfg(cfg)),
+                   ("stereo_while", dataclasses.replace(
+                       _stereo_cfg(cfg), traversal="while"))):
+        with torch.no_grad():
+            prof = _device_profile(lambda: render_sample(scene, cam, c))
+        rec[key].update(
+            device_kernels_per_frame=prof["device_kernels"],
+            device_busy_share=prof["device_busy_ms"] / rec[key][
+                "best_frame_ms"], profile=prof)
+
+
 def _kernel_table(rec, paths):
     """The kernels JSON line: each kernel's timed comparison, with its
     launches from the main path whose shapes it was timed at."""
@@ -1812,15 +1871,20 @@ def _kernel_table(rec, paths):
                 library_ms=None, ceiling_ms=timed["ceiling_ms"],
                 tests_per_s=timed["tests_per_s"]))
     for k in rec["walk_kernels"]:
+        if k["label"]:  # the textured frame's rows stay in the record
+            continue
         path = "walk_path" if k["prim"] == "tri" else "molecule_while"
         table.append(dict(
-            name=k["name"], route="cuda", design="one thread per ray",
+            name=k["name"], route="cuda", design=k["design"],
             source="solr_tpu_torch/csrc/bvh_walk.cu",
             replaces=WALK_REPLACES[k["entry"]], launches=paths[path][k["name"]],
             max_abs_err=k["max_abs_err"], ms=k["ms"], plain_ms=k["plain_ms"],
             bound_ms=k["bound_ms"], bound_by=k["bound_by"], library_ms=None,
+            own_bound_ms=k["own_bound_ms"], repack_ms=k.get("repack_ms"),
             rays=k["rays"], visits_per_ray=k["visits_per_ray"],
-            tests_per_ray=k["tests_per_ray"]))
+            tests_per_ray=k["tests_per_ray"],
+            own_visits_per_ray=k["own_visits_per_ray"],
+            own_tests_per_ray=k["own_tests_per_ray"]))
     return table
 
 
@@ -1834,6 +1898,7 @@ def main() -> int:
     import dataclasses
 
     from solr_tpu_torch.bench_scene import bench_scene
+    from solr_tpu_torch.kernel_shapes import ptxas_usage
     from solr_tpu_torch.molecule_scene import molecule_scene
     from solr_tpu_torch.ops import bvh, sweep
 
@@ -1852,6 +1917,7 @@ def main() -> int:
     print(f"build: {rec['build_s']:.2f} s", flush=True)
     for log in logs:
         print(log.strip(), flush=True)
+    rec["bvh_ptxas"] = ptxas_usage(logs[1])
 
     paths = {}
     scenes = {}
@@ -1908,7 +1974,7 @@ def main() -> int:
             *scenes["molecule"], rec, "molecule_path", list(sweep.LAUNCHES),
             idle=walks))),
         ("molecule_reference", lambda: phase_molecule_reference(rec, device)),
-        ("kernels_walk", lambda: phase_kernels_walk(scenes, rec)),
+        ("kernels_walk", lambda: phase_kernels_walk(scenes, rec, device)),
         ("walk_path", lambda: paths.update(walk_path=phase_path(
             scenes["bench"][0], scenes["bench"][1],
             _walk_cfg(scenes["bench"][2]), rec, "walk_path", tri_walks,
@@ -1943,6 +2009,7 @@ def main() -> int:
         ("parallel_nccl", lambda: phase_parallel_nccl(scenes, rec, par, images,
                                                       device)),
         ("resumable", lambda: phase_resumable(scenes, rec, device)),
+        ("walk_profiles", lambda: phase_walk_profiles(scenes, rec)),
     )
     rec["phase_s"] = {}
     for name, fn in steps:

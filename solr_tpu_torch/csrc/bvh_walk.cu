@@ -1,31 +1,52 @@
-// The per-ray stackless BVH walk, for Hopper (sm_90a).  Built by nvcc
-// into a shared library with a plain C interface and bound with ctypes
+// The per-ray BVH walks, for Hopper (sm_90a).  Built by nvcc into a
+// shared library with a plain C interface and bound with ctypes
 // (solr_tpu_torch/ops/bvh.py).
 //
 // Replaces the per-ray walks of solr_tpu/ops/bvh.py, which are
 // lax.while_loops, not Pallas kernels:
-//   solr_bvh_closest(prim)       <- bvh_closest_hit   (bvh.py:333)
-//   solr_bvh_transmittance(prim) <- bvh_transmittance (bvh.py:397)
-//   prim 0 = tri    (two-sided Moller-Trumbore, functor TriP)
-//   prim 1 = sphere (functor SphereP)
-//   prim 2 = cyl    (capped cylinder, functor CylP)
+//   solr_bvh_closest_tri         <- bvh_closest_hit   (bvh.py:333), triangles
+//   solr_bvh_transmittance_tri   <- bvh_transmittance (bvh.py:397), triangles
+//   solr_bvh_closest(prim)       <- bvh_closest_hit,   prim 1 = sphere
+//   solr_bvh_transmittance(prim) <- bvh_transmittance, (SphereP), 2 = cyl
+//                                   (capped cylinder, CylP)
 // each with the pool test of ops/intersect.py (triangle_t_p,
 // sphere_t_p, cylinder_t_p -> packet.cyl_core), as the plain walks in
 // ops/bvh.py run it.
 //
-// Design: one thread per ray, as in Sol-R's own CUDA walk
-// (intersectionWithPrimitives).  Each ray carries its node pointer: a
-// box it hits sends it to i + 1, a box it misses to skip[i], and the
-// walk ends at n_nodes.  Node and primitive arrays are read through
-// __ldg; the nodes of a 1M-triangle pool take 9.4 MB and stay in the
-// 50 MB L2.  No state crosses threads: the walk is a data-dependent
-// loop of gathers with no tile to share, which is why this is CUDA and
-// not a block-structured Triton kernel.  What bounds it is the latency
-// of those dependent node and primitive loads and the divergence of
-// rays whose walks differ in length (rays arrive in pixel order); the
-// counted f32 operations take 1-3% of the kernel's time at the card's
-// rate (an H100 at 700 W, PERF.md).  This first design does nothing
-// about either: a faster one is later work.
+// What bounds a walk is the latency of its dependent node and
+// primitive loads and the divergence of rays whose walks differ in
+// length; the counted f32 operations take 1-3% of the kernel's time at
+// the card's rate (an H100 at 700 W, PERF.md).
+//
+// The triangle walks (closest_tri, trans_tri), after Aila & Laine
+// (2009), "Understanding the efficiency of ray traversal on GPUs":
+//   * one inner node is one 64-byte row of four float4s holding both
+//     children's boxes and references (bvh.pack_nodes): a visit is four
+//     16-byte loads from one cache line and slab-tests both children;
+//     row 0 holds the root's box and reference;
+//   * a triangle is three float4s (v0, e1 = v1 - v0, e2 = v2 - v0 and
+//     its shadow factor; bvh.pack_triangles), in the pool's order, which
+//     is leaf order: a leaf's lanes are contiguous rows;
+//   * the closest hit walks near child first: of two hit children it
+//     enters the one with the smaller entry distance tn and pushes the
+//     other with its tn onto a per-thread stack (bvh.max_depth + 1
+//     deep, in local memory); a popped entry is dropped when its tn >
+//     min(best, t_max).  A leaf replaces the best when its hit is
+//     nearer, or equally near with a lower pool row, so the result is
+//     the lexicographic minimum (t, row) whatever order the leaves come
+//     in: with boxes that contain their primitives, that of the DFS
+//     walk;
+//   * the shadow walk keeps the DFS order, left child first, with the
+//     same stack: its leaf products multiply into tr in the DFS walk's
+//     order and it stops at the same leaf.  It counts a node when the
+//     DFS walk would reach it, so its visits are the DFS walk's.
+// One thread per ray, rays in the caller's order.
+//
+// The sphere and cylinder walks (closest_walk, trans_walk): one thread
+// per ray, as in Sol-R's own CUDA walk (intersectionWithPrimitives).
+// Each ray carries its node pointer: a box it hits sends it to i + 1,
+// a box it misses to skip[i], and the walk ends at n_nodes.  Node and
+// primitive arrays are read through __ldg, five node arrays apart.
 //
 // Exactness with the plain PyTorch versions (ops/bvh.py):
 //   * build with --fmad=false and without fast math: every chain keeps
@@ -40,14 +61,16 @@
 //     shadow walk;
 //   * closest hit: in a leaf, the lanes with t <= limit compete in
 //     ascending order with a strict <, so the lowest lane wins a tie;
-//     across leaves a hit replaces the best only when strictly smaller,
-//     so the earlier leaf in DFS order wins a tie;
+//     across leaves the skip-pointer walks replace the best only when
+//     strictly smaller (the earlier leaf in DFS order, the lower row,
+//     wins a tie) and the triangle walk by the rule above;
 //   * transmittance: a leaf's occluders (t < t_max; an emissive
 //     material's factor is 1) multiply in ascending lane order into a
 //     leaf product, which then multiplies into the ray's; the walk stops
 //     once that is <= 1e-6.
 // Each thread also counts the nodes it visited and the leaf lanes it
-// tested; the plain versions count the same.
+// tested; the plain versions count the same (the near-first walk:
+// bvh_closest_hit_ordered_plain).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -85,34 +108,6 @@ struct Pool {
   const float* p1;
   const float* p2;
   const int32_t* material;
-};
-
-// Two-sided Moller-Trumbore.  Mirrors intersect.triangle_t_p.
-struct TriP {
-  __device__ __forceinline__ static float hit(const Ray& r, const Pool& p,
-                                              int64_t j, float t_min) {
-    const float ax = ld(p.p0, 3 * j), ay = ld(p.p0, 3 * j + 1),
-                az = ld(p.p0, 3 * j + 2);
-    const float e1x = ld(p.p1, 3 * j) - ax, e1y = ld(p.p1, 3 * j + 1) - ay,
-                e1z = ld(p.p1, 3 * j + 2) - az;
-    const float e2x = ld(p.p2, 3 * j) - ax, e2y = ld(p.p2, 3 * j + 1) - ay,
-                e2z = ld(p.p2, 3 * j + 2) - az;
-    const float px = r.dy * e2z - r.dz * e2y;  // cross(d, e2)
-    const float py = r.dz * e2x - r.dx * e2z;
-    const float pz = r.dx * e2y - r.dy * e2x;
-    const float det = (px * e1x + py * e1y) + pz * e1z;
-    const bool safe = fabsf(det) > kIntersectEps;
-    const float inv_det = (safe ? 1.0f : 0.0f) / (safe ? det : 1.0f);
-    const float tx = r.ox - ax, ty = r.oy - ay, tz = r.oz - az;
-    const float u = ((tx * px + ty * py) + tz * pz) * inv_det;
-    const float qx = ty * e1z - tz * e1y;  // cross(tvec, e1)
-    const float qy = tz * e1x - tx * e1z;
-    const float qz = tx * e1y - ty * e1x;
-    const float v = ((qx * r.dx + qy * r.dy) + qz * r.dz) * inv_det;
-    const float t = ((qx * e2x + qy * e2y) + qz * e2z) * inv_det;
-    const bool valid = safe && (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f);
-    return (valid && t > t_min) ? t : kTFar;
-  }
 };
 
 // The nearest root > t_min (the exit root for a ray that starts
@@ -209,21 +204,29 @@ struct Walker {
     iz = 1.0f / (fabsf(r.dz) > 1e-12f ? r.dz : 1e-12f);
   }
 
-  // intersect.aabb_hit of node i: [tn, tf] meets [t_min, limit].
+  // intersect.aabb_hit of the box lo..hi: [tn, tf] meets [t_min,
+  // limit].  Also returns tn, the box's entry distance.
+  __device__ __forceinline__ bool slab(float lox, float loy, float loz,
+                                       float hix, float hiy, float hiz,
+                                       float t_min, float limit,
+                                       float& tn) const {
+    const float x0 = (lox - r.ox) * ix, x1 = (hix - r.ox) * ix;
+    const float y0 = (loy - r.oy) * iy, y1 = (hiy - r.oy) * iy;
+    const float z0 = (loz - r.oz) * iz, z1 = (hiz - r.oz) * iz;
+    tn = nan_max(nan_max(nan_min(x0, x1), nan_min(y0, y1)), nan_min(z0, z1));
+    const float tf =
+        nan_min(nan_min(nan_max(x0, x1), nan_max(y0, y1)), nan_max(z0, z1));
+    return (tn <= tf) && (tf >= t_min) && (tn <= limit);
+  }
+
+  // The slab test of node i of the DFS-preorder arrays.
   __device__ __forceinline__ bool box(const Nodes& nd, int32_t i, float t_min,
                                       float limit) const {
     const float* lo = nd.aabb_min + 3 * i;
     const float* hi = nd.aabb_max + 3 * i;
-    const float x0 = (__ldg(lo) - r.ox) * ix, x1 = (__ldg(hi) - r.ox) * ix;
-    const float y0 = (__ldg(lo + 1) - r.oy) * iy,
-                y1 = (__ldg(hi + 1) - r.oy) * iy;
-    const float z0 = (__ldg(lo + 2) - r.oz) * iz,
-                z1 = (__ldg(hi + 2) - r.oz) * iz;
-    const float tn =
-        nan_max(nan_max(nan_min(x0, x1), nan_min(y0, y1)), nan_min(z0, z1));
-    const float tf =
-        nan_min(nan_min(nan_max(x0, x1), nan_max(y0, y1)), nan_max(z0, z1));
-    return (tn <= tf) && (tf >= t_min) && (tn <= limit);
+    float tn;
+    return slab(__ldg(lo), __ldg(lo + 1), __ldg(lo + 2), __ldg(hi),
+                __ldg(hi + 1), __ldg(hi + 2), t_min, limit, tn);
   }
 };
 
@@ -316,6 +319,245 @@ __global__ void __launch_bounds__(kThreads)
   out_tests[ray] = tests;
 }
 
+// ---------------------------------------------------------------------
+// The triangle walks on packed nodes and triangles.
+// ---------------------------------------------------------------------
+
+// Deepest stack the triangle walks keep: bvh.max_depth + 1 entries, at
+// most this many (the wrapper checks; a median-split tree over 2^31
+// rows in leaves of 8 is 29 levels deep).
+constexpr int kMaxStack = 32;
+
+// Row r of the packed nodes (bvh.pack_nodes), four float4s:
+//   q0 = (c0.lo.x, c0.lo.y, c0.lo.z, c0.hi.x)
+//   q1 = (c0.hi.y, c0.hi.z, c1.lo.x, c1.lo.y)
+//   q2 = (c1.lo.z, c1.hi.x, c1.hi.y, c1.hi.z)
+//   q3 = (ref0, ref1, count0, count1) as int32 bits
+// for the left child c0 and the right child c1.  A reference > 0 is
+// the row of an inner child; a leaf's is ~first (< 0) with its count.
+// Row 0 holds the root as its c0 (the rest unused).
+struct Row {
+  float4 q0, q1, q2, q3;
+};
+
+__device__ __forceinline__ Row load_row(const float4* nodes, int32_t r) {
+  const float4* p = nodes + 4 * static_cast<int64_t>(r);
+  return Row{__ldg(p), __ldg(p + 1), __ldg(p + 2), __ldg(p + 3)};
+}
+
+__device__ __forceinline__ bool hit0(const Walker& w, const Row& n,
+                                     float t_min, float limit, float& tn) {
+  return w.slab(n.q0.x, n.q0.y, n.q0.z, n.q0.w, n.q1.x, n.q1.y, t_min, limit,
+                tn);
+}
+
+__device__ __forceinline__ bool hit1(const Walker& w, const Row& n,
+                                     float t_min, float limit, float& tn) {
+  return w.slab(n.q1.z, n.q1.w, n.q2.x, n.q2.y, n.q2.z, n.q2.w, t_min, limit,
+                tn);
+}
+
+// Two-sided Moller-Trumbore on pool row j of the packed triangles
+// (bvh.pack_triangles): (v0.xyz, e1.x), (e1.yz, e2.xy), (e2.z, factor,
+// 0, 0), with e1 = v1 - v0 and e2 = v2 - v0 rounded as
+// intersect.triangle_t_p rounds them.  Mirrors triangle_t_p; sets the
+// row's shadow factor.
+__device__ __forceinline__ float tri_hit(const Ray& r, const float4* tris,
+                                         int64_t j, float t_min,
+                                         float& factor) {
+  const float4 a = __ldg(tris + 3 * j), b = __ldg(tris + 3 * j + 1),
+               c = __ldg(tris + 3 * j + 2);
+  const float ax = a.x, ay = a.y, az = a.z;
+  const float e1x = a.w, e1y = b.x, e1z = b.y;
+  const float e2x = b.z, e2y = b.w, e2z = c.x;
+  factor = c.y;
+  const float px = r.dy * e2z - r.dz * e2y;  // cross(d, e2)
+  const float py = r.dz * e2x - r.dx * e2z;
+  const float pz = r.dx * e2y - r.dy * e2x;
+  const float det = (px * e1x + py * e1y) + pz * e1z;
+  const bool safe = fabsf(det) > kIntersectEps;
+  const float inv_det = (safe ? 1.0f : 0.0f) / (safe ? det : 1.0f);
+  const float tx = r.ox - ax, ty = r.oy - ay, tz = r.oz - az;
+  const float u = ((tx * px + ty * py) + tz * pz) * inv_det;
+  const float qx = ty * e1z - tz * e1y;  // cross(tvec, e1)
+  const float qy = tz * e1x - tx * e1z;
+  const float qz = tx * e1y - ty * e1x;
+  const float v = ((qx * r.dx + qy * r.dy) + qz * r.dz) * inv_det;
+  const float t = ((qx * e2x + qy * e2y) + qz * e2z) * inv_det;
+  const bool valid = safe && (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f);
+  return (valid && t > t_min) ? t : kTFar;
+}
+
+__global__ void __launch_bounds__(kThreads)
+    closest_tri(const float4* __restrict__ nodes,
+                const float4* __restrict__ tris, const float* __restrict__ o,
+                const float* __restrict__ d, const float* __restrict__ t_max,
+                int64_t n_rays, float t_min, float* __restrict__ out_t,
+                int32_t* __restrict__ out_idx, int32_t* __restrict__ out_visits,
+                int32_t* __restrict__ out_tests) {
+  const int64_t ray = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  if (ray >= n_rays) return;
+  Walker w;
+  w.init(o, d, ray);
+  const float tm = t_max[ray];
+  float best = kTFar;
+  int32_t best_i = 0, visits = 1, tests = 0;
+  int32_t st_ref[kMaxStack], st_cnt[kMaxStack];
+  float st_tn[kMaxStack];
+  int sp = 0;
+  const Row root = load_row(nodes, 0);
+  int32_t ref = __float_as_int(root.q3.x), cnt = __float_as_int(root.q3.z);
+  float tn;
+  bool go = hit0(w, root, t_min, nan_min(best, tm), tn);
+  while (true) {
+    if (go) {
+      if (ref < 0) {  // a leaf: its lanes, then the tie rule
+        const int32_t first = ~ref;
+        const float limit = nan_min(best, tm);
+        tests += cnt;
+        float lm = kTFar, f;
+        int32_t la = 0;
+        for (int32_t j = 0; j < cnt; ++j) {
+          const float t = tri_hit(w.r, tris, first + j, t_min, f);
+          if (t <= limit && t < lm) {
+            lm = t;
+            la = j;
+          }
+        }
+        if (lm < best ||
+            (lm == best && best < kTFar && first + la < best_i)) {
+          best = lm;
+          best_i = first + la;
+        }
+      } else {  // an inner node: both children, the nearer hit first
+        const Row n = load_row(nodes, ref);
+        const float limit = nan_min(best, tm);
+        float tn0, tn1;
+        const bool h0 = hit0(w, n, t_min, limit, tn0);
+        const bool h1 = hit1(w, n, t_min, limit, tn1);
+        visits += 2;
+        const int32_t r0 = __float_as_int(n.q3.x), r1 = __float_as_int(n.q3.y);
+        const int32_t c0 = __float_as_int(n.q3.z), c1 = __float_as_int(n.q3.w);
+        if (h0 && h1) {
+          const bool right = tn1 < tn0;  // the right child is nearer
+          st_ref[sp] = right ? r0 : r1;
+          st_cnt[sp] = right ? c0 : c1;
+          st_tn[sp] = right ? tn0 : tn1;
+          ++sp;
+          ref = right ? r1 : r0;
+          cnt = right ? c1 : c0;
+          continue;
+        }
+        if (h0 || h1) {
+          ref = h0 ? r0 : r1;
+          cnt = h0 ? c0 : c1;
+          continue;
+        }
+      }
+    }
+    // The latest pending child that may still hold a hit <= the limit.
+    const float limit = nan_min(best, tm);
+    go = false;
+    while (sp > 0) {
+      --sp;
+      if (st_tn[sp] <= limit) {
+        ref = st_ref[sp];
+        cnt = st_cnt[sp];
+        go = true;
+        break;
+      }
+    }
+    if (!go) break;
+  }
+  out_t[ray] = best;
+  out_idx[ray] = best_i;
+  out_visits[ray] = visits;
+  out_tests[ray] = tests;
+}
+
+__global__ void __launch_bounds__(kThreads)
+    trans_tri(const float4* __restrict__ nodes,
+              const float4* __restrict__ tris, const float* __restrict__ o,
+              const float* __restrict__ d, const float* __restrict__ t_max,
+              int64_t n_rays, float t_min, float* __restrict__ out_tr,
+              int32_t* __restrict__ out_visits,
+              int32_t* __restrict__ out_tests) {
+  const int64_t ray = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  if (ray >= n_rays) return;
+  Walker w;
+  w.init(o, d, ray);
+  const float tm = t_max[ray];
+  float tr = 1.0f;
+  int32_t visits = 1, tests = 0;
+  // A pushed right child, and the missed right children the DFS walk
+  // reaches between it and the entry below (pend, counted on the pop
+  // or at the end; not after the stop).
+  int32_t st_ref[kMaxStack], st_cnt[kMaxStack], st_pend[kMaxStack];
+  int sp = 0, pend = 0;
+  const Row root = load_row(nodes, 0);
+  int32_t ref = __float_as_int(root.q3.x), cnt = __float_as_int(root.q3.z);
+  float tn;
+  bool go = hit0(w, root, t_min, tm, tn);
+  while (true) {
+    if (go) {
+      if (ref < 0) {  // a leaf: its product, in lane order
+        const int32_t first = ~ref;
+        tests += cnt;
+        float prod = 1.0f, f;
+        for (int32_t j = 0; j < cnt; ++j) {
+          const float t = tri_hit(w.r, tris, first + j, t_min, f);
+          if (t < tm) prod = prod * f;
+        }
+        tr = tr * prod;
+        if (tr <= 1e-6f) break;
+      } else {  // an inner node: the left child's subtree first
+        const Row n = load_row(nodes, ref);
+        float tn0, tn1;
+        const bool h0 = hit0(w, n, t_min, tm, tn0);
+        const bool h1 = hit1(w, n, t_min, tm, tn1);
+        const int32_t r0 = __float_as_int(n.q3.x), r1 = __float_as_int(n.q3.y);
+        const int32_t c0 = __float_as_int(n.q3.z), c1 = __float_as_int(n.q3.w);
+        ++visits;  // the left child
+        if (h0) {
+          if (h1) {
+            st_ref[sp] = r1;
+            st_cnt[sp] = c1;
+            st_pend[sp] = pend;
+            ++sp;
+            pend = 0;
+          } else {
+            ++pend;
+          }
+          ref = r0;
+          cnt = c0;
+          continue;
+        }
+        ++visits;  // the right child, at once
+        if (h1) {
+          ref = r1;
+          cnt = c1;
+          continue;
+        }
+      }
+    }
+    if (sp == 0) {
+      visits += pend;
+      break;
+    }
+    --sp;
+    visits += pend + 1;
+    pend = st_pend[sp];
+    ref = st_ref[sp];
+    cnt = st_cnt[sp];
+    go = true;
+  }
+  out_tr[ray] = tr;
+  out_visits[ray] = visits;
+  out_tests[ray] = tests;
+}
+
 unsigned grid_for(int64_t n_rays) {
   return static_cast<unsigned>((n_rays + kThreads - 1) / kThreads);
 }
@@ -324,16 +566,51 @@ unsigned grid_for(int64_t n_rays) {
 
 extern "C" {
 
-// prim: 0 = tri, 1 = sphere, 2 = cyl.  All pointers are device pointers
-// to contiguous arrays: the BVH's aabb_min, aabb_max (n_nodes, 3) f32
-// and skip, first_prim, prim_count (n_nodes) i32; the pool's arrays
-// p0, p1, p2 (v0, v1, v2 for tri; center, radius, unused for sphere;
-// p0, p1, radius for cyl) f32 and material (i32, read by the shadow
-// walk with the materials' emission and transparency f32); the rays'
-// o, d (n_rays, 3) and t_max (n_rays) f32.  Outputs (n_rays): out_t /
-// out_tr f32, out_idx i32 (closest hit), out_visits and out_tests i32.
+// The triangle walks.  nodes: the packed rows (bvh.pack_nodes, (rows,
+// 4, 4) f32, 16-byte aligned); tris: the packed triangles
+// (bvh.pack_triangles, (N, 3, 4) f32, 16-byte aligned); the rays' o, d
+// (n_rays, 3) and t_max (n_rays) f32.  Outputs (n_rays): out_t / out_tr
+// f32, out_idx i32 (closest hit), out_visits and out_tests i32.  The
+// tree must be at most kMaxStack - 1 levels deep (the wrapper checks).
+// Returns the cudaError_t of the launch (0 on success).
+int solr_bvh_closest_tri(const float* nodes, const float* tris,
+                         const float* o, const float* d, const float* t_max,
+                         int64_t n_rays, float t_min, float* out_t,
+                         int32_t* out_idx, int32_t* out_visits,
+                         int32_t* out_tests, void* stream) {
+  if (n_rays <= 0) return static_cast<int>(cudaGetLastError());
+  closest_tri<<<grid_for(n_rays), kThreads, 0,
+                static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const float4*>(nodes),
+      reinterpret_cast<const float4*>(tris), o, d, t_max, n_rays, t_min,
+      out_t, out_idx, out_visits, out_tests);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int solr_bvh_transmittance_tri(const float* nodes, const float* tris,
+                               const float* o, const float* d,
+                               const float* t_max, int64_t n_rays,
+                               float t_min, float* out_tr,
+                               int32_t* out_visits, int32_t* out_tests,
+                               void* stream) {
+  if (n_rays <= 0) return static_cast<int>(cudaGetLastError());
+  trans_tri<<<grid_for(n_rays), kThreads, 0,
+              static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const float4*>(nodes),
+      reinterpret_cast<const float4*>(tris), o, d, t_max, n_rays, t_min,
+      out_tr, out_visits, out_tests);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The sphere and cylinder walks.  prim: 1 = sphere, 2 = cyl.  All
+// pointers are device pointers to contiguous arrays: the BVH's
+// aabb_min, aabb_max (n_nodes, 3) f32 and skip, first_prim, prim_count
+// (n_nodes) i32; the pool's arrays p0, p1, p2 (center, radius, unused
+// for sphere; p0, p1, radius for cyl) f32 and material (i32, read by
+// the shadow walk with the materials' emission and transparency f32);
+// the rays' o, d (n_rays, 3) and t_max (n_rays) f32.  Outputs as above.
 // Returns the cudaError_t of the launch (0 on success), or
-// cudaErrorInvalidValue for an unknown prim.
+// cudaErrorInvalidValue for another prim.
 int solr_bvh_closest(int prim, const float* aabb_min, const float* aabb_max,
                      const int32_t* skip, const int32_t* first,
                      const int32_t* count, int n_nodes, const float* p0,
@@ -342,17 +619,13 @@ int solr_bvh_closest(int prim, const float* aabb_min, const float* aabb_max,
                      int64_t n_rays, float t_min, float* out_t,
                      int32_t* out_idx, int32_t* out_visits, int32_t* out_tests,
                      void* stream) {
-  if (prim < 0 || prim > 2) return static_cast<int>(cudaErrorInvalidValue);
+  if (prim < 1 || prim > 2) return static_cast<int>(cudaErrorInvalidValue);
   if (n_rays <= 0) return static_cast<int>(cudaGetLastError());
   const Nodes nd{aabb_min, aabb_max, skip, first, count, n_nodes};
   const Pool pool{p0, p1, p2, material};
   auto s = static_cast<cudaStream_t>(stream);
   const unsigned grid = grid_for(n_rays);
-  if (prim == 0)
-    closest_walk<TriP><<<grid, kThreads, 0, s>>>(
-        nd, pool, o, d, t_max, n_rays, t_min, out_t, out_idx, out_visits,
-        out_tests);
-  else if (prim == 1)
+  if (prim == 1)
     closest_walk<SphereP><<<grid, kThreads, 0, s>>>(
         nd, pool, o, d, t_max, n_rays, t_min, out_t, out_idx, out_visits,
         out_tests);
@@ -373,17 +646,13 @@ int solr_bvh_transmittance(int prim, const float* aabb_min,
                            int64_t n_rays, float t_min, float* out_tr,
                            int32_t* out_visits, int32_t* out_tests,
                            void* stream) {
-  if (prim < 0 || prim > 2) return static_cast<int>(cudaErrorInvalidValue);
+  if (prim < 1 || prim > 2) return static_cast<int>(cudaErrorInvalidValue);
   if (n_rays <= 0) return static_cast<int>(cudaGetLastError());
   const Nodes nd{aabb_min, aabb_max, skip, first, count, n_nodes};
   const Pool pool{p0, p1, p2, material};
   auto s = static_cast<cudaStream_t>(stream);
   const unsigned grid = grid_for(n_rays);
-  if (prim == 0)
-    trans_walk<TriP><<<grid, kThreads, 0, s>>>(
-        nd, pool, emission, transparency, o, d, t_max, n_rays, t_min, out_tr,
-        out_visits, out_tests);
-  else if (prim == 1)
+  if (prim == 1)
     trans_walk<SphereP><<<grid, kThreads, 0, s>>>(
         nd, pool, emission, transparency, o, d, t_max, n_rays, t_min, out_tr,
         out_visits, out_tests);

@@ -1,10 +1,14 @@
-"""The sweep kernels at a frame's shapes, outside the frame: the primary
-rays of a frame in tile order, their triangle hits, the shadow rays
-toward the first light from their hits, the strip selection that
-``render_sample`` would hand each kernel, and a CUDA-event timer.  Used
-by ``chip_smoke.py`` and ``solr_tpu_torch.sweep_steps``."""
+"""The sweep and walk kernels at a frame's shapes, outside the frame: the
+primary rays of a frame in tile order, their triangle hits, the shadow
+rays toward the first light from their hits, the strip selection that
+``render_sample`` would hand each sweep kernel, the first call a frame
+makes of each walk kernel, a CUDA-event timer and nvcc's register
+report.  Used by ``chip_smoke.py``, ``solr_tpu_torch.sweep_steps`` and
+``solr_tpu_torch.walk_steps``."""
 
 from __future__ import annotations
+
+import re
 
 import torch
 
@@ -14,8 +18,9 @@ from solr_tpu_torch.ops.camera import camera_rays
 from solr_tpu_torch.ops.traverse import (POOL_TRIANGLE, Hit, _scene_box,
                                          surface_at)
 
-__all__ = ["fractional", "primary_tiles", "shadow_rays", "sweep_args",
-           "time_ms", "triangle_hits"]
+__all__ = ["first_walk_calls", "fractional", "primary_tiles",
+           "ptxas_usage", "shadow_rays", "sweep_args", "time_ms",
+           "triangle_hits"]
 
 
 def primary_tiles(cam, cfg):
@@ -92,3 +97,56 @@ def time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def first_walk_calls(frame):
+    """The arguments of the first call of each walk (entry point x
+    primitive kind) in one run of ``frame()``, read by wrapping the
+    wrappers."""
+    from solr_tpu_torch.ops import bvh
+
+    calls, inner = {}, {e: getattr(bvh, e) for e in bvh.ENTRIES}
+
+    def recorder(entry):
+        def call(scene, tree, code, o, d, t_min, t_max, **kw):
+            key = bvh.kernel_name(entry, bvh.POOL_PRIM[code])
+            if key not in calls:
+                calls[key] = (entry, bvh.POOL_PRIM[code], tree, o.clone(),
+                              d.clone(), t_min, torch.as_tensor(
+                                  t_max, dtype=o.dtype, device=o.device)
+                              .expand(o.shape[:-1]).clone())
+            return inner[entry](scene, tree, code, o, d, t_min, t_max, **kw)
+        return call
+
+    for e in bvh.ENTRIES:
+        setattr(bvh, e, recorder(e))
+    try:
+        with torch.no_grad():
+            frame()
+        torch.cuda.synchronize()
+    finally:
+        for e in bvh.ENTRIES:
+            setattr(bvh, e, inner[e])
+    return calls
+
+
+def ptxas_usage(log):
+    """{mangled kernel name: {"registers", "stack_bytes", "spill_stores",
+    "spill_loads"}} from nvcc's -Xptxas -v output."""
+    usage, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) "
+                      r"'?([\w]+)'?", line)
+        if m:
+            name = m.group(1)
+            usage.setdefault(name, {})
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and name:
+            usage[name].update(stack_bytes=int(m.group(1)),
+                               spill_stores=int(m.group(2)),
+                               spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            usage[name]["registers"] = int(m.group(1))
+    return usage

@@ -1,4 +1,4 @@
-"""BVH build, refit and the per-ray stackless walk (counterpart of
+"""BVH build, refit and the per-ray walks (counterpart of
 solr_tpu/ops/bvh.py).
 
 The BVH is a median-split tree over a Morton-ordered pool, flattened in
@@ -12,24 +12,37 @@ sphere, triangle and cylinder pools:
 
 * ``bvh_closest_hit`` (replaces ``bvh_closest_hit``, a ``lax.while_loop``
   at solr_tpu/ops/bvh.py:333): the closest primitive with
-  t_min < t <= t_max.  A box is entered when its slab interval meets
-  [t_min, min(best, t_max)]; inside a leaf the lowest lane wins a tie,
-  and across leaves, visited in DFS order, a hit replaces the best only
-  when strictly nearer.
+  t_min < t <= t_max, and the lowest pool row among equally near ones.
+  A box is entered when its slab interval meets [t_min, min(best,
+  t_max)]; inside a leaf the lowest lane wins a tie.  The DFS walk
+  (``bvh_closest_hit_plain``) replaces the best across leaves only when
+  strictly nearer, and leaves come in ascending rows.  The triangle
+  kernel walks near child first (``bvh_closest_hit_ordered_plain``) and
+  breaks a tie across leaves by the lower row, so both return the same
+  (t, idx).
 * ``bvh_transmittance`` (replaces ``bvh_transmittance`` at
   solr_tpu/ops/bvh.py:397): the product over every occluder with
   t < t_max of its material's transparency (1 for an emissive one).  A
   leaf's factors multiply in ascending lane order and the leaf product
-  then multiplies into the ray's; the walk stops once that is <= 1e-6.
+  then multiplies into the ray's, in DFS order; the walk stops once that
+  is <= 1e-6.
 
-Both also count, per ray, the nodes visited and the leaf lanes tested.
-CPU tensors take the plain versions; CUDA tensors take the hand-written
-kernels of ``solr_tpu_torch/csrc/bvh_walk.cu``, built with nvcc at first
-use (``sweep.compile_library``, the same flags) and loaded with ctypes.
-A build or launch failure raises; nothing falls back.  Kernel and plain
-version agree bit for bit on the same device: the same association in
-every primitive test and in the slab test, no FMA contraction, IEEE
-division and square root.
+Both also count, per ray, the nodes visited (1 for the root and 2 for
+each inner node whose box is hit, the shadow walk's nodes up to its
+stop) and the leaf lanes tested.  CPU tensors take the plain versions
+(the near-first one for the triangle closest hit); CUDA tensors take the
+hand-written kernels of ``solr_tpu_torch/csrc/bvh_walk.cu``, built with
+nvcc at first use (``sweep.compile_library``, the same flags) and loaded
+with ctypes.  A build or launch failure raises; nothing falls back.
+Kernel and plain version agree bit for bit on the same device: the same
+association in every primitive test and in the slab test, no FMA
+contraction, IEEE division and square root.
+
+The triangle kernels read layouts derived from the BVH and the pool
+(``pack_nodes``: one 64-byte row per inner node with both children's
+boxes; ``pack_triangles``: (v0, e1, e2, shadow factor) per row), built
+on the device at a launch and reused while every source tensor is the
+same object at the same version (``_derived``).
 
 The plain walks are masked step loops: every step takes one node per
 ray; every ``_CHECK_EVERY`` steps one host sync drops the rays whose
@@ -58,6 +71,7 @@ __all__ = [
     "build",
     "build_bvh",
     "bvh_closest_hit",
+    "bvh_closest_hit_ordered_plain",
     "bvh_closest_hit_plain",
     "bvh_refit",
     "bvh_transmittance",
@@ -68,6 +82,8 @@ __all__ = [
     "load_library",
     "morton_codes",
     "morton_order",
+    "pack_nodes",
+    "pack_triangles",
     "pool_aabbs",
 ]
 
@@ -405,6 +421,108 @@ def bvh_transmittance_plain(scene, bvh: BVH, prim: str, o, d, t_min,
     return tr, visits, tests
 
 
+def bvh_closest_hit_ordered_plain(scene, bvh: BVH, prim: str, o, d, t_min,
+                                  t_max=T_FAR):
+    """Plain PyTorch closest-hit walk in the triangle kernel's order:
+    at an inner node both children are slab-tested; of two hit children
+    the ray enters the one with the smaller entry distance tn (the left
+    one on equal tn) and pushes the other with its tn onto a stack of
+    ``bvh.max_depth + 1`` entries; a popped entry is dropped when not
+    tn <= min(best, t_max).  A leaf's lowest-lane nearest hit replaces
+    the best when nearer, or equally near (and a hit) with a lower pool
+    row.  Returns (t, idx, visits, tests) as
+    :func:`bvh_closest_hit_plain` does, with (t, idx) equal to it where
+    every box contains its primitives; visits count 1 for the root and
+    2 per inner node entered."""
+    r_shape = o.shape[:-1]
+    o = o.reshape(-1, 3)
+    d = d.reshape(-1, 3)
+    n_rays, dev, k = o.shape[0], o.device, bvh.n_nodes
+    depth = bvh.max_depth + 1
+    tm = torch.as_tensor(t_max, dtype=o.dtype, device=dev).expand(
+        r_shape).reshape(-1)
+    inv_d = 1.0 / torch.where(d.abs() > 1e-12, d, torch.full_like(d, 1e-12))
+    value = torch.full((n_rays,), T_FAR, dtype=o.dtype, device=dev)
+    best_i = torch.zeros(n_rays, dtype=torch.int32, device=dev)
+    visits = torch.ones(n_rays, dtype=torch.int32, device=dev)
+    tests = torch.zeros(n_rays, dtype=torch.int32, device=dev)
+    ids = torch.arange(n_rays, device=dev)
+    left = (torch.arange(k, device=dev) + 1).clamp(max=k - 1)
+    right = bvh.skip[left].long().clamp(max=k - 1)
+    tn, tf = isect.aabb_slab(o, inv_d, bvh.aabb_min[0], bvh.aabb_max[0])
+    has = (tn <= tf) & (tf >= t_min) & (tn <= torch.minimum(value, tm))
+    cur = torch.zeros(n_rays, dtype=torch.int64, device=dev)
+    stack = torch.zeros((n_rays, depth), dtype=torch.int64, device=dev)
+    stack_tn = torch.zeros((n_rays, depth), dtype=o.dtype, device=dev)
+    sp = torch.zeros(n_rays, dtype=torch.int64, device=dev)
+    # The rays still walking, compacted: their state and inputs.  A ray
+    # holds a node to take (has: cur, entered at cur_tn) or pops one.
+    st = [has, cur, tn, stack, stack_tn, sp, value, best_i, visits, tests, o,
+          d, inv_d, tm]
+    while ids.numel():
+        (h, c, ctn, stk, stn, p, val, bi, vis, tst, oc, dc, ic, tmc) = st
+        rows = torch.arange(c.shape[0], device=dev)
+        for _ in range(_CHECK_EVERY):
+            limit = torch.minimum(val, tmc)
+            h = h & (ctn <= limit)  # a popped entry past the limit drops
+            first = bvh.first_prim[c]
+            leaf = h & (first >= 0)
+            inner = h & (first < 0)
+            # A leaf: its lanes, the lowest nearest one, the tie rule.
+            cnt = torch.where(leaf, bvh.prim_count[c], 0)
+            t, _ = _leaf_t(scene, prim, oc, dc, first, cnt, bvh.leaf_size,
+                           t_min)
+            t = torch.where(t <= limit[:, None], t, torch.full_like(t, T_FAR))
+            lm = torch.full_like(val, T_FAR)
+            la = torch.zeros_like(bi)
+            for j in range(bvh.leaf_size):
+                better = t[:, j] < lm
+                lm = torch.where(better, t[:, j], lm)
+                la = torch.where(better, j, la)
+            row = first + la
+            better = (lm < val) | ((lm == val) & (val < T_FAR) & (row < bi))
+            val = torch.where(better, lm, val)
+            bi = torch.where(better, row, bi)
+            tst = tst + cnt
+            # An inner node: both children, the nearer hit first.
+            lc, rc = left[c], right[c]
+            tn0, tf0 = isect.aabb_slab(oc, ic, bvh.aabb_min[lc],
+                                       bvh.aabb_max[lc])
+            tn1, tf1 = isect.aabb_slab(oc, ic, bvh.aabb_min[rc],
+                                       bvh.aabb_max[rc])
+            h0 = inner & (tn0 <= tf0) & (tf0 >= t_min) & (tn0 <= limit)
+            h1 = inner & (tn1 <= tf1) & (tf1 >= t_min) & (tn1 <= limit)
+            vis = vis + 2 * inner.to(torch.int32)
+            both = h0 & h1
+            rnear = tn1 < tn0
+            slot = p.clamp(max=depth - 1)
+            stk[rows, slot] = torch.where(both, torch.where(rnear, lc, rc),
+                                          stk[rows, slot])
+            stn[rows, slot] = torch.where(both, torch.where(rnear, tn0, tn1),
+                                          stn[rows, slot])
+            p = p + both.long()
+            take_r = h1 & (rnear | ~h0)
+            c = torch.where(h0 | h1, torch.where(take_r, rc, lc), c)
+            ctn = torch.where(h0 | h1, torch.where(take_r, tn1, tn0), ctn)
+            h = h0 | h1
+            # Otherwise the latest pending entry.
+            pop = ~h & (p > 0)
+            p = p - pop.long()
+            top = p.clamp(min=0)
+            c = torch.where(pop, stk[rows, top], c)
+            ctn = torch.where(pop, stn[rows, top], ctn)
+            h = h | pop
+        done = ~h
+        fin = ids[done]
+        value[fin], best_i[fin] = val[done], bi[done]
+        visits[fin], tests[fin] = vis[done], tst[done]
+        keep = ~done
+        ids = ids[keep]  # the host sync of this check
+        st = [x[keep] for x in (h, c, ctn, stk, stn, p, val, bi, vis, tst,
+                                oc, dc, ic, tmc)]
+    return tuple(x.reshape(r_shape) for x in (value, best_i, visits, tests))
+
+
 # --------------------------------------------------------------------------
 # CUDA build and wrappers
 # --------------------------------------------------------------------------
@@ -422,6 +540,10 @@ def load_library(path):
     lib.solr_bvh_transmittance.argtypes = [i32] + nodes + [vp] * 9 + [
         i64, f32] + [vp] * 4
     lib.solr_bvh_transmittance.restype = i32
+    lib.solr_bvh_closest_tri.argtypes = [vp] * 5 + [i64, f32] + [vp] * 5
+    lib.solr_bvh_closest_tri.restype = i32
+    lib.solr_bvh_transmittance_tri.argtypes = [vp] * 5 + [i64, f32] + [vp] * 4
+    lib.solr_bvh_transmittance_tri.restype = i32
     return lib
 
 
@@ -449,15 +571,128 @@ def _ptr(x):
     return ctypes.c_void_p(x.data_ptr())
 
 
-def _walk_inputs(scene, bvh: BVH, prim: str, o, d, t_max):
-    """The contiguous device arrays a walk kernel reads, and the flat
-    rays: (node arrays, pool arrays, o, d, t_max)."""
+# The deepest stack of the triangle kernels (kMaxStack in bvh_walk.cu).
+_MAX_STACK = 32
+
+
+def pack_nodes(bvh: BVH):
+    """The triangle kernels' node rows (R, 4, 4) float32, 64 bytes each:
+    row 0 holds the root, row r > 0 the inner node of inner rank r - 1
+    (DFS order), with its left child c0 (node i + 1) and right child c1
+    (``skip[i + 1]``) as (c0.lo, c0.hi.x), (c0.hi.yz, c1.lo.xy),
+    (c1.lo.z, c1.hi) and the int32 bits of (ref0, ref1, count0,
+    count1): an inner child's ref is its row, a leaf's is ~first_prim.
+    The root sits in row 0's c0 slots; the rest of row 0 is 0."""
+    i32, dev = torch.int32, bvh.skip.device
+    inner = bvh.first_prim < 0
+    rank = torch.cumsum(inner.to(i32), 0, dtype=i32)
+    ref = torch.where(inner, rank, ~bvh.first_prim.to(i32))
+    cnt = bvh.prim_count.to(i32)
+    lo = bvh.aabb_min.to(torch.float32).contiguous().view(i32)
+    hi = bvh.aabb_max.to(torch.float32).contiguous().view(i32)
+    ids = torch.nonzero(inner).squeeze(1)
+    left = ids + 1
+    right = bvh.skip[left].long()
+    ids0 = torch.zeros(1, dtype=torch.long, device=dev)
+
+    def slots(c):  # (M, 8): a child's box and its ref and count
+        return torch.cat([lo[c], hi[c], ref[c, None], cnt[c, None]], 1)
+
+    a, b = slots(left), slots(right)
+    rows = torch.cat([a[:, :6], b[:, :6], a[:, 6:7], b[:, 6:7], a[:, 7:],
+                      b[:, 7:]], 1)
+    r0 = slots(ids0)
+    root = torch.cat([r0[:, :6], torch.zeros_like(r0[:, :6]), r0[:, 6:7],
+                      torch.zeros_like(r0[:, :1]), r0[:, 7:],
+                      torch.zeros_like(r0[:, :1])], 1)
+    return torch.cat([root, rows]).contiguous().view(torch.float32).view(
+        -1, 4, 4)
+
+
+def pack_triangles(scene):
+    """The triangle kernels' rows (N, 3, 4) float32, in pool order:
+    (v0, e1.x), (e1.yz, e2.xy), (e2.z, factor, 0, 0) with e1 = v1 - v0
+    and e2 = v2 - v0 in float32 (the rounding of
+    intersect.triangle_t_p) and the row's shadow factor: 1 for an
+    emissive material, else its transparency."""
+    p, mats = scene.triangles, scene.materials
+
+    def f32(x):
+        return x.to(torch.float32)
+
+    v0 = f32(p.v0)
+    m = p.material.long()
+    factor = f32(torch.where(mats.emission[m] > 0.0,
+                             torch.ones_like(mats.transparency[m]),
+                             mats.transparency[m]))
+    return torch.cat([v0, f32(p.v1) - v0, f32(p.v2) - v0, factor[:, None],
+                      torch.zeros_like(v0[:, :2])], 1).contiguous().view(
+                          -1, 3, 4)
+
+
+# One derived layout per kind: (the source tensors, their keys, the
+# layout).  The sources are held, so no other tensor can take their
+# memory while the entry stands.
+_DERIVED: dict = {}
+
+
+def _derived(kind: str, sources, make):
+    """``make()``, or the layout of ``kind`` made last, while each of
+    ``sources`` is the same tensor object with the same data pointer,
+    shape, strides and version (an in-place write bumps the version;
+    ``with_params`` and ``bvh_refit`` make new tensors)."""
+    def key(x):
+        return (x.data_ptr(), x._version, tuple(x.shape), x.stride())
+
+    sources = tuple(sources)
+    if any(x.is_inference() for x in sources):
+        return make()
+    keys = tuple(key(x) for x in sources)
+    hit = _DERIVED.get(kind)
+    if (hit is not None and hit[1] == keys
+            and all(a is b for a, b in zip(hit[0], sources))):
+        return hit[2]
+    out = make()
+    _DERIVED[kind] = (sources, keys, out)
+    return out
+
+
+def _tri_layouts(scene, bvh: BVH):
+    """The packed nodes and triangles of the triangle kernels, derived
+    (or reused) from the BVH's and the pool's current tensors."""
+    if bvh.max_depth + 1 > _MAX_STACK:
+        raise ValueError(f"the triangle walk kernels take trees of at most "
+                         f"{_MAX_STACK - 1} levels, got {bvh.max_depth}")
+    p, mats = scene.triangles, scene.materials
+    nodes = _derived("nodes", (bvh.aabb_min, bvh.aabb_max, bvh.skip,
+                               bvh.first_prim, bvh.prim_count),
+                     lambda: pack_nodes(bvh))
+    tris = _derived("tris", (p.v0, p.v1, p.v2, p.material, mats.emission,
+                             mats.transparency),
+                    lambda: pack_triangles(scene))
+    return nodes, tris
+
+
+def _check_prim(prim: str):
     if prim not in PRIMS:
         raise ValueError(f"prim must be one of {PRIMS}, got {prim!r}")
+
+
+def _walk_rays(o, d, t_max):
+    """The flat contiguous float32 rays a walk kernel reads: (o, d,
+    t_max)."""
     if o.shape != d.shape or o.shape[-1] != 3:
         raise ValueError("o and d must both be (..., 3)")
     dev = o.device
+    tm = torch.as_tensor(t_max, dtype=torch.float32, device=dev).expand(
+        o.shape[:-1]).reshape(-1).contiguous()
+    return tuple(x.to(dtype=torch.float32).reshape(-1, 3).contiguous()
+                 for x in (o, d)) + (tm,)
 
+
+def _walk_arrays(scene, bvh: BVH, prim: str, dev):
+    """The contiguous device arrays the sphere and cylinder kernels read:
+    (node arrays, pool arrays)."""
     def f32(x):
         return x.to(device=dev, dtype=torch.float32).contiguous()
 
@@ -466,37 +701,39 @@ def _walk_inputs(scene, bvh: BVH, prim: str, o, d, t_max):
 
     nodes = (f32(bvh.aabb_min), f32(bvh.aabb_max), i32(bvh.skip),
              i32(bvh.first_prim), i32(bvh.prim_count))
-    if prim == "tri":
-        p = scene.triangles
-        arrays = (p.v0, p.v1, p.v2)
-    elif prim == "sphere":
+    if prim == "sphere":
         p = scene.spheres
         arrays = (p.center, p.radius, p.radius)
     else:
         p = scene.cylinders
         arrays = (p.p0, p.p1, p.radius)
-    pool = tuple(f32(a) for a in arrays) + (i32(p.material),)
-    r_shape = o.shape[:-1]
-    tm = torch.as_tensor(t_max, dtype=torch.float32, device=dev).expand(
-        r_shape).reshape(-1).contiguous()
-    return (nodes, pool, f32(o.reshape(-1, 3)), f32(d.reshape(-1, 3)), tm)
+    return nodes, tuple(f32(a) for a in arrays) + (i32(p.material),)
 
 
 def launch_closest(lib, scene, bvh: BVH, prim: str, o, d, t_min,
                    t_max=T_FAR):
     """One launch of ``lib``'s closest-hit walk on CUDA tensors.
-    Returns what :func:`bvh_closest_hit_plain` returns."""
-    nodes, pool, of, df, tm = _walk_inputs(scene, bvh, prim, o, d, t_max)
+    Returns what :func:`bvh_closest_hit_plain` returns (for triangles,
+    what :func:`bvh_closest_hit_ordered_plain` returns)."""
+    _check_prim(prim)
+    of, df, tm = _walk_rays(o, d, t_max)
     n = of.shape[0]
     out_t = torch.empty(n, dtype=torch.float32, device=of.device)
     out_i, vis, tst = (torch.empty(n, dtype=torch.int32, device=of.device)
                        for _ in range(3))
-    stream = torch.cuda.current_stream(of.device).cuda_stream
-    err = lib.solr_bvh_closest(
-        PRIMS.index(prim), *(_ptr(x) for x in nodes), bvh.n_nodes,
-        *(_ptr(x) for x in pool), _ptr(of), _ptr(df), _ptr(tm), n,
-        float(t_min), _ptr(out_t), _ptr(out_i), _ptr(vis), _ptr(tst),
-        ctypes.c_void_p(stream))
+    stream = ctypes.c_void_p(torch.cuda.current_stream(of.device).cuda_stream)
+    outs = (_ptr(out_t), _ptr(out_i), _ptr(vis), _ptr(tst), stream)
+    if prim == "tri":
+        layouts = _tri_layouts(scene, bvh)
+        err = lib.solr_bvh_closest_tri(
+            *(_ptr(x) for x in layouts + (of, df, tm)), n, float(t_min),
+            *outs)
+    else:
+        nodes, pool = _walk_arrays(scene, bvh, prim, of.device)
+        err = lib.solr_bvh_closest(
+            PRIMS.index(prim), *(_ptr(x) for x in nodes), bvh.n_nodes,
+            *(_ptr(x) for x in pool), _ptr(of), _ptr(df), _ptr(tm), n,
+            float(t_min), *outs)
     if err != 0:
         raise RuntimeError(f"{kernel_name('bvh_closest_hit', prim)} kernel "
                            f"launch failed: cudaError {err}")
@@ -508,20 +745,28 @@ def launch_transmittance(lib, scene, bvh: BVH, prim: str, o, d, t_min,
                          t_max):
     """One launch of ``lib``'s shadow walk on CUDA tensors.  Returns
     what :func:`bvh_transmittance_plain` returns."""
-    nodes, pool, of, df, tm = _walk_inputs(scene, bvh, prim, o, d, t_max)
-    mats = scene.materials
-    emission = mats.emission.to(torch.float32).contiguous()
-    transparency = mats.transparency.to(torch.float32).contiguous()
+    _check_prim(prim)
+    of, df, tm = _walk_rays(o, d, t_max)
     n = of.shape[0]
     out_tr = torch.empty(n, dtype=torch.float32, device=of.device)
     vis, tst = (torch.empty(n, dtype=torch.int32, device=of.device)
                 for _ in range(2))
-    stream = torch.cuda.current_stream(of.device).cuda_stream
-    err = lib.solr_bvh_transmittance(
-        PRIMS.index(prim), *(_ptr(x) for x in nodes), bvh.n_nodes,
-        *(_ptr(x) for x in pool), _ptr(emission), _ptr(transparency),
-        _ptr(of), _ptr(df), _ptr(tm), n, float(t_min), _ptr(out_tr),
-        _ptr(vis), _ptr(tst), ctypes.c_void_p(stream))
+    stream = ctypes.c_void_p(torch.cuda.current_stream(of.device).cuda_stream)
+    outs = (_ptr(out_tr), _ptr(vis), _ptr(tst), stream)
+    if prim == "tri":
+        layouts = _tri_layouts(scene, bvh)
+        err = lib.solr_bvh_transmittance_tri(
+            *(_ptr(x) for x in layouts + (of, df, tm)), n, float(t_min),
+            *outs)
+    else:
+        nodes, pool = _walk_arrays(scene, bvh, prim, of.device)
+        mats = scene.materials
+        emission = mats.emission.to(torch.float32).contiguous()
+        transparency = mats.transparency.to(torch.float32).contiguous()
+        err = lib.solr_bvh_transmittance(
+            PRIMS.index(prim), *(_ptr(x) for x in nodes), bvh.n_nodes,
+            *(_ptr(x) for x in pool), _ptr(emission), _ptr(transparency),
+            _ptr(of), _ptr(df), _ptr(tm), n, float(t_min), *outs)
     if err != 0:
         raise RuntimeError(f"{kernel_name('bvh_transmittance', prim)} kernel "
                            f"launch failed: cudaError {err}")
@@ -566,7 +811,9 @@ def bvh_closest_hit(scene, bvh: BVH, pool_code: int, o, d, t_min,
     sweep.check_detached(kernel_name("bvh_closest_hit", prim), o, d, t_max,
                          *_pool_tensors(scene, prim, False))
     if not _kernel_device(o):
-        return bvh_closest_hit_plain(scene, bvh, prim, o, d, t_min, t_max)[:2]
+        plain = (bvh_closest_hit_ordered_plain if prim == "tri"
+                 else bvh_closest_hit_plain)
+        return plain(scene, bvh, prim, o, d, t_min, t_max)[:2]
     out = launch_closest(_library(), scene, bvh, prim, o, d, t_min, t_max)
     LAUNCHES[kernel_name("bvh_closest_hit", prim)] += 1
     return out[:2]

@@ -19,7 +19,7 @@ from solr_tpu_torch.ops.vecmath import cross, dot, safe_inv
 
 __all__ = ["sphere_t_p", "sphere_t", "triangle_t_p", "triangle_t",
            "cylinder_t_p", "cylinder_t", "ellipsoid_t_p", "ellipsoid_t",
-           "plane_t_p", "plane_t", "triangle_bary", "aabb_hit"]
+           "plane_t_p", "plane_t", "triangle_bary", "aabb_slab", "aabb_hit"]
 
 
 def _far(x):
@@ -119,15 +119,22 @@ def plane_t_p(o, d, axis, origin, half_extents, t_min):
     return torch.where(valid & (t > t_min), t, _far(t))
 
 
-def aabb_hit(o, inv_d, bmin, bmax, t_min, t_max):
-    """Slab test of boxes (..., 3) against rays o, inv_d (..., 3): whether
-    [tn, tf] overlaps [t_min, t_max].  torch.minimum and maximum keep a
-    NaN, so a NaN slab never hits."""
+def aabb_slab(o, inv_d, bmin, bmax):
+    """Entry and exit distances (tn, tf) of rays o, inv_d (..., 3)
+    through boxes (..., 3).  torch.minimum and maximum keep a NaN, so a
+    NaN slab never hits."""
     t0 = (bmin - o) * inv_d
     t1 = (bmax - o) * inv_d
     lo, hi = torch.minimum(t0, t1), torch.maximum(t0, t1)
     tn = torch.maximum(torch.maximum(lo[..., 0], lo[..., 1]), lo[..., 2])
     tf = torch.minimum(torch.minimum(hi[..., 0], hi[..., 1]), hi[..., 2])
+    return tn, tf
+
+
+def aabb_hit(o, inv_d, bmin, bmax, t_min, t_max):
+    """Slab test of boxes (..., 3) against rays o, inv_d (..., 3): whether
+    [tn, tf] overlaps [t_min, t_max]."""
+    tn, tf = aabb_slab(o, inv_d, bmin, bmax)
     return (tn <= tf) & (tf >= t_min) & (tn <= t_max)
 
 

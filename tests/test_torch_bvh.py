@@ -154,6 +154,24 @@ def test_closest_walk_matches_reference(code, f64, ties):
         assert (i[hit] % 2 == 0).all()
 
 
+@pytest.mark.parametrize("code,f64,ties", CASES, ids=IDS)
+def test_ordered_walk_matches_dfs_walk(code, f64, ties):
+    """The near-first walk (the triangle kernel's order, plain) returns
+    the DFS walk's t and idx on every ray, ties included, and both count
+    1 + 2 per entered inner node."""
+    _, scene = _scenes(PRIM_OF[code], f64, ties)
+    o, d = (torch.from_numpy(x) for x in _rays(np.float64 if f64
+                                                else np.float32))
+    tree = getattr(scene, BVH_OF[code])
+    dfs = bvh.bvh_closest_hit_plain(scene, tree, PRIM_OF[code], o, d,
+                                    RAY_EPS)
+    near = bvh.bvh_closest_hit_ordered_plain(scene, tree, PRIM_OF[code], o,
+                                             d, RAY_EPS)
+    assert torch.equal(near[0], dfs[0]) and torch.equal(near[1], dfs[1])
+    assert (dfs[0] < 1e30).sum() > 200
+    assert ((near[2] - 1) % 2 == 0).all() and ((dfs[2] - 1) % 2 == 0).all()
+
+
 @pytest.mark.parametrize("code,f64", [(c, f) for c in (0, 1, 2)
                                       for f in (False, True)],
                          ids=[f"{PRIM_OF[c]}-{'f64' if f else 'f32'}"

@@ -3,21 +3,27 @@ csrc/bvh_walk.cu built by the host's C++ compiler, one thread per CUDA
 thread), against their plain PyTorch versions: t, idx, tr, node visits
 and lane tests bit-equal, as on the card.  The emulation compiles
 without FMA contraction, as nvcc does with --fmad=false, and runs the
-kernels' own control flow: the skip-pointer walk, the leaf loop, the
-in-leaf and cross-leaf tie rules, the ordered leaf product and the
-early stop of a ray in full shadow.
+kernels' own control flow: the skip-pointer walk (spheres, cylinders),
+the packed pair walk with its stack (triangles: near child first for the
+closest hit, DFS order for the shadow walk), the leaf loop, the in-leaf
+and cross-leaf tie rules, the ordered leaf product and the early stop of
+a ray in full shadow.
 
 All six entries (closest hit and transmittance for the triangle, sphere
 and cylinder pools) run on the primary rays of a small frame and on
 shadow rays toward its light, with fractional transparencies and
-emissive occluders.  The tie cases duplicate every primitive, so a ray
-meets equal t in one leaf or in two neighbouring leaves; the first copy
-must win.  The card's own runs are tests/test_torch_gpu.py."""
+emissive occluders.  The triangle closest hit is held to the near-first
+plain walk on all four outputs and to the DFS walk on t and idx.  The
+tie cases duplicate every primitive, so a ray meets equal t in one leaf
+or in two neighbouring leaves; the first copy must win, also where the
+near-first walk reaches the second copy first.  The card's own runs are
+tests/test_torch_gpu.py."""
 
+import numpy as np
 import pytest
 import torch
 
-from solr_tpu_torch.constants import RAY_EPS
+from solr_tpu_torch.constants import POOL_TRIANGLE, RAY_EPS
 from solr_tpu_torch.molecule_scene import molecule_scene
 from solr_tpu_torch.ops import bvh
 from solr_tpu_torch.ops.camera import camera_rays
@@ -25,7 +31,8 @@ from solr_tpu_torch.ops.traverse import scene_closest_hit
 from solr_tpu_torch.scene import SceneBuilder
 from solr_tpu_torch.types import RenderConfig
 from torch_bvh_helpers import (cross_leaf_pairs, fractional_materials,
-                               shadow_rays_to_light, tie_scene)
+                               near_second_tie_scene, shadow_rays_to_light,
+                               tie_scene, tri_field)
 from torch_sweep_helpers import build_emulated, compiler
 
 # Several test workers share the cores: keep each one's intra-op pool small.
@@ -65,11 +72,30 @@ def _rays(scene, cam, cfg):
     return (o, d) + shadow_rays_to_light(scene, o, d, hit)
 
 
-def _closest_equal(monkeypatch, lib, scene, prim, o, d):
+def _closest_equal(monkeypatch, lib, scene, prim, o, d, tree=None):
+    """The kernel against its plain version on all four outputs (for
+    triangles the near-first walk, whose t and idx must equal the DFS
+    walk's); returns the plain version's outputs."""
     _no_stream(monkeypatch)
-    tree = getattr(scene, BVH_OF[prim])
+    tree = getattr(scene, BVH_OF[prim]) if tree is None else tree
     got = bvh.launch_closest(lib, scene, tree, prim, o, d, RAY_EPS)
     want = bvh.bvh_closest_hit_plain(scene, tree, prim, o, d, RAY_EPS)
+    if prim == "tri":
+        for a, b in zip(got[:2], want[:2]):  # t, idx
+            assert torch.equal(a, b)
+        want = bvh.bvh_closest_hit_ordered_plain(scene, tree, prim, o, d,
+                                                 RAY_EPS)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    return want
+
+
+def _trans_equal(monkeypatch, lib, scene, prim, o, d, tm, tree=None):
+    """The shadow kernel against the DFS plain walk: tr, visits, tests."""
+    _no_stream(monkeypatch)
+    tree = getattr(scene, BVH_OF[prim]) if tree is None else tree
+    got = bvh.launch_transmittance(lib, scene, tree, prim, o, d, RAY_EPS, tm)
+    want = bvh.bvh_transmittance_plain(scene, tree, prim, o, d, RAY_EPS, tm)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
     return want
@@ -94,14 +120,7 @@ def test_emulated_transmittance(emulated, monkeypatch, molecule, prim, rays):
     o, d, so, sd, tm = _rays(scene, cam, cfg)
     if rays == "camera":
         so, sd, tm = o, d, torch.full(o.shape[:1], 100.0)
-    _no_stream(monkeypatch)
-    tree = getattr(scene, BVH_OF[prim])
-    got = bvh.launch_transmittance(emulated, scene, tree, prim, so, sd,
-                                   RAY_EPS, tm)
-    want = bvh.bvh_transmittance_plain(scene, tree, prim, so, sd, RAY_EPS, tm)
-    for a, b in zip(got, want):
-        assert torch.equal(a, b)
-    tr = want[0]
+    tr = _trans_equal(monkeypatch, emulated, scene, prim, so, sd, tm)[0]
     # The ground lies under the molecule and its light: no shadow ray
     # crosses it.
     if rays == "camera" or prim != "tri":
@@ -142,3 +161,84 @@ def test_emulated_full_shadow_stops(emulated, monkeypatch):
     assert (want[0] == 0.0).all()
     assert int(want[1].max()) < scene.sph_bvh.n_nodes
 
+
+
+def test_emulated_tri_tie_reached_second_first(emulated, monkeypatch):
+    """The near-first walk enters the right leaf first (its box is the
+    nearer), which holds the shared triangle's second copy; the tie rule
+    must still give the first copy, as the DFS walk does."""
+    scene, o, d = near_second_tie_scene()
+    tree = scene.tri_bvh
+    assert tree.first_prim.tolist() == [-1, 0, 8]
+    v = scene.triangles
+    assert all(torch.equal(x[7], x[8]) for x in (v.v0, v.v1, v.v2))
+    lo = tree.aabb_min[1:, 2]
+    assert lo[1] < lo[0]  # the right leaf's box starts nearer along +z
+    t, idx, _, tests = _closest_equal(monkeypatch, emulated, scene, "tri",
+                                      o, d)
+    assert (t == 5.0).all() and (idx == 7).all()
+    assert (tests == 16).all()  # both leaves tested
+
+
+@pytest.fixture(scope="module")
+def field():
+    return tri_field()
+
+
+def test_emulated_tri_field(emulated, monkeypatch, field):
+    """A 1,500-triangle field (8 levels): the closest hit against both
+    plain walks, and the shadow walk with opaque, fractional and
+    emissive occluders, where many rays stop at an opaque leaf before
+    the DFS walk's end, against the DFS walk with its counts."""
+    scene, o, d = field
+    assert scene.tri_bvh.max_depth >= 7
+    t = _closest_equal(monkeypatch, emulated, scene, "tri", o, d)[0]
+    assert (t < 1e30).sum() > 1000
+    tm = torch.full(o.shape[:1], 100.0)
+    tr, vis, _ = _trans_equal(monkeypatch, emulated, scene, "tri", o, d, tm)
+    assert (tr == 0.0).sum() > 500 and ((tr > 0.0) & (tr < 1.0)).sum() > 500
+    # The stopped rays visit fewer nodes than the same walk to its end.
+    trans = scene.materials.transparency
+    clear = scene.replace(materials=scene.materials.replace(
+        transparency=torch.where(trans == 0.0, 0.5, trans)))
+    _, vis_all, _ = _trans_equal(monkeypatch, emulated, clear, "tri", o, d, tm)
+    assert (vis[tr == 0.0] < vis_all[tr == 0.0]).float().mean() > 0.5
+
+
+def test_emulated_tri_layouts_follow_the_scene(emulated, monkeypatch, field):
+    """The kernels' packed nodes and triangles are derived again when a
+    source changes: after a with_params step that moves the vertices
+    (refresh_accel; the BVH keeps its boxes, ROADMAP C9), after
+    bvh_refit, and after an in-place write to a vertex array, the
+    emulated kernels agree with the plain walks on the moved scene."""
+    scene, o, d = field
+    tm = torch.full(o.shape[:1], 100.0)
+    before = _closest_equal(monkeypatch, emulated, scene, "tri", o, d)
+    params = scene.params
+    shift = torch.as_tensor(np.random.default_rng(4).normal(
+        0.0, 0.05, params["vertices"][0].shape), dtype=torch.float32)
+    params["vertices"] = tuple(v + shift for v in params["vertices"])
+    moved = scene.with_params(params)
+    _no_stream(monkeypatch)
+    got = bvh.launch_closest(emulated, moved, moved.tri_bvh, "tri", o, d,
+                             RAY_EPS)
+    want = bvh.bvh_closest_hit_ordered_plain(moved, moved.tri_bvh, "tri", o,
+                                             d, RAY_EPS)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert not torch.equal(got[0], before[0])
+    _trans_equal(monkeypatch, emulated, moved, "tri", o, d, tm)
+    # The boxes refitted to the moved triangles: both orders agree again.
+    refit = bvh.bvh_refit(moved.tri_bvh, *(torch.as_tensor(x) for x in
+                                           bvh.pool_aabbs(moved,
+                                                          POOL_TRIANGLE)))
+    _closest_equal(monkeypatch, emulated, moved, "tri", o, d, tree=refit)
+    _trans_equal(monkeypatch, emulated, moved, "tri", o, d, tm, tree=refit)
+    # An in-place write to the same tensor (its version moves).
+    v2 = moved.triangles.v2
+    v2.add_(0.01)
+    got = bvh.launch_closest(emulated, moved, refit, "tri", o, d, RAY_EPS)
+    want = bvh.bvh_closest_hit_ordered_plain(moved, refit, "tri", o, d,
+                                             RAY_EPS)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)

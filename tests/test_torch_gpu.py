@@ -14,6 +14,8 @@ fit in shared memory.  The six walk kernels (closest hit and
 transmittance over the triangle, sphere and cylinder BVHs) run on camera
 and shadow rays with fractional and emissive materials, and on scenes
 with every primitive twice (ties within a leaf and across leaves); the
+triangle kernels also on a 1,500-triangle field with opaque occluders
+and on two leaves whose nearer one holds a tie's second copy; the
 molecule frame with traversal="while" launches all six.  A gradient step
 through the reduced bench frame on the card (packets and walk) agrees
 with the same step on the CPU.  The camera modes and texture features
@@ -63,6 +65,7 @@ from solr_tpu_torch.textured_scene import textured_scene
 from solr_tpu_torch.types import CameraMode, PostFxConfig, PostFxMode
 from solr_tpu_torch.parallel.launch import spawn_group
 from torch_bvh_helpers import (cross_leaf_pairs, fractional_materials,
+                               near_second_tie_scene, tri_field,
                                shadow_rays_to_light, tie_scene)
 from torch_parallel_helpers import gpu_frame
 from torch_sweep_helpers import forced_ties
@@ -522,7 +525,10 @@ def test_walk_closest_kernel_matches_plain(walk, prim):
         assert torch.equal(a, b)
     lib_out = bvh.launch_closest(bvh._library(), scene, tree, prim, o, d,
                                  RAY_EPS)
-    for a, b in zip(lib_out[2:], want[2:]):  # visits, tests
+    if prim == "tri":  # the kernel's own order: near child first
+        want = bvh.bvh_closest_hit_ordered_plain(scene, tree, prim, o, d,
+                                                 RAY_EPS)
+    for a, b in zip(lib_out, want):  # t, idx, visits, tests
         assert torch.equal(a, b)
 
 
@@ -557,11 +563,44 @@ def test_walk_closest_ties(cuda, prim):
     tree = getattr(scene, BVH_OF[prim])
     got = bvh.launch_closest(bvh._library(), scene, tree, prim, o, d, RAY_EPS)
     want = bvh.bvh_closest_hit_plain(scene, tree, prim, o, d, RAY_EPS)
-    for a, b in zip(got, want):
+    for a, b in zip(got[:2], want[:2]):  # t, idx
+        assert torch.equal(a, b)
+    near = (bvh.bvh_closest_hit_ordered_plain(scene, tree, prim, o, d,
+                                              RAY_EPS)
+            if prim == "tri" else want)
+    for a, b in zip(got, near):  # and the counts of the kernel's order
         assert torch.equal(a, b)
     hit = want[0] < 1e30
     assert (want[1][hit] % 2 == 0).all()
     assert cross_leaf_pairs(tree, want[1][hit]) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["field", "near_second_tie"])
+def test_walk_tri_kernels_order_and_stop(cuda, case):
+    """The triangle kernels on a field where shadow rays stop at opaque
+    leaves, and on the two-leaf tie that the near-first walk reaches
+    second copy first: the closest hit equal to the near-first plain
+    walk on all four outputs and to the DFS walk on t and idx, the
+    shadow walk to the DFS walk on all three."""
+    bvh.build()
+    scene, o, d = (tri_field(device=cuda) if case == "field"
+                   else near_second_tie_scene(device=cuda))
+    tree = scene.tri_bvh
+    got = bvh.launch_closest(bvh._library(), scene, tree, "tri", o, d,
+                             RAY_EPS)
+    dfs = bvh.bvh_closest_hit_plain(scene, tree, "tri", o, d, RAY_EPS)
+    near = bvh.bvh_closest_hit_ordered_plain(scene, tree, "tri", o, d,
+                                             RAY_EPS)
+    assert all(torch.equal(a, b) for a, b in zip(got, near))
+    assert all(torch.equal(a, b) for a, b in zip(got[:2], dfs[:2]))
+    if case == "near_second_tie":
+        assert (got[1] == 7).all()
+    tm = torch.full(o.shape[:1], 100.0, device=o.device)
+    got = bvh.launch_transmittance(bvh._library(), scene, tree, "tri", o, d,
+                                   RAY_EPS, tm)
+    want = bvh.bvh_transmittance_plain(scene, tree, "tri", o, d, RAY_EPS, tm)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 @pytest.mark.gpu

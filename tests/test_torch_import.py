@@ -19,7 +19,8 @@ def test_imports_with_jax_blocked():
         "solr_tpu_torch.bench_scene, solr_tpu_torch.ops.sweep, "
         "solr_tpu_torch.frame_profile, solr_tpu_torch.molecule_scene, "
         "solr_tpu_torch.io.pdb, solr_tpu_torch.kernel_shapes, "
-        "solr_tpu_torch.sweep_steps, solr_tpu_torch.ops.bvh, "
+        "solr_tpu_torch.sweep_steps, solr_tpu_torch.walk_steps, "
+        "solr_tpu_torch.ops.bvh, "
         "solr_tpu_torch.cornell_scene, solr_tpu_torch.utils, "
         "solr_tpu_torch.inverse, solr_tpu_torch.textured_scene, "
         "solr_tpu_torch.ops.postfx, solr_tpu_torch.ops.rng, "

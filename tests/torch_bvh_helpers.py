@@ -76,3 +76,60 @@ def cross_leaf_pairs(tree, idx) -> int:
         leaf_of[f:f + c] = k
     i = idx.cpu().numpy().astype(np.int64)
     return int((leaf_of[i] != leaf_of[np.minimum(i + 1, n - 1)]).sum())
+
+
+def tri_field(n: int = 1500, seed: int = 2, device="cpu"):
+    """A field of ``n`` random triangles in front of the origin, each with
+    one of five materials: opaque (transparency 0), three fractional
+    ones and an emissive one, so shadow rays stop early in some walks
+    and multiply fractional factors in others.  Returns (scene, o, d)
+    with 4,096 rays from a small box near the origin into the field."""
+    rng = np.random.default_rng(seed)
+    b = SceneBuilder()
+    mats = [b.add_material(transparency=0.0),
+            b.add_material(transparency=0.4), b.add_material(transparency=0.7),
+            b.add_material(transparency=0.9),
+            b.add_material(transparency=0.2, emission=0.5)]
+    c = rng.uniform(-3.0, 3.0, (n, 3)) + [0.0, 0.0, 8.0]
+    v = c[:, None] + rng.normal(0.0, 0.35, (n, 3, 3))
+    b.add_triangles_raw(v[:, 0], v[:, 1], v[:, 2],
+                        np.asarray(mats)[rng.integers(0, 5, n)])
+    scene = b.build(device=device)
+    o = rng.uniform(-0.5, 0.5, (4096, 3))
+    d = rng.uniform(-3.0, 3.0, (4096, 3)) + [0.0, 0.0, 8.0] - o
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return (scene,) + tuple(torch.as_tensor(x, dtype=torch.float32,
+                                            device=device) for x in (o, d))
+
+
+def near_second_tie_scene(device="cpu"):
+    """Two leaves of 8 triangles that share one triangle: its first copy
+    is the last row of the left leaf (row 7), its second the first row
+    of the right leaf (row 8).  The left leaf's other triangles lie
+    behind the shared one (z 6.5-9), the right leaf's in front of it (z
+    1-4), both off the rays, so the right leaf's box is the nearer one:
+    a near-first walk finds the second copy first, and only the tie
+    rule gives row 7.  The Morton order puts the left leaf's triangles
+    first (x about -3), then the shared one (x 0.3, y -0.2), then the
+    right leaf's (x about 3, y about 1.2).  Returns (scene, o, d) with
+    64 rays along +z, which all hit the shared triangle at z = 5."""
+    b = SceneBuilder()
+    m = b.add_material(color=(0.7, 0.6, 0.5, 1.0))
+    shared = np.array([[-0.3, -0.6, 5.0], [0.9, -0.6, 5.0], [0.3, 0.6, 5.0]])
+    tri = [shared, shared]
+    for i in range(7):
+        tri.append(np.array([[-3.2 + 0.05 * i, -1.5, 6.5 + 0.3 * i],
+                             [-3.0 + 0.05 * i, -1.0, 7.0 + 0.3 * i],
+                             [-3.1 + 0.05 * i, -1.2, 7.5 + 0.3 * i]]))
+        tri.append(np.array([[2.9 + 0.05 * i, 1.0, 1.0 + 0.3 * i],
+                             [3.1 + 0.05 * i, 1.5, 1.5 + 0.3 * i],
+                             [3.0 + 0.05 * i, 1.2, 2.0 + 0.3 * i]]))
+    v = np.stack(tri)
+    b.add_triangles_raw(v[:, 0], v[:, 1], v[:, 2], m)
+    scene = b.build(bvh_threshold=16, device=device)
+    g = (np.arange(8) - 3.5) * 0.04
+    gx, gy = np.meshgrid(g + 0.3, g - 0.1, indexing="ij")
+    o = np.stack([gx, gy, np.zeros_like(gx)], -1).reshape(-1, 3)
+    d = np.tile([0.0, 0.0, 1.0], (o.shape[0], 1))
+    return (scene,) + tuple(torch.as_tensor(x, dtype=torch.float32,
+                                            device=device) for x in (o, d))

@@ -58,6 +58,7 @@ using std::max;
 using std::min;
 inline int __ffs(unsigned x) { return __builtin_ffs(x); }
 template <class T> inline T __ldg(const T* p) { return *p; }
+inline int __float_as_int(float f) { int i; memcpy(&i, &f, 4); return i; }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 template <class T> cudaError_t cudaFuncSetAttribute(T, int, int) { return 0; }
 inline cudaError_t cudaGetLastError() { return 0; }
