@@ -50,12 +50,12 @@ both started together.  Phases, each of which must pass:
    BVHs) against their plain versions, each on the first call that the
    walk paths below make of it (recorded in one frame of each; the
    triangle kernels also on the first calls of the textured frame of
-   20): t, idx, tr, node visits and lane tests bit-equal (the triangle
-   closest hit: all four to the near-first plain walk, t and idx also to
-   the DFS walk); kernel and plain times, the triangle kernels' repack
-   timed apart, visits and tests per ray under the DFS walk's order and
-   the kernel's, the bound at both, and each kernel's registers and
-   stack from nvcc -Xptxas -v;
+   21): t, idx, tr, node visits and lane tests bit-equal (the triangle
+   and cylinder closest hits: all four to the near-first plain walk, t
+   and idx also to the DFS walk); kernel and plain times, the triangle
+   and cylinder kernels' repack timed apart, visits and tests per ray
+   under the DFS walk's order and the kernel's, the bound at both, and
+   each kernel's registers and stack from nvcc -Xptxas -v;
 10. ``walk_path``: the bench scene at 1920x1080, 2 bounces: 1080 rows are
    no whole number of 16-pixel tiles, so every triangle query walks the
    triangle BVH; one warm-up and three timed frames as in 4; the walk
@@ -63,16 +63,28 @@ both started together.  Phases, each of which must pass:
    triangle pool's brute force must not;
 11. ``molecule_while``: the full molecule frame with traversal="while",
    one warm-up and three timed frames: all six walk kernels launch and
-   no sweep kernel does;
+   no sweep kernel does, nor a DFS-order closest hit;
 12. ``walk_reference``: reduced frames of those two paths on the card
    against committed solr_tpu CPU frames (tests/data/torch_walk_ref.npz,
    the bench frame at 64x56; torch_molecule_while_ref.npz), as in 5;
-13. ``cornell``: the gallery's Cornell box (planes and spheres, brute
+13. ``walk_stale``: the stale-tree rule (ROADMAP C14) on both packed
+   pools: the 1080p bench frame of 10 after a with_params step that
+   moves every triangle by a random offset (sd WALK_STALE_SD), and the
+   molecule frame of 11 after a Scene.replace that moves every cylinder
+   by one (sd MOL_STALE_RADII x the median radius), neither refitted,
+   so that some primitives leave their leaf boxes (counted, and the
+   leaf-box check timed): in each, the DFS-order closest hit of the pool
+   must launch and the near-first one must not; on its first call it
+   must be bit-equal on t and idx to the DFS walk and on all four
+   outputs to the plain walk of its own order, and it is timed as in 9;
+   then the same values in new tensors must take the near-first kernel
+   and not the DFS-order one;
+14. ``cornell``: the gallery's Cornell box (planes and spheres, brute
    force) built by the port's SceneBuilder, at 64x64 against
    tests/data/torch_cornell_ref.npz as in 5, then at BASELINE.json
    config #1's 256x256 and 2 bounces, one warm-up and three timed
    frames;
-14. ``grad_reference``: gradients on the card against the committed
+15. ``grad_reference``: gradients on the card against the committed
    solr_tpu CPU gradients (tests/data/torch_grad_ref.npz): the inverse
    demo's scene at 64x64 over the pixels outside the stored silhouette
    mask, every leaf (|port - ref| <= tol x max|ref|: 1e-3 for sphere
@@ -81,7 +93,7 @@ both started together.  Phases, each of which must pass:
    the vertex-gradient L1 totals within rtol 1e-3 and, over the rows
    the reference touches, the L1 of the difference within 5e-3 of the
    reference's (whole rows move where an f32 edge flip changes a hit);
-15. ``grad_main_path``: gradient steps through the full bench frame
+16. ``grad_main_path``: gradient steps through the full bench frame
    (packets): with_params, render_sample, the MSE against 0.8 x the
    frame's own image, backward, over vertices, sphere centres and radii,
    albedo and light position; one warm-up and three timed steps, ms for
@@ -89,24 +101,24 @@ both started together.  Phases, each of which must pass:
    non-zero vertex gradient, and one backward's device profile; every
    gradient finite, the vertex gradients non-zero, B1 and B2 launched
    and no walk kernel;
-16. ``grad_walk_path``: the same at 1920x1080 (the walk): the triangle
+17. ``grad_walk_path``: the same at 1920x1080 (the walk): the triangle
    walk kernels launch, B1 and B2 do not;
-17. ``inverse``: ``python -m solr_tpu_torch.inverse`` on the card at
+18. ``inverse``: ``python -m solr_tpu_torch.inverse`` on the card at
    128x128: 60 steps, the loss must fall 20x; with ``--geometry`` 300
    steps, the centre error must fall 5x; ms per step and its parts,
    the final errors;
-18. ``stereo_path``: BASELINE config #5's single-card frame: the bench
+19. ``stereo_path``: BASELINE config #5's single-card frame: the bench
    scene at 1920x1080 SIDE_BY_SIDE with 32x8-pixel tiles (a strip is one
    pixel row), 2 bounces, packets, as in 4 (B1 and B2 launch, no walk
    kernel; when the warm-up frame takes over STEREO_SLOW_S seconds, one
    timed frame instead of three, and the record says so); then the same
    frame with traversal="while" (``stereo_while``): the triangle walks
    launch, B1 and B2 do not;
-19. ``stereo_reference``: the side-by-side bench frame cut to 20,000
+20. ``stereo_reference``: the side-by-side bench frame cut to 20,000
    triangles at 128x64 with 32x8 tiles, and the gallery's anaglyph
    Cornell box at 64x64, against committed solr_tpu CPU frames
    (tests/data/torch_stereo_ref.npz, torch_anaglyph_ref.npz), as in 5;
-20. ``textured_path``: BASELINE config #3, ``render(textured_scene(1920,
+21. ``textured_path``: BASELINE config #3, ``render(textured_scene(1920,
    1080), key=Key.seed(0), spp=4)`` (3 bounces, 4 soft-shadow samples,
    antialiasing jitter, fog, sky, six texture maps, ambient occlusion;
    1080 rows: the triangle walk), one warm-up and three timed frames: ms
@@ -114,11 +126,11 @@ both started together.  Phases, each of which must pass:
    (the triangle walks must launch), and one more frame under
    torch.profiler for the device kernels per frame and the device busy
    share (its device time over the best timed frame);
-21. ``textured_reference``: the textured scene at 64x64 without a key
+22. ``textured_reference``: the textured scene at 64x64 without a key
    (hard shadows, no jitter; ambient occlusion), with FISHEYE, and with
    a lens (aperture 0.1) and DEPTH_OF_FIELD, against
    tests/data/torch_textured_ref.npz, as in 5;
-22. ``parallel_path``: BASELINE config #5 sharded
+23. ``parallel_path``: BASELINE config #5 sharded
    (``solr_tpu_torch.parallel``): four spawned ranks share the card on
    gloo (NCCL refuses two ranks on one device); rank 0 builds the bench
    scene and ``broadcast_scene`` sends it to the others; ``shard_render``
@@ -127,21 +139,21 @@ both started together.  Phases, each of which must pass:
    the same configuration at atol 1e-6, and every rank must launch B1
    and B2 and no walk kernel; ms, peak memory and launches per rank
    ("4 ranks sharing one card", not a scaling figure);
-23. ``parallel_grads``: in the same ranks, at 480x288 (72-row bands),
+24. ``parallel_grads``: in the same ranks, at 480x288 (72-row bands),
    ``sharded_loss_grad`` with "psum" and "reduce_scatter" against the
    one-process loss (rtol 1e-5) and gradients (every leaf rtol 1e-4,
    atol 1e-6), then three ``make_sharded_train_step`` steps in each mode
    (Adam at 1e-2; ZeRO-1 against psum at rtol 1e-4, atol 1e-6; every
    loss finite); B1 and B2 launch in every rank;
-24. ``parallel_ring``: in the same ranks, ``ring_closest_hit`` of
+25. ``parallel_ring``: in the same ranks, ``ring_closest_hit`` of
    16,384 rays against 20,000 random triangles, against the brute-force
    ``triangle_t`` minimum on the card: hit ids equal, t rtol 1e-6, at
    least 20 hits;
-25. ``parallel_nccl``: with two or more cards, 22's frame over min(4,
-   cards) cards under NCCL, held as in 22; with one, ``shard_render``
-   under NCCL at world size 1 on 18's frame, which it must equal
+26. ``parallel_nccl``: with two or more cards, 23's frame over min(4,
+   cards) cards under NCCL, held as in 23; with one, ``shard_render``
+   under NCCL at world size 1 on 19's frame, which it must equal
    (atol 1e-6);
-26. ``resumable``: a spawned worker renders the bench frame through
+27. ``resumable``: a spawned worker renders the bench frame through
    ``resumable_render`` in 64-row chunks and is SIGKILLed after its
    first heartbeat; a second worker resumes the directory, and its frame
    must equal an uninterrupted resumable_render of the same chunks bit
@@ -149,7 +161,7 @@ both started together.  Phases, each of which must pass:
    are reported: a row band regroups the packets, and an edge-grazing
    ray can flip, ROADMAP C13); the same directory run again with
    128-row chunks must start over (ROADMAP C5), held the same way;
-27. ``walk_profiles``: one more frame of 10 and of 18's ``stereo_while``
+28. ``walk_profiles``: one more frame of 10 and of 19's ``stereo_while``
    under torch.profiler, after every timed phase: device kernels per
    frame and the device busy share (device time over the best timed
    frame).
@@ -158,8 +170,8 @@ Every spawned rank or worker must end within CHILD_DEADLINE_S seconds,
 or its phase fails.
 
 Each main path runs with the launch counts set to 0 just before it and
-read just after (22 and 23 in each rank); the packet paths (4, 7, 15,
-18, 22, 23) must launch no walk kernel.  Prints the full record of the
+read just after (23 and 24 in each rank); the packet paths (4, 7, 16,
+19, 23, 24) must launch no walk kernel.  Prints the full record of the
 run on one line
 ("record: {...}"), the kernel table as one JSON line (each kernel's
 time, its plain version's, its bound: the larger of the bytes its
@@ -230,15 +242,17 @@ BODY = {"tri": "_woop_rows :108", "sphere": "_sphere_rows :136",
 # The walks (solr_tpu_torch/csrc/bvh_walk.cu), counted the same way:
 # per ray, the three divisions of 1/d; per node visited, the slab test's
 # six subtractions and six multiplies; per leaf lane tested, the pool
-# test: Moller-Trumbore with its two edges formed (52), SphereP or CylP
-# (which also forms the axis, |axis|^2, 1/max(|axis|^2, 1e-8) and r*r of
-# its cylinder); per pair that reaches its roots, as for the sweeps.
+# test: Moller-Trumbore with its two edges formed (52), SphereP, or the
+# capped cylinder with its axis, |axis|^2, 1/max(|axis|^2, 1e-8) and
+# r*r formed (85); per pair that reaches its roots, as for the sweeps.
 # The shadow walk's products are not counted.  The triangle kernels read
-# the edges from pack_triangles: their own bound counts 46 per lane.
+# the edges from pack_triangles: their own bound counts 46 per lane; the
+# cylinder kernels read the axis, |axis|^2, 1/max(|axis|^2, 1e-8) and
+# r*r from pack_cylinders: 75 per lane.
 WALK_OPS_PER_RAY = 3
 WALK_OPS_PER_VISIT = 12
 WALK_OPS_PER_LANE = {"tri": 52, "sphere": 17, "cyl": 85}
-PACKED_TRI_OPS_PER_LANE = 46
+PACKED_OPS_PER_LANE = {"tri": 46, "cyl": 75}
 WALK_REPLACES = {"bvh_closest_hit": "solr_tpu/ops/bvh.py:333",
                  "bvh_transmittance": "solr_tpu/ops/bvh.py:397"}
 # Gradient checks: per-leaf f32 tolerances of the inverse scene, the
@@ -274,6 +288,11 @@ RING_T_RTOL = 1e-6
 RING_MIN_HITS = 20
 # Resumable row bands: the bench frame at SIZE in RESUME_ROWS-row chunks.
 RESUME_ROWS = 64
+# The stale-tree frames: every bench triangle moved by a normal offset of
+# this sd (about a sixteenth of an edge) from this seed, without a refit;
+# every molecule cylinder by one of this many times the median radius.
+WALK_STALE_SD, WALK_STALE_SEED = 0.01, 11
+MOL_STALE_RADII = 0.5
 # Every spawned rank or child must end by then.
 CHILD_DEADLINE_S = 600.0
 
@@ -557,33 +576,63 @@ def _walk_bound_ms(prim, closest, scene, tree, args, outs, visits, tests,
             "bytes" if t_bytes > t_ops else "operations")
 
 
-# Each walk kernel's function in csrc/bvh_walk.cu, as its mangled name
-# holds it, and its design.
-WALK_FUNCTION = {"bvh_closest_hit_tri": "closest_tri",
-                 "bvh_transmittance_tri": "trans_tri",
-                 "bvh_closest_hit_sphere": "closest_walkI7SphereP",
-                 "bvh_transmittance_sphere": "trans_walkI7SphereP",
-                 "bvh_closest_hit_cyl": "closest_walkI4CylP",
-                 "bvh_transmittance_cyl": "trans_walkI4CylP"}
+# Each walk kernel's function in csrc/bvh_walk.cu, as parts of its
+# mangled name, and its design.
+WALK_FUNCTION = {
+    "bvh_closest_hit_tri": ("closest_pairs", "TriRowELb1"),
+    "bvh_closest_hit_tri_dfs": ("closest_pairs", "TriRowELb0"),
+    "bvh_transmittance_tri": ("trans_pairs", "TriRow"),
+    "bvh_closest_hit_cyl": ("closest_pairs", "CylRowELb1"),
+    "bvh_closest_hit_cyl_dfs": ("closest_pairs", "CylRowELb0"),
+    "bvh_transmittance_cyl": ("trans_pairs", "CylRow"),
+    "bvh_closest_hit_sphere": ("closest_walkI7SphereP",),
+    "bvh_transmittance_sphere": ("trans_walkI7SphereP",)}
 WALK_DESIGN = {
     "bvh_closest_hit_tri": "packed child pairs, near child first, stack",
-    "bvh_transmittance_tri": "packed child pairs, DFS order, stack"}
+    "bvh_closest_hit_tri_dfs": "packed child pairs, DFS order, stack",
+    "bvh_transmittance_tri": "packed child pairs, DFS order, stack",
+    "bvh_closest_hit_cyl": "packed child pairs and cylinder rows, near "
+                           "child first, stack",
+    "bvh_closest_hit_cyl_dfs": "packed child pairs and cylinder rows, "
+                               "DFS order, stack",
+    "bvh_transmittance_cyl": "packed child pairs and cylinder rows, DFS "
+                             "order, stack"}
 
 
 def _walk_usage(rec, name):
-    fn = WALK_FUNCTION[name]
-    hit = [u for k, u in rec.get("bvh_ptxas", {}).items() if fn in k]
+    parts = WALK_FUNCTION[name]
+    hit = [u for k, u in rec.get("bvh_ptxas", {}).items()
+           if all(x in k for x in parts)]
     return hit[0] if hit else None
 
 
-def _check_walk(rec, scene, call, label=None):
+def _warm_ms(fn):
+    """ms of one call of ``fn`` between two CUDA events.  The plain
+    walks run for seconds, so each is timed on the call after the one
+    whose outputs the check holds, which is its warm-up (time_ms(fn, 1)
+    would run it a third time)."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def _check_walk(rec, scene, call, label=None, near_first=True):
     """One walk kernel against its plain version on one recorded call:
-    t or tr, idx, visits and tests bit-equal (the triangle closest hit:
-    all four to the near-first plain walk, t and idx to the DFS walk);
-    times, visits and tests per ray under both orders, and the bound at
-    the DFS walk's counts (the yardstick across PRs) and at the
-    kernel's own.  The triangle kernels' repack (pack_nodes and
-    pack_triangles, built anew) is timed apart from the kernel, which
+    t or tr, idx, visits and tests bit-equal (the triangle and cylinder
+    closest hits: all four to the plain walk of their order, near child
+    first or, with ``near_first`` False, the DFS walk's, and t and idx
+    to the DFS walk); times (the kernel's over 5 calls after a warm-up,
+    each plain walk's over one call after the checked one), visits and
+    tests per ray under both orders, and the bound at the DFS walk's
+    counts (the yardstick across PRs) and at the kernel's own.  The
+    packed kernels' repack (pack_nodes and pack_triangles or
+    pack_cylinders, built anew) is timed apart from the kernel, which
     reads the cached layouts."""
     import torch
 
@@ -592,15 +641,25 @@ def _check_walk(rec, scene, call, label=None):
 
     entry, prim, tree, o, d, t_min, t_max = call
     closest = entry == "bvh_closest_hit"
-    launch = bvh.launch_closest if closest else bvh.launch_transmittance
+    packed = prim in bvh.PACKED
     dfs_plain = (bvh.bvh_closest_hit_plain if closest
                  else bvh.bvh_transmittance_plain)
-    near = closest and prim == "tri"
-    plain = bvh.bvh_closest_hit_ordered_plain if near else dfs_plain
+    near = closest and packed
     args = (scene, tree, prim, o, d, t_min, t_max)
-    got = launch(bvh._library(), *args)
+    if closest:
+        def launch():
+            return bvh.launch_closest(bvh._library(), *args,
+                                      near_first=near_first)
+
+        def plain():
+            return bvh.bvh_closest_hit_ordered_plain(*args,
+                                                     near_first=near_first)
+    else:
+        def launch():
+            return bvh.launch_transmittance(bvh._library(), *args)
+    got = launch()
     dfs, root_pairs = _walk_plain_with_root_pairs(dfs_plain, args, prim)
-    own = plain(*args) if near else dfs
+    own = plain() if near else dfs
     torch.cuda.synchronize()
     equal = all(torch.equal(a, b) for a, b in zip(got, own))
     if near:
@@ -608,7 +667,7 @@ def _check_walk(rec, scene, call, label=None):
     visits, tests = int(dfs[-2].sum()), int(dfs[-1].sum())
     own_visits, own_tests = int(own[-2].sum()), int(own[-1].sum())
     n = o.shape[0]
-    name = bvh.kernel_name(entry, prim)
+    name = bvh.kernel_name(entry, prim, dfs=near and not near_first)
     entry_rec = dict(
         name=name, entry=entry, prim=prim, label=label,
         design=WALK_DESIGN.get(name, "one thread per ray, skip pointers"),
@@ -616,14 +675,16 @@ def _check_walk(rec, scene, call, label=None):
         rays=n, nodes=tree.n_nodes, visits_per_ray=visits / n,
         tests_per_ray=tests / n, own_visits_per_ray=own_visits / n,
         own_tests_per_ray=own_tests / n, root_pairs=root_pairs,
-        ms=time_ms(lambda: launch(bvh._library(), *args), 5),
-        plain_ms=time_ms(lambda: plain(*args), 1), ptxas=_walk_usage(
-            rec, name))
-    if near:
-        entry_rec["dfs_plain_ms"] = time_ms(lambda: dfs_plain(*args), 1)
-    if prim == "tri":
+        ms=time_ms(launch, 5),
+        plain_ms=_warm_ms(plain if near else lambda: dfs_plain(*args)),
+        ptxas=_walk_usage(rec, name))
+    if near and near_first:
+        entry_rec["dfs_plain_ms"] = _warm_ms(lambda: dfs_plain(*args))
+    if packed:
+        pack_rows = (bvh.pack_triangles if prim == "tri"
+                     else bvh.pack_cylinders)
         entry_rec["repack_ms"] = time_ms(
-            lambda: (bvh.pack_nodes(tree), bvh.pack_triangles(scene)), 5)
+            lambda: (bvh.pack_nodes(tree), pack_rows(scene)), 5)
     if closest:
         entry_rec["hits"] = int((own[0] < 1e30).sum())
     else:
@@ -633,8 +694,9 @@ def _check_walk(rec, scene, call, label=None):
         prim, closest, scene, tree, args, got, visits, tests, root_pairs)
     entry_rec["own_bound_ms"], entry_rec["own_bound_by"] = _walk_bound_ms(
         prim, closest, scene, tree, args, got, own_visits, own_tests,
-        root_pairs, PACKED_TRI_OPS_PER_LANE if prim == "tri" else None)
+        root_pairs, PACKED_OPS_PER_LANE.get(prim))
     rec["walk_kernels"].append(entry_rec)
+    return entry_rec
 
 
 def phase_kernels_walk(scenes, rec, device):
@@ -678,6 +740,88 @@ def _walk_cfg(cfg):
     import dataclasses
 
     return dataclasses.replace(cfg, width=WALK_WIDTH, height=WALK_HEIGHT)
+
+
+def _stale_case(rec, key, cam, cfg, prim, moved, same, paths, **extra):
+    """One pool's stale-tree case of walk_stale: ``moved`` (the scene
+    with the pool's rows moved without a refit) must be stale, and its
+    frame, as a main path under ``key``, must take the DFS-order closest
+    hit of ``prim`` and not the near-first one; that kernel is checked on
+    its first call as in kernels_walk (label "stale tree"); ``same`` (the
+    pool's values unchanged, in new tensors) must take the near-first
+    kernel again."""
+    import torch
+
+    from solr_tpu_torch.kernel_shapes import first_walk_calls, time_ms
+    from solr_tpu_torch.ops import bvh, sweep
+    from solr_tpu_torch.ops.render import render_sample
+
+    near, dfs = (bvh.kernel_name("bvh_closest_hit", prim, dfs=f)
+                 for f in (False, True))
+    trans = bvh.kernel_name("bvh_transmittance", prim)
+    tree = moved.tri_bvh if prim == "tri" else moved.cyl_bvh
+    strays = int(bvh.outside_leaf_boxes(moved, tree, prim).sum())
+    check_ms = time_ms(lambda: bool(bvh.outside_leaf_boxes(
+        moved, tree, prim).any()), 5)
+    if bvh.leaf_boxes_hold(moved, tree, prim) or not strays:
+        raise AssertionError(f"{key}: the moved tree is not stale")
+    paths[key] = phase_path(moved, cam, cfg, rec, key, [dfs, trans],
+                            idle=[near] + list(sweep.LAUNCHES),
+                            no_brute=[prim])
+    calls = first_walk_calls(lambda: render_sample(moved, cam, cfg))
+    k = _check_walk(rec, moved, calls[near], "stale tree", near_first=False)
+    rec[key].update(
+        extra, primitives=int(tree.prim_count.sum()),
+        outside_leaf_boxes=strays, leaf_box_check_ms=check_ms,
+        first_call=dict(equal=k["equal"], ms=k["ms"]))
+    if not k["equal"]:
+        raise AssertionError(f"{key}: {dfs} and its plain walk disagree")
+    with torch.no_grad():
+        _reset_counts()
+        render_sample(same, cam, cfg)
+        torch.cuda.synchronize()
+    counts = {k: bvh.LAUNCHES[k] for k in (near, dfs)}
+    rec[key]["unchanged_values"] = counts
+    if counts[near] <= 0 or counts[dfs]:
+        raise AssertionError(f"{key}: unchanged values took {counts}")
+
+
+def phase_walk_stale(scenes, rec, paths, device):
+    """The stale-tree rule (ROADMAP C14) on both packed pools.  The
+    1080p bench walk frame after a with_params step that moves every
+    triangle by a normal offset (sd WALK_STALE_SD) without a refit
+    (``walk_stale``), and the molecule frame with traversal="while"
+    after a Scene.replace that moves every cylinder by a normal offset
+    (sd MOL_STALE_RADII of the median cylinder radius) without a refit
+    (``walk_stale_cyl``): each as in :func:`_stale_case`, the strays
+    counted and the leaf-box check timed."""
+    import dataclasses
+
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(WALK_STALE_SEED)
+    scene, cam, cfg = scenes["bench"]
+    params = scene.params
+    shift = torch.randn(params["vertices"][0].shape, generator=gen,
+                        device=device) * WALK_STALE_SD
+    with torch.no_grad():
+        moved = scene.with_params(dict(params, vertices=tuple(
+            v + shift for v in params["vertices"])))
+        same = scene.with_params(dict(params, vertices=tuple(
+            v.clone() for v in params["vertices"])))
+    _stale_case(rec, "walk_stale", cam, _walk_cfg(cfg), "tri", moved,
+                same, paths, shift_sd=WALK_STALE_SD)
+    del moved, same
+    scene, cam, cfg = scenes["molecule"]
+    c = scene.cylinders
+    sd = float(c.radius[c.radius > 0].median()) * MOL_STALE_RADII
+    shift = torch.randn(c.p0.shape, generator=gen, device=device) * sd
+    moved = scene.replace(cylinders=c.replace(p0=c.p0 + shift,
+                                              p1=c.p1 + shift))
+    same = scene.replace(cylinders=c.replace(p0=c.p0.clone(),
+                                             p1=c.p1.clone()))
+    _stale_case(rec, "walk_stale_cyl", cam, dataclasses.replace(
+        cfg, traversal="while"), "cyl", moved, same, paths, shift_sd=sd)
 
 
 def _reset_counts():
@@ -1871,9 +2015,12 @@ def _kernel_table(rec, paths):
                 library_ms=None, ceiling_ms=timed["ceiling_ms"],
                 tests_per_s=timed["tests_per_s"]))
     for k in rec["walk_kernels"]:
-        if k["label"]:  # the textured frame's rows stay in the record
+        if k["label"] == "textured frame":  # these stay in the record
             continue
-        path = "walk_path" if k["prim"] == "tri" else "molecule_while"
+        if k["label"] == "stale tree":
+            path = "walk_stale" if k["prim"] == "tri" else "walk_stale_cyl"
+        else:
+            path = "walk_path" if k["prim"] == "tri" else "molecule_while"
         table.append(dict(
             name=k["name"], route="cuda", design=k["design"],
             source="solr_tpu_torch/csrc/bvh_walk.cu",
@@ -1953,13 +2100,15 @@ def main() -> int:
 
     tri = ["sweep_closest", "sweep_transmittance"]
     walks = list(bvh.LAUNCHES)
+    six = [bvh.kernel_name(e, p) for p in bvh.PRIMS for e in bvh.ENTRIES]
+    dfs_walks = [k for k in walks if k not in six]
     tri_walks = [bvh.kernel_name(e, "tri") for e in bvh.ENTRIES]
 
     def molecule_while():
         scene, cam, cfg = scenes["molecule"]
         return phase_path(scene, cam, dataclasses.replace(
-            cfg, traversal="while"), rec, "molecule_while", walks,
-            idle=list(sweep.LAUNCHES))
+            cfg, traversal="while"), rec, "molecule_while", six,
+            idle=list(sweep.LAUNCHES) + dfs_walks)
 
     steps = (
         ("bench_scene", bench),
@@ -1978,10 +2127,11 @@ def main() -> int:
         ("walk_path", lambda: paths.update(walk_path=phase_path(
             scenes["bench"][0], scenes["bench"][1],
             _walk_cfg(scenes["bench"][2]), rec, "walk_path", tri_walks,
-            idle=tri, no_brute=["tri"]))),
+            idle=tri + dfs_walks, no_brute=["tri"]))),
         ("molecule_while", lambda: paths.update(
             molecule_while=molecule_while())),
         ("walk_reference", lambda: phase_walk_reference(rec, device)),
+        ("walk_stale", lambda: phase_walk_stale(scenes, rec, paths, device)),
         ("cornell", lambda: paths.update(cornell=phase_cornell(rec, device))),
         ("grad_reference", lambda: phase_grad_reference(rec, device)),
         ("grad_main_path", lambda: paths.update(grad_main_path=phase_grad_path(
@@ -1998,7 +2148,8 @@ def main() -> int:
         ("stereo_while", lambda: paths.update(stereo_while=phase_path(
             scenes["bench"][0], scenes["bench"][1], dataclasses.replace(
                 _stereo_cfg(scenes["bench"][2]), traversal="while"), rec,
-            "stereo_while", tri_walks, idle=tri, no_brute=["tri"]))),
+            "stereo_while", tri_walks, idle=tri + dfs_walks,
+            no_brute=["tri"]))),
         ("stereo_reference", lambda: phase_stereo_reference(rec, device)),
         ("textured_path", lambda: paths.update(
             textured_path=phase_textured_path(rec, device, tri_walks))),

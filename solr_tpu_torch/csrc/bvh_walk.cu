@@ -4,13 +4,13 @@
 //
 // Replaces the per-ray walks of solr_tpu/ops/bvh.py, which are
 // lax.while_loops, not Pallas kernels:
-//   solr_bvh_closest_tri         <- bvh_closest_hit   (bvh.py:333), triangles
-//   solr_bvh_transmittance_tri   <- bvh_transmittance (bvh.py:397), triangles
-//   solr_bvh_closest(prim)       <- bvh_closest_hit,   prim 1 = sphere
-//   solr_bvh_transmittance(prim) <- bvh_transmittance, (SphereP), 2 = cyl
-//                                   (capped cylinder, CylP)
+//   solr_bvh_closest_packed(prim)  <- bvh_closest_hit   (bvh.py:333),
+//                                     prim 0 = triangle, 2 = cylinder
+//   solr_bvh_transmittance_packed  <- bvh_transmittance (bvh.py:397), the same
+//   solr_bvh_closest_sphere        <- bvh_closest_hit, spheres
+//   solr_bvh_transmittance_sphere  <- bvh_transmittance, spheres
 // each with the pool test of ops/intersect.py (triangle_t_p,
-// sphere_t_p, cylinder_t_p -> packet.cyl_core), as the plain walks in
+// cylinder_t_p -> packet.cyl_core, sphere_t_p), as the plain walks in
 // ops/bvh.py run it.
 //
 // What bounds a walk is the latency of its dependent node and
@@ -18,15 +18,20 @@
 // length; the counted f32 operations take 1-3% of the kernel's time at
 // the card's rate (an H100 at 700 W, PERF.md).
 //
-// The triangle walks (closest_tri, trans_tri), after Aila & Laine
-// (2009), "Understanding the efficiency of ray traversal on GPUs":
+// The triangle and cylinder walks (closest_pairs and trans_pairs, over
+// a leaf test: TriRow or CylRow), after Aila & Laine (2009),
+// "Understanding the efficiency of ray traversal on GPUs":
 //   * one inner node is one 64-byte row of four float4s holding both
 //     children's boxes and references (bvh.pack_nodes): a visit is four
 //     16-byte loads from one cache line and slab-tests both children;
 //     row 0 holds the root's box and reference;
-//   * a triangle is three float4s (v0, e1 = v1 - v0, e2 = v2 - v0 and
-//     its shadow factor; bvh.pack_triangles), in the pool's order, which
-//     is leaf order: a leaf's lanes are contiguous rows;
+//   * a primitive is three float4s in the pool's order, which is leaf
+//     order (a leaf's lanes are contiguous rows), with what its test
+//     derives from the primitive alone already computed and its shadow
+//     factor: a triangle's v0, e1 = v1 - v0, e2 = v2 - v0
+//     (bvh.pack_triangles); a cylinder's p0, radius, axis = p1 - p0,
+//     |axis|^2, 1 / max(|axis|^2, 1e-8) and radius^2
+//     (bvh.pack_cylinders);
 //   * the closest hit walks near child first: of two hit children it
 //     enters the one with the smaller entry distance tn and pushes the
 //     other with its tn onto a per-thread stack (bvh.max_depth + 1
@@ -35,23 +40,28 @@
 //     nearer, or equally near with a lower pool row, so the result is
 //     the lexicographic minimum (t, row) whatever order the leaves come
 //     in: with boxes that contain their primitives, that of the DFS
-//     walk;
+//     walk.  On a tree whose leaf boxes no longer hold their primitives
+//     (bvh.leaf_boxes_hold) the same body walks left child first
+//     (kNearFirst false): the DFS walk's leaf order, so its t and idx
+//     on any tree;
 //   * the shadow walk keeps the DFS order, left child first, with the
 //     same stack: its leaf products multiply into tr in the DFS walk's
 //     order and it stops at the same leaf.  It counts a node when the
 //     DFS walk would reach it, so its visits are the DFS walk's.
 // One thread per ray, rays in the caller's order.
 //
-// The sphere and cylinder walks (closest_walk, trans_walk): one thread
-// per ray, as in Sol-R's own CUDA walk (intersectionWithPrimitives).
-// Each ray carries its node pointer: a box it hits sends it to i + 1,
-// a box it misses to skip[i], and the walk ends at n_nodes.  Node and
-// primitive arrays are read through __ldg, five node arrays apart.
+// The sphere walks (closest_walk, trans_walk): one thread per ray, as
+// in Sol-R's own CUDA walk (intersectionWithPrimitives).  Each ray
+// carries its node pointer: a box it hits sends it to i + 1, a box it
+// misses to skip[i], and the walk ends at n_nodes.  Node and primitive
+// arrays are read through __ldg, five node arrays apart.
 //
 // Exactness with the plain PyTorch versions (ops/bvh.py):
 //   * build with --fmad=false and without fast math: every chain keeps
 //     the plain version's association ((x + y) + z for a dot product)
 //     and every product rounds on its own; sqrtf and division are IEEE;
+//     the packed rows' derived terms are the plain test's own f32
+//     operations, run by PyTorch;
 //   * inv_d = 1 / (|d| > 1e-12 ? d : 1e-12), which loses the sign of a
 //     tiny negative component, as the reference does;
 //   * the slab's min and max keep a NaN, as torch.minimum and maximum
@@ -61,16 +71,16 @@
 //     shadow walk;
 //   * closest hit: in a leaf, the lanes with t <= limit compete in
 //     ascending order with a strict <, so the lowest lane wins a tie;
-//     across leaves the skip-pointer walks replace the best only when
+//     across leaves the sphere walk replaces the best only when
 //     strictly smaller (the earlier leaf in DFS order, the lower row,
-//     wins a tie) and the triangle walk by the rule above;
+//     wins a tie) and the packed walks by the rule above;
 //   * transmittance: a leaf's occluders (t < t_max; an emissive
 //     material's factor is 1) multiply in ascending lane order into a
 //     leaf product, which then multiplies into the ray's; the walk stops
 //     once that is <= 1e-6.
 // Each thread also counts the nodes it visited and the leaf lanes it
-// tested; the plain versions count the same (the near-first walk:
-// bvh_closest_hit_ordered_plain).
+// tested; the plain versions count the same (the packed closest hits:
+// bvh_closest_hit_ordered_plain in their order).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -101,12 +111,10 @@ __device__ __forceinline__ float ld(const float* p, int64_t i) {
   return __ldg(p + i);
 }
 
-// The pools' arrays: p0/p1/p2 are (v0, v1, v2) for triangles, (center,
-// radius, -) for spheres and (p0, p1, radius) for cylinders.
+// The sphere pool's arrays: centers (N, 3), radii (N) and materials.
 struct Pool {
-  const float* p0;
-  const float* p1;
-  const float* p2;
+  const float* center;
+  const float* radius;
   const int32_t* material;
 };
 
@@ -115,10 +123,10 @@ struct Pool {
 struct SphereP {
   __device__ __forceinline__ static float hit(const Ray& r, const Pool& p,
                                               int64_t j, float t_min) {
-    const float ocx = r.ox - ld(p.p0, 3 * j);
-    const float ocy = r.oy - ld(p.p0, 3 * j + 1);
-    const float ocz = r.oz - ld(p.p0, 3 * j + 2);
-    const float rad = ld(p.p1, j);
+    const float ocx = r.ox - ld(p.center, 3 * j);
+    const float ocy = r.oy - ld(p.center, 3 * j + 1);
+    const float ocz = r.oz - ld(p.center, 3 * j + 2);
+    const float rad = ld(p.radius, j);
     const float b = (ocx * r.dx + ocy * r.dy) + ocz * r.dz;
     const float c0 = ((ocx * ocx + ocy * ocy) + ocz * ocz) - rad * rad;
     const float disc = b * b - c0;
@@ -126,59 +134,6 @@ struct SphereP {
     const float sq = sqrtf(disc);
     const float lo = -b - sq, hi = -b + sq;
     return fminf(lo > t_min ? lo : kTFar, hi > t_min ? hi : kTFar);
-  }
-};
-
-// Capped cylinder p0 -> p1: the side surface plus the two end disks,
-// two-sided; radius <= 0 never hits.  Mirrors intersect.cylinder_t_p,
-// which runs packet.cyl_core on (p0, r, axis = p1 - p0, |axis|^2).
-struct CylP {
-  __device__ __forceinline__ static float hit(const Ray& r, const Pool& p,
-                                              int64_t j, float t_min) {
-    const float p0x = ld(p.p0, 3 * j), p0y = ld(p.p0, 3 * j + 1),
-                p0z = ld(p.p0, 3 * j + 2);
-    const float ax = ld(p.p1, 3 * j) - p0x, ay = ld(p.p1, 3 * j + 1) - p0y,
-                az = ld(p.p1, 3 * j + 2) - p0z;
-    const float rad = ld(p.p2, j);
-    const float h2 = (ax * ax + ay * ay) + az * az;
-    const float inv_h2 = 1.0f / clamp_min(h2, kIntersectEps);
-    const float rad_sq = rad * rad;
-    const float ocx = r.ox - p0x, ocy = r.oy - p0y, ocz = r.oz - p0z;
-    const float d_a = (r.dx * ax + r.dy * ay) + r.dz * az;
-    const float oc_a = (ocx * ax + ocy * ay) + ocz * az;
-    const float a = 1.0f - (d_a * d_a) * inv_h2;
-    const float b =
-        ((ocx * r.dx + ocy * r.dy) + ocz * r.dz) - (d_a * oc_a) * inv_h2;
-    const float cq = (((ocx * ocx + ocy * ocy) + ocz * ocz) -
-                      (oc_a * oc_a) * inv_h2) - rad_sq;
-    const float safe_a = clamp_min(a, kIntersectEps);
-    const float disc = b * b - safe_a * cq;
-    const bool base = (disc > 0.0f) && (a > kIntersectEps) && (rad > 0.0f);
-    float t_side = kTFar;
-    if (base) {
-      const float sq = sqrtf(disc);
-      float t1 = (-b - sq) / safe_a;
-      float t2 = (-b + sq) / safe_a;
-      const float s1 = oc_a + t1 * d_a;
-      const float s2 = oc_a + t2 * d_a;
-      t1 = (s1 >= 0.0f && s1 <= h2 && t1 > t_min) ? t1 : kTFar;
-      t2 = (s2 >= 0.0f && s2 <= h2 && t2 > t_min) ? t2 : kTFar;
-      t_side = fminf(t1, t2);
-    }
-    const bool ax_safe = fabsf(d_a) > kIntersectEps;
-    const float inv_da = (ax_safe ? 1.0f : 0.0f) / (ax_safe ? d_a : 1.0f);
-    // The disk in the plane s = plane_s, centred at p0 + off * axis.
-    auto cap = [&](float plane_s, float off) {
-      const float tc = (plane_s - oc_a) * inv_da;
-      const float qx = (ocx + tc * r.dx) - off * ax;
-      const float qy = (ocy + tc * r.dy) - off * ay;
-      const float qz = (ocz + tc * r.dz) - off * az;
-      const float rad2 = (qx * qx + qy * qy) + qz * qz;
-      const bool ok =
-          ax_safe && (rad > 0.0f) && (rad2 <= rad_sq) && (tc > t_min);
-      return ok ? tc : kTFar;
-    };
-    return fminf(t_side, fminf(cap(0.0f, 0.0f), cap(h2, 1.0f)));
   }
 };
 
@@ -320,10 +275,10 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------
-// The triangle walks on packed nodes and triangles.
+// The triangle and cylinder walks on packed nodes and primitive rows.
 // ---------------------------------------------------------------------
 
-// Deepest stack the triangle walks keep: bvh.max_depth + 1 entries, at
+// Deepest stack the packed walks keep: bvh.max_depth + 1 entries, at
 // most this many (the wrapper checks; a median-split tree over 2^31
 // rows in leaves of 8 is 29 levels deep).
 constexpr int kMaxStack = 32;
@@ -362,39 +317,101 @@ __device__ __forceinline__ bool hit1(const Walker& w, const Row& n,
 // 0, 0), with e1 = v1 - v0 and e2 = v2 - v0 rounded as
 // intersect.triangle_t_p rounds them.  Mirrors triangle_t_p; sets the
 // row's shadow factor.
-__device__ __forceinline__ float tri_hit(const Ray& r, const float4* tris,
-                                         int64_t j, float t_min,
-                                         float& factor) {
-  const float4 a = __ldg(tris + 3 * j), b = __ldg(tris + 3 * j + 1),
-               c = __ldg(tris + 3 * j + 2);
-  const float ax = a.x, ay = a.y, az = a.z;
-  const float e1x = a.w, e1y = b.x, e1z = b.y;
-  const float e2x = b.z, e2y = b.w, e2z = c.x;
-  factor = c.y;
-  const float px = r.dy * e2z - r.dz * e2y;  // cross(d, e2)
-  const float py = r.dz * e2x - r.dx * e2z;
-  const float pz = r.dx * e2y - r.dy * e2x;
-  const float det = (px * e1x + py * e1y) + pz * e1z;
-  const bool safe = fabsf(det) > kIntersectEps;
-  const float inv_det = (safe ? 1.0f : 0.0f) / (safe ? det : 1.0f);
-  const float tx = r.ox - ax, ty = r.oy - ay, tz = r.oz - az;
-  const float u = ((tx * px + ty * py) + tz * pz) * inv_det;
-  const float qx = ty * e1z - tz * e1y;  // cross(tvec, e1)
-  const float qy = tz * e1x - tx * e1z;
-  const float qz = tx * e1y - ty * e1x;
-  const float v = ((qx * r.dx + qy * r.dy) + qz * r.dz) * inv_det;
-  const float t = ((qx * e2x + qy * e2y) + qz * e2z) * inv_det;
-  const bool valid = safe && (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f);
-  return (valid && t > t_min) ? t : kTFar;
-}
+struct TriRow {
+  __device__ __forceinline__ static float hit(const Ray& r,
+                                              const float4* rows, int64_t j,
+                                              float t_min, float& factor) {
+    const float4 a = __ldg(rows + 3 * j), b = __ldg(rows + 3 * j + 1),
+                 c = __ldg(rows + 3 * j + 2);
+    const float ax = a.x, ay = a.y, az = a.z;
+    const float e1x = a.w, e1y = b.x, e1z = b.y;
+    const float e2x = b.z, e2y = b.w, e2z = c.x;
+    factor = c.y;
+    const float px = r.dy * e2z - r.dz * e2y;  // cross(d, e2)
+    const float py = r.dz * e2x - r.dx * e2z;
+    const float pz = r.dx * e2y - r.dy * e2x;
+    const float det = (px * e1x + py * e1y) + pz * e1z;
+    const bool safe = fabsf(det) > kIntersectEps;
+    const float inv_det = (safe ? 1.0f : 0.0f) / (safe ? det : 1.0f);
+    const float tx = r.ox - ax, ty = r.oy - ay, tz = r.oz - az;
+    const float u = ((tx * px + ty * py) + tz * pz) * inv_det;
+    const float qx = ty * e1z - tz * e1y;  // cross(tvec, e1)
+    const float qy = tz * e1x - tx * e1z;
+    const float qz = tx * e1y - ty * e1x;
+    const float v = ((qx * r.dx + qy * r.dy) + qz * r.dz) * inv_det;
+    const float t = ((qx * e2x + qy * e2y) + qz * e2z) * inv_det;
+    const bool valid = safe && (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f);
+    return (valid && t > t_min) ? t : kTFar;
+  }
+};
 
+// Capped cylinder p0 -> p1 (the side surface plus the two end disks,
+// two-sided; radius <= 0 never hits) on pool row j of the packed
+// cylinders (bvh.pack_cylinders): (p0.xyz, r), (axis.xyz, h2),
+// (1 / max(h2, 1e-8), r * r, factor, 0), with axis = p1 - p0 and h2 =
+// (x * x + y * y) + z * z rounded as intersect.cylinder_t_p rounds
+// them.  Mirrors packet.cyl_core on those terms; sets the row's shadow
+// factor.
+struct CylRow {
+  __device__ __forceinline__ static float hit(const Ray& r,
+                                              const float4* rows, int64_t j,
+                                              float t_min, float& factor) {
+    const float4 a = __ldg(rows + 3 * j), b = __ldg(rows + 3 * j + 1),
+                 c = __ldg(rows + 3 * j + 2);
+    const float rad = a.w;
+    const float ax = b.x, ay = b.y, az = b.z, h2 = b.w;
+    const float inv_h2 = c.x, rad_sq = c.y;
+    factor = c.z;
+    const float ocx = r.ox - a.x, ocy = r.oy - a.y, ocz = r.oz - a.z;
+    const float d_a = (r.dx * ax + r.dy * ay) + r.dz * az;
+    const float oc_a = (ocx * ax + ocy * ay) + ocz * az;
+    const float qa = 1.0f - (d_a * d_a) * inv_h2;
+    const float qb =
+        ((ocx * r.dx + ocy * r.dy) + ocz * r.dz) - (d_a * oc_a) * inv_h2;
+    const float qc = (((ocx * ocx + ocy * ocy) + ocz * ocz) -
+                      (oc_a * oc_a) * inv_h2) - rad_sq;
+    const float safe_a = clamp_min(qa, kIntersectEps);
+    const float disc = qb * qb - safe_a * qc;
+    const bool base = (disc > 0.0f) && (qa > kIntersectEps) && (rad > 0.0f);
+    float t_side = kTFar;
+    if (base) {
+      const float sq = sqrtf(disc);
+      float t1 = (-qb - sq) / safe_a;
+      float t2 = (-qb + sq) / safe_a;
+      const float s1 = oc_a + t1 * d_a;
+      const float s2 = oc_a + t2 * d_a;
+      t1 = (s1 >= 0.0f && s1 <= h2 && t1 > t_min) ? t1 : kTFar;
+      t2 = (s2 >= 0.0f && s2 <= h2 && t2 > t_min) ? t2 : kTFar;
+      t_side = fminf(t1, t2);
+    }
+    const bool ax_safe = fabsf(d_a) > kIntersectEps;
+    const float inv_da = (ax_safe ? 1.0f : 0.0f) / (ax_safe ? d_a : 1.0f);
+    // The disk in the plane s = plane_s, centred at p0 + off * axis.
+    auto cap = [&](float plane_s, float off) {
+      const float tc = (plane_s - oc_a) * inv_da;
+      const float qx = (ocx + tc * r.dx) - off * ax;
+      const float qy = (ocy + tc * r.dy) - off * ay;
+      const float qz = (ocz + tc * r.dz) - off * az;
+      const float rad2 = (qx * qx + qy * qy) + qz * qz;
+      const bool ok =
+          ax_safe && (rad > 0.0f) && (rad2 <= rad_sq) && (tc > t_min);
+      return ok ? tc : kTFar;
+    };
+    return fminf(t_side, fminf(cap(0.0f, 0.0f), cap(h2, 1.0f)));
+  }
+};
+
+// The closest hit over packed nodes and the rows of Leaf: near child
+// first when kNearFirst, else left child first (the DFS walk's order).
+template <class Leaf, bool kNearFirst>
 __global__ void __launch_bounds__(kThreads)
-    closest_tri(const float4* __restrict__ nodes,
-                const float4* __restrict__ tris, const float* __restrict__ o,
-                const float* __restrict__ d, const float* __restrict__ t_max,
-                int64_t n_rays, float t_min, float* __restrict__ out_t,
-                int32_t* __restrict__ out_idx, int32_t* __restrict__ out_visits,
-                int32_t* __restrict__ out_tests) {
+    closest_pairs(const float4* __restrict__ nodes,
+                  const float4* __restrict__ rows, const float* __restrict__ o,
+                  const float* __restrict__ d, const float* __restrict__ t_max,
+                  int64_t n_rays, float t_min, float* __restrict__ out_t,
+                  int32_t* __restrict__ out_idx,
+                  int32_t* __restrict__ out_visits,
+                  int32_t* __restrict__ out_tests) {
   const int64_t ray = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                       threadIdx.x;
   if (ray >= n_rays) return;
@@ -419,7 +436,7 @@ __global__ void __launch_bounds__(kThreads)
         float lm = kTFar, f;
         int32_t la = 0;
         for (int32_t j = 0; j < cnt; ++j) {
-          const float t = tri_hit(w.r, tris, first + j, t_min, f);
+          const float t = Leaf::hit(w.r, rows, first + j, t_min, f);
           if (t <= limit && t < lm) {
             lm = t;
             la = j;
@@ -440,7 +457,7 @@ __global__ void __launch_bounds__(kThreads)
         const int32_t r0 = __float_as_int(n.q3.x), r1 = __float_as_int(n.q3.y);
         const int32_t c0 = __float_as_int(n.q3.z), c1 = __float_as_int(n.q3.w);
         if (h0 && h1) {
-          const bool right = tn1 < tn0;  // the right child is nearer
+          const bool right = kNearFirst && tn1 < tn0;  // the right is nearer
           st_ref[sp] = right ? r0 : r1;
           st_cnt[sp] = right ? c0 : c1;
           st_tn[sp] = right ? tn0 : tn1;
@@ -476,13 +493,15 @@ __global__ void __launch_bounds__(kThreads)
   out_tests[ray] = tests;
 }
 
+// The shadow walk over packed nodes and the rows of Leaf, in DFS order.
+template <class Leaf>
 __global__ void __launch_bounds__(kThreads)
-    trans_tri(const float4* __restrict__ nodes,
-              const float4* __restrict__ tris, const float* __restrict__ o,
-              const float* __restrict__ d, const float* __restrict__ t_max,
-              int64_t n_rays, float t_min, float* __restrict__ out_tr,
-              int32_t* __restrict__ out_visits,
-              int32_t* __restrict__ out_tests) {
+    trans_pairs(const float4* __restrict__ nodes,
+                const float4* __restrict__ rows, const float* __restrict__ o,
+                const float* __restrict__ d, const float* __restrict__ t_max,
+                int64_t n_rays, float t_min, float* __restrict__ out_tr,
+                int32_t* __restrict__ out_visits,
+                int32_t* __restrict__ out_tests) {
   const int64_t ray = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                       threadIdx.x;
   if (ray >= n_rays) return;
@@ -507,7 +526,7 @@ __global__ void __launch_bounds__(kThreads)
         tests += cnt;
         float prod = 1.0f, f;
         for (int32_t j = 0; j < cnt; ++j) {
-          const float t = tri_hit(w.r, tris, first + j, t_min, f);
+          const float t = Leaf::hit(w.r, rows, first + j, t_min, f);
           if (t < tm) prod = prod * f;
         }
         tr = tr * prod;
@@ -566,100 +585,93 @@ unsigned grid_for(int64_t n_rays) {
 
 extern "C" {
 
-// The triangle walks.  nodes: the packed rows (bvh.pack_nodes, (rows,
-// 4, 4) f32, 16-byte aligned); tris: the packed triangles
-// (bvh.pack_triangles, (N, 3, 4) f32, 16-byte aligned); the rays' o, d
+// The packed walks.  prim: 0 = triangle, 2 = cylinder (bvh.PRIMS);
+// near_first: 1 for the closest hit near child first, 0 for left child
+// first.  nodes: the packed rows (bvh.pack_nodes, (rows, 4, 4) f32,
+// 16-byte aligned); rows: the packed primitives (bvh.pack_triangles or
+// bvh.pack_cylinders, (N, 3, 4) f32, 16-byte aligned); the rays' o, d
 // (n_rays, 3) and t_max (n_rays) f32.  Outputs (n_rays): out_t / out_tr
 // f32, out_idx i32 (closest hit), out_visits and out_tests i32.  The
 // tree must be at most kMaxStack - 1 levels deep (the wrapper checks).
-// Returns the cudaError_t of the launch (0 on success).
-int solr_bvh_closest_tri(const float* nodes, const float* tris,
-                         const float* o, const float* d, const float* t_max,
-                         int64_t n_rays, float t_min, float* out_t,
-                         int32_t* out_idx, int32_t* out_visits,
-                         int32_t* out_tests, void* stream) {
+// Returns the cudaError_t of the launch (0 on success), or
+// cudaErrorInvalidValue for another prim.
+int solr_bvh_closest_packed(int prim, int near_first, const float* nodes,
+                            const float* rows, const float* o, const float* d,
+                            const float* t_max, int64_t n_rays, float t_min,
+                            float* out_t, int32_t* out_idx,
+                            int32_t* out_visits, int32_t* out_tests,
+                            void* stream) {
+  if (prim != 0 && prim != 2) return static_cast<int>(cudaErrorInvalidValue);
   if (n_rays <= 0) return static_cast<int>(cudaGetLastError());
-  closest_tri<<<grid_for(n_rays), kThreads, 0,
-                static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = prim == 0 ? (near_first ? closest_pairs<TriRow, true>
+                                        : closest_pairs<TriRow, false>)
+                          : (near_first ? closest_pairs<CylRow, true>
+                                        : closest_pairs<CylRow, false>);
+  kernel<<<grid_for(n_rays), kThreads, 0,
+           static_cast<cudaStream_t>(stream)>>>(
       reinterpret_cast<const float4*>(nodes),
-      reinterpret_cast<const float4*>(tris), o, d, t_max, n_rays, t_min,
+      reinterpret_cast<const float4*>(rows), o, d, t_max, n_rays, t_min,
       out_t, out_idx, out_visits, out_tests);
   return static_cast<int>(cudaGetLastError());
 }
 
-int solr_bvh_transmittance_tri(const float* nodes, const float* tris,
-                               const float* o, const float* d,
-                               const float* t_max, int64_t n_rays,
-                               float t_min, float* out_tr,
-                               int32_t* out_visits, int32_t* out_tests,
-                               void* stream) {
+int solr_bvh_transmittance_packed(int prim, const float* nodes,
+                                  const float* rows, const float* o,
+                                  const float* d, const float* t_max,
+                                  int64_t n_rays, float t_min, float* out_tr,
+                                  int32_t* out_visits, int32_t* out_tests,
+                                  void* stream) {
+  if (prim != 0 && prim != 2) return static_cast<int>(cudaErrorInvalidValue);
   if (n_rays <= 0) return static_cast<int>(cudaGetLastError());
-  trans_tri<<<grid_for(n_rays), kThreads, 0,
-              static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = prim == 0 ? trans_pairs<TriRow> : trans_pairs<CylRow>;
+  kernel<<<grid_for(n_rays), kThreads, 0,
+           static_cast<cudaStream_t>(stream)>>>(
       reinterpret_cast<const float4*>(nodes),
-      reinterpret_cast<const float4*>(tris), o, d, t_max, n_rays, t_min,
+      reinterpret_cast<const float4*>(rows), o, d, t_max, n_rays, t_min,
       out_tr, out_visits, out_tests);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The sphere and cylinder walks.  prim: 1 = sphere, 2 = cyl.  All
-// pointers are device pointers to contiguous arrays: the BVH's
-// aabb_min, aabb_max (n_nodes, 3) f32 and skip, first_prim, prim_count
-// (n_nodes) i32; the pool's arrays p0, p1, p2 (center, radius, unused
-// for sphere; p0, p1, radius for cyl) f32 and material (i32, read by
-// the shadow walk with the materials' emission and transparency f32);
-// the rays' o, d (n_rays, 3) and t_max (n_rays) f32.  Outputs as above.
-// Returns the cudaError_t of the launch (0 on success), or
-// cudaErrorInvalidValue for another prim.
-int solr_bvh_closest(int prim, const float* aabb_min, const float* aabb_max,
-                     const int32_t* skip, const int32_t* first,
-                     const int32_t* count, int n_nodes, const float* p0,
-                     const float* p1, const float* p2, const int32_t* material,
-                     const float* o, const float* d, const float* t_max,
-                     int64_t n_rays, float t_min, float* out_t,
-                     int32_t* out_idx, int32_t* out_visits, int32_t* out_tests,
-                     void* stream) {
-  if (prim < 1 || prim > 2) return static_cast<int>(cudaErrorInvalidValue);
+// The sphere walks.  All pointers are device pointers to contiguous
+// arrays: the BVH's aabb_min, aabb_max (n_nodes, 3) f32 and skip,
+// first_prim, prim_count (n_nodes) i32; the pool's center (N, 3) and
+// radius (N) f32 and material (i32, read by the shadow walk with the
+// materials' emission and transparency f32); the rays' o, d (n_rays,
+// 3) and t_max (n_rays) f32.  Outputs as above.  Returns the
+// cudaError_t of the launch (0 on success).
+int solr_bvh_closest_sphere(const float* aabb_min, const float* aabb_max,
+                            const int32_t* skip, const int32_t* first,
+                            const int32_t* count, int n_nodes,
+                            const float* center, const float* radius,
+                            const int32_t* material, const float* o,
+                            const float* d, const float* t_max,
+                            int64_t n_rays, float t_min, float* out_t,
+                            int32_t* out_idx, int32_t* out_visits,
+                            int32_t* out_tests, void* stream) {
   if (n_rays <= 0) return static_cast<int>(cudaGetLastError());
   const Nodes nd{aabb_min, aabb_max, skip, first, count, n_nodes};
-  const Pool pool{p0, p1, p2, material};
-  auto s = static_cast<cudaStream_t>(stream);
-  const unsigned grid = grid_for(n_rays);
-  if (prim == 1)
-    closest_walk<SphereP><<<grid, kThreads, 0, s>>>(
-        nd, pool, o, d, t_max, n_rays, t_min, out_t, out_idx, out_visits,
-        out_tests);
-  else
-    closest_walk<CylP><<<grid, kThreads, 0, s>>>(
-        nd, pool, o, d, t_max, n_rays, t_min, out_t, out_idx, out_visits,
-        out_tests);
+  const Pool pool{center, radius, material};
+  closest_walk<SphereP><<<grid_for(n_rays), kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      nd, pool, o, d, t_max, n_rays, t_min, out_t, out_idx, out_visits,
+      out_tests);
   return static_cast<int>(cudaGetLastError());
 }
 
-int solr_bvh_transmittance(int prim, const float* aabb_min,
-                           const float* aabb_max, const int32_t* skip,
-                           const int32_t* first, const int32_t* count,
-                           int n_nodes, const float* p0, const float* p1,
-                           const float* p2, const int32_t* material,
-                           const float* emission, const float* transparency,
-                           const float* o, const float* d, const float* t_max,
-                           int64_t n_rays, float t_min, float* out_tr,
-                           int32_t* out_visits, int32_t* out_tests,
-                           void* stream) {
-  if (prim < 1 || prim > 2) return static_cast<int>(cudaErrorInvalidValue);
+int solr_bvh_transmittance_sphere(
+    const float* aabb_min, const float* aabb_max, const int32_t* skip,
+    const int32_t* first, const int32_t* count, int n_nodes,
+    const float* center, const float* radius, const int32_t* material,
+    const float* emission, const float* transparency, const float* o,
+    const float* d, const float* t_max, int64_t n_rays, float t_min,
+    float* out_tr, int32_t* out_visits, int32_t* out_tests, void* stream) {
   if (n_rays <= 0) return static_cast<int>(cudaGetLastError());
   const Nodes nd{aabb_min, aabb_max, skip, first, count, n_nodes};
-  const Pool pool{p0, p1, p2, material};
-  auto s = static_cast<cudaStream_t>(stream);
-  const unsigned grid = grid_for(n_rays);
-  if (prim == 1)
-    trans_walk<SphereP><<<grid, kThreads, 0, s>>>(
-        nd, pool, emission, transparency, o, d, t_max, n_rays, t_min, out_tr,
-        out_visits, out_tests);
-  else
-    trans_walk<CylP><<<grid, kThreads, 0, s>>>(
-        nd, pool, emission, transparency, o, d, t_max, n_rays, t_min, out_tr,
-        out_visits, out_tests);
+  const Pool pool{center, radius, material};
+  trans_walk<SphereP><<<grid_for(n_rays), kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      nd, pool, emission, transparency, o, d, t_max, n_rays, t_min, out_tr,
+      out_visits, out_tests);
   return static_cast<int>(cudaGetLastError());
 }
 

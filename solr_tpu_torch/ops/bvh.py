@@ -16,10 +16,15 @@ sphere, triangle and cylinder pools:
   A box is entered when its slab interval meets [t_min, min(best,
   t_max)]; inside a leaf the lowest lane wins a tie.  The DFS walk
   (``bvh_closest_hit_plain``) replaces the best across leaves only when
-  strictly nearer, and leaves come in ascending rows.  The triangle
-  kernel walks near child first (``bvh_closest_hit_ordered_plain``) and
-  breaks a tie across leaves by the lower row, so both return the same
-  (t, idx).
+  strictly nearer, and leaves come in ascending rows.  The triangle and
+  cylinder kernels walk near child first
+  (``bvh_closest_hit_ordered_plain``) and break a tie across leaves by
+  the lower row, so both return the same (t, idx) wherever every leaf
+  box holds its primitives.  A tree whose leaf boxes no longer do (the
+  primitives moved, as ``Scene.with_params`` moves them without a
+  refit, ROADMAP C9) is walked in the DFS walk's order instead
+  (``leaf_boxes_hold``), which returns the DFS walk's (t, idx) on any
+  tree.
 * ``bvh_transmittance`` (replaces ``bvh_transmittance`` at
   solr_tpu/ops/bvh.py:397): the product over every occluder with
   t < t_max of its material's transparency (1 for an emissive one).  A
@@ -30,19 +35,21 @@ sphere, triangle and cylinder pools:
 Both also count, per ray, the nodes visited (1 for the root and 2 for
 each inner node whose box is hit, the shadow walk's nodes up to its
 stop) and the leaf lanes tested.  CPU tensors take the plain versions
-(the near-first one for the triangle closest hit); CUDA tensors take the
-hand-written kernels of ``solr_tpu_torch/csrc/bvh_walk.cu``, built with
-nvcc at first use (``sweep.compile_library``, the same flags) and loaded
-with ctypes.  A build or launch failure raises; nothing falls back.
-Kernel and plain version agree bit for bit on the same device: the same
-association in every primitive test and in the slab test, no FMA
-contraction, IEEE division and square root.
+(the closest hit in the order the kernel would walk); CUDA tensors take
+the hand-written kernels of ``solr_tpu_torch/csrc/bvh_walk.cu``, built
+with nvcc at first use (``sweep.compile_library``, the same flags) and
+loaded with ctypes.  A build or launch failure raises; nothing falls
+back.  Kernel and plain version agree bit for bit on the same device:
+the same association in every primitive test and in the slab test, no
+FMA contraction, IEEE division and square root.
 
-The triangle kernels read layouts derived from the BVH and the pool
-(``pack_nodes``: one 64-byte row per inner node with both children's
-boxes; ``pack_triangles``: (v0, e1, e2, shadow factor) per row), built
-on the device at a launch and reused while every source tensor is the
-same object at the same version (``_derived``).
+The triangle and cylinder kernels read layouts derived from the BVH and
+the pool (``pack_nodes``: one 64-byte row per inner node with both
+children's boxes; ``pack_triangles``: (v0, e1, e2, shadow factor) per
+row; ``pack_cylinders``: (p0, radius, axis, |axis|^2, 1 / |axis|^2,
+radius^2, shadow factor) per row), built on the device at a launch and
+reused, one per pool, while every source tensor is the same object at
+the same version (``_derived``); so is the leaf-box check.
 
 The plain walks are masked step loops: every step takes one node per
 ray; every ``_CHECK_EVERY`` steps one host sync drops the rays whose
@@ -59,8 +66,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from solr_tpu_torch.constants import (BVH_LEAF_SIZE, POOL_CYLINDER,
-                                      POOL_SPHERE, POOL_TRIANGLE, T_FAR)
+from solr_tpu_torch.constants import (BVH_LEAF_SIZE, INTERSECT_EPS,
+                                      POOL_CYLINDER, POOL_SPHERE,
+                                      POOL_TRIANGLE, T_FAR)
 from solr_tpu_torch.ops import intersect as isect
 from solr_tpu_torch.ops import sweep
 from solr_tpu_torch.types import BVH
@@ -79,9 +87,12 @@ __all__ = [
     "kernel_name",
     "launch_closest",
     "launch_transmittance",
+    "leaf_boxes_hold",
     "load_library",
     "morton_codes",
     "morton_order",
+    "outside_leaf_boxes",
+    "pack_cylinders",
     "pack_nodes",
     "pack_triangles",
     "pool_aabbs",
@@ -96,17 +107,23 @@ _PRIM_POOL = {"tri": POOL_TRIANGLE, "sphere": POOL_SPHERE,
               "cyl": POOL_CYLINDER}
 POOL_PRIM = {c: p for p, c in _PRIM_POOL.items()}
 ENTRIES = ("bvh_closest_hit", "bvh_transmittance")
+# The kinds walked over packed nodes and rows (the rest: skip pointers).
+PACKED = ("tri", "cyl")
 
 
-def kernel_name(entry: str, prim: str) -> str:
+def kernel_name(entry: str, prim: str, dfs: bool = False) -> str:
     """One walk kernel's name: the entry point and the primitive kind
-    ("bvh_closest_hit_tri", ...)."""
-    return f"{entry}_{prim}"
+    ("bvh_closest_hit_tri", ...), and "_dfs" for a packed closest hit
+    in the DFS walk's order."""
+    return f"{entry}_{prim}" + ("_dfs" if dfs else "")
 
 
-# Kernel launch counts, one per kernel (entry point x primitive kind);
-# incremented only where a wrapper launches that kernel.
+# Kernel launch counts, one per kernel (entry point x primitive kind,
+# and the DFS-order closest hits of the packed kinds); incremented only
+# where a wrapper launches that kernel.
 LAUNCHES = {kernel_name(e, p): 0 for p in PRIMS for e in ENTRIES}
+LAUNCHES.update({kernel_name("bvh_closest_hit", p, dfs=True): 0
+                 for p in PACKED})
 
 _SRC = Path(__file__).resolve().parents[1] / "csrc" / "bvh_walk.cu"
 _lib = None
@@ -253,25 +270,29 @@ def _assemble_bvh(starts, ends, skips, depths, nmin, nmax, leaf_size: int,
         leaf_size=int(leaf_size))
 
 
+def _prim_aabbs(scene, prim: str):
+    """Per-primitive AABBs (N, 3) each of the pool of kind ``prim``, as
+    tensors on the pool's device: a sphere's c -+ r, a triangle's
+    vertex min and max, a cylinder's end-point min and max -+ r."""
+    if prim == "sphere":
+        c, r = scene.spheres.center, scene.spheres.radius[:, None]
+        return c - r, c + r
+    if prim == "tri":
+        t = scene.triangles
+        return (torch.minimum(torch.minimum(t.v0, t.v1), t.v2),
+                torch.maximum(torch.maximum(t.v0, t.v1), t.v2))
+    p = scene.cylinders
+    r = p.radius[:, None]
+    return torch.minimum(p.p0, p.p1) - r, torch.maximum(p.p0, p.p1) + r
+
+
 def pool_aabbs(scene, pool_code: int):
     """Per-primitive AABBs (numpy (N, 3) each) of an accelerated pool."""
-    def host(x):
-        return x.detach().cpu().numpy()
-
-    if pool_code == POOL_SPHERE:
-        c = host(scene.spheres.center)
-        r = host(scene.spheres.radius)[:, None]
-        return c - r, c + r
-    if pool_code == POOL_TRIANGLE:
-        v0, v1, v2 = (host(getattr(scene.triangles, k))
-                      for k in ("v0", "v1", "v2"))
-        return (np.minimum(np.minimum(v0, v1), v2),
-                np.maximum(np.maximum(v0, v1), v2))
-    if pool_code == POOL_CYLINDER:
-        p0, p1 = host(scene.cylinders.p0), host(scene.cylinders.p1)
-        r = host(scene.cylinders.radius)[:, None]
-        return np.minimum(p0, p1) - r, np.maximum(p0, p1) + r
-    raise ValueError(f"pool {pool_code} is not BVH-accelerated")
+    if pool_code not in POOL_PRIM:
+        raise ValueError(f"pool {pool_code} is not BVH-accelerated")
+    with torch.no_grad():
+        return tuple(x.cpu().numpy()
+                     for x in _prim_aabbs(scene, POOL_PRIM[pool_code]))
 
 
 @torch.no_grad()
@@ -422,18 +443,20 @@ def bvh_transmittance_plain(scene, bvh: BVH, prim: str, o, d, t_min,
 
 
 def bvh_closest_hit_ordered_plain(scene, bvh: BVH, prim: str, o, d, t_min,
-                                  t_max=T_FAR):
-    """Plain PyTorch closest-hit walk in the triangle kernel's order:
-    at an inner node both children are slab-tested; of two hit children
-    the ray enters the one with the smaller entry distance tn (the left
-    one on equal tn) and pushes the other with its tn onto a stack of
-    ``bvh.max_depth + 1`` entries; a popped entry is dropped when not
-    tn <= min(best, t_max).  A leaf's lowest-lane nearest hit replaces
-    the best when nearer, or equally near (and a hit) with a lower pool
-    row.  Returns (t, idx, visits, tests) as
-    :func:`bvh_closest_hit_plain` does, with (t, idx) equal to it where
-    every box contains its primitives; visits count 1 for the root and
-    2 per inner node entered."""
+                                  t_max=T_FAR, near_first: bool = True):
+    """Plain PyTorch closest-hit walk in the packed kernels' order: at
+    an inner node both children are slab-tested; of two hit children the
+    ray enters the one with the smaller entry distance tn (the left one
+    on equal tn; always the left one when not ``near_first``) and pushes
+    the other with its tn onto a stack of ``bvh.max_depth + 1`` entries;
+    a popped entry is dropped when not tn <= min(best, t_max).  A leaf's
+    lowest-lane nearest hit replaces the best when nearer, or equally
+    near (and a hit) with a lower pool row.  Returns (t, idx, visits,
+    tests) as :func:`bvh_closest_hit_plain` does, with (t, idx) equal to
+    it where every box contains its primitives, and on any tree when
+    not ``near_first`` (the DFS walk's leaf order, and a limit that
+    only falls); visits count 1 for the root and 2 per inner node
+    entered."""
     r_shape = o.shape[:-1]
     o = o.reshape(-1, 3)
     d = d.reshape(-1, 3)
@@ -494,7 +517,7 @@ def bvh_closest_hit_ordered_plain(scene, bvh: BVH, prim: str, o, d, t_min,
             h1 = inner & (tn1 <= tf1) & (tf1 >= t_min) & (tn1 <= limit)
             vis = vis + 2 * inner.to(torch.int32)
             both = h0 & h1
-            rnear = tn1 < tn0
+            rnear = (tn1 < tn0) & near_first
             slot = p.clamp(max=depth - 1)
             stk[rows, slot] = torch.where(both, torch.where(rnear, lc, rc),
                                           stk[rows, slot])
@@ -534,16 +557,18 @@ def load_library(path):
     vp, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                          ctypes.c_float)
     nodes = [vp] * 5 + [i32]
-    lib.solr_bvh_closest.argtypes = [i32] + nodes + [vp] * 7 + [
+    lib.solr_bvh_closest_sphere.argtypes = nodes + [vp] * 6 + [
         i64, f32] + [vp] * 5
-    lib.solr_bvh_closest.restype = i32
-    lib.solr_bvh_transmittance.argtypes = [i32] + nodes + [vp] * 9 + [
+    lib.solr_bvh_closest_sphere.restype = i32
+    lib.solr_bvh_transmittance_sphere.argtypes = nodes + [vp] * 8 + [
         i64, f32] + [vp] * 4
-    lib.solr_bvh_transmittance.restype = i32
-    lib.solr_bvh_closest_tri.argtypes = [vp] * 5 + [i64, f32] + [vp] * 5
-    lib.solr_bvh_closest_tri.restype = i32
-    lib.solr_bvh_transmittance_tri.argtypes = [vp] * 5 + [i64, f32] + [vp] * 4
-    lib.solr_bvh_transmittance_tri.restype = i32
+    lib.solr_bvh_transmittance_sphere.restype = i32
+    lib.solr_bvh_closest_packed.argtypes = [i32, i32] + [vp] * 5 + [
+        i64, f32] + [vp] * 5
+    lib.solr_bvh_closest_packed.restype = i32
+    lib.solr_bvh_transmittance_packed.argtypes = [i32] + [vp] * 5 + [
+        i64, f32] + [vp] * 4
+    lib.solr_bvh_transmittance_packed.restype = i32
     return lib
 
 
@@ -571,12 +596,12 @@ def _ptr(x):
     return ctypes.c_void_p(x.data_ptr())
 
 
-# The deepest stack of the triangle kernels (kMaxStack in bvh_walk.cu).
+# The deepest stack of the packed kernels (kMaxStack in bvh_walk.cu).
 _MAX_STACK = 32
 
 
 def pack_nodes(bvh: BVH):
-    """The triangle kernels' node rows (R, 4, 4) float32, 64 bytes each:
+    """The packed kernels' node rows (R, 4, 4) float32, 64 bytes each:
     row 0 holds the root, row r > 0 the inner node of inner rank r - 1
     (DFS order), with its left child c0 (node i + 1) and right child c1
     (``skip[i + 1]``) as (c0.lo, c0.hi.x), (c0.hi.yz, c1.lo.xy),
@@ -609,35 +634,61 @@ def pack_nodes(bvh: BVH):
         -1, 4, 4)
 
 
+def _shadow_factor(material, mats):
+    """Each row's shadow factor (float32): 1 for an emissive material,
+    else its transparency."""
+    m = material.long()
+    return torch.where(mats.emission[m] > 0.0,
+                       torch.ones_like(mats.transparency[m]),
+                       mats.transparency[m]).to(torch.float32)
+
+
 def pack_triangles(scene):
     """The triangle kernels' rows (N, 3, 4) float32, in pool order:
     (v0, e1.x), (e1.yz, e2.xy), (e2.z, factor, 0, 0) with e1 = v1 - v0
     and e2 = v2 - v0 in float32 (the rounding of
     intersect.triangle_t_p) and the row's shadow factor: 1 for an
     emissive material, else its transparency."""
-    p, mats = scene.triangles, scene.materials
+    p = scene.triangles
 
     def f32(x):
         return x.to(torch.float32)
 
     v0 = f32(p.v0)
-    m = p.material.long()
-    factor = f32(torch.where(mats.emission[m] > 0.0,
-                             torch.ones_like(mats.transparency[m]),
-                             mats.transparency[m]))
+    factor = _shadow_factor(p.material, scene.materials)
     return torch.cat([v0, f32(p.v1) - v0, f32(p.v2) - v0, factor[:, None],
                       torch.zeros_like(v0[:, :2])], 1).contiguous().view(
                           -1, 3, 4)
 
 
-# One derived layout per kind: (the source tensors, their keys, the
-# layout).  The sources are held, so no other tensor can take their
+def pack_cylinders(scene):
+    """The cylinder kernels' rows (N, 3, 4) float32, in pool order:
+    (p0, r), (axis, h2), (1 / max(h2, 1e-8), r * r, factor, 0) with
+    axis = p1 - p0 and h2 = (x * x + y * y) + z * z in float32, each term
+    by the f32 operations of intersect.cylinder_t_p -> packet.cyl_core,
+    and the row's shadow factor: 1 for an emissive material, else its
+    transparency."""
+    p = scene.cylinders
+    p0 = p.p0.to(torch.float32)
+    r = p.radius.to(torch.float32)
+    axis = p.p1.to(torch.float32) - p0
+    ax, ay, az = axis.unbind(1)
+    h2 = ax * ax + ay * ay + az * az
+    inv_h2 = 1.0 / torch.clamp(h2, min=INTERSECT_EPS)
+    factor = _shadow_factor(p.material, scene.materials)
+    return torch.stack([p0[:, 0], p0[:, 1], p0[:, 2], r, ax, ay, az, h2,
+                        inv_h2, r * r, factor, torch.zeros_like(r)],
+                       1).contiguous().view(-1, 3, 4)
+
+
+# One derived value per kind: (the source tensors, their keys, the
+# value).  The sources are held, so no other tensor can take their
 # memory while the entry stands.
 _DERIVED: dict = {}
 
 
 def _derived(kind: str, sources, make):
-    """``make()``, or the layout of ``kind`` made last, while each of
+    """``make()``, or the value of ``kind`` made last, while each of
     ``sources`` is the same tensor object with the same data pointer,
     shape, strides and version (an in-place write bumps the version;
     ``with_params`` and ``bvh_refit`` make new tensors)."""
@@ -657,20 +708,63 @@ def _derived(kind: str, sources, make):
     return out
 
 
-def _tri_layouts(scene, bvh: BVH):
-    """The packed nodes and triangles of the triangle kernels, derived
-    (or reused) from the BVH's and the pool's current tensors."""
+def _tree_tensors(bvh: BVH):
+    return (bvh.aabb_min, bvh.aabb_max, bvh.skip, bvh.first_prim,
+            bvh.prim_count)
+
+
+@torch.no_grad()
+def outside_leaf_boxes(scene, bvh: BVH, prim: str):
+    """(N,) bool, on the pool's device: the pool rows of kind ``prim``
+    whose AABB (as ``pool_aabbs`` bounds it) is not inside the box of
+    the leaf that holds them, or is NaN.  Inner boxes hold their
+    children by construction (``build_bvh``, ``bvh_refit``), so a tree
+    without such a row has boxes that contain their primitives."""
+    pmin, pmax = _prim_aabbs(scene, prim)
+    n, dev = pmin.shape[0], pmin.device
+    lane = torch.arange(bvh.leaf_size, device=dev)
+    pidx = (bvh.first_prim[:, None] + lane).clamp(0, n - 1)
+    held = (bvh.first_prim >= 0)[:, None] & (lane < bvh.prim_count[:, None])
+    lo = bvh.aabb_min.to(pmin.dtype)[:, None]
+    hi = bvh.aabb_max.to(pmax.dtype)[:, None]
+    inside = ((lo <= pmin[pidx]) & (pmax[pidx] <= hi)).all(-1)
+    out = torch.zeros(n, dtype=torch.bool, device=dev)
+    return out.index_put_((pidx[held],), ~inside[held])
+
+
+def leaf_boxes_hold(scene, bvh: BVH, prim: str) -> bool:
+    """Whether every leaf box of ``bvh`` holds its primitives of kind
+    ``prim`` (no :func:`outside_leaf_boxes` row): where it does, a
+    near-first walk returns the DFS walk's (t, idx).  One host sync per
+    version of the tree and the pool's geometry, whose tensors key the
+    cached answer."""
+    return _derived(f"holds_{prim}", _tree_tensors(bvh)
+                    + _pool_tensors(scene, prim, False),
+                    lambda: not bool(outside_leaf_boxes(scene, bvh,
+                                                        prim).any()))
+
+
+def _packed_layouts(scene, bvh: BVH, prim: str):
+    """The packed nodes and rows of the triangle or cylinder kernels,
+    derived (or reused) from the BVH's and the pool's current tensors,
+    one cached pair per pool."""
     if bvh.max_depth + 1 > _MAX_STACK:
-        raise ValueError(f"the triangle walk kernels take trees of at most "
+        raise ValueError(f"the packed walk kernels take trees of at most "
                          f"{_MAX_STACK - 1} levels, got {bvh.max_depth}")
-    p, mats = scene.triangles, scene.materials
-    nodes = _derived("nodes", (bvh.aabb_min, bvh.aabb_max, bvh.skip,
-                               bvh.first_prim, bvh.prim_count),
+    mats = scene.materials
+    nodes = _derived(f"nodes_{prim}", _tree_tensors(bvh),
                      lambda: pack_nodes(bvh))
-    tris = _derived("tris", (p.v0, p.v1, p.v2, p.material, mats.emission,
-                             mats.transparency),
-                    lambda: pack_triangles(scene))
-    return nodes, tris
+    if prim == "tri":
+        p = scene.triangles
+        rows = _derived("tris", (p.v0, p.v1, p.v2, p.material, mats.emission,
+                                 mats.transparency),
+                        lambda: pack_triangles(scene))
+    else:
+        p = scene.cylinders
+        rows = _derived("cyls", (p.p0, p.p1, p.radius, p.material,
+                                 mats.emission, mats.transparency),
+                        lambda: pack_cylinders(scene))
+    return nodes, rows
 
 
 def _check_prim(prim: str):
@@ -690,31 +784,27 @@ def _walk_rays(o, d, t_max):
                  for x in (o, d)) + (tm,)
 
 
-def _walk_arrays(scene, bvh: BVH, prim: str, dev):
-    """The contiguous device arrays the sphere and cylinder kernels read:
-    (node arrays, pool arrays)."""
+def _sphere_arrays(scene, bvh: BVH, dev):
+    """The contiguous device arrays the sphere kernels read: (node
+    arrays, pool arrays)."""
     def f32(x):
         return x.to(device=dev, dtype=torch.float32).contiguous()
 
     def i32(x):
         return x.to(device=dev, dtype=torch.int32).contiguous()
 
+    p = scene.spheres
     nodes = (f32(bvh.aabb_min), f32(bvh.aabb_max), i32(bvh.skip),
              i32(bvh.first_prim), i32(bvh.prim_count))
-    if prim == "sphere":
-        p = scene.spheres
-        arrays = (p.center, p.radius, p.radius)
-    else:
-        p = scene.cylinders
-        arrays = (p.p0, p.p1, p.radius)
-    return nodes, tuple(f32(a) for a in arrays) + (i32(p.material),)
+    return nodes, (f32(p.center), f32(p.radius), i32(p.material))
 
 
 def launch_closest(lib, scene, bvh: BVH, prim: str, o, d, t_min,
-                   t_max=T_FAR):
+                   t_max=T_FAR, near_first: bool = True):
     """One launch of ``lib``'s closest-hit walk on CUDA tensors.
-    Returns what :func:`bvh_closest_hit_plain` returns (for triangles,
-    what :func:`bvh_closest_hit_ordered_plain` returns)."""
+    Returns what :func:`bvh_closest_hit_plain` returns (for triangles
+    and cylinders, what :func:`bvh_closest_hit_ordered_plain` returns
+    with the same ``near_first``; spheres walk in the DFS order)."""
     _check_prim(prim)
     of, df, tm = _walk_rays(o, d, t_max)
     n = of.shape[0]
@@ -723,20 +813,21 @@ def launch_closest(lib, scene, bvh: BVH, prim: str, o, d, t_min,
                        for _ in range(3))
     stream = ctypes.c_void_p(torch.cuda.current_stream(of.device).cuda_stream)
     outs = (_ptr(out_t), _ptr(out_i), _ptr(vis), _ptr(tst), stream)
-    if prim == "tri":
-        layouts = _tri_layouts(scene, bvh)
-        err = lib.solr_bvh_closest_tri(
+    if prim in PACKED:
+        layouts = _packed_layouts(scene, bvh, prim)
+        err = lib.solr_bvh_closest_packed(
+            PRIMS.index(prim), int(near_first),
             *(_ptr(x) for x in layouts + (of, df, tm)), n, float(t_min),
             *outs)
     else:
-        nodes, pool = _walk_arrays(scene, bvh, prim, of.device)
-        err = lib.solr_bvh_closest(
-            PRIMS.index(prim), *(_ptr(x) for x in nodes), bvh.n_nodes,
-            *(_ptr(x) for x in pool), _ptr(of), _ptr(df), _ptr(tm), n,
-            float(t_min), *outs)
+        nodes, pool = _sphere_arrays(scene, bvh, of.device)
+        err = lib.solr_bvh_closest_sphere(
+            *(_ptr(x) for x in nodes), bvh.n_nodes, *(_ptr(x) for x in pool),
+            _ptr(of), _ptr(df), _ptr(tm), n, float(t_min), *outs)
     if err != 0:
-        raise RuntimeError(f"{kernel_name('bvh_closest_hit', prim)} kernel "
-                           f"launch failed: cudaError {err}")
+        name = kernel_name("bvh_closest_hit", prim,
+                           dfs=prim in PACKED and not near_first)
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
     r_shape = o.shape[:-1]
     return tuple(x.reshape(r_shape) for x in (out_t, out_i, vis, tst))
 
@@ -753,20 +844,20 @@ def launch_transmittance(lib, scene, bvh: BVH, prim: str, o, d, t_min,
                 for _ in range(2))
     stream = ctypes.c_void_p(torch.cuda.current_stream(of.device).cuda_stream)
     outs = (_ptr(out_tr), _ptr(vis), _ptr(tst), stream)
-    if prim == "tri":
-        layouts = _tri_layouts(scene, bvh)
-        err = lib.solr_bvh_transmittance_tri(
-            *(_ptr(x) for x in layouts + (of, df, tm)), n, float(t_min),
-            *outs)
+    if prim in PACKED:
+        layouts = _packed_layouts(scene, bvh, prim)
+        err = lib.solr_bvh_transmittance_packed(
+            PRIMS.index(prim), *(_ptr(x) for x in layouts + (of, df, tm)), n,
+            float(t_min), *outs)
     else:
-        nodes, pool = _walk_arrays(scene, bvh, prim, of.device)
+        nodes, pool = _sphere_arrays(scene, bvh, of.device)
         mats = scene.materials
         emission = mats.emission.to(torch.float32).contiguous()
         transparency = mats.transparency.to(torch.float32).contiguous()
-        err = lib.solr_bvh_transmittance(
-            PRIMS.index(prim), *(_ptr(x) for x in nodes), bvh.n_nodes,
-            *(_ptr(x) for x in pool), _ptr(emission), _ptr(transparency),
-            _ptr(of), _ptr(df), _ptr(tm), n, float(t_min), *outs)
+        err = lib.solr_bvh_transmittance_sphere(
+            *(_ptr(x) for x in nodes), bvh.n_nodes, *(_ptr(x) for x in pool),
+            _ptr(emission), _ptr(transparency), _ptr(of), _ptr(df), _ptr(tm),
+            n, float(t_min), *outs)
     if err != 0:
         raise RuntimeError(f"{kernel_name('bvh_transmittance', prim)} kernel "
                            f"launch failed: cudaError {err}")
@@ -805,17 +896,22 @@ def bvh_closest_hit(scene, bvh: BVH, pool_code: int, o, d, t_min,
                     t_max=T_FAR):
     """Closest hit within one BVH-accelerated pool (traverse.POOL_*
     code) for rays o, d (..., 3) and t_max, a number or of the rays'
-    shape.  Returns (t, idx): T_FAR and idx 0 on a miss.  Raises under
-    grad mode on an input that requires grad (sweep.check_detached)."""
+    shape.  Returns (t, idx): T_FAR and idx 0 on a miss.  Triangles and
+    cylinders walk near child first while :func:`leaf_boxes_hold`, else
+    in the DFS walk's order.  Raises under grad mode on an input that
+    requires grad (sweep.check_detached)."""
     prim = POOL_PRIM[pool_code]
     sweep.check_detached(kernel_name("bvh_closest_hit", prim), o, d, t_max,
                          *_pool_tensors(scene, prim, False))
+    near = prim in PACKED and leaf_boxes_hold(scene, bvh, prim)
     if not _kernel_device(o):
-        plain = (bvh_closest_hit_ordered_plain if prim == "tri"
+        plain = (bvh_closest_hit_ordered_plain if near
                  else bvh_closest_hit_plain)
         return plain(scene, bvh, prim, o, d, t_min, t_max)[:2]
-    out = launch_closest(_library(), scene, bvh, prim, o, d, t_min, t_max)
-    LAUNCHES[kernel_name("bvh_closest_hit", prim)] += 1
+    out = launch_closest(_library(), scene, bvh, prim, o, d, t_min, t_max,
+                         near_first=near)
+    LAUNCHES[kernel_name("bvh_closest_hit", prim,
+                         dfs=prim in PACKED and not near)] += 1
     return out[:2]
 
 

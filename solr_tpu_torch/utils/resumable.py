@@ -15,8 +15,9 @@ renders rows [i*H/N, (i+1)*H/N)" and "rank i checkpoints its band chunk
 by chunk" compose (``row0``, ``n_rows``).
 
 Unlike the reference, the directory's fingerprint covers the chunk
-height, and a directory with checkpoints but no fingerprint is stale
-(ROADMAP C5): either could otherwise resume another render's chunks.
+height and the random key, and a directory with checkpoints but no
+fingerprint is stale (ROADMAP C5, C15): each could otherwise resume
+another render's chunks.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ import torch
 
 from solr_tpu_torch.ops.camera import camera_rays
 from solr_tpu_torch.ops.render import trace_rays_tiled
+from solr_tpu_torch.ops.rng import Key
 from solr_tpu_torch.utils.checkpoint import (CheckpointManager, RenderState,
                                              latest_step)
 
@@ -51,7 +53,19 @@ def _tensors(obj):
     return [obj]
 
 
-def _fingerprint(scene, camera, cfg, row0: int, n_rows: int,
+def _key_token(key) -> str:
+    """What a chunk's draws depend on in ``key``: a :class:`Key`'s state,
+    or a fixed token for no key.  Any other key would hash as nothing,
+    so it raises."""
+    if key is None:
+        return "key:none"
+    if isinstance(key, Key):
+        return f"key:{key.state}"
+    raise TypeError(f"resumable_render takes a solr_tpu_torch Key or None "
+                    f"as its key, got {type(key).__name__}")
+
+
+def _fingerprint(scene, camera, cfg, key, row0: int, n_rows: int,
                  rows_per_chunk: int) -> str:
     """Hash of everything a chunk's pixels and the checkpoints' layout
     depend on.  Large leaves hash a 64 KB prefix and their sum: cheap at
@@ -59,6 +73,7 @@ def _fingerprint(scene, camera, cfg, row0: int, n_rows: int,
     one or the other."""
     h = hashlib.blake2b(digest_size=16)
     h.update(repr(cfg).encode())
+    h.update(_key_token(key).encode())
     h.update(f"rows:{row0}:{n_rows}:{rows_per_chunk}".encode())
     for leaf in _tensors(scene) + _tensors(camera):
         if not isinstance(leaf, torch.Tensor):
@@ -112,16 +127,18 @@ def resumable_render(scene, camera, cfg, directory: str,
     can kill mid-frame.  ``log(event=..., **fields)`` hears of
     "stale_checkpoint_discarded", "resumed" and each "chunk_done".
 
-    A ``fingerprint`` file records a hash of (scene, camera, cfg, row
-    range, ``rows_per_chunk``); a directory whose fingerprint differs,
-    or that holds checkpoints without one, is stale and restarts from
-    scratch.  ``cleanup=True`` removes the directory after the frame.
+    A ``fingerprint`` file records a hash of (scene, camera, cfg, key,
+    row range, ``rows_per_chunk``); a directory whose fingerprint
+    differs, or that holds checkpoints without one, is stale and
+    restarts from scratch.  ``key`` is a :class:`Key` or None; another
+    type raises a TypeError.  ``cleanup=True`` removes the directory
+    after the frame.
     """
     h = cfg.height if n_rows is None else n_rows
     if h % rows_per_chunk:
         raise ValueError(f"{h} rows not divisible by {rows_per_chunk}")
     n_chunks = h // rows_per_chunk
-    fp = _fingerprint(scene, camera, cfg, row0, h, rows_per_chunk)
+    fp = _fingerprint(scene, camera, cfg, key, row0, h, rows_per_chunk)
     fp_path = os.path.join(directory, "fingerprint")
     try:
         with open(fp_path) as f:

@@ -1,27 +1,32 @@
-"""Times the triangle walk kernels of ``csrc/bvh_walk.cu`` in variants on
-the card, on the calls ``chip_smoke.py`` times them on.
+"""Times the packed walk kernels of ``csrc/bvh_walk.cu`` (triangles and
+cylinders) in variants on the card, on the calls ``chip_smoke.py`` times
+them on.
 
     python -m solr_tpu_torch.walk_steps [--out FILE]
 
 Each step is the shipped source with some of its constants set to other
 values (``kThreads``) or some of its text replaced (the closest hit's
-child order, an occupancy hint).  Every variant is compiled with the
-port's nvcc flags, all of them at once, and called through
-``bvh.launch_closest`` / ``launch_transmittance`` on the first triangle
-calls of the bench frame at 1920x1080 (1M triangles, 2 bounces) and of
-the textured frame (``render(textured_scene(1920, 1080), key, spp=4)``).
-Every variant's t and idx, and tr, visits and tests of the shadow walk,
-must be bit-equal to the shipped kernel's; a variant with another
-closest-hit order reports its own visits and tests.  The variants are
-timed in order and then in reverse order (CUDA events, mean of 5 calls
-after a warm-up), on one card in one process, and both passes are
-reported, with each kernel's registers and stack from ``-Xptxas -v``.
+child order, an occupancy hint, the cylinder rows' derived terms
+computed by the kernel).  Every variant is compiled with the port's nvcc
+flags, all of them at once, and called through ``bvh.launch_closest`` /
+``launch_transmittance`` on the first triangle calls of the bench frame
+at 1920x1080 (1M triangles, 2 bounces) and of the textured frame
+(``render(textured_scene(1920, 1080), key, spp=4)``), and on the first
+cylinder calls of the molecule frame with traversal="while" (100,000
+atoms, 512x512).  Every variant's t and idx, and tr, visits and tests
+of the shadow walk, must be bit-equal to the shipped kernel's; a
+variant with another closest-hit order reports its own visits and
+tests.  The variants are timed in order and then in reverse order (CUDA
+events, mean of 5 calls after a warm-up), on one card in one process,
+and both passes are reported, with each kernel's registers and stack
+from ``-Xptxas -v``.
 """
 
 from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import dataclasses
 import json
 import subprocess
 import sys
@@ -32,18 +37,19 @@ import torch
 
 from solr_tpu_torch.bench_scene import bench_scene
 from solr_tpu_torch.kernel_shapes import first_walk_calls, ptxas_usage, time_ms
+from solr_tpu_torch.molecule_scene import molecule_scene
 from solr_tpu_torch.ops import bvh, sweep
 from solr_tpu_torch.ops.render import render, render_sample
 from solr_tpu_torch.ops.rng import Key
 from solr_tpu_torch.sweep_steps import variant_source
 from solr_tpu_torch.textured_scene import textured_scene
 
-_HEADS = ("__global__ void __launch_bounds__(kThreads)\n    closest_tri(",
-          "__global__ void __launch_bounds__(kThreads)\n    trans_tri(")
+_HEADS = ("__global__ void __launch_bounds__(kThreads)\n    closest_pairs(",
+          "__global__ void __launch_bounds__(kThreads)\n    trans_pairs(")
 
 
 def _min_ctas(n: int):
-    """Both triangle kernels with an occupancy hint of n CTAs per SM."""
+    """Both packed kernels with an occupancy hint of n CTAs per SM."""
     return tuple((h, h.replace("(kThreads)", f"(kThreads, {n})"))
                  for h in _HEADS)
 
@@ -78,13 +84,27 @@ _INT4_STACK = (
     cnt = e.y;"""),
 )
 
+# The cylinder test computing |axis|^2, 1/max(|axis|^2, 1e-8) and r*r
+# itself, in the plain test's association, instead of reading them from
+# its row.
+_CYL_TERMS_IN_KERNEL = (
+    ("""    const float ax = b.x, ay = b.y, az = b.z, h2 = b.w;
+    const float inv_h2 = c.x, rad_sq = c.y;""",
+     """    const float ax = b.x, ay = b.y, az = b.z;
+    const float h2 = (ax * ax + ay * ay) + az * az;
+    const float inv_h2 = 1.0f / clamp_min(h2, kIntersectEps);
+    const float rad_sq = rad * rad;"""),
+)
+
 # (name, constants that differ from the shipped source, (shipped text,
 # its replacement) pairs), in the order the design was chosen.
 STEPS = (
-    ("1 packed nodes and triangles, closest hit in DFS order (left child "
-     "first)", {}, (("const bool right = tn1 < tn0;",
+    ("1 packed nodes and rows, closest hit in DFS order (left child "
+     "first)", {}, (("const bool right = kNearFirst && tn1 < tn0;",
                      "const bool right = false;"),)),
     ("2 + near child first (shipped)", {}, ()),
+    ("3 cylinders: h2, 1/h2 and r*r computed in the kernel, not read",
+     {}, _CYL_TERMS_IN_KERNEL),
     ("alt: 64 threads per CTA", dict(kThreads=64), ()),
     ("alt: 256 threads per CTA", dict(kThreads=256), ()),
     ("alt: at least 12 CTAs per SM (40 registers)", {}, _min_ctas(12)),
@@ -96,7 +116,8 @@ REPS = 5
 
 def _calls(device):
     """[(label, scene, recorded call)] of both triangle walks on the
-    1080p bench frame and the textured frame."""
+    1080p bench frame and the textured frame, and of both cylinder walks
+    on the molecule frame with traversal="while"."""
     out = []
     scene, cam, cfg = bench_scene(1_000_000, block=512, width=1920,
                                   height=1080, bounces=2, device=device)
@@ -107,6 +128,12 @@ def _calls(device):
     calls = first_walk_calls(lambda: render(tex, tcam, tcfg,
                                             Key.seed(0, device), spp=4))
     out += [(f"{e} textured", tex, calls[f"{e}_tri"]) for e in bvh.ENTRIES]
+    del tex, calls
+    mol, mcam, mcfg = molecule_scene(100_000, 128, width=512, height=512,
+                                     bounces=2, block=256, device=device)
+    calls = first_walk_calls(lambda: render_sample(
+        mol, mcam, dataclasses.replace(mcfg, traversal="while")))
+    out += [(f"{e} molecule", mol, calls[f"{e}_cyl"]) for e in bvh.ENTRIES]
     return out
 
 
@@ -138,7 +165,7 @@ def main(argv=None) -> int:
     libs = [bvh.load_library(p) for p, _ in built]
     build_s = time.time() - t0
     ptxas = {name: {k: u for k, u in ptxas_usage(log).items()
-                    if "_tri" in k} for (name, _), (_, log) in
+                    if "_pairs" in k} for (name, _), (_, log) in
              zip(variants, built)}
 
     device = torch.device("cuda:0")

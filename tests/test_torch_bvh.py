@@ -19,6 +19,9 @@ Tolerances, from what differs between the two CPU builds:
 * Transmittance multiplies a leaf's factors in ascending lane order, the
   reference with jnp.prod (ROADMAP C3): rtol 1e-6 with fractional
   factors.
+* A stale tree (ROADMAP C14): with_params moves triangles out of their
+  leaf boxes without a refit, in both packages.  The reference walks in
+  DFS order; the port must return its hit, as above.
 """
 
 import dataclasses
@@ -34,6 +37,9 @@ from solr_tpu.ops import bvh as jbvh
 
 from data.torch_reference import numpy_tree
 from scenes_fixtures import random_sphere_field, random_tri_field
+from torch_bvh_helpers import (FIELD_MATERIALS, STALE_ROW, add_two_leaves,
+                               move_pool, stale_shift, tri_field_arrays,
+                               two_leaf_rays)
 from solr_tpu_torch.bench_scene import bench_scene_arrays
 from solr_tpu_torch.constants import RAY_EPS
 from solr_tpu_torch.convert import (camera_from_numpy, config_from_reference_fields,
@@ -156,9 +162,11 @@ def test_closest_walk_matches_reference(code, f64, ties):
 
 @pytest.mark.parametrize("code,f64,ties", CASES, ids=IDS)
 def test_ordered_walk_matches_dfs_walk(code, f64, ties):
-    """The near-first walk (the triangle kernel's order, plain) returns
+    """The near-first walk (the packed kernels' order, plain) returns
     the DFS walk's t and idx on every ray, ties included, and both count
-    1 + 2 per entered inner node."""
+    1 + 2 per entered inner node; in the DFS walk's order
+    (``near_first=False``) it returns all four outputs of the DFS
+    walk."""
     _, scene = _scenes(PRIM_OF[code], f64, ties)
     o, d = (torch.from_numpy(x) for x in _rays(np.float64 if f64
                                                 else np.float32))
@@ -170,6 +178,9 @@ def test_ordered_walk_matches_dfs_walk(code, f64, ties):
     assert torch.equal(near[0], dfs[0]) and torch.equal(near[1], dfs[1])
     assert (dfs[0] < 1e30).sum() > 200
     assert ((near[2] - 1) % 2 == 0).all() and ((dfs[2] - 1) % 2 == 0).all()
+    in_order = bvh.bvh_closest_hit_ordered_plain(
+        scene, tree, PRIM_OF[code], o, d, RAY_EPS, near_first=False)
+    assert all(torch.equal(a, b) for a, b in zip(in_order, dfs))
 
 
 @pytest.mark.parametrize("code,f64", [(c, f) for c in (0, 1, 2)
@@ -190,6 +201,88 @@ def test_transmittance_walk_matches_reference(code, f64):
     jtr = np.asarray(jtr)
     assert ((jtr > 0.0) & (jtr < 1.0)).sum() > 100
     np.testing.assert_allclose(tr.numpy(), jtr, rtol=1e-6, atol=1e-7)
+
+
+def _field_scene():
+    """tests/torch_bvh_helpers.py tri_field, built by the reference, in
+    float64 (as _scenes casts it)."""
+    v, mat, o, d = tri_field_arrays()
+    b = st.SceneBuilder()
+    mats = [b.add_material(transparency=t, emission=e)
+            for t, e in FIELD_MATERIALS]
+    b.add_triangles_raw(v[:, 0], v[:, 1], v[:, 2], np.asarray(mats)[mat])
+    scene = jax.tree.map(lambda x: x.astype(jnp.float64)
+                         if jnp.issubdtype(x.dtype, jnp.floating) else x,
+                         b.build())
+    return scene, o, d
+
+
+def _moved(ref_scene, prim, shift):
+    """Both packages' scenes, in the reference scene's float type, after
+    the same move of the pool of kind ``prim`` by ``shift`` (N, 3):
+    triangles through with_params, cylinders through replace."""
+    f64 = ref_scene.triangles.v0.dtype == jnp.float64
+    port = scene_from_numpy(numpy_tree(ref_scene), "cpu",
+                            torch.float64 if f64 else torch.float32)
+    if prim == "tri":
+        rp = ref_scene.params
+        rp["vertices"] = tuple(jnp.asarray(np.asarray(v) + shift)
+                               for v in rp["vertices"])
+        ref = ref_scene.with_params(rp)
+    else:
+        c = ref_scene.cylinders
+        ref = dataclasses.replace(ref_scene, cylinders=dataclasses.replace(
+            c, p0=c.p0 + shift, p1=c.p1 + shift))
+    return ref, move_pool(port, prim, shift)
+
+
+@pytest.mark.parametrize("case", ["tri", "cyl", "drift"])
+def test_stale_tree_closest_hit_matches_reference(case):
+    """ROADMAP C14: after the primitives move out of their leaf boxes
+    without a refit (C9), the port's closest hit is the reference's DFS
+    walk's.  "tri" and "cyl": the near leaf's box is the nearer (z 5) and
+    the far leaf's starts at z 10, but one of the far leaf's primitives
+    moved to z 2.1 (tests/torch_bvh_helpers.py two_leaf_stale); the DFS
+    walk enters the far leaf first and returns it, a near-first walk
+    would return the near leaf's hit and prune the far leaf: idx equal
+    on every ray.  Triangles move through with_params, cylinders
+    (which are no parameter) through replace.  "drift": tri_field with
+    a random translation of each triangle (sd 0.2), in float64, where
+    test_closest_walk_matches_reference holds idx exactly (in float32
+    XLA's FMA contraction moves t by up to 2.4e-6 on this field, moved
+    or not)."""
+    if case == "drift":
+        prim = "tri"
+        ref_scene, o, d = _field_scene()
+        shift = np.random.default_rng(4).normal(
+            0.0, 0.2, (ref_scene.triangles.v0.shape[0], 3))
+    else:
+        prim = case
+        b = st.SceneBuilder()
+        add_two_leaves(b, prim, b.add_material(color=(0.7, 0.6, 0.5, 1.0)))
+        ref_scene = b.build(bvh_threshold=16)
+        o, d = two_leaf_rays()
+        shift = stale_shift()
+    ref, port = _moved(ref_scene, prim, shift)
+    code = {"tri": 1, "cyl": 2}[prim]
+    tree = getattr(port, BVH_OF[code])
+    stray = bvh.outside_leaf_boxes(port, tree, prim)
+    assert int(stray.sum()) > 0
+    assert not bvh.leaf_boxes_hold(port, tree, prim)
+    jt, ji = jbvh.bvh_closest_hit(ref, getattr(ref, BVH_OF[code]), code,
+                                  jnp.asarray(o), jnp.asarray(d), RAY_EPS,
+                                  3e38)
+    t, i = bvh.bvh_closest_hit(port, tree, code, torch.from_numpy(o),
+                               torch.from_numpy(d), RAY_EPS)
+    jt, ji, t, i = np.asarray(jt), np.asarray(ji), t.numpy(), i.numpy()
+    hit = jt < 1e30
+    if case != "drift":
+        assert stray.nonzero().flatten().tolist() == [STALE_ROW]
+        assert (ji == STALE_ROW).all()
+    assert hit.sum() > (1000 if case == "drift" else 63)
+    np.testing.assert_array_equal(t < 1e30, hit)
+    np.testing.assert_array_equal(i, ji)
+    np.testing.assert_allclose(t[hit], jt[hit], rtol=1e-6)
 
 
 def test_pool_aabbs_and_refit_match_reference():

@@ -3,21 +3,21 @@ csrc/bvh_walk.cu built by the host's C++ compiler, one thread per CUDA
 thread), against their plain PyTorch versions: t, idx, tr, node visits
 and lane tests bit-equal, as on the card.  The emulation compiles
 without FMA contraction, as nvcc does with --fmad=false, and runs the
-kernels' own control flow: the skip-pointer walk (spheres, cylinders),
-the packed pair walk with its stack (triangles: near child first for the
-closest hit, DFS order for the shadow walk), the leaf loop, the in-leaf
-and cross-leaf tie rules, the ordered leaf product and the early stop of
-a ray in full shadow.
+kernels' own control flow: the skip-pointer walk (spheres), the packed
+pair walk with its stack (triangles and cylinders: near child first for
+the closest hit, or left child first on a stale tree; DFS order for the
+shadow walk), the leaf loop, the in-leaf and cross-leaf tie rules, the
+ordered leaf product and the early stop of a ray in full shadow.
 
 All six entries (closest hit and transmittance for the triangle, sphere
 and cylinder pools) run on the primary rays of a small frame and on
 shadow rays toward its light, with fractional transparencies and
-emissive occluders.  The triangle closest hit is held to the near-first
-plain walk on all four outputs and to the DFS walk on t and idx.  The
-tie cases duplicate every primitive, so a ray meets equal t in one leaf
-or in two neighbouring leaves; the first copy must win, also where the
-near-first walk reaches the second copy first.  The card's own runs are
-tests/test_torch_gpu.py."""
+emissive occluders.  The triangle and cylinder closest hits are held to
+the plain walk of their order on all four outputs and to the DFS walk
+on t and idx.  The tie cases duplicate every primitive, so a ray meets
+equal t in one leaf or in two neighbouring leaves; the first copy must
+win, also where the near-first walk reaches the second copy first.  The
+card's own runs are tests/test_torch_gpu.py."""
 
 import numpy as np
 import pytest
@@ -30,9 +30,10 @@ from solr_tpu_torch.ops.camera import camera_rays
 from solr_tpu_torch.ops.traverse import scene_closest_hit
 from solr_tpu_torch.scene import SceneBuilder
 from solr_tpu_torch.types import RenderConfig
-from torch_bvh_helpers import (cross_leaf_pairs, fractional_materials,
+from torch_bvh_helpers import (STALE_ROW, cross_leaf_pairs, cyl_field,
+                               fractional_materials, near_second_tie_cyl_scene,
                                near_second_tie_scene, shadow_rays_to_light,
-                               tie_scene, tri_field)
+                               tie_scene, tri_field, two_leaf_stale)
 from torch_sweep_helpers import build_emulated, compiler
 
 # Several test workers share the cores: keep each one's intra-op pool small.
@@ -72,19 +73,23 @@ def _rays(scene, cam, cfg):
     return (o, d) + shadow_rays_to_light(scene, o, d, hit)
 
 
-def _closest_equal(monkeypatch, lib, scene, prim, o, d, tree=None):
+def _closest_equal(monkeypatch, lib, scene, prim, o, d, tree=None,
+                   near_first=True):
     """The kernel against its plain version on all four outputs (for
-    triangles the near-first walk, whose t and idx must equal the DFS
-    walk's); returns the plain version's outputs."""
+    triangles and cylinders the walk of the kernel's order, near child
+    first or the DFS walk's, whose t and idx must equal the DFS walk's);
+    returns the plain version's outputs."""
     _no_stream(monkeypatch)
     tree = getattr(scene, BVH_OF[prim]) if tree is None else tree
-    got = bvh.launch_closest(lib, scene, tree, prim, o, d, RAY_EPS)
+    got = bvh.launch_closest(lib, scene, tree, prim, o, d, RAY_EPS,
+                             near_first=near_first)
     want = bvh.bvh_closest_hit_plain(scene, tree, prim, o, d, RAY_EPS)
-    if prim == "tri":
+    if prim in bvh.PACKED:
         for a, b in zip(got[:2], want[:2]):  # t, idx
             assert torch.equal(a, b)
         want = bvh.bvh_closest_hit_ordered_plain(scene, tree, prim, o, d,
-                                                 RAY_EPS)
+                                                 RAY_EPS,
+                                                 near_first=near_first)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
     return want
@@ -180,9 +185,95 @@ def test_emulated_tri_tie_reached_second_first(emulated, monkeypatch):
     assert (tests == 16).all()  # both leaves tested
 
 
+def test_emulated_cyl_tie_reached_second_first(emulated, monkeypatch):
+    """The cylinder case of test_emulated_tri_tie_reached_second_first:
+    the shared cylinder's first copy ends the left leaf, its second
+    starts the right leaf, whose box is the nearer."""
+    scene, o, d = near_second_tie_cyl_scene()
+    tree = scene.cyl_bvh
+    assert tree.first_prim.tolist() == [-1, 0, 8]
+    c = scene.cylinders
+    assert all(torch.equal(x[7], x[8]) for x in (c.p0, c.p1, c.radius))
+    lo = tree.aabb_min[1:, 2]
+    assert lo[1] < lo[0]  # the right leaf's box starts nearer along +z
+    t, idx, _, tests = _closest_equal(monkeypatch, emulated, scene, "cyl",
+                                      o, d)
+    assert (t < 1e30).all() and (idx == 7).all()
+    assert (tests == 16).all()  # both leaves tested
+
+
 @pytest.fixture(scope="module")
 def field():
     return tri_field()
+
+
+@pytest.fixture(scope="module")
+def cfield():
+    return cyl_field()
+
+
+def test_emulated_cyl_field(emulated, monkeypatch, cfield):
+    """test_emulated_tri_field on a 1,200-cylinder field (8 levels) with
+    576 rays."""
+    scene, o, d = cfield
+    assert scene.cyl_bvh.max_depth >= 7
+    t = _closest_equal(monkeypatch, emulated, scene, "cyl", o, d)[0]
+    assert (t < 1e30).sum() > 500
+    tm = torch.full(o.shape[:1], 100.0)
+    tr, vis, _ = _trans_equal(monkeypatch, emulated, scene, "cyl", o, d, tm)
+    assert (tr == 0.0).sum() > 200 and ((tr > 0.0) & (tr < 1.0)).sum() > 150
+    trans = scene.materials.transparency
+    clear = scene.replace(materials=scene.materials.replace(
+        transparency=torch.where(trans == 0.0, 0.5, trans)))
+    _, vis_all, _ = _trans_equal(monkeypatch, emulated, clear, "cyl", o, d,
+                                 tm)
+    assert (vis[tr == 0.0] < vis_all[tr == 0.0]).float().mean() > 0.5
+
+
+@pytest.mark.parametrize("prim", bvh.PACKED)
+def test_emulated_dfs_order_on_stale_tree(emulated, monkeypatch, prim):
+    """A far-leaf primitive moved in front of the near leaf without a
+    refit (two_leaf_stale; ROADMAP C14): the kernel in the DFS walk's
+    order returns the DFS walk's hit, the moved row, and counts as the
+    plain walk of its order; the near-first kernel, as its plain walk,
+    returns the near leaf's.  Each tests one leaf and prunes the
+    other."""
+    scene, o, d = two_leaf_stale(prim)
+    tree = getattr(scene, BVH_OF[prim])
+    assert not bvh.leaf_boxes_hold(scene, tree, prim)
+    _, idx, _, tests = _closest_equal(monkeypatch, emulated, scene, prim, o,
+                                      d, near_first=False)
+    assert (idx == STALE_ROW).all() and (tests == 8).all()
+    got = bvh.launch_closest(emulated, scene, tree, prim, o, d, RAY_EPS)
+    want = bvh.bvh_closest_hit_ordered_plain(scene, tree, prim, o, d,
+                                             RAY_EPS)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert (got[1] == 8).all() and (got[3] == 8).all()
+
+
+def test_emulated_layouts_one_per_pool(emulated, monkeypatch, molecule):
+    """The packed layouts and the leaf-box check are cached per pool: a
+    triangle, cylinder, triangle sequence packs each pool once and
+    checks each tree once."""
+    scene, cam, cfg = molecule
+    o, d = camera_rays(cam, cfg)
+    packed, checked = [], []
+    for name in ("pack_nodes", "pack_triangles", "pack_cylinders"):
+        fn = getattr(bvh, name)
+        monkeypatch.setattr(bvh, name, lambda *a, _fn=fn, _n=name: (
+            packed.append(_n), _fn(*a))[1])
+    fn = bvh.outside_leaf_boxes
+    monkeypatch.setattr(bvh, "outside_leaf_boxes", lambda *a: (
+        checked.append(a[2]), fn(*a))[1])
+    monkeypatch.setattr(bvh, "_DERIVED", {})
+    for prim in ("tri", "cyl", "tri", "cyl"):
+        _closest_equal(monkeypatch, emulated, scene, prim, o, d)
+        code = bvh._PRIM_POOL[prim]
+        bvh.bvh_closest_hit(scene, getattr(scene, BVH_OF[prim]), code, o, d,
+                            RAY_EPS)
+    assert packed == ["pack_nodes", "pack_triangles", "pack_nodes",
+                      "pack_cylinders"]
+    assert checked == ["tri", "cyl"]
 
 
 def test_emulated_tri_field(emulated, monkeypatch, field):
@@ -210,7 +301,9 @@ def test_emulated_tri_layouts_follow_the_scene(emulated, monkeypatch, field):
     source changes: after a with_params step that moves the vertices
     (refresh_accel; the BVH keeps its boxes, ROADMAP C9), after
     bvh_refit, and after an in-place write to a vertex array, the
-    emulated kernels agree with the plain walks on the moved scene."""
+    emulated kernels agree with the plain walks on the moved scene: the
+    near-first kernel with the near-first walk, and on the stale tree
+    the DFS-order kernel with the DFS walk (on 576 of the rays)."""
     scene, o, d = field
     tm = torch.full(o.shape[:1], 100.0)
     before = _closest_equal(monkeypatch, emulated, scene, "tri", o, d)
@@ -227,11 +320,15 @@ def test_emulated_tri_layouts_follow_the_scene(emulated, monkeypatch, field):
     for a, b in zip(got, want):
         assert torch.equal(a, b)
     assert not torch.equal(got[0], before[0])
+    assert not bvh.leaf_boxes_hold(moved, moved.tri_bvh, "tri")
+    _closest_equal(monkeypatch, emulated, moved, "tri", o[:576], d[:576],
+                   near_first=False)
     _trans_equal(monkeypatch, emulated, moved, "tri", o, d, tm)
     # The boxes refitted to the moved triangles: both orders agree again.
     refit = bvh.bvh_refit(moved.tri_bvh, *(torch.as_tensor(x) for x in
                                            bvh.pool_aabbs(moved,
                                                           POOL_TRIANGLE)))
+    assert bvh.leaf_boxes_hold(moved, refit, "tri")
     _closest_equal(monkeypatch, emulated, moved, "tri", o, d, tree=refit)
     _trans_equal(monkeypatch, emulated, moved, "tri", o, d, tm, tree=refit)
     # An in-place write to the same tensor (its version moves).

@@ -14,9 +14,11 @@ fit in shared memory.  The six walk kernels (closest hit and
 transmittance over the triangle, sphere and cylinder BVHs) run on camera
 and shadow rays with fractional and emissive materials, and on scenes
 with every primitive twice (ties within a leaf and across leaves); the
-triangle kernels also on a 1,500-triangle field with opaque occluders
-and on two leaves whose nearer one holds a tie's second copy; the
-molecule frame with traversal="while" launches all six.  A gradient step
+triangle and cylinder kernels also on fields with opaque occluders and
+on two leaves whose nearer one holds a tie's second copy, the DFS-order
+closest hits on trees whose leaf boxes no longer hold their primitives,
+and one cached layout per pool; the molecule frame with
+traversal="while" launches all six.  A gradient step
 through the reduced bench frame on the card (packets and walk) agrees
 with the same step on the CPU.  The camera modes and texture features
 render on the card against the committed solr_tpu CPU frames
@@ -64,9 +66,10 @@ from solr_tpu_torch.ops.traverse import _scene_box, scene_closest_hit
 from solr_tpu_torch.textured_scene import textured_scene
 from solr_tpu_torch.types import CameraMode, PostFxConfig, PostFxMode
 from solr_tpu_torch.parallel.launch import spawn_group
-from torch_bvh_helpers import (cross_leaf_pairs, fractional_materials,
+from torch_bvh_helpers import (STALE_ROW, cross_leaf_pairs, cyl_field,
+                               fractional_materials, near_second_tie_cyl_scene,
                                near_second_tie_scene, tri_field,
-                               shadow_rays_to_light, tie_scene)
+                               shadow_rays_to_light, tie_scene, two_leaf_stale)
 from torch_parallel_helpers import gpu_frame
 from torch_sweep_helpers import forced_ties
 
@@ -525,7 +528,7 @@ def test_walk_closest_kernel_matches_plain(walk, prim):
         assert torch.equal(a, b)
     lib_out = bvh.launch_closest(bvh._library(), scene, tree, prim, o, d,
                                  RAY_EPS)
-    if prim == "tri":  # the kernel's own order: near child first
+    if prim in bvh.PACKED:  # the kernel's own order: near child first
         want = bvh.bvh_closest_hit_ordered_plain(scene, tree, prim, o, d,
                                                  RAY_EPS)
     for a, b in zip(lib_out, want):  # t, idx, visits, tests
@@ -567,7 +570,7 @@ def test_walk_closest_ties(cuda, prim):
         assert torch.equal(a, b)
     near = (bvh.bvh_closest_hit_ordered_plain(scene, tree, prim, o, d,
                                               RAY_EPS)
-            if prim == "tri" else want)
+            if prim in bvh.PACKED else want)
     for a, b in zip(got, near):  # and the counts of the kernel's order
         assert torch.equal(a, b)
     hit = want[0] < 1e30
@@ -604,6 +607,87 @@ def test_walk_tri_kernels_order_and_stop(cuda, case):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("case", ["field", "near_second_tie"])
+def test_walk_cyl_kernels_order_and_stop(cuda, case):
+    """test_walk_tri_kernels_order_and_stop for the cylinder kernels: a
+    1,200-cylinder field (576 rays) and the two-leaf tie that the
+    near-first walk reaches second copy first."""
+    bvh.build()
+    scene, o, d = (cyl_field(device=cuda) if case == "field"
+                   else near_second_tie_cyl_scene(device=cuda))
+    tree = scene.cyl_bvh
+    got = bvh.launch_closest(bvh._library(), scene, tree, "cyl", o, d,
+                             RAY_EPS)
+    dfs = bvh.bvh_closest_hit_plain(scene, tree, "cyl", o, d, RAY_EPS)
+    near = bvh.bvh_closest_hit_ordered_plain(scene, tree, "cyl", o, d,
+                                             RAY_EPS)
+    assert all(torch.equal(a, b) for a, b in zip(got, near))
+    assert all(torch.equal(a, b) for a, b in zip(got[:2], dfs[:2]))
+    if case == "near_second_tie":
+        assert (got[1] == 7).all()
+    tm = torch.full(o.shape[:1], 100.0, device=o.device)
+    got = bvh.launch_transmittance(bvh._library(), scene, tree, "cyl", o, d,
+                                   RAY_EPS, tm)
+    want = bvh.bvh_transmittance_plain(scene, tree, "cyl", o, d, RAY_EPS, tm)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("prim", ["tri", "cyl"])
+def test_walk_dfs_kernel_on_stale_tree(cuda, prim):
+    """A primitive moved out of its leaf box without a refit (ROADMAP
+    C14): bvh_closest_hit launches the DFS-order kernel, which returns
+    the DFS walk's t and idx and the counts of the plain walk of its
+    order; the near-first kernel returns the near leaf's hit."""
+    bvh.build()
+    scene, o, d = two_leaf_stale(prim, device=cuda)
+    tree = scene.tri_bvh if prim == "tri" else scene.cyl_bvh
+    name = bvh.kernel_name("bvh_closest_hit", prim, dfs=True)
+    before = dict(bvh.LAUNCHES)
+    with torch.no_grad():
+        t, idx = bvh.bvh_closest_hit(scene, tree, bvh._PRIM_POOL[prim], o, d,
+                                     RAY_EPS)
+    assert bvh.LAUNCHES[name] == before[name] + 1
+    assert all(bvh.LAUNCHES[k] == before[k] for k in before if k != name)
+    dfs = bvh.bvh_closest_hit_plain(scene, tree, prim, o, d, RAY_EPS)
+    assert torch.equal(t, dfs[0]) and torch.equal(idx, dfs[1])
+    assert (idx == STALE_ROW).all()
+    got = bvh.launch_closest(bvh._library(), scene, tree, prim, o, d, RAY_EPS,
+                             near_first=False)
+    want = bvh.bvh_closest_hit_ordered_plain(scene, tree, prim, o, d, RAY_EPS,
+                                             near_first=False)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    got = bvh.launch_closest(bvh._library(), scene, tree, prim, o, d, RAY_EPS)
+    want = bvh.bvh_closest_hit_ordered_plain(scene, tree, prim, o, d, RAY_EPS)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert (got[1] == 8).all()
+
+
+@pytest.mark.gpu
+def test_walk_layouts_one_per_pool(cuda, walk, monkeypatch):
+    """On the card as in the emulation: a triangle, cylinder, triangle
+    sequence packs each pool once and checks each tree once."""
+    scene, o, d = walk[:3]
+    packed, checked = [], []
+    for name in ("pack_nodes", "pack_triangles", "pack_cylinders"):
+        fn = getattr(bvh, name)
+        monkeypatch.setattr(bvh, name, lambda *a, _fn=fn, _n=name: (
+            packed.append(_n), _fn(*a))[1])
+    fn = bvh.outside_leaf_boxes
+    monkeypatch.setattr(bvh, "outside_leaf_boxes", lambda *a: (
+        checked.append(a[2]), fn(*a))[1])
+    monkeypatch.setattr(bvh, "_DERIVED", {})
+    with torch.no_grad():
+        for prim in ("tri", "cyl", "tri", "cyl"):
+            tree = getattr(scene, BVH_OF[prim])
+            bvh.bvh_closest_hit(scene, tree, bvh._PRIM_POOL[prim], o, d,
+                                RAY_EPS)
+    assert packed == ["pack_nodes", "pack_triangles", "pack_nodes",
+                      "pack_cylinders"]
+    assert checked == ["tri", "cyl"]
+
+
+@pytest.mark.gpu
 def test_while_frame_on_card_matches_cpu(cuda):
     """The reduced molecule frame with traversal="while": all six walk
     kernels launch on the card, no sweep kernel does, and the image
@@ -616,8 +700,12 @@ def test_while_frame_on_card_matches_cpu(cuda):
         before, sweeps = dict(bvh.LAUNCHES), dict(sweep.LAUNCHES)
         with torch.no_grad():
             imgs.append(render_sample(scene, cam, cfg)[0].cpu())
-        if dev != "cpu":
-            assert min(bvh.LAUNCHES[k] - before[k] for k in before) > 0
+        if dev != "cpu":  # the six walks; the trees are not stale
+            six = [bvh.kernel_name(e, p) for p in bvh.PRIMS
+                   for e in bvh.ENTRIES]
+            assert min(bvh.LAUNCHES[k] - before[k] for k in six) > 0
+            assert all(bvh.LAUNCHES[k] == before[k] for k in before
+                       if k not in six)
             assert sweeps == sweep.LAUNCHES
     cpu, card = imgs
     assert torch.isfinite(card).all()

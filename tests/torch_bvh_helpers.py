@@ -1,7 +1,8 @@
 """Inputs of the BVH walk tests, shared by the CPU, emulated and card
 tests (no JAX here): fractional and emissive materials, shadow rays
-toward a scene's light, scenes with every primitive twice, and a count
-of the tied pairs that straddle two leaves."""
+toward a scene's light, scenes with every primitive twice, a count of
+the tied pairs that straddle two leaves, random fields, and trees made
+stale by moving a primitive out of its leaf box."""
 
 from __future__ import annotations
 
@@ -78,26 +79,36 @@ def cross_leaf_pairs(tree, idx) -> int:
     return int((leaf_of[i] != leaf_of[np.minimum(i + 1, n - 1)]).sum())
 
 
+# tri_field's materials: (transparency, emission) of an opaque, three
+# fractional and an emissive one.
+FIELD_MATERIALS = ((0.0, 0.0), (0.4, 0.0), (0.7, 0.0), (0.9, 0.0), (0.2, 0.5))
+
+
+def tri_field_arrays(n: int = 1500, seed: int = 2):
+    """tri_field's inputs in numpy: vertices (n, 3, 3), each triangle's
+    index into FIELD_MATERIALS (n,), and the rays o, d (4096, 3)."""
+    rng = np.random.default_rng(seed)
+    c = rng.uniform(-3.0, 3.0, (n, 3)) + [0.0, 0.0, 8.0]
+    v = c[:, None] + rng.normal(0.0, 0.35, (n, 3, 3))
+    mat = rng.integers(0, len(FIELD_MATERIALS), n)
+    o = rng.uniform(-0.5, 0.5, (4096, 3))
+    d = rng.uniform(-3.0, 3.0, (4096, 3)) + [0.0, 0.0, 8.0] - o
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return v, mat, o, d
+
+
 def tri_field(n: int = 1500, seed: int = 2, device="cpu"):
     """A field of ``n`` random triangles in front of the origin, each with
     one of five materials: opaque (transparency 0), three fractional
     ones and an emissive one, so shadow rays stop early in some walks
     and multiply fractional factors in others.  Returns (scene, o, d)
     with 4,096 rays from a small box near the origin into the field."""
-    rng = np.random.default_rng(seed)
+    v, mat, o, d = tri_field_arrays(n, seed)
     b = SceneBuilder()
-    mats = [b.add_material(transparency=0.0),
-            b.add_material(transparency=0.4), b.add_material(transparency=0.7),
-            b.add_material(transparency=0.9),
-            b.add_material(transparency=0.2, emission=0.5)]
-    c = rng.uniform(-3.0, 3.0, (n, 3)) + [0.0, 0.0, 8.0]
-    v = c[:, None] + rng.normal(0.0, 0.35, (n, 3, 3))
-    b.add_triangles_raw(v[:, 0], v[:, 1], v[:, 2],
-                        np.asarray(mats)[rng.integers(0, 5, n)])
+    mats = [b.add_material(transparency=t, emission=e)
+            for t, e in FIELD_MATERIALS]
+    b.add_triangles_raw(v[:, 0], v[:, 1], v[:, 2], np.asarray(mats)[mat])
     scene = b.build(device=device)
-    o = rng.uniform(-0.5, 0.5, (4096, 3))
-    d = rng.uniform(-3.0, 3.0, (4096, 3)) + [0.0, 0.0, 8.0] - o
-    d /= np.linalg.norm(d, axis=-1, keepdims=True)
     return (scene,) + tuple(torch.as_tensor(x, dtype=torch.float32,
                                             device=device) for x in (o, d))
 
@@ -133,3 +144,121 @@ def near_second_tie_scene(device="cpu"):
     d = np.tile([0.0, 0.0, 1.0], (o.shape[0], 1))
     return (scene,) + tuple(torch.as_tensor(x, dtype=torch.float32,
                                             device=device) for x in (o, d))
+
+
+def near_second_tie_cyl_scene(device="cpu"):
+    """near_second_tie_scene with cylinders: two leaves of 8 that share
+    one cylinder (along x, radius 0.3, at z 5), its first copy the last
+    row of the left leaf (row 7), its second the first row of the right
+    leaf (row 8).  The left leaf's other cylinders lie behind it (z
+    6.5-9, x about -3), the right leaf's in front of it (z 1-4, x about
+    3, y about 1.2), both off the rays, so the right leaf's box is the
+    nearer one.  Returns (scene, o, d) with 64 rays along +z, which all
+    hit the shared cylinder's side near z = 4.7."""
+    b = SceneBuilder()
+    m = b.add_material(color=(0.7, 0.6, 0.5, 1.0))
+    for i in range(7):
+        z = 6.5 + 0.3 * i
+        b.add_cylinder((-3.3 + 0.05 * i, -1.2, z), (-2.9 + 0.05 * i, -1.2, z),
+                       0.1, m)
+    for _ in range(2):
+        b.add_cylinder((-0.3, -0.1, 5.0), (0.9, -0.1, 5.0), 0.3, m)
+    for i in range(7):
+        z = 1.0 + 0.3 * i
+        b.add_cylinder((2.8 + 0.05 * i, 1.2, z), (3.2 + 0.05 * i, 1.2, z),
+                       0.1, m)
+    scene = b.build(bvh_threshold=16, device=device)
+    g = (np.arange(8) - 3.5) * 0.03
+    gx, gy = np.meshgrid(g + 0.3, g - 0.1, indexing="ij")
+    o = np.stack([gx, gy, np.zeros_like(gx)], -1).reshape(-1, 3)
+    d = np.tile([0.0, 0.0, 1.0], (o.shape[0], 1))
+    return (scene,) + tuple(torch.as_tensor(x, dtype=torch.float32,
+                                            device=device) for x in (o, d))
+
+
+def cyl_field(n: int = 1200, seed: int = 6, device="cpu"):
+    """A field of ``n`` random short cylinders in front of the origin,
+    each with one of FIELD_MATERIALS, so shadow rays stop early in some
+    walks and multiply fractional factors in others.  Returns (scene, o,
+    d) with 576 rays from a small box near the origin into the field."""
+    rng = np.random.default_rng(seed)
+    b = SceneBuilder()
+    mats = [b.add_material(transparency=t, emission=e)
+            for t, e in FIELD_MATERIALS]
+    c = rng.uniform(-3.0, 3.0, (n, 3)) + [0.0, 0.0, 8.0]
+    axis = rng.normal(0.0, 0.4, (n, 3))
+    rad = rng.uniform(0.05, 0.25, n)
+    mat = np.asarray(mats)[rng.integers(0, len(mats), n)]
+    for i in range(n):
+        b.add_cylinder(c[i], c[i] + axis[i], rad[i], mat[i])
+    scene = b.build(device=device)
+    o = rng.uniform(-0.5, 0.5, (576, 3))
+    d = rng.uniform(-3.0, 3.0, (576, 3)) + [0.0, 0.0, 8.0] - o
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return (scene,) + tuple(torch.as_tensor(x, dtype=torch.float32,
+                                            device=device) for x in (o, d))
+
+
+# The far leaf's row that two_leaf_stale moves, and by how much along z.
+STALE_ROW, STALE_DZ = 3, -8.5
+
+
+def add_two_leaves(b, prim: str, m: int):
+    """16 primitives of kind "tri" or "cyl" in two leaves of 8, added to
+    a SceneBuilder (either package's) with material ``m``: the far
+    leaf's (x about -0.5, Morton first) at z 10-11.4, the near leaf's (x
+    about 0.5) at z 5-6.4, each across the rays of two_leaf_rays.  Build
+    with bvh_threshold=16."""
+    z = [10.0 + 0.2 * i for i in range(8)] + [5.0 + 0.2 * i for i in range(8)]
+    dx = [0.0] * 8 + [1.0] * 8
+    if prim == "tri":
+        tri = np.array([[-1.5, -1.0, 0.0], [0.5, -1.0, 0.0], [-0.5, 1.5, 0.0]])
+        v = np.stack([tri + [x, 0.0, zi] for x, zi in zip(dx, z)])
+        b.add_triangles_raw(v[:, 0], v[:, 1], v[:, 2], m)
+        return
+    for x, zi in zip(dx, z):
+        b.add_cylinder((-1.5 + x, 0.0, zi), (0.5 + x, 0.0, zi), 0.3, m)
+
+
+def two_leaf_rays():
+    """64 rays along +z from a small square at the origin (numpy f32)."""
+    g = (np.arange(8) - 3.5) * 0.012
+    gx, gy = np.meshgrid(g, g, indexing="ij")
+    o = np.stack([gx, gy, np.zeros_like(gx)], -1).reshape(-1, 3)
+    d = np.tile([0.0, 0.0, 1.0], (o.shape[0], 1))
+    return o.astype(np.float32), d.astype(np.float32)
+
+
+def stale_shift(n: int = 16):
+    """(n, 3) f32: STALE_DZ along z on STALE_ROW, 0 elsewhere."""
+    shift = np.zeros((n, 3), np.float32)
+    shift[STALE_ROW, 2] = STALE_DZ
+    return shift
+
+
+def move_pool(scene, prim: str, shift):
+    """The port's scene with the pool of kind "tri" or "cyl" moved by
+    ``shift`` (N, 3) per row: triangles through with_params (no refit),
+    cylinders through Scene.replace (they are no parameter)."""
+    shift = torch.as_tensor(shift, dtype=torch.float32, device=scene.device)
+    if prim == "tri":
+        params = scene.params
+        params["vertices"] = tuple(v + shift for v in params["vertices"])
+        return scene.with_params(params)
+    c = scene.cylinders
+    return scene.replace(cylinders=c.replace(p0=c.p0 + shift,
+                                             p1=c.p1 + shift))
+
+
+def two_leaf_stale(prim: str, device="cpu"):
+    """The two-leaf scene of ``prim`` with the far leaf's STALE_ROW moved
+    to z 2.1, in front of the near leaf's hits, without a refit: the DFS
+    walk enters the far leaf first and returns that row; a near-first
+    walk enters the near leaf first, returns its hit near z 5 and prunes
+    the far leaf (its box starts near z 10).  Returns (scene, o, d)."""
+    b = SceneBuilder()
+    add_two_leaves(b, prim, b.add_material(color=(0.7, 0.6, 0.5, 1.0)))
+    scene = move_pool(b.build(bvh_threshold=16, device=device), prim,
+                      stale_shift())
+    return (scene,) + tuple(torch.as_tensor(x, device=device)
+                            for x in two_leaf_rays())
