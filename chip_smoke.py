@@ -50,10 +50,11 @@ both started together.  Phases, each of which must pass:
    BVHs) against their plain versions, each on the first call that the
    walk paths below make of it (recorded in one frame of each; the
    triangle kernels also on the first calls of the textured frame of
-   21): t, idx, tr, node visits and lane tests bit-equal (the triangle
-   and cylinder closest hits: all four to the near-first plain walk, t
-   and idx also to the DFS walk); kernel and plain times, the triangle
-   and cylinder kernels' repack timed apart, visits and tests per ray
+   21): t, idx, tr, node visits and lane tests bit-equal (the closest
+   hits: all four to the plain walk of the dispatch's order, near child
+   first for triangles and left child first for spheres and cylinders,
+   t and idx also to the DFS walk); kernel and plain times, the repack
+   of the packed nodes and rows timed apart, visits and tests per ray
    under the DFS walk's order and the kernel's, the bound at both, and
    each kernel's registers and stack from nvcc -Xptxas -v;
 10. ``walk_path``: the bench scene at 1920x1080, 2 bounces: 1080 rows are
@@ -63,22 +64,24 @@ both started together.  Phases, each of which must pass:
    triangle pool's brute force must not;
 11. ``molecule_while``: the full molecule frame with traversal="while",
    one warm-up and three timed frames: all six walk kernels launch and
-   no sweep kernel does, nor a DFS-order closest hit;
+   no sweep kernel does, nor the DFS-order triangle closest hit;
 12. ``walk_reference``: reduced frames of those two paths on the card
    against committed solr_tpu CPU frames (tests/data/torch_walk_ref.npz,
    the bench frame at 64x56; torch_molecule_while_ref.npz), as in 5;
-13. ``walk_stale``: the stale-tree rule (ROADMAP C14) on both packed
-   pools: the 1080p bench frame of 10 after a with_params step that
-   moves every triangle by a random offset (sd WALK_STALE_SD), and the
-   molecule frame of 11 after a Scene.replace that moves every cylinder
-   by one (sd MOL_STALE_RADII x the median radius), neither refitted,
-   so that some primitives leave their leaf boxes (counted, and the
-   leaf-box check timed): in each, the DFS-order closest hit of the pool
-   must launch and the near-first one must not; on its first call it
-   must be bit-equal on t and idx to the DFS walk and on all four
-   outputs to the plain walk of its own order, and it is timed as in 9;
-   then the same values in new tensors must take the near-first kernel
-   and not the DFS-order one;
+13. ``walk_stale``: the stale-tree rule (ROADMAP C14): the 1080p bench
+   frame of 10 after a with_params step that moves every triangle by a
+   random offset (sd WALK_STALE_SD), and the molecule frame of 11 after
+   a with_params step that moves every sphere and a Scene.replace that
+   moves every cylinder by one (sd MOL_STALE_RADII x the median cylinder
+   radius), none refitted, so that some primitives leave their leaf
+   boxes (counted): on the bench frame the DFS-order triangle closest
+   hit must launch and the near-first one must not (the leaf-box check
+   timed); on the molecule frame the sphere and cylinder closest hits
+   (left child first, as always) must launch and the DFS-order triangle
+   one must not; each pool's first closest-hit call must be bit-equal
+   on t and idx to the DFS walk and on all four outputs to the plain
+   walk of its own order, and it is timed as in 9; then the triangles'
+   values in new tensors must take the near-first kernel again;
 14. ``cornell``: the gallery's Cornell box (planes and spheres, brute
    force) built by the port's SceneBuilder, at 64x64 against
    tests/data/torch_cornell_ref.npz as in 5, then at BASELINE.json
@@ -242,17 +245,20 @@ BODY = {"tri": "_woop_rows :108", "sphere": "_sphere_rows :136",
 # The walks (solr_tpu_torch/csrc/bvh_walk.cu), counted the same way:
 # per ray, the three divisions of 1/d; per node visited, the slab test's
 # six subtractions and six multiplies; per leaf lane tested, the pool
-# test: Moller-Trumbore with its two edges formed (52), SphereP, or the
-# capped cylinder with its axis, |axis|^2, 1/max(|axis|^2, 1e-8) and
-# r*r formed (85); per pair that reaches its roots, as for the sweeps.
-# The shadow walk's products are not counted.  The triangle kernels read
-# the edges from pack_triangles: their own bound counts 46 per lane; the
-# cylinder kernels read the axis, |axis|^2, 1/max(|axis|^2, 1e-8) and
-# r*r from pack_cylinders: 75 per lane.
+# test: Moller-Trumbore with its two edges formed (52), the sphere with
+# r*r formed (17), or the capped cylinder with its axis, |axis|^2,
+# 1/max(|axis|^2, 1e-8) and r*r formed (85); per pair that reaches its
+# roots, as for the sweeps.  The shadow walk's products are not counted.
+# The kernels read the derived terms from their rows: the edges from
+# pack_triangles (46 per lane: TriRow), r*r from pack_spheres (16:
+# SphereRow's three subtractions, five for b, five for |oc|^2 - r*r and
+# two for the discriminant), the axis, |axis|^2, 1/max(|axis|^2, 1e-8)
+# and r*r from pack_cylinders (75: CylRow); their own bound counts
+# those.
 WALK_OPS_PER_RAY = 3
 WALK_OPS_PER_VISIT = 12
 WALK_OPS_PER_LANE = {"tri": 52, "sphere": 17, "cyl": 85}
-PACKED_OPS_PER_LANE = {"tri": 46, "cyl": 75}
+PACKED_OPS_PER_LANE = {"tri": 46, "sphere": 16, "cyl": 75}
 WALK_REPLACES = {"bvh_closest_hit": "solr_tpu/ops/bvh.py:333",
                  "bvh_transmittance": "solr_tpu/ops/bvh.py:397"}
 # Gradient checks: per-leaf f32 tolerances of the inverse scene, the
@@ -582,21 +588,24 @@ WALK_FUNCTION = {
     "bvh_closest_hit_tri": ("closest_pairs", "TriRowELb1"),
     "bvh_closest_hit_tri_dfs": ("closest_pairs", "TriRowELb0"),
     "bvh_transmittance_tri": ("trans_pairs", "TriRow"),
-    "bvh_closest_hit_cyl": ("closest_pairs", "CylRowELb1"),
-    "bvh_closest_hit_cyl_dfs": ("closest_pairs", "CylRowELb0"),
-    "bvh_transmittance_cyl": ("trans_pairs", "CylRow"),
-    "bvh_closest_hit_sphere": ("closest_walkI7SphereP",),
-    "bvh_transmittance_sphere": ("trans_walkI7SphereP",)}
+    "bvh_closest_hit_sphere": ("closest_pairs", "SphereRowELb0"),
+    "bvh_transmittance_sphere": ("trans_pairs", "SphereRow"),
+    "bvh_closest_hit_cyl": ("closest_pairs", "CylRowELb0"),
+    "bvh_transmittance_cyl": ("trans_pairs", "CylRow")}
 WALK_DESIGN = {
     "bvh_closest_hit_tri": "packed child pairs, near child first, stack",
     "bvh_closest_hit_tri_dfs": "packed child pairs, DFS order, stack",
     "bvh_transmittance_tri": "packed child pairs, DFS order, stack",
-    "bvh_closest_hit_cyl": "packed child pairs and cylinder rows, near "
-                           "child first, stack",
-    "bvh_closest_hit_cyl_dfs": "packed child pairs and cylinder rows, "
-                               "DFS order, stack",
+    "bvh_closest_hit_sphere": "packed child pairs and sphere rows, DFS "
+                              "order, stack",
+    "bvh_transmittance_sphere": "packed child pairs and sphere rows, DFS "
+                                "order, stack",
+    "bvh_closest_hit_cyl": "packed child pairs and cylinder rows, DFS "
+                           "order, stack",
     "bvh_transmittance_cyl": "packed child pairs and cylinder rows, DFS "
                              "order, stack"}
+PACK_ROWS = {"tri": "pack_triangles", "sphere": "pack_spheres",
+             "cyl": "pack_cylinders"}
 
 
 def _walk_usage(rec, name):
@@ -622,17 +631,16 @@ def _warm_ms(fn):
     return start.elapsed_time(end)
 
 
-def _check_walk(rec, scene, call, label=None, near_first=True):
+def _check_walk(rec, scene, call, label=None):
     """One walk kernel against its plain version on one recorded call:
-    t or tr, idx, visits and tests bit-equal (the triangle and cylinder
-    closest hits: all four to the plain walk of their order, near child
-    first or, with ``near_first`` False, the DFS walk's, and t and idx
-    to the DFS walk); times (the kernel's over 5 calls after a warm-up,
-    each plain walk's over one call after the checked one), visits and
-    tests per ray under both orders, and the bound at the DFS walk's
-    counts (the yardstick across PRs) and at the kernel's own.  The
-    packed kernels' repack (pack_nodes and pack_triangles or
-    pack_cylinders, built anew) is timed apart from the kernel, which
+    t or tr, idx, visits and tests bit-equal (the closest hits: all four
+    to the plain walk of the dispatch's order, bvh.walks_near_first:
+    near child first or the DFS walk's, and t and idx to the DFS walk);
+    times (the kernel's over 5 calls after a warm-up, each plain walk's
+    over one call after the checked one), visits and tests per ray under
+    both orders, and the bound at the DFS walk's counts (the yardstick
+    across PRs) and at the kernel's own.  The repack (pack_nodes and
+    the pool's rows, built anew) is timed apart from the kernel, which
     reads the cached layouts."""
     import torch
 
@@ -641,10 +649,9 @@ def _check_walk(rec, scene, call, label=None, near_first=True):
 
     entry, prim, tree, o, d, t_min, t_max = call
     closest = entry == "bvh_closest_hit"
-    packed = prim in bvh.PACKED
     dfs_plain = (bvh.bvh_closest_hit_plain if closest
                  else bvh.bvh_transmittance_plain)
-    near = closest and packed
+    near_first = closest and bvh.walks_near_first(scene, tree, prim)
     args = (scene, tree, prim, o, d, t_min, t_max)
     if closest:
         def launch():
@@ -659,32 +666,31 @@ def _check_walk(rec, scene, call, label=None, near_first=True):
             return bvh.launch_transmittance(bvh._library(), *args)
     got = launch()
     dfs, root_pairs = _walk_plain_with_root_pairs(dfs_plain, args, prim)
-    own = plain() if near else dfs
+    own = plain() if closest else dfs
     torch.cuda.synchronize()
     equal = all(torch.equal(a, b) for a, b in zip(got, own))
-    if near:
+    if closest:
         equal &= all(torch.equal(a, b) for a, b in zip(got[:2], dfs[:2]))
     visits, tests = int(dfs[-2].sum()), int(dfs[-1].sum())
     own_visits, own_tests = int(own[-2].sum()), int(own[-1].sum())
     n = o.shape[0]
-    name = bvh.kernel_name(entry, prim, dfs=near and not near_first)
+    name = bvh.kernel_name(entry, prim,
+                           dfs=closest and prim == "tri" and not near_first)
     entry_rec = dict(
         name=name, entry=entry, prim=prim, label=label,
-        design=WALK_DESIGN.get(name, "one thread per ray, skip pointers"),
+        design=WALK_DESIGN[name],
         equal=equal, max_abs_err=float((got[0] - own[0]).abs().max()),
         rays=n, nodes=tree.n_nodes, visits_per_ray=visits / n,
         tests_per_ray=tests / n, own_visits_per_ray=own_visits / n,
         own_tests_per_ray=own_tests / n, root_pairs=root_pairs,
         ms=time_ms(launch, 5),
-        plain_ms=_warm_ms(plain if near else lambda: dfs_plain(*args)),
+        plain_ms=_warm_ms(plain if closest else lambda: dfs_plain(*args)),
         ptxas=_walk_usage(rec, name))
-    if near and near_first:
+    if near_first:
         entry_rec["dfs_plain_ms"] = _warm_ms(lambda: dfs_plain(*args))
-    if packed:
-        pack_rows = (bvh.pack_triangles if prim == "tri"
-                     else bvh.pack_cylinders)
-        entry_rec["repack_ms"] = time_ms(
-            lambda: (bvh.pack_nodes(tree), pack_rows(scene)), 5)
+    pack_rows = getattr(bvh, PACK_ROWS[prim])
+    entry_rec["repack_ms"] = time_ms(
+        lambda: (bvh.pack_nodes(tree), pack_rows(scene)), 5)
     if closest:
         entry_rec["hits"] = int((own[0] < 1e30).sum())
     else:
@@ -694,7 +700,7 @@ def _check_walk(rec, scene, call, label=None, near_first=True):
         prim, closest, scene, tree, args, got, visits, tests, root_pairs)
     entry_rec["own_bound_ms"], entry_rec["own_bound_by"] = _walk_bound_ms(
         prim, closest, scene, tree, args, got, own_visits, own_tests,
-        root_pairs, PACKED_OPS_PER_LANE.get(prim))
+        root_pairs, PACKED_OPS_PER_LANE[prim])
     rec["walk_kernels"].append(entry_rec)
     return entry_rec
 
@@ -742,65 +748,68 @@ def _walk_cfg(cfg):
     return dataclasses.replace(cfg, width=WALK_WIDTH, height=WALK_HEIGHT)
 
 
-def _stale_case(rec, key, cam, cfg, prim, moved, same, paths, **extra):
-    """One pool's stale-tree case of walk_stale: ``moved`` (the scene
-    with the pool's rows moved without a refit) must be stale, and its
-    frame, as a main path under ``key``, must take the DFS-order closest
-    hit of ``prim`` and not the near-first one; that kernel is checked on
-    its first call as in kernels_walk (label "stale tree"); ``same`` (the
-    pool's values unchanged, in new tensors) must take the near-first
-    kernel again."""
-    import torch
-
-    from solr_tpu_torch.kernel_shapes import first_walk_calls, time_ms
+def _stale_case(rec, key, cam, cfg, moved, prims, kernels, idle, paths,
+                **extra):
+    """One stale-tree frame of walk_stale: ``moved`` (a scene whose pools
+    ``prims`` moved without a refit) must have rows outside their leaf
+    boxes in each of those pools, and its frame, as a main path under
+    ``key``, must launch every kernel in ``kernels`` and none in
+    ``idle`` (nor a sweep kernel); each pool's first closest-hit call is
+    checked as in kernels_walk (label "stale tree")."""
+    from solr_tpu_torch.kernel_shapes import first_walk_calls
     from solr_tpu_torch.ops import bvh, sweep
     from solr_tpu_torch.ops.render import render_sample
 
-    near, dfs = (bvh.kernel_name("bvh_closest_hit", prim, dfs=f)
-                 for f in (False, True))
-    trans = bvh.kernel_name("bvh_transmittance", prim)
-    tree = moved.tri_bvh if prim == "tri" else moved.cyl_bvh
-    strays = int(bvh.outside_leaf_boxes(moved, tree, prim).sum())
-    check_ms = time_ms(lambda: bool(bvh.outside_leaf_boxes(
-        moved, tree, prim).any()), 5)
-    if bvh.leaf_boxes_hold(moved, tree, prim) or not strays:
-        raise AssertionError(f"{key}: the moved tree is not stale")
-    paths[key] = phase_path(moved, cam, cfg, rec, key, [dfs, trans],
-                            idle=[near] + list(sweep.LAUNCHES),
-                            no_brute=[prim])
+    trees = {p: getattr(moved, {"tri": "tri_bvh", "sphere": "sph_bvh",
+                                "cyl": "cyl_bvh"}[p]) for p in prims}
+    strays = {p: int(bvh.outside_leaf_boxes(moved, t, p).sum())
+              for p, t in trees.items()}
+    if not all(strays.values()):
+        raise AssertionError(f"{key}: the moved trees are not stale: {strays}")
+    paths[key] = phase_path(moved, cam, cfg, rec, key, kernels,
+                            idle=idle + list(sweep.LAUNCHES),
+                            no_brute=list(prims))
     calls = first_walk_calls(lambda: render_sample(moved, cam, cfg))
-    k = _check_walk(rec, moved, calls[near], "stale tree", near_first=False)
+    first = {p: _check_walk(rec, moved,
+                            calls[bvh.kernel_name("bvh_closest_hit", p)],
+                            "stale tree") for p in prims}
     rec[key].update(
-        extra, primitives=int(tree.prim_count.sum()),
-        outside_leaf_boxes=strays, leaf_box_check_ms=check_ms,
-        first_call=dict(equal=k["equal"], ms=k["ms"]))
-    if not k["equal"]:
-        raise AssertionError(f"{key}: {dfs} and its plain walk disagree")
-    with torch.no_grad():
-        _reset_counts()
-        render_sample(same, cam, cfg)
-        torch.cuda.synchronize()
-    counts = {k: bvh.LAUNCHES[k] for k in (near, dfs)}
-    rec[key]["unchanged_values"] = counts
-    if counts[near] <= 0 or counts[dfs]:
-        raise AssertionError(f"{key}: unchanged values took {counts}")
+        extra, primitives={p: int(t.prim_count.sum())
+                           for p, t in trees.items()},
+        outside_leaf_boxes=strays,
+        first_call={p: dict(name=k["name"], equal=k["equal"], ms=k["ms"])
+                    for p, k in first.items()})
+    bad = [k["name"] for k in first.values() if not k["equal"]]
+    if bad:
+        raise AssertionError(f"{key}: {bad} and their plain walks disagree")
 
 
 def phase_walk_stale(scenes, rec, paths, device):
-    """The stale-tree rule (ROADMAP C14) on both packed pools.  The
-    1080p bench walk frame after a with_params step that moves every
-    triangle by a normal offset (sd WALK_STALE_SD) without a refit
-    (``walk_stale``), and the molecule frame with traversal="while"
-    after a Scene.replace that moves every cylinder by a normal offset
-    (sd MOL_STALE_RADII of the median cylinder radius) without a refit
-    (``walk_stale_cyl``): each as in :func:`_stale_case`, the strays
-    counted and the leaf-box check timed."""
+    """The stale-tree rule (ROADMAP C14).  The 1080p bench walk frame
+    after a with_params step that moves every triangle by a normal
+    offset (sd WALK_STALE_SD) without a refit (``walk_stale``): the
+    DFS-order triangle closest hit launches, the near-first one does
+    not, the leaf-box check is timed, and the same values in new tensors
+    take the near-first kernel again.  The molecule frame with
+    traversal="while" after a with_params step that moves every sphere
+    and a Scene.replace that moves every cylinder by a normal offset (sd
+    MOL_STALE_RADII of the median cylinder radius) without a refit
+    (``walk_stale_molecule``): the sphere and cylinder closest hits,
+    left child first as on any tree, launch, the DFS-order triangle one
+    does not.  Each as in :func:`_stale_case`."""
     import dataclasses
 
     import torch
 
+    from solr_tpu_torch.kernel_shapes import time_ms
+    from solr_tpu_torch.ops import bvh
+    from solr_tpu_torch.ops.render import render_sample
+
+    near, dfs = (bvh.kernel_name("bvh_closest_hit", "tri", dfs=f)
+                 for f in (False, True))
     gen = torch.Generator(device=device).manual_seed(WALK_STALE_SEED)
     scene, cam, cfg = scenes["bench"]
+    cfg = _walk_cfg(cfg)
     params = scene.params
     shift = torch.randn(params["vertices"][0].shape, generator=gen,
                         device=device) * WALK_STALE_SD
@@ -809,19 +818,36 @@ def phase_walk_stale(scenes, rec, paths, device):
             v + shift for v in params["vertices"])))
         same = scene.with_params(dict(params, vertices=tuple(
             v.clone() for v in params["vertices"])))
-    _stale_case(rec, "walk_stale", cam, _walk_cfg(cfg), "tri", moved,
-                same, paths, shift_sd=WALK_STALE_SD)
+    _stale_case(rec, "walk_stale", cam, cfg, moved, ["tri"],
+                [dfs, bvh.kernel_name("bvh_transmittance", "tri")], [near],
+                paths, shift_sd=WALK_STALE_SD, leaf_box_check_ms=time_ms(
+                    lambda: bool(bvh.outside_leaf_boxes(
+                        moved, moved.tri_bvh, "tri").any()), 5))
+    with torch.no_grad():
+        _reset_counts()
+        render_sample(same, cam, cfg)
+        torch.cuda.synchronize()
+    counts = {k: bvh.LAUNCHES[k] for k in (near, dfs)}
+    rec["walk_stale"]["unchanged_values"] = counts
+    if counts[near] <= 0 or counts[dfs]:
+        raise AssertionError(f"walk_stale: unchanged values took {counts}")
     del moved, same
     scene, cam, cfg = scenes["molecule"]
     c = scene.cylinders
     sd = float(c.radius[c.radius > 0].median()) * MOL_STALE_RADII
-    shift = torch.randn(c.p0.shape, generator=gen, device=device) * sd
-    moved = scene.replace(cylinders=c.replace(p0=c.p0 + shift,
-                                              p1=c.p1 + shift))
-    same = scene.replace(cylinders=c.replace(p0=c.p0.clone(),
-                                             p1=c.p1.clone()))
-    _stale_case(rec, "walk_stale_cyl", cam, dataclasses.replace(
-        cfg, traversal="while"), "cyl", moved, same, paths, shift_sd=sd)
+    params = scene.params
+    with torch.no_grad():
+        moved = scene.with_params(dict(
+            params, sphere_center=params["sphere_center"] + torch.randn(
+                params["sphere_center"].shape, generator=gen,
+                device=device) * sd))
+        shift = torch.randn(c.p0.shape, generator=gen, device=device) * sd
+        moved = moved.replace(cylinders=c.replace(p0=c.p0 + shift,
+                                                  p1=c.p1 + shift))
+    _stale_case(rec, "walk_stale_molecule", cam, dataclasses.replace(
+        cfg, traversal="while"), moved, ["sphere", "cyl"],
+        [bvh.kernel_name(e, p) for p in ("sphere", "cyl")
+         for e in bvh.ENTRIES], [dfs], paths, shift_sd=sd)
 
 
 def _reset_counts():
@@ -2015,10 +2041,10 @@ def _kernel_table(rec, paths):
                 library_ms=None, ceiling_ms=timed["ceiling_ms"],
                 tests_per_s=timed["tests_per_s"]))
     for k in rec["walk_kernels"]:
-        if k["label"] == "textured frame":  # these stay in the record
-            continue
-        if k["label"] == "stale tree":
-            path = "walk_stale" if k["prim"] == "tri" else "walk_stale_cyl"
+        if any(t["name"] == k["name"] for t in table):
+            continue  # a kernel's other calls stay in the record
+        if k["label"] == "stale tree":  # bvh_closest_hit_tri_dfs
+            path = "walk_stale"
         else:
             path = "walk_path" if k["prim"] == "tri" else "molecule_while"
         table.append(dict(

@@ -4,57 +4,54 @@
 //
 // Replaces the per-ray walks of solr_tpu/ops/bvh.py, which are
 // lax.while_loops, not Pallas kernels:
-//   solr_bvh_closest_packed(prim)  <- bvh_closest_hit   (bvh.py:333),
-//                                     prim 0 = triangle, 2 = cylinder
-//   solr_bvh_transmittance_packed  <- bvh_transmittance (bvh.py:397), the same
-//   solr_bvh_closest_sphere        <- bvh_closest_hit, spheres
-//   solr_bvh_transmittance_sphere  <- bvh_transmittance, spheres
-// each with the pool test of ops/intersect.py (triangle_t_p,
-// cylinder_t_p -> packet.cyl_core, sphere_t_p), as the plain walks in
-// ops/bvh.py run it.
+//   solr_bvh_closest_packed        <- bvh_closest_hit   (bvh.py:333)
+//   solr_bvh_transmittance_packed  <- bvh_transmittance (bvh.py:397)
+// for prim 0 = triangle, 1 = sphere, 2 = cylinder (bvh.PRIMS), each
+// with the pool test of ops/intersect.py (triangle_t_p, sphere_t_p,
+// cylinder_t_p -> packet.cyl_core), as the plain walks in ops/bvh.py
+// run it.
 //
 // What bounds a walk is the latency of its dependent node and
 // primitive loads and the divergence of rays whose walks differ in
-// length; the counted f32 operations take 1-3% of the kernel's time at
+// length; the counted f32 operations take 1-7% of the kernel's time at
 // the card's rate (an H100 at 700 W, PERF.md).
 //
-// The triangle and cylinder walks (closest_pairs and trans_pairs, over
-// a leaf test: TriRow or CylRow), after Aila & Laine (2009),
+// One walk design over three leaf tests (closest_pairs and trans_pairs
+// over TriRow, SphereRow or CylRow), after Aila & Laine (2009),
 // "Understanding the efficiency of ray traversal on GPUs":
 //   * one inner node is one 64-byte row of four float4s holding both
 //     children's boxes and references (bvh.pack_nodes): a visit is four
 //     16-byte loads from one cache line and slab-tests both children;
 //     row 0 holds the root's box and reference;
-//   * a primitive is three float4s in the pool's order, which is leaf
-//     order (a leaf's lanes are contiguous rows), with what its test
-//     derives from the primitive alone already computed and its shadow
-//     factor: a triangle's v0, e1 = v1 - v0, e2 = v2 - v0
-//     (bvh.pack_triangles); a cylinder's p0, radius, axis = p1 - p0,
-//     |axis|^2, 1 / max(|axis|^2, 1e-8) and radius^2
-//     (bvh.pack_cylinders);
-//   * the closest hit walks near child first: of two hit children it
-//     enters the one with the smaller entry distance tn and pushes the
-//     other with its tn onto a per-thread stack (bvh.max_depth + 1
-//     deep, in local memory); a popped entry is dropped when its tn >
-//     min(best, t_max).  A leaf replaces the best when its hit is
-//     nearer, or equally near with a lower pool row, so the result is
-//     the lexicographic minimum (t, row) whatever order the leaves come
-//     in: with boxes that contain their primitives, that of the DFS
-//     walk.  On a tree whose leaf boxes no longer hold their primitives
-//     (bvh.leaf_boxes_hold) the same body walks left child first
-//     (kNearFirst false): the DFS walk's leaf order, so its t and idx
-//     on any tree;
+//   * a primitive is one row of float4s in the pool's order, which is
+//     leaf order (a leaf's lanes are contiguous rows), with what its
+//     test derives from the primitive alone already computed and its
+//     shadow factor: a triangle's v0, e1 = v1 - v0, e2 = v2 - v0
+//     (bvh.pack_triangles, 48 bytes); a sphere's centre, radius and
+//     radius^2 (bvh.pack_spheres, 32 bytes); a cylinder's p0, radius,
+//     axis = p1 - p0, |axis|^2, 1 / max(|axis|^2, 1e-8) and radius^2
+//     (bvh.pack_cylinders, 48 bytes);
+//   * the closest hit enters, of two hit children, the left one first
+//     (kNearFirst false: the DFS walk's order) or the one with the
+//     smaller entry distance tn (kNearFirst true), and pushes the other
+//     with its tn onto a per-thread stack (bvh.max_depth + 1 deep, in
+//     local memory); a popped entry is dropped when its tn > min(best,
+//     t_max).  A leaf replaces the best when its hit is nearer, or
+//     equally near with a lower pool row, so the result is the
+//     lexicographic minimum (t, row) whatever order the leaves come in.
+//     Left child first returns the DFS walk's t and idx on any tree,
+//     whatever its leaf boxes hold: the leaves come in the DFS walk's
+//     order, in ascending rows, and the limit only falls.  Near first
+//     returns them only while every leaf box holds its primitives;
+//   * the dispatch's order rule (bvh.bvh_closest_hit): triangles walk
+//     near child first while their leaf boxes hold
+//     (bvh.leaf_boxes_hold), else left child first; spheres and
+//     cylinders always walk left child first;
 //   * the shadow walk keeps the DFS order, left child first, with the
 //     same stack: its leaf products multiply into tr in the DFS walk's
 //     order and it stops at the same leaf.  It counts a node when the
 //     DFS walk would reach it, so its visits are the DFS walk's.
 // One thread per ray, rays in the caller's order.
-//
-// The sphere walks (closest_walk, trans_walk): one thread per ray, as
-// in Sol-R's own CUDA walk (intersectionWithPrimitives).  Each ray
-// carries its node pointer: a box it hits sends it to i + 1, a box it
-// misses to skip[i], and the walk ends at n_nodes.  Node and primitive
-// arrays are read through __ldg, five node arrays apart.
 //
 // Exactness with the plain PyTorch versions (ops/bvh.py):
 //   * build with --fmad=false and without fast math: every chain keeps
@@ -71,15 +68,13 @@
 //     shadow walk;
 //   * closest hit: in a leaf, the lanes with t <= limit compete in
 //     ascending order with a strict <, so the lowest lane wins a tie;
-//     across leaves the sphere walk replaces the best only when
-//     strictly smaller (the earlier leaf in DFS order, the lower row,
-//     wins a tie) and the packed walks by the rule above;
+//     across leaves by the rule above;
 //   * transmittance: a leaf's occluders (t < t_max; an emissive
 //     material's factor is 1) multiply in ascending lane order into a
 //     leaf product, which then multiplies into the ray's; the walk stops
 //     once that is <= 1e-6.
 // Each thread also counts the nodes it visited and the leaf lanes it
-// tested; the plain versions count the same (the packed closest hits:
+// tested; the plain versions count the same (the closest hits:
 // bvh_closest_hit_ordered_plain in their order).
 
 #include <cuda_runtime.h>
@@ -105,45 +100,6 @@ __device__ __forceinline__ float nan_max(float a, float b) {
 
 struct Ray {
   float ox, oy, oz, dx, dy, dz;
-};
-
-__device__ __forceinline__ float ld(const float* p, int64_t i) {
-  return __ldg(p + i);
-}
-
-// The sphere pool's arrays: centers (N, 3), radii (N) and materials.
-struct Pool {
-  const float* center;
-  const float* radius;
-  const int32_t* material;
-};
-
-// The nearest root > t_min (the exit root for a ray that starts
-// inside); radius <= 0 never hits.  Mirrors intersect.sphere_t_p.
-struct SphereP {
-  __device__ __forceinline__ static float hit(const Ray& r, const Pool& p,
-                                              int64_t j, float t_min) {
-    const float ocx = r.ox - ld(p.center, 3 * j);
-    const float ocy = r.oy - ld(p.center, 3 * j + 1);
-    const float ocz = r.oz - ld(p.center, 3 * j + 2);
-    const float rad = ld(p.radius, j);
-    const float b = (ocx * r.dx + ocy * r.dy) + ocz * r.dz;
-    const float c0 = ((ocx * ocx + ocy * ocy) + ocz * ocz) - rad * rad;
-    const float disc = b * b - c0;
-    if (!((disc > 0.0f) && (rad > 0.0f))) return kTFar;
-    const float sq = sqrtf(disc);
-    const float lo = -b - sq, hi = -b + sq;
-    return fminf(lo > t_min ? lo : kTFar, hi > t_min ? hi : kTFar);
-  }
-};
-
-struct Nodes {
-  const float* aabb_min;  // (K, 3)
-  const float* aabb_max;  // (K, 3)
-  const int32_t* skip;
-  const int32_t* first;  // -1 for inner nodes
-  const int32_t* count;  // 0 for inner nodes
-  int32_t n;
 };
 
 struct Walker {
@@ -173,112 +129,9 @@ struct Walker {
         nan_min(nan_min(nan_max(x0, x1), nan_max(y0, y1)), nan_max(z0, z1));
     return (tn <= tf) && (tf >= t_min) && (tn <= limit);
   }
-
-  // The slab test of node i of the DFS-preorder arrays.
-  __device__ __forceinline__ bool box(const Nodes& nd, int32_t i, float t_min,
-                                      float limit) const {
-    const float* lo = nd.aabb_min + 3 * i;
-    const float* hi = nd.aabb_max + 3 * i;
-    float tn;
-    return slab(__ldg(lo), __ldg(lo + 1), __ldg(lo + 2), __ldg(hi),
-                __ldg(hi + 1), __ldg(hi + 2), t_min, limit, tn);
-  }
 };
 
-template <class Prim>
-__global__ void __launch_bounds__(kThreads)
-    closest_walk(Nodes nd, Pool pool, const float* __restrict__ o,
-                 const float* __restrict__ d, const float* __restrict__ t_max,
-                 int64_t n_rays, float t_min, float* __restrict__ out_t,
-                 int32_t* __restrict__ out_idx, int32_t* __restrict__ out_visits,
-                 int32_t* __restrict__ out_tests) {
-  const int64_t ray = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  if (ray >= n_rays) return;
-  Walker w;
-  w.init(o, d, ray);
-  const float tm = t_max[ray];
-  float best = kTFar;
-  int32_t best_i = 0, visits = 0, tests = 0;
-  int32_t ptr = 0;
-  while (ptr < nd.n) {
-    ++visits;
-    const float limit = nan_min(best, tm);
-    const bool hit = w.box(nd, ptr, t_min, limit);
-    const int32_t first = __ldg(nd.first + ptr);
-    if (hit && first >= 0) {
-      const int32_t cnt = __ldg(nd.count + ptr);
-      tests += cnt;
-      float lm = kTFar;
-      int32_t la = 0;
-      for (int32_t j = 0; j < cnt; ++j) {
-        const float t = Prim::hit(w.r, pool, first + j, t_min);
-        if (t <= limit && t < lm) {
-          lm = t;
-          la = j;
-        }
-      }
-      if (lm < best) {
-        best = lm;
-        best_i = first + la;
-      }
-    }
-    ptr = (hit && first < 0) ? ptr + 1 : __ldg(nd.skip + ptr);
-  }
-  out_t[ray] = best;
-  out_idx[ray] = best_i;
-  out_visits[ray] = visits;
-  out_tests[ray] = tests;
-}
-
-template <class Prim>
-__global__ void __launch_bounds__(kThreads)
-    trans_walk(Nodes nd, Pool pool, const float* __restrict__ emission,
-               const float* __restrict__ transparency,
-               const float* __restrict__ o, const float* __restrict__ d,
-               const float* __restrict__ t_max, int64_t n_rays, float t_min,
-               float* __restrict__ out_tr, int32_t* __restrict__ out_visits,
-               int32_t* __restrict__ out_tests) {
-  const int64_t ray = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  if (ray >= n_rays) return;
-  Walker w;
-  w.init(o, d, ray);
-  const float tm = t_max[ray];
-  float tr = 1.0f;
-  int32_t visits = 0, tests = 0;
-  int32_t ptr = 0;
-  while (ptr < nd.n) {
-    ++visits;
-    const bool hit = w.box(nd, ptr, t_min, tm);
-    const int32_t first = __ldg(nd.first + ptr);
-    if (hit && first >= 0) {
-      const int32_t cnt = __ldg(nd.count + ptr);
-      tests += cnt;
-      float prod = 1.0f;
-      for (int32_t j = 0; j < cnt; ++j) {
-        const float t = Prim::hit(w.r, pool, first + j, t_min);
-        if (t < tm) {
-          const int32_t m = __ldg(pool.material + first + j);
-          prod = prod *
-                 (__ldg(emission + m) > 0.0f ? 1.0f : __ldg(transparency + m));
-        }
-      }
-      tr = tr * prod;
-    }
-    ptr = (hit && first < 0) ? ptr + 1 : __ldg(nd.skip + ptr);
-    if (tr <= 1e-6f) break;
-  }
-  out_tr[ray] = tr;
-  out_visits[ray] = visits;
-  out_tests[ray] = tests;
-}
-
-// ---------------------------------------------------------------------
-// The triangle and cylinder walks on packed nodes and primitive rows.
-// ---------------------------------------------------------------------
-
-// Deepest stack the packed walks keep: bvh.max_depth + 1 entries, at
+// Deepest stack a walk keeps: bvh.max_depth + 1 entries, at
 // most this many (the wrapper checks; a median-split tree over 2^31
 // rows in leaves of 8 is 29 levels deep).
 constexpr int kMaxStack = 32;
@@ -342,6 +195,29 @@ struct TriRow {
     const float t = ((qx * e2x + qy * e2y) + qz * e2z) * inv_det;
     const bool valid = safe && (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f);
     return (valid && t > t_min) ? t : kTFar;
+  }
+};
+
+// The nearer root > t_min of the sphere on pool row j of the packed
+// spheres (bvh.pack_spheres): (center.xyz, r), (r * r, factor, 0, 0),
+// with r * r rounded as intersect.sphere_t_p rounds it; the exit root
+// for a ray that starts inside; radius <= 0 never hits.  Mirrors
+// sphere_t_p; sets the row's shadow factor.
+struct SphereRow {
+  __device__ __forceinline__ static float hit(const Ray& r,
+                                              const float4* rows, int64_t j,
+                                              float t_min, float& factor) {
+    const float4 a = __ldg(rows + 2 * j), b = __ldg(rows + 2 * j + 1);
+    const float rad = a.w, rad_sq = b.x;
+    factor = b.y;
+    const float ocx = r.ox - a.x, ocy = r.oy - a.y, ocz = r.oz - a.z;
+    const float qb = (ocx * r.dx + ocy * r.dy) + ocz * r.dz;
+    const float c0 = ((ocx * ocx + ocy * ocy) + ocz * ocz) - rad_sq;
+    const float disc = qb * qb - c0;
+    if (!((disc > 0.0f) && (rad > 0.0f))) return kTFar;
+    const float sq = sqrtf(disc);
+    const float lo = -qb - sq, hi = -qb + sq;
+    return fminf(lo > t_min ? lo : kTFar, hi > t_min ? hi : kTFar);
   }
 };
 
@@ -447,7 +323,7 @@ __global__ void __launch_bounds__(kThreads)
           best = lm;
           best_i = first + la;
         }
-      } else {  // an inner node: both children, the nearer hit first
+      } else {  // an inner node: both children, in the walk's order
         const Row n = load_row(nodes, ref);
         const float limit = nan_min(best, tm);
         float tn0, tn1;
@@ -585,11 +461,12 @@ unsigned grid_for(int64_t n_rays) {
 
 extern "C" {
 
-// The packed walks.  prim: 0 = triangle, 2 = cylinder (bvh.PRIMS);
-// near_first: 1 for the closest hit near child first, 0 for left child
-// first.  nodes: the packed rows (bvh.pack_nodes, (rows, 4, 4) f32,
-// 16-byte aligned); rows: the packed primitives (bvh.pack_triangles or
-// bvh.pack_cylinders, (N, 3, 4) f32, 16-byte aligned); the rays' o, d
+// The walks.  prim: 0 = triangle, 1 = sphere, 2 = cylinder
+// (bvh.PRIMS); near_first: 1 for the closest hit near child first, 0
+// for left child first.  nodes: the packed rows (bvh.pack_nodes, (rows,
+// 4, 4) f32, 16-byte aligned); rows: the packed primitives
+// (bvh.pack_triangles or bvh.pack_cylinders, (N, 3, 4) f32;
+// bvh.pack_spheres, (N, 2, 4) f32; 16-byte aligned); the rays' o, d
 // (n_rays, 3) and t_max (n_rays) f32.  Outputs (n_rays): out_t / out_tr
 // f32, out_idx i32 (closest hit), out_visits and out_tests i32.  The
 // tree must be at most kMaxStack - 1 levels deep (the wrapper checks).
@@ -601,12 +478,15 @@ int solr_bvh_closest_packed(int prim, int near_first, const float* nodes,
                             float* out_t, int32_t* out_idx,
                             int32_t* out_visits, int32_t* out_tests,
                             void* stream) {
-  if (prim != 0 && prim != 2) return static_cast<int>(cudaErrorInvalidValue);
+  if (prim < 0 || prim > 2) return static_cast<int>(cudaErrorInvalidValue);
   if (n_rays <= 0) return static_cast<int>(cudaGetLastError());
-  auto kernel = prim == 0 ? (near_first ? closest_pairs<TriRow, true>
-                                        : closest_pairs<TriRow, false>)
-                          : (near_first ? closest_pairs<CylRow, true>
-                                        : closest_pairs<CylRow, false>);
+  auto kernel =
+      prim == 0   ? (near_first ? closest_pairs<TriRow, true>
+                                : closest_pairs<TriRow, false>)
+      : prim == 1 ? (near_first ? closest_pairs<SphereRow, true>
+                                : closest_pairs<SphereRow, false>)
+                  : (near_first ? closest_pairs<CylRow, true>
+                                : closest_pairs<CylRow, false>);
   kernel<<<grid_for(n_rays), kThreads, 0,
            static_cast<cudaStream_t>(stream)>>>(
       reinterpret_cast<const float4*>(nodes),
@@ -621,57 +501,16 @@ int solr_bvh_transmittance_packed(int prim, const float* nodes,
                                   int64_t n_rays, float t_min, float* out_tr,
                                   int32_t* out_visits, int32_t* out_tests,
                                   void* stream) {
-  if (prim != 0 && prim != 2) return static_cast<int>(cudaErrorInvalidValue);
+  if (prim < 0 || prim > 2) return static_cast<int>(cudaErrorInvalidValue);
   if (n_rays <= 0) return static_cast<int>(cudaGetLastError());
-  auto kernel = prim == 0 ? trans_pairs<TriRow> : trans_pairs<CylRow>;
+  auto kernel = prim == 0   ? trans_pairs<TriRow>
+                : prim == 1 ? trans_pairs<SphereRow>
+                            : trans_pairs<CylRow>;
   kernel<<<grid_for(n_rays), kThreads, 0,
            static_cast<cudaStream_t>(stream)>>>(
       reinterpret_cast<const float4*>(nodes),
       reinterpret_cast<const float4*>(rows), o, d, t_max, n_rays, t_min,
       out_tr, out_visits, out_tests);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The sphere walks.  All pointers are device pointers to contiguous
-// arrays: the BVH's aabb_min, aabb_max (n_nodes, 3) f32 and skip,
-// first_prim, prim_count (n_nodes) i32; the pool's center (N, 3) and
-// radius (N) f32 and material (i32, read by the shadow walk with the
-// materials' emission and transparency f32); the rays' o, d (n_rays,
-// 3) and t_max (n_rays) f32.  Outputs as above.  Returns the
-// cudaError_t of the launch (0 on success).
-int solr_bvh_closest_sphere(const float* aabb_min, const float* aabb_max,
-                            const int32_t* skip, const int32_t* first,
-                            const int32_t* count, int n_nodes,
-                            const float* center, const float* radius,
-                            const int32_t* material, const float* o,
-                            const float* d, const float* t_max,
-                            int64_t n_rays, float t_min, float* out_t,
-                            int32_t* out_idx, int32_t* out_visits,
-                            int32_t* out_tests, void* stream) {
-  if (n_rays <= 0) return static_cast<int>(cudaGetLastError());
-  const Nodes nd{aabb_min, aabb_max, skip, first, count, n_nodes};
-  const Pool pool{center, radius, material};
-  closest_walk<SphereP><<<grid_for(n_rays), kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      nd, pool, o, d, t_max, n_rays, t_min, out_t, out_idx, out_visits,
-      out_tests);
-  return static_cast<int>(cudaGetLastError());
-}
-
-int solr_bvh_transmittance_sphere(
-    const float* aabb_min, const float* aabb_max, const int32_t* skip,
-    const int32_t* first, const int32_t* count, int n_nodes,
-    const float* center, const float* radius, const int32_t* material,
-    const float* emission, const float* transparency, const float* o,
-    const float* d, const float* t_max, int64_t n_rays, float t_min,
-    float* out_tr, int32_t* out_visits, int32_t* out_tests, void* stream) {
-  if (n_rays <= 0) return static_cast<int>(cudaGetLastError());
-  const Nodes nd{aabb_min, aabb_max, skip, first, count, n_nodes};
-  const Pool pool{center, radius, material};
-  trans_walk<SphereP><<<grid_for(n_rays), kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      nd, pool, emission, transparency, o, d, t_max, n_rays, t_min, out_tr,
-      out_visits, out_tests);
   return static_cast<int>(cudaGetLastError());
 }
 

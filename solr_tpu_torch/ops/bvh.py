@@ -16,15 +16,15 @@ sphere, triangle and cylinder pools:
   A box is entered when its slab interval meets [t_min, min(best,
   t_max)]; inside a leaf the lowest lane wins a tie.  The DFS walk
   (``bvh_closest_hit_plain``) replaces the best across leaves only when
-  strictly nearer, and leaves come in ascending rows.  The triangle and
-  cylinder kernels walk near child first
-  (``bvh_closest_hit_ordered_plain``) and break a tie across leaves by
-  the lower row, so both return the same (t, idx) wherever every leaf
-  box holds its primitives.  A tree whose leaf boxes no longer do (the
-  primitives moved, as ``Scene.with_params`` moves them without a
-  refit, ROADMAP C9) is walked in the DFS walk's order instead
-  (``leaf_boxes_hold``), which returns the DFS walk's (t, idx) on any
-  tree.
+  strictly nearer, and leaves come in ascending rows.  The kernels walk
+  with a stack (``bvh_closest_hit_ordered_plain``), left child first or
+  near child first, and break a tie across leaves by the lower row.
+  Left child first returns the DFS walk's (t, idx) on any tree; near
+  child first only where every leaf box holds its primitives, which
+  ``Scene.with_params`` breaks by moving them without a refit (ROADMAP
+  C9).  So triangles walk near child first while ``leaf_boxes_hold``,
+  and left child first on a stale tree; spheres and cylinders always
+  walk left child first (``walks_near_first``).
 * ``bvh_transmittance`` (replaces ``bvh_transmittance`` at
   solr_tpu/ops/bvh.py:397): the product over every occluder with
   t < t_max of its material's transparency (1 for an emissive one).  A
@@ -43,13 +43,15 @@ back.  Kernel and plain version agree bit for bit on the same device:
 the same association in every primitive test and in the slab test, no
 FMA contraction, IEEE division and square root.
 
-The triangle and cylinder kernels read layouts derived from the BVH and
-the pool (``pack_nodes``: one 64-byte row per inner node with both
-children's boxes; ``pack_triangles``: (v0, e1, e2, shadow factor) per
-row; ``pack_cylinders``: (p0, radius, axis, |axis|^2, 1 / |axis|^2,
+The kernels read layouts derived from the BVH and the pool
+(``pack_nodes``: one 64-byte row per inner node with both children's
+boxes; ``pack_triangles``: (v0, e1, e2, shadow factor) per row;
+``pack_spheres``: (centre, radius, radius^2, shadow factor) per row;
+``pack_cylinders``: (p0, radius, axis, |axis|^2, 1 / |axis|^2,
 radius^2, shadow factor) per row), built on the device at a launch and
 reused, one per pool, while every source tensor is the same object at
-the same version (``_derived``); so is the leaf-box check.
+the same version (``_derived``); so is the triangles' leaf-box
+check.
 
 The plain walks are masked step loops: every step takes one node per
 ray; every ``_CHECK_EVERY`` steps one host sync drops the rays whose
@@ -94,8 +96,10 @@ __all__ = [
     "outside_leaf_boxes",
     "pack_cylinders",
     "pack_nodes",
+    "pack_spheres",
     "pack_triangles",
     "pool_aabbs",
+    "walks_near_first",
 ]
 
 _AABB_PAD = 1e-5
@@ -107,23 +111,21 @@ _PRIM_POOL = {"tri": POOL_TRIANGLE, "sphere": POOL_SPHERE,
               "cyl": POOL_CYLINDER}
 POOL_PRIM = {c: p for p, c in _PRIM_POOL.items()}
 ENTRIES = ("bvh_closest_hit", "bvh_transmittance")
-# The kinds walked over packed nodes and rows (the rest: skip pointers).
-PACKED = ("tri", "cyl")
 
 
 def kernel_name(entry: str, prim: str, dfs: bool = False) -> str:
     """One walk kernel's name: the entry point and the primitive kind
-    ("bvh_closest_hit_tri", ...), and "_dfs" for a packed closest hit
-    in the DFS walk's order."""
+    ("bvh_closest_hit_tri", ...), and "_dfs" for the triangle closest
+    hit in the DFS walk's order (spheres and cylinders walk in no
+    other)."""
     return f"{entry}_{prim}" + ("_dfs" if dfs else "")
 
 
 # Kernel launch counts, one per kernel (entry point x primitive kind,
-# and the DFS-order closest hits of the packed kinds); incremented only
-# where a wrapper launches that kernel.
+# and the DFS-order triangle closest hit); incremented only where a
+# wrapper launches that kernel.
 LAUNCHES = {kernel_name(e, p): 0 for p in PRIMS for e in ENTRIES}
-LAUNCHES.update({kernel_name("bvh_closest_hit", p, dfs=True): 0
-                 for p in PACKED})
+LAUNCHES[kernel_name("bvh_closest_hit", "tri", dfs=True)] = 0
 
 _SRC = Path(__file__).resolve().parents[1] / "csrc" / "bvh_walk.cu"
 _lib = None
@@ -444,7 +446,7 @@ def bvh_transmittance_plain(scene, bvh: BVH, prim: str, o, d, t_min,
 
 def bvh_closest_hit_ordered_plain(scene, bvh: BVH, prim: str, o, d, t_min,
                                   t_max=T_FAR, near_first: bool = True):
-    """Plain PyTorch closest-hit walk in the packed kernels' order: at
+    """Plain PyTorch closest-hit walk in the kernels' order: at
     an inner node both children are slab-tested; of two hit children the
     ray enters the one with the smaller entry distance tn (the left one
     on equal tn; always the left one when not ``near_first``) and pushes
@@ -556,13 +558,6 @@ def load_library(path):
     lib = ctypes.CDLL(str(path))
     vp, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                          ctypes.c_float)
-    nodes = [vp] * 5 + [i32]
-    lib.solr_bvh_closest_sphere.argtypes = nodes + [vp] * 6 + [
-        i64, f32] + [vp] * 5
-    lib.solr_bvh_closest_sphere.restype = i32
-    lib.solr_bvh_transmittance_sphere.argtypes = nodes + [vp] * 8 + [
-        i64, f32] + [vp] * 4
-    lib.solr_bvh_transmittance_sphere.restype = i32
     lib.solr_bvh_closest_packed.argtypes = [i32, i32] + [vp] * 5 + [
         i64, f32] + [vp] * 5
     lib.solr_bvh_closest_packed.restype = i32
@@ -596,12 +591,12 @@ def _ptr(x):
     return ctypes.c_void_p(x.data_ptr())
 
 
-# The deepest stack of the packed kernels (kMaxStack in bvh_walk.cu).
+# The deepest stack of the kernels (kMaxStack in bvh_walk.cu).
 _MAX_STACK = 32
 
 
 def pack_nodes(bvh: BVH):
-    """The packed kernels' node rows (R, 4, 4) float32, 64 bytes each:
+    """The kernels' node rows (R, 4, 4) float32, 64 bytes each:
     row 0 holds the root, row r > 0 the inner node of inner rank r - 1
     (DFS order), with its left child c0 (node i + 1) and right child c1
     (``skip[i + 1]``) as (c0.lo, c0.hi.x), (c0.hi.yz, c1.lo.xy),
@@ -659,6 +654,20 @@ def pack_triangles(scene):
     return torch.cat([v0, f32(p.v1) - v0, f32(p.v2) - v0, factor[:, None],
                       torch.zeros_like(v0[:, :2])], 1).contiguous().view(
                           -1, 3, 4)
+
+
+def pack_spheres(scene):
+    """The sphere kernels' rows (N, 2, 4) float32, in pool order:
+    (center, r), (r * r, factor, 0, 0) with r * r in float32 (the
+    rounding of intersect.sphere_t_p) and the row's shadow factor: 1 for
+    an emissive material, else its transparency."""
+    p = scene.spheres
+    c = p.center.to(torch.float32)
+    r = p.radius.to(torch.float32)
+    factor = _shadow_factor(p.material, scene.materials)
+    zero = torch.zeros_like(r)
+    return torch.stack([c[:, 0], c[:, 1], c[:, 2], r, r * r, factor, zero,
+                        zero], 1).contiguous().view(-1, 2, 4)
 
 
 def pack_cylinders(scene):
@@ -744,21 +753,36 @@ def leaf_boxes_hold(scene, bvh: BVH, prim: str) -> bool:
                                                         prim).any()))
 
 
-def _packed_layouts(scene, bvh: BVH, prim: str):
-    """The packed nodes and rows of the triangle or cylinder kernels,
+def walks_near_first(scene, bvh: BVH, prim: str) -> bool:
+    """The closest hit's order: near child first for triangles while
+    :func:`leaf_boxes_hold`, else (a stale triangle tree, and every
+    sphere and cylinder tree) left child first, the DFS walk's order."""
+    return prim == "tri" and leaf_boxes_hold(scene, bvh, "tri")
+
+
+def _packed_layouts(scene, bvh: BVH, prim: str, rows=None):
+    """The packed nodes and rows of the kernels of kind ``prim``,
     derived (or reused) from the BVH's and the pool's current tensors,
-    one cached pair per pool."""
+    one cached pair per pool; ``rows`` instead of the rows where
+    given."""
     if bvh.max_depth + 1 > _MAX_STACK:
-        raise ValueError(f"the packed walk kernels take trees of at most "
+        raise ValueError(f"the walk kernels take trees of at most "
                          f"{_MAX_STACK - 1} levels, got {bvh.max_depth}")
     mats = scene.materials
     nodes = _derived(f"nodes_{prim}", _tree_tensors(bvh),
                      lambda: pack_nodes(bvh))
+    if rows is not None:
+        return nodes, rows
     if prim == "tri":
         p = scene.triangles
         rows = _derived("tris", (p.v0, p.v1, p.v2, p.material, mats.emission,
                                  mats.transparency),
                         lambda: pack_triangles(scene))
+    elif prim == "sphere":
+        p = scene.spheres
+        rows = _derived("sphs", (p.center, p.radius, p.material,
+                                 mats.emission, mats.transparency),
+                        lambda: pack_spheres(scene))
     else:
         p = scene.cylinders
         rows = _derived("cyls", (p.p0, p.p1, p.radius, p.material,
@@ -784,27 +808,12 @@ def _walk_rays(o, d, t_max):
                  for x in (o, d)) + (tm,)
 
 
-def _sphere_arrays(scene, bvh: BVH, dev):
-    """The contiguous device arrays the sphere kernels read: (node
-    arrays, pool arrays)."""
-    def f32(x):
-        return x.to(device=dev, dtype=torch.float32).contiguous()
-
-    def i32(x):
-        return x.to(device=dev, dtype=torch.int32).contiguous()
-
-    p = scene.spheres
-    nodes = (f32(bvh.aabb_min), f32(bvh.aabb_max), i32(bvh.skip),
-             i32(bvh.first_prim), i32(bvh.prim_count))
-    return nodes, (f32(p.center), f32(p.radius), i32(p.material))
-
-
 def launch_closest(lib, scene, bvh: BVH, prim: str, o, d, t_min,
-                   t_max=T_FAR, near_first: bool = True):
+                   t_max=T_FAR, near_first: bool = True, rows=None):
     """One launch of ``lib``'s closest-hit walk on CUDA tensors.
-    Returns what :func:`bvh_closest_hit_plain` returns (for triangles
-    and cylinders, what :func:`bvh_closest_hit_ordered_plain` returns
-    with the same ``near_first``; spheres walk in the DFS order)."""
+    Returns what :func:`bvh_closest_hit_ordered_plain` returns with the
+    same ``near_first``.  ``rows``, where given, replaces the pool's
+    packed rows (another layout, for a variant of the kernel)."""
     _check_prim(prim)
     of, df, tm = _walk_rays(o, d, t_max)
     n = of.shape[0]
@@ -813,29 +822,23 @@ def launch_closest(lib, scene, bvh: BVH, prim: str, o, d, t_min,
                        for _ in range(3))
     stream = ctypes.c_void_p(torch.cuda.current_stream(of.device).cuda_stream)
     outs = (_ptr(out_t), _ptr(out_i), _ptr(vis), _ptr(tst), stream)
-    if prim in PACKED:
-        layouts = _packed_layouts(scene, bvh, prim)
-        err = lib.solr_bvh_closest_packed(
-            PRIMS.index(prim), int(near_first),
-            *(_ptr(x) for x in layouts + (of, df, tm)), n, float(t_min),
-            *outs)
-    else:
-        nodes, pool = _sphere_arrays(scene, bvh, of.device)
-        err = lib.solr_bvh_closest_sphere(
-            *(_ptr(x) for x in nodes), bvh.n_nodes, *(_ptr(x) for x in pool),
-            _ptr(of), _ptr(df), _ptr(tm), n, float(t_min), *outs)
+    layouts = _packed_layouts(scene, bvh, prim, rows)
+    err = lib.solr_bvh_closest_packed(
+        PRIMS.index(prim), int(near_first),
+        *(_ptr(x) for x in layouts + (of, df, tm)), n, float(t_min), *outs)
     if err != 0:
         name = kernel_name("bvh_closest_hit", prim,
-                           dfs=prim in PACKED and not near_first)
+                           dfs=prim == "tri" and not near_first)
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
     r_shape = o.shape[:-1]
     return tuple(x.reshape(r_shape) for x in (out_t, out_i, vis, tst))
 
 
 def launch_transmittance(lib, scene, bvh: BVH, prim: str, o, d, t_min,
-                         t_max):
+                         t_max, rows=None):
     """One launch of ``lib``'s shadow walk on CUDA tensors.  Returns
-    what :func:`bvh_transmittance_plain` returns."""
+    what :func:`bvh_transmittance_plain` returns; ``rows`` as for
+    :func:`launch_closest`."""
     _check_prim(prim)
     of, df, tm = _walk_rays(o, d, t_max)
     n = of.shape[0]
@@ -844,20 +847,10 @@ def launch_transmittance(lib, scene, bvh: BVH, prim: str, o, d, t_min,
                 for _ in range(2))
     stream = ctypes.c_void_p(torch.cuda.current_stream(of.device).cuda_stream)
     outs = (_ptr(out_tr), _ptr(vis), _ptr(tst), stream)
-    if prim in PACKED:
-        layouts = _packed_layouts(scene, bvh, prim)
-        err = lib.solr_bvh_transmittance_packed(
-            PRIMS.index(prim), *(_ptr(x) for x in layouts + (of, df, tm)), n,
-            float(t_min), *outs)
-    else:
-        nodes, pool = _sphere_arrays(scene, bvh, of.device)
-        mats = scene.materials
-        emission = mats.emission.to(torch.float32).contiguous()
-        transparency = mats.transparency.to(torch.float32).contiguous()
-        err = lib.solr_bvh_transmittance_sphere(
-            *(_ptr(x) for x in nodes), bvh.n_nodes, *(_ptr(x) for x in pool),
-            _ptr(emission), _ptr(transparency), _ptr(of), _ptr(df), _ptr(tm),
-            n, float(t_min), *outs)
+    layouts = _packed_layouts(scene, bvh, prim, rows)
+    err = lib.solr_bvh_transmittance_packed(
+        PRIMS.index(prim), *(_ptr(x) for x in layouts + (of, df, tm)), n,
+        float(t_min), *outs)
     if err != 0:
         raise RuntimeError(f"{kernel_name('bvh_transmittance', prim)} kernel "
                            f"launch failed: cudaError {err}")
@@ -896,14 +889,13 @@ def bvh_closest_hit(scene, bvh: BVH, pool_code: int, o, d, t_min,
                     t_max=T_FAR):
     """Closest hit within one BVH-accelerated pool (traverse.POOL_*
     code) for rays o, d (..., 3) and t_max, a number or of the rays'
-    shape.  Returns (t, idx): T_FAR and idx 0 on a miss.  Triangles and
-    cylinders walk near child first while :func:`leaf_boxes_hold`, else
-    in the DFS walk's order.  Raises under grad mode on an input that
-    requires grad (sweep.check_detached)."""
+    shape.  Returns (t, idx): T_FAR and idx 0 on a miss.  The walk's
+    order is :func:`walks_near_first`'s.  Raises under grad mode on an
+    input that requires grad (sweep.check_detached)."""
     prim = POOL_PRIM[pool_code]
     sweep.check_detached(kernel_name("bvh_closest_hit", prim), o, d, t_max,
                          *_pool_tensors(scene, prim, False))
-    near = prim in PACKED and leaf_boxes_hold(scene, bvh, prim)
+    near = walks_near_first(scene, bvh, prim)
     if not _kernel_device(o):
         plain = (bvh_closest_hit_ordered_plain if near
                  else bvh_closest_hit_plain)
@@ -911,7 +903,7 @@ def bvh_closest_hit(scene, bvh: BVH, pool_code: int, o, d, t_min,
     out = launch_closest(_library(), scene, bvh, prim, o, d, t_min, t_max,
                          near_first=near)
     LAUNCHES[kernel_name("bvh_closest_hit", prim,
-                         dfs=prim in PACKED and not near)] += 1
+                         dfs=prim == "tri" and not near)] += 1
     return out[:2]
 
 

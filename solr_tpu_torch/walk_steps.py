@@ -1,25 +1,26 @@
-"""Times the packed walk kernels of ``csrc/bvh_walk.cu`` (triangles and
-cylinders) in variants on the card, on the calls ``chip_smoke.py`` times
-them on.
+"""Times the walk kernels of ``csrc/bvh_walk.cu`` in variants on the
+card, on the calls ``chip_smoke.py`` times them on.
 
     python -m solr_tpu_torch.walk_steps [--out FILE]
 
 Each step is the shipped source with some of its constants set to other
 values (``kThreads``) or some of its text replaced (the closest hit's
-child order, an occupancy hint, the cylinder rows' derived terms
-computed by the kernel).  Every variant is compiled with the port's nvcc
-flags, all of them at once, and called through ``bvh.launch_closest`` /
-``launch_transmittance`` on the first triangle calls of the bench frame
-at 1920x1080 (1M triangles, 2 bounces) and of the textured frame
-(``render(textured_scene(1920, 1080), key, spp=4)``), and on the first
-cylinder calls of the molecule frame with traversal="while" (100,000
-atoms, 512x512).  Every variant's t and idx, and tr, visits and tests
-of the shadow walk, must be bit-equal to the shipped kernel's; a
-variant with another closest-hit order reports its own visits and
-tests.  The variants are timed in order and then in reverse order (CUDA
-events, mean of 5 calls after a warm-up), on one card in one process,
-and both passes are reported, with each kernel's registers and stack
-from ``-Xptxas -v``.
+child order, an occupancy hint, the cylinder and sphere rows' derived
+terms computed by the kernel, a 16-byte sphere row), and, where its
+leaf test reads another layout, that layout's rows.  Every variant is
+compiled with the port's nvcc flags, all of them at once, and called
+through ``bvh.launch_closest`` (in the dispatch's order,
+``bvh.walks_near_first``) / ``launch_transmittance`` on the first
+triangle calls of the bench frame at 1920x1080 (1M triangles, 2
+bounces) and of the textured frame (``render(textured_scene(1920,
+1080), key, spp=4)``), and on the first sphere and cylinder calls of
+the molecule frame with traversal="while" (100,000 atoms, 512x512).
+Every variant's t and idx, and tr, visits and tests of the shadow walk,
+must be bit-equal to the shipped kernel's; a variant with another
+closest-hit order reports its own visits and tests.  The variants are
+timed in order and then in reverse order (CUDA events, mean of 5 calls
+after a warm-up), on one card in one process, and both passes are
+reported, with each kernel's registers and stack from ``-Xptxas -v``.
 """
 
 from __future__ import annotations
@@ -96,28 +97,79 @@ _CYL_TERMS_IN_KERNEL = (
     const float rad_sq = rad * rad;"""),
 )
 
+# The sphere test computing r*r itself instead of reading it from its
+# row (the closest hit then reads 16 of the row's 32 bytes).
+_SPH_R2_IN_KERNEL = (
+    ("    const float rad = a.w, rad_sq = b.x;",
+     "    const float rad = a.w, rad_sq = rad * rad;"),)
+
+# The sphere test on one 16-byte row (center, r) per sphere, r*r
+# computed, and the shadow factor read from a side array (stored
+# reversed just before the rows: _sphere_rows16) only for a lane that
+# hits.
+_SPH_ROW16 = (
+    ("    const float4 a = __ldg(rows + 2 * j), b = __ldg(rows + 2 * j + 1);\n"
+     "    const float rad = a.w, rad_sq = b.x;\n"
+     "    factor = b.y;\n",
+     "    const float4 a = __ldg(rows + j);\n"
+     "    const float rad = a.w, rad_sq = rad * rad;\n"),
+    ("    return fminf(lo > t_min ? lo : kTFar, hi > t_min ? hi : kTFar);\n"
+     "  }\n};\n\n// Capped cylinder",
+     "    const float t = fminf(lo > t_min ? lo : kTFar, "
+     "hi > t_min ? hi : kTFar);\n"
+     "    if (t < kTFar)\n"
+     "      factor = __ldg(reinterpret_cast<const float*>(rows) - 1 - j);\n"
+     "    return t;\n  }\n};\n\n// Capped cylinder"),
+)
+
+
+def _sphere_rows16(scene):
+    """_SPH_ROW16's rows: (center, r) per sphere, (N, 4) float32, a view
+    into a buffer that holds the shadow factors reversed (and padded to
+    16 bytes) just before them, factor j at the rows' float -1 - j."""
+    p = scene.spheres
+    n = p.radius.shape[0]
+    factor = bvh._shadow_factor(p.material, scene.materials)
+    side = torch.cat([torch.zeros_like(factor[:(-n) % 4]), factor.flip(0)])
+    rows = torch.cat([p.center.to(torch.float32),
+                      p.radius.to(torch.float32)[:, None]], 1)
+    return torch.cat([side, rows.reshape(-1)])[side.numel():].view(n, 4)
+
+
+_RIGHT = "const bool right = kNearFirst && tn1 < tn0;"
+
 # (name, constants that differ from the shipped source, (shipped text,
-# its replacement) pairs), in the order the design was chosen.
+# its replacement) pairs, the sphere rows it reads or None for the
+# shipped ones), in the order the design was chosen.
 STEPS = (
-    ("1 packed nodes and rows, closest hit in DFS order (left child "
-     "first)", {}, (("const bool right = kNearFirst && tn1 < tn0;",
-                     "const bool right = false;"),)),
-    ("2 + near child first (shipped)", {}, ()),
-    ("3 cylinders: h2, 1/h2 and r*r computed in the kernel, not read",
-     {}, _CYL_TERMS_IN_KERNEL),
-    ("alt: 64 threads per CTA", dict(kThreads=64), ()),
-    ("alt: 256 threads per CTA", dict(kThreads=256), ()),
-    ("alt: at least 12 CTAs per SM (40 registers)", {}, _min_ctas(12)),
-    ("alt: at least 16 CTAs per SM (32 registers)", {}, _min_ctas(16)),
-    ("alt: one 16-byte stack entry", {}, _INT4_STACK),
+    ("1 packed nodes and rows, every closest hit in DFS order (left "
+     "child first)", {}, ((_RIGHT, "const bool right = false;"),), None),
+    ("2 shipped: triangles near child first, spheres and cylinders left "
+     "child first", {}, (), None),
+    ("3 + spheres and cylinders near child first too", {},
+     ((_RIGHT, "const bool right = tn1 < tn0;"),), None),
+    ("4 cylinders: h2, 1/h2 and r*r computed in the kernel, not read",
+     {}, _CYL_TERMS_IN_KERNEL, None),
+    ("5 spheres: r*r computed in the kernel, not read", {},
+     _SPH_R2_IN_KERNEL, None),
+    ("6 spheres: one 16-byte row (c, r), r*r computed, the factor read "
+     "from a side array only for a lane that hits", {}, _SPH_ROW16,
+     _sphere_rows16),
+    ("alt: 64 threads per CTA", dict(kThreads=64), (), None),
+    ("alt: 256 threads per CTA", dict(kThreads=256), (), None),
+    ("alt: at least 12 CTAs per SM (40 registers)", {}, _min_ctas(12),
+     None),
+    ("alt: at least 16 CTAs per SM (32 registers)", {}, _min_ctas(16),
+     None),
+    ("alt: one 16-byte stack entry", {}, _INT4_STACK, None),
 )
 REPS = 5
 
 
 def _calls(device):
     """[(label, scene, recorded call)] of both triangle walks on the
-    1080p bench frame and the textured frame, and of both cylinder walks
-    on the molecule frame with traversal="while"."""
+    1080p bench frame and the textured frame, and of both sphere and
+    both cylinder walks on the molecule frame with traversal="while"."""
     out = []
     scene, cam, cfg = bench_scene(1_000_000, block=512, width=1920,
                                   height=1080, bounces=2, device=device)
@@ -133,15 +185,27 @@ def _calls(device):
                                      bounces=2, block=256, device=device)
     calls = first_walk_calls(lambda: render_sample(
         mol, mcam, dataclasses.replace(mcfg, traversal="while")))
-    out += [(f"{e} molecule", mol, calls[f"{e}_cyl"]) for e in bvh.ENTRIES]
+    out += [(f"{e} molecule {p}", mol, calls[f"{e}_{p}"])
+            for p in ("sphere", "cyl") for e in bvh.ENTRIES]
     return out
 
 
-def _launch(lib, scene, call):
+def _rows(make, scene, call):
+    """A step's own sphere rows for a sphere call (``make(scene)``), else
+    None: the shipped rows."""
+    return make(scene) if make is not None and call[1] == "sphere" else None
+
+
+def _launch(lib, scene, call, rows=None):
+    """One launch of ``lib``'s kernel on a recorded call, the closest hit
+    in the dispatch's order, on ``rows`` where given."""
     entry, prim, tree, o, d, t_min, t_max = call
-    launch = (bvh.launch_closest if entry == "bvh_closest_hit"
-              else bvh.launch_transmittance)
-    return launch(lib, scene, tree, prim, o, d, t_min, t_max)
+    if entry == "bvh_closest_hit":
+        return bvh.launch_closest(
+            lib, scene, tree, prim, o, d, t_min, t_max,
+            near_first=bvh.walks_near_first(scene, tree, prim), rows=rows)
+    return bvh.launch_transmittance(lib, scene, tree, prim, o, d, t_min,
+                                    t_max, rows=rows)
 
 
 def main(argv=None) -> int:
@@ -156,7 +220,8 @@ def main(argv=None) -> int:
         capture_output=True, text=True).stdout.strip()
 
     src = bvh._SRC.read_text()
-    variants = [(name, variant_source(src, c, p)) for name, c, p in STEPS]
+    variants = [(name, variant_source(src, c, p)) for name, c, p, _ in STEPS]
+    layouts = {name: rows for name, _, _, rows in STEPS}
     t0 = time.time()
     with concurrent.futures.ThreadPoolExecutor(len(variants)) as pool:
         built = list(pool.map(lambda v: sweep.compile_library(
@@ -179,7 +244,8 @@ def main(argv=None) -> int:
             want = _launch(shipped, scene, call)
             rec["calls"][label] = dict(rays=int(call[3].shape[0]))
             for (name, _), lib in zip(variants, libs):
-                got = _launch(lib, scene, call)
+                got = _launch(lib, scene, call,
+                              _rows(layouts[name], scene, call))
                 same = got[:2] if call[0] == "bvh_closest_hit" else got
                 if not all(torch.equal(x, y) for x, y in zip(same, want)):
                     raise AssertionError(f"{name} differs from the shipped "
@@ -194,8 +260,9 @@ def main(argv=None) -> int:
         for sweep_order in (order, order[::-1]):
             for (name, _), lib in sweep_order:
                 for label, scene, call in calls:
+                    rows = _rows(layouts[name], scene, call)
                     times[name][label].append(time_ms(
-                        lambda: _launch(lib, scene, call), REPS))
+                        lambda: _launch(lib, scene, call, rows), REPS))
     for name, _ in variants:
         rec["steps"].append({"step": name, "ms": times[name],
                              "counts": counts[name]})

@@ -220,7 +220,8 @@ def _field_scene():
 def _moved(ref_scene, prim, shift):
     """Both packages' scenes, in the reference scene's float type, after
     the same move of the pool of kind ``prim`` by ``shift`` (N, 3):
-    triangles through with_params, cylinders through replace."""
+    triangles and spheres through with_params, cylinders through
+    replace."""
     f64 = ref_scene.triangles.v0.dtype == jnp.float64
     port = scene_from_numpy(numpy_tree(ref_scene), "cpu",
                             torch.float64 if f64 else torch.float32)
@@ -229,6 +230,11 @@ def _moved(ref_scene, prim, shift):
         rp["vertices"] = tuple(jnp.asarray(np.asarray(v) + shift)
                                for v in rp["vertices"])
         ref = ref_scene.with_params(rp)
+    elif prim == "sphere":
+        rp = ref_scene.params
+        rp["sphere_center"] = jnp.asarray(np.asarray(rp["sphere_center"])
+                                          + shift)
+        ref = ref_scene.with_params(rp)
     else:
         c = ref_scene.cylinders
         ref = dataclasses.replace(ref_scene, cylinders=dataclasses.replace(
@@ -236,17 +242,18 @@ def _moved(ref_scene, prim, shift):
     return ref, move_pool(port, prim, shift)
 
 
-@pytest.mark.parametrize("case", ["tri", "cyl", "drift"])
+@pytest.mark.parametrize("case", ["tri", "sphere", "cyl", "drift"])
 def test_stale_tree_closest_hit_matches_reference(case):
     """ROADMAP C14: after the primitives move out of their leaf boxes
     without a refit (C9), the port's closest hit is the reference's DFS
-    walk's.  "tri" and "cyl": the near leaf's box is the nearer (z 5) and
-    the far leaf's starts at z 10, but one of the far leaf's primitives
-    moved to z 2.1 (tests/torch_bvh_helpers.py two_leaf_stale); the DFS
-    walk enters the far leaf first and returns it, a near-first walk
-    would return the near leaf's hit and prune the far leaf: idx equal
-    on every ray.  Triangles move through with_params, cylinders
-    (which are no parameter) through replace.  "drift": tri_field with
+    walk's.  "tri", "sphere" and "cyl": the near leaf's box is the nearer
+    (z 5) and the far leaf's starts near z 10, but one of the far leaf's
+    primitives moved to z 2.1 (tests/torch_bvh_helpers.py
+    two_leaf_stale); the DFS walk enters the far leaf first and returns
+    it, a near-first walk would return the near leaf's hit and prune the
+    far leaf: idx equal on every ray.  Triangles and spheres move
+    through with_params, cylinders (which are no parameter) through
+    replace.  "drift": tri_field with
     a random translation of each triangle (sd 0.2), in float64, where
     test_closest_walk_matches_reference holds idx exactly (in float32
     XLA's FMA contraction moves t by up to 2.4e-6 on this field, moved
@@ -264,7 +271,7 @@ def test_stale_tree_closest_hit_matches_reference(case):
         o, d = two_leaf_rays()
         shift = stale_shift()
     ref, port = _moved(ref_scene, prim, shift)
-    code = {"tri": 1, "cyl": 2}[prim]
+    code = {"sphere": 0, "tri": 1, "cyl": 2}[prim]
     tree = getattr(port, BVH_OF[code])
     stray = bvh.outside_leaf_boxes(port, tree, prim)
     assert int(stray.sum()) > 0

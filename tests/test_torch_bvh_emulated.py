@@ -3,20 +3,22 @@ csrc/bvh_walk.cu built by the host's C++ compiler, one thread per CUDA
 thread), against their plain PyTorch versions: t, idx, tr, node visits
 and lane tests bit-equal, as on the card.  The emulation compiles
 without FMA contraction, as nvcc does with --fmad=false, and runs the
-kernels' own control flow: the skip-pointer walk (spheres), the packed
-pair walk with its stack (triangles and cylinders: near child first for
-the closest hit, or left child first on a stale tree; DFS order for the
-shadow walk), the leaf loop, the in-leaf and cross-leaf tie rules, the
-ordered leaf product and the early stop of a ray in full shadow.
+kernels' own control flow: the packed pair walk with its stack over a
+triangle, sphere or cylinder leaf test (the closest hit near child
+first or left child first; DFS order for the shadow walk), the leaf
+loop, the in-leaf and cross-leaf tie rules, the ordered leaf product
+and the early stop of a ray in full shadow.
 
 All six entries (closest hit and transmittance for the triangle, sphere
 and cylinder pools) run on the primary rays of a small frame and on
 shadow rays toward its light, with fractional transparencies and
-emissive occluders.  The triangle and cylinder closest hits are held to
-the plain walk of their order on all four outputs and to the DFS walk
-on t and idx.  The tie cases duplicate every primitive, so a ray meets
-equal t in one leaf or in two neighbouring leaves; the first copy must
-win, also where the near-first walk reaches the second copy first.  The
+emissive occluders.  The closest hits are held to the plain walk of
+their order on all four outputs and to the DFS walk on t and idx, in
+the dispatch's order (bvh.walks_near_first: triangles near child first
+on a fresh tree, spheres and cylinders left child first) and in the
+other.  The tie cases duplicate every primitive, so a ray meets equal t
+in one leaf or in two neighbouring leaves; the first copy must win,
+also where the near-first walk reaches the second copy first.  The
 card's own runs are tests/test_torch_gpu.py."""
 
 import numpy as np
@@ -33,7 +35,8 @@ from solr_tpu_torch.types import RenderConfig
 from torch_bvh_helpers import (STALE_ROW, cross_leaf_pairs, cyl_field,
                                fractional_materials, near_second_tie_cyl_scene,
                                near_second_tie_scene, shadow_rays_to_light,
-                               tie_scene, tri_field, two_leaf_stale)
+                               sphere_field, tie_scene, tri_field,
+                               two_leaf_stale)
 from torch_sweep_helpers import build_emulated, compiler
 
 # Several test workers share the cores: keep each one's intra-op pool small.
@@ -49,6 +52,24 @@ def emulated(tmp_path_factory):
         pytest.skip("needs a C++17 compiler to build the emulation")
     return bvh.load_library(build_emulated(bvh._SRC,
                                            tmp_path_factory.mktemp("emu")))
+
+
+@pytest.fixture(autouse=True)
+def ieee_sqrt(monkeypatch):
+    """The plain walks here take a correctly rounded float32 square root,
+    as torch.sqrt on the card and the kernels' sqrtf are: torch's CPU
+    sqrt in float32 is one ulp off in about 0.7% of inputs (near a
+    halfway case), which moves a sphere's root on one ray of
+    test_emulated_sphere_field.  Through float64 the rounding is exact
+    (53 >= 2 x 24 + 2 bits)."""
+    sqrt = torch.sqrt
+
+    def exact(x, *args, **kwargs):
+        if x.dtype == torch.float32 and not args and not kwargs:
+            return sqrt(x.double()).float()
+        return sqrt(x, *args, **kwargs)
+
+    monkeypatch.setattr(torch, "sqrt", exact)
 
 
 def _no_stream(monkeypatch):
@@ -74,22 +95,22 @@ def _rays(scene, cam, cfg):
 
 
 def _closest_equal(monkeypatch, lib, scene, prim, o, d, tree=None,
-                   near_first=True):
-    """The kernel against its plain version on all four outputs (for
-    triangles and cylinders the walk of the kernel's order, near child
-    first or the DFS walk's, whose t and idx must equal the DFS walk's);
-    returns the plain version's outputs."""
+                   near_first=None):
+    """The kernel against the plain walk of its order (near child first
+    or left child first; by default the dispatch's,
+    bvh.walks_near_first) on all four outputs and against the DFS walk
+    on t and idx; returns the plain walk's outputs."""
     _no_stream(monkeypatch)
     tree = getattr(scene, BVH_OF[prim]) if tree is None else tree
+    if near_first is None:
+        near_first = bvh.walks_near_first(scene, tree, prim)
     got = bvh.launch_closest(lib, scene, tree, prim, o, d, RAY_EPS,
                              near_first=near_first)
-    want = bvh.bvh_closest_hit_plain(scene, tree, prim, o, d, RAY_EPS)
-    if prim in bvh.PACKED:
-        for a, b in zip(got[:2], want[:2]):  # t, idx
-            assert torch.equal(a, b)
-        want = bvh.bvh_closest_hit_ordered_plain(scene, tree, prim, o, d,
-                                                 RAY_EPS,
-                                                 near_first=near_first)
+    dfs = bvh.bvh_closest_hit_plain(scene, tree, prim, o, d, RAY_EPS)
+    for a, b in zip(got[:2], dfs[:2]):  # t, idx
+        assert torch.equal(a, b)
+    want = bvh.bvh_closest_hit_ordered_plain(scene, tree, prim, o, d,
+                                             RAY_EPS, near_first=near_first)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
     return want
@@ -108,12 +129,17 @@ def _trans_equal(monkeypatch, lib, scene, prim, o, d, tm, tree=None):
 
 @pytest.mark.parametrize("prim", bvh.PRIMS)
 def test_emulated_closest(emulated, monkeypatch, molecule, prim):
+    """In the dispatch's order and in the other."""
     scene, cam, cfg = molecule
     o, d, _, _, _ = _rays(scene, cam, cfg)
     t, _, visits, tests = _closest_equal(monkeypatch, emulated, scene, prim,
                                          o, d)
     assert (t < 1e30).sum() > 20 and int(tests.sum()) > 0
     assert int(visits.max()) > 3
+    other = not bvh.walks_near_first(scene, getattr(scene, BVH_OF[prim]),
+                                     prim)
+    _closest_equal(monkeypatch, emulated, scene, prim, o, d,
+                   near_first=other)
 
 
 @pytest.mark.parametrize("rays", ["shadow", "camera"])
@@ -135,14 +161,16 @@ def test_emulated_transmittance(emulated, monkeypatch, molecule, prim, rays):
 @pytest.mark.parametrize("prim", bvh.PRIMS)
 def test_emulated_closest_ties(emulated, monkeypatch, prim):
     """Every primitive twice: the first copy wins, within a leaf and
-    across neighbouring leaves."""
+    across neighbouring leaves, in either order."""
     scene, o, d = tie_scene(prim, SIZE)
     tree = getattr(scene, BVH_OF[prim])
-    t, idx, _, _ = _closest_equal(monkeypatch, emulated, scene, prim, o, d)
-    hit = t < 1e30
-    assert hit.sum() > 50
-    assert (idx[hit] % 2 == 0).all()
-    assert cross_leaf_pairs(tree, idx[hit]) > 0
+    for near_first in (True, False):
+        t, idx, _, _ = _closest_equal(monkeypatch, emulated, scene, prim, o,
+                                      d, near_first=near_first)
+        hit = t < 1e30
+        assert hit.sum() > 50
+        assert (idx[hit] % 2 == 0).all()
+        assert cross_leaf_pairs(tree, idx[hit]) > 0
 
 
 def test_emulated_full_shadow_stops(emulated, monkeypatch):
@@ -180,13 +208,14 @@ def test_emulated_tri_tie_reached_second_first(emulated, monkeypatch):
     lo = tree.aabb_min[1:, 2]
     assert lo[1] < lo[0]  # the right leaf's box starts nearer along +z
     t, idx, _, tests = _closest_equal(monkeypatch, emulated, scene, "tri",
-                                      o, d)
+                                      o, d, near_first=True)
     assert (t == 5.0).all() and (idx == 7).all()
     assert (tests == 16).all()  # both leaves tested
 
 
 def test_emulated_cyl_tie_reached_second_first(emulated, monkeypatch):
-    """The cylinder case of test_emulated_tri_tie_reached_second_first:
+    """The cylinder case of test_emulated_tri_tie_reached_second_first,
+    near child first (which the dispatch does not take for cylinders):
     the shared cylinder's first copy ends the left leaf, its second
     starts the right leaf, whose box is the nearer."""
     scene, o, d = near_second_tie_cyl_scene()
@@ -197,7 +226,7 @@ def test_emulated_cyl_tie_reached_second_first(emulated, monkeypatch):
     lo = tree.aabb_min[1:, 2]
     assert lo[1] < lo[0]  # the right leaf's box starts nearer along +z
     t, idx, _, tests = _closest_equal(monkeypatch, emulated, scene, "cyl",
-                                      o, d)
+                                      o, d, near_first=True)
     assert (t < 1e30).all() and (idx == 7).all()
     assert (tests == 16).all()  # both leaves tested
 
@@ -214,11 +243,13 @@ def cfield():
 
 def test_emulated_cyl_field(emulated, monkeypatch, cfield):
     """test_emulated_tri_field on a 1,200-cylinder field (8 levels) with
-    576 rays."""
+    576 rays; the closest hit in both orders."""
     scene, o, d = cfield
     assert scene.cyl_bvh.max_depth >= 7
     t = _closest_equal(monkeypatch, emulated, scene, "cyl", o, d)[0]
     assert (t < 1e30).sum() > 500
+    _closest_equal(monkeypatch, emulated, scene, "cyl", o, d,
+                   near_first=True)
     tm = torch.full(o.shape[:1], 100.0)
     tr, vis, _ = _trans_equal(monkeypatch, emulated, scene, "cyl", o, d, tm)
     assert (tr == 0.0).sum() > 200 and ((tr > 0.0) & (tr < 1.0)).sum() > 150
@@ -230,21 +261,23 @@ def test_emulated_cyl_field(emulated, monkeypatch, cfield):
     assert (vis[tr == 0.0] < vis_all[tr == 0.0]).float().mean() > 0.5
 
 
-@pytest.mark.parametrize("prim", bvh.PACKED)
+@pytest.mark.parametrize("prim", bvh.PRIMS)
 def test_emulated_dfs_order_on_stale_tree(emulated, monkeypatch, prim):
     """A far-leaf primitive moved in front of the near leaf without a
     refit (two_leaf_stale; ROADMAP C14): the kernel in the DFS walk's
-    order returns the DFS walk's hit, the moved row, and counts as the
-    plain walk of its order; the near-first kernel, as its plain walk,
-    returns the near leaf's.  Each tests one leaf and prunes the
-    other."""
+    order, the dispatch's on a stale tree, returns the DFS walk's hit,
+    the moved row, and counts as the plain walk of its order; the
+    near-first kernel, as its plain walk, returns the near leaf's.  Each
+    tests one leaf and prunes the other."""
     scene, o, d = two_leaf_stale(prim)
     tree = getattr(scene, BVH_OF[prim])
     assert not bvh.leaf_boxes_hold(scene, tree, prim)
+    assert not bvh.walks_near_first(scene, tree, prim)
     _, idx, _, tests = _closest_equal(monkeypatch, emulated, scene, prim, o,
                                       d, near_first=False)
     assert (idx == STALE_ROW).all() and (tests == 8).all()
-    got = bvh.launch_closest(emulated, scene, tree, prim, o, d, RAY_EPS)
+    got = bvh.launch_closest(emulated, scene, tree, prim, o, d, RAY_EPS,
+                             near_first=True)
     want = bvh.bvh_closest_hit_ordered_plain(scene, tree, prim, o, d,
                                              RAY_EPS)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
@@ -252,13 +285,15 @@ def test_emulated_dfs_order_on_stale_tree(emulated, monkeypatch, prim):
 
 
 def test_emulated_layouts_one_per_pool(emulated, monkeypatch, molecule):
-    """The packed layouts and the leaf-box check are cached per pool: a
-    triangle, cylinder, triangle sequence packs each pool once and
-    checks each tree once."""
+    """The packed layouts are cached per pool, and so is the leaf-box
+    check, which only the triangle tree takes: a triangle, cylinder,
+    sphere, triangle, cylinder, sphere sequence packs each pool once and
+    checks the triangle tree once."""
     scene, cam, cfg = molecule
     o, d = camera_rays(cam, cfg)
     packed, checked = [], []
-    for name in ("pack_nodes", "pack_triangles", "pack_cylinders"):
+    for name in ("pack_nodes", "pack_triangles", "pack_cylinders",
+                 "pack_spheres"):
         fn = getattr(bvh, name)
         monkeypatch.setattr(bvh, name, lambda *a, _fn=fn, _n=name: (
             packed.append(_n), _fn(*a))[1])
@@ -266,14 +301,61 @@ def test_emulated_layouts_one_per_pool(emulated, monkeypatch, molecule):
     monkeypatch.setattr(bvh, "outside_leaf_boxes", lambda *a: (
         checked.append(a[2]), fn(*a))[1])
     monkeypatch.setattr(bvh, "_DERIVED", {})
-    for prim in ("tri", "cyl", "tri", "cyl"):
+    for prim in ("tri", "cyl", "sphere") * 2:
         _closest_equal(monkeypatch, emulated, scene, prim, o, d)
         code = bvh._PRIM_POOL[prim]
         bvh.bvh_closest_hit(scene, getattr(scene, BVH_OF[prim]), code, o, d,
                             RAY_EPS)
     assert packed == ["pack_nodes", "pack_triangles", "pack_nodes",
-                      "pack_cylinders"]
-    assert checked == ["tri", "cyl"]
+                      "pack_cylinders", "pack_nodes", "pack_spheres"]
+    assert checked == ["tri"]
+
+
+@pytest.fixture(scope="module")
+def sfield():
+    return sphere_field()
+
+
+def test_emulated_sphere_field(emulated, monkeypatch, sfield):
+    """A 1,500-sphere field (8 levels), 64 of its 576 rays starting inside
+    a sphere (they take its exit root): the closest hit against both
+    plain walks in both orders, and the shadow walk with opaque,
+    fractional and emissive occluders, where many rays stop at an
+    opaque leaf, against the DFS walk with its counts.  Then the two
+    most hit spheres' radii set to 0 and to minus their radius through
+    Scene.replace (the tree keeps their boxes): neither hits nor
+    occludes."""
+    scene, o, d, inside = sfield
+    assert scene.sph_bvh.max_depth >= 7
+    t, idx = _closest_equal(monkeypatch, emulated, scene, "sphere", o, d)[:2]
+    _closest_equal(monkeypatch, emulated, scene, "sphere", o, d,
+                   near_first=True)
+    assert (t < 1e30).sum() > 500
+    # A ray from a centre leaves its sphere (radius <= 0.25) by t = r.
+    assert (t[inside] <= 0.25).all()
+    p = scene.spheres
+    tm = torch.full(o.shape[:1], 100.0)
+    tr, vis, _ = _trans_equal(monkeypatch, emulated, scene, "sphere", o, d,
+                              tm)
+    assert (tr == 0.0).sum() > 200 and ((tr > 0.0) & (tr < 1.0)).sum() > 150
+    trans = scene.materials.transparency
+    clear = scene.replace(materials=scene.materials.replace(
+        transparency=torch.where(trans == 0.0, 0.5, trans)))
+    _, vis_all, _ = _trans_equal(monkeypatch, emulated, clear, "sphere", o,
+                                 d, tm)
+    assert (vis[tr == 0.0] < vis_all[tr == 0.0]).float().mean() > 0.5
+    # The two most hit spheres, at radius 0 and -r.
+    hits, rows = torch.bincount(idx[t < 1e30]).topk(2)
+    assert (hits > 1).all()
+    radius = p.radius.clone()
+    radius[rows] = torch.stack([torch.zeros(()), -radius[rows[1]]])
+    gone = scene.replace(spheres=p.replace(radius=radius))
+    t0, idx0 = _closest_equal(monkeypatch, emulated, gone, "sphere", o,
+                              d)[:2]
+    assert not torch.isin(idx0[t0 < 1e30], rows).any()
+    was = torch.isin(idx, rows) & (t < 1e30)
+    assert (t0[was] > t[was]).all()
+    _trans_equal(monkeypatch, emulated, gone, "sphere", o, d, tm)
 
 
 def test_emulated_tri_field(emulated, monkeypatch, field):

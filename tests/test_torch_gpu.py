@@ -13,12 +13,14 @@ spheres, rays that start inside spheres, and a BLOCK whose rows do not
 fit in shared memory.  The six walk kernels (closest hit and
 transmittance over the triangle, sphere and cylinder BVHs) run on camera
 and shadow rays with fractional and emissive materials, and on scenes
-with every primitive twice (ties within a leaf and across leaves); the
-triangle and cylinder kernels also on fields with opaque occluders and
-on two leaves whose nearer one holds a tie's second copy, the DFS-order
-closest hits on trees whose leaf boxes no longer hold their primitives,
-and one cached layout per pool; the molecule frame with
-traversal="while" launches all six.  A gradient step
+with every primitive twice (ties within a leaf and across leaves), the
+closest hits in both orders (near child first, left child first); the
+kernels also on fields with opaque occluders (the sphere field with
+rays that start inside spheres and a sphere of radius 0), the triangle
+and cylinder kernels on two leaves whose nearer one holds a tie's
+second copy, the closest hits in DFS order on trees whose leaf boxes no
+longer hold their primitives, and one cached layout per pool; the
+molecule frame with traversal="while" launches all six.  A gradient step
 through the reduced bench frame on the card (packets and walk) agrees
 with the same step on the CPU.  The camera modes and texture features
 render on the card against the committed solr_tpu CPU frames
@@ -69,7 +71,8 @@ from solr_tpu_torch.parallel.launch import spawn_group
 from torch_bvh_helpers import (STALE_ROW, cross_leaf_pairs, cyl_field,
                                fractional_materials, near_second_tie_cyl_scene,
                                near_second_tie_scene, tri_field,
-                               shadow_rays_to_light, tie_scene, two_leaf_stale)
+                               shadow_rays_to_light, sphere_field, tie_scene,
+                               two_leaf_stale)
 from torch_parallel_helpers import gpu_frame
 from torch_sweep_helpers import forced_ties
 
@@ -526,13 +529,13 @@ def test_walk_closest_kernel_matches_plain(walk, prim):
     assert (got[0] < 1e30).any()
     for a, b in zip(got, want):  # t, idx
         assert torch.equal(a, b)
-    lib_out = bvh.launch_closest(bvh._library(), scene, tree, prim, o, d,
-                                 RAY_EPS)
-    if prim in bvh.PACKED:  # the kernel's own order: near child first
+    for near in (True, False):  # each order's own counts
+        lib_out = bvh.launch_closest(bvh._library(), scene, tree, prim, o, d,
+                                     RAY_EPS, near_first=near)
         want = bvh.bvh_closest_hit_ordered_plain(scene, tree, prim, o, d,
-                                                 RAY_EPS)
-    for a, b in zip(lib_out, want):  # t, idx, visits, tests
-        assert torch.equal(a, b)
+                                                 RAY_EPS, near_first=near)
+        for a, b in zip(lib_out, want):  # t, idx, visits, tests
+            assert torch.equal(a, b)
 
 
 @pytest.mark.gpu
@@ -560,19 +563,21 @@ def test_walk_transmittance_kernel_matches_plain(walk, prim, rays):
 @pytest.mark.parametrize("prim", bvh.PRIMS)
 def test_walk_closest_ties(cuda, prim):
     """Every primitive twice: the first copy wins, within a leaf and
-    across neighbouring leaves, on the card as in the plain version."""
+    across neighbouring leaves, in either order, on the card as in the
+    plain version."""
     bvh.build()
     scene, o, d = tie_scene(prim, SIZE, device=cuda)
     tree = getattr(scene, BVH_OF[prim])
-    got = bvh.launch_closest(bvh._library(), scene, tree, prim, o, d, RAY_EPS)
     want = bvh.bvh_closest_hit_plain(scene, tree, prim, o, d, RAY_EPS)
-    for a, b in zip(got[:2], want[:2]):  # t, idx
-        assert torch.equal(a, b)
-    near = (bvh.bvh_closest_hit_ordered_plain(scene, tree, prim, o, d,
-                                              RAY_EPS)
-            if prim in bvh.PACKED else want)
-    for a, b in zip(got, near):  # and the counts of the kernel's order
-        assert torch.equal(a, b)
+    for near in (True, False):
+        got = bvh.launch_closest(bvh._library(), scene, tree, prim, o, d,
+                                 RAY_EPS, near_first=near)
+        for a, b in zip(got[:2], want[:2]):  # t, idx
+            assert torch.equal(a, b)
+        own = bvh.bvh_closest_hit_ordered_plain(scene, tree, prim, o, d,
+                                                RAY_EPS, near_first=near)
+        for a, b in zip(got, own):  # and the counts of the kernel's order
+            assert torch.equal(a, b)
     hit = want[0] < 1e30
     assert (want[1][hit] % 2 == 0).all()
     assert cross_leaf_pairs(tree, want[1][hit]) > 0
@@ -611,20 +616,22 @@ def test_walk_tri_kernels_order_and_stop(cuda, case):
 def test_walk_cyl_kernels_order_and_stop(cuda, case):
     """test_walk_tri_kernels_order_and_stop for the cylinder kernels: a
     1,200-cylinder field (576 rays) and the two-leaf tie that the
-    near-first walk reaches second copy first."""
+    near-first walk reaches second copy first; the closest hit in both
+    orders (the dispatch's is left child first)."""
     bvh.build()
     scene, o, d = (cyl_field(device=cuda) if case == "field"
                    else near_second_tie_cyl_scene(device=cuda))
     tree = scene.cyl_bvh
-    got = bvh.launch_closest(bvh._library(), scene, tree, "cyl", o, d,
-                             RAY_EPS)
     dfs = bvh.bvh_closest_hit_plain(scene, tree, "cyl", o, d, RAY_EPS)
-    near = bvh.bvh_closest_hit_ordered_plain(scene, tree, "cyl", o, d,
-                                             RAY_EPS)
-    assert all(torch.equal(a, b) for a, b in zip(got, near))
-    assert all(torch.equal(a, b) for a, b in zip(got[:2], dfs[:2]))
-    if case == "near_second_tie":
-        assert (got[1] == 7).all()
+    for near in (True, False):
+        got = bvh.launch_closest(bvh._library(), scene, tree, "cyl", o, d,
+                                 RAY_EPS, near_first=near)
+        own = bvh.bvh_closest_hit_ordered_plain(scene, tree, "cyl", o, d,
+                                                RAY_EPS, near_first=near)
+        assert all(torch.equal(a, b) for a, b in zip(got, own))
+        assert all(torch.equal(a, b) for a, b in zip(got[:2], dfs[:2]))
+        if case == "near_second_tie":
+            assert (got[1] == 7).all()
     tm = torch.full(o.shape[:1], 100.0, device=o.device)
     got = bvh.launch_transmittance(bvh._library(), scene, tree, "cyl", o, d,
                                    RAY_EPS, tm)
@@ -632,17 +639,72 @@ def test_walk_cyl_kernels_order_and_stop(cuda, case):
     assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
+def _sphere_kernels_equal(scene, o, d, tm):
+    """Both sphere kernels against their plain walks (the closest hit in
+    both orders); returns the DFS walk's (t, idx) and the shadow walk's
+    tr."""
+    tree = scene.sph_bvh
+    dfs = bvh.bvh_closest_hit_plain(scene, tree, "sphere", o, d, RAY_EPS)
+    for near in (False, True):
+        got = bvh.launch_closest(bvh._library(), scene, tree, "sphere", o, d,
+                                 RAY_EPS, near_first=near)
+        own = bvh.bvh_closest_hit_ordered_plain(scene, tree, "sphere", o, d,
+                                                RAY_EPS, near_first=near)
+        assert all(torch.equal(a, b) for a, b in zip(got, own))
+        assert all(torch.equal(a, b) for a, b in zip(got[:2], dfs[:2]))
+    got = bvh.launch_transmittance(bvh._library(), scene, tree, "sphere", o,
+                                   d, RAY_EPS, tm)
+    want = bvh.bvh_transmittance_plain(scene, tree, "sphere", o, d, RAY_EPS,
+                                       tm)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    return dfs[0], dfs[1], want[0]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("prim", ["tri", "cyl"])
+@pytest.mark.parametrize("case", ["field", "tie"])
+def test_walk_sphere_kernels_order_and_stop(cuda, case):
+    """The sphere kernels on a 1,500-sphere field (64 of its 576 rays
+    start inside a sphere; shadow rays stop at opaque leaves; then its
+    two most hit spheres at radius 0 and -r through Scene.replace) and
+    on the scene with every sphere twice: the closest hit in DFS order
+    (the dispatch's) and near child first equal to the plain walk of its
+    order on all four outputs and to the DFS walk on t and idx, the
+    shadow walk to the DFS walk on all three."""
+    bvh.build()
+    if case == "tie":
+        scene, o, d = tie_scene("sphere", SIZE, device=cuda)
+        tm = torch.full(o.shape[:1], 100.0, device=o.device)
+        t, idx, _ = _sphere_kernels_equal(scene, o, d, tm)
+        assert (t < 1e30).sum() > 50 and (idx[t < 1e30] % 2 == 0).all()
+        return
+    scene, o, d, inside = sphere_field(device=cuda)
+    tm = torch.full(o.shape[:1], 100.0, device=o.device)
+    t, idx, tr = _sphere_kernels_equal(scene, o, d, tm)
+    assert (t < 1e30).sum() > 500 and (t[inside] <= 0.25).all()
+    assert (tr == 0.0).sum() > 200
+    rows = torch.bincount(idx[t < 1e30]).topk(2).indices
+    p = scene.spheres
+    radius = p.radius.clone()
+    radius[rows] = torch.stack([torch.zeros((), device=cuda),
+                                -radius[rows[1]]])
+    gone = scene.replace(spheres=p.replace(radius=radius))
+    t0, idx0, _ = _sphere_kernels_equal(gone, o, d, tm)
+    assert not torch.isin(idx0[t0 < 1e30], rows).any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("prim", bvh.PRIMS)
 def test_walk_dfs_kernel_on_stale_tree(cuda, prim):
     """A primitive moved out of its leaf box without a refit (ROADMAP
-    C14): bvh_closest_hit launches the DFS-order kernel, which returns
-    the DFS walk's t and idx and the counts of the plain walk of its
-    order; the near-first kernel returns the near leaf's hit."""
+    C14): bvh_closest_hit launches the DFS-order kernel (for triangles
+    the "_dfs" instance; spheres and cylinders walk in no other order,
+    under their plain name), which returns the DFS walk's t and idx and
+    the counts of the plain walk of its order; the near-first kernel
+    returns the near leaf's hit."""
     bvh.build()
     scene, o, d = two_leaf_stale(prim, device=cuda)
-    tree = scene.tri_bvh if prim == "tri" else scene.cyl_bvh
-    name = bvh.kernel_name("bvh_closest_hit", prim, dfs=True)
+    tree = getattr(scene, BVH_OF[prim])
+    name = bvh.kernel_name("bvh_closest_hit", prim, dfs=prim == "tri")
     before = dict(bvh.LAUNCHES)
     with torch.no_grad():
         t, idx = bvh.bvh_closest_hit(scene, tree, bvh._PRIM_POOL[prim], o, d,
@@ -657,7 +719,8 @@ def test_walk_dfs_kernel_on_stale_tree(cuda, prim):
     want = bvh.bvh_closest_hit_ordered_plain(scene, tree, prim, o, d, RAY_EPS,
                                              near_first=False)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
-    got = bvh.launch_closest(bvh._library(), scene, tree, prim, o, d, RAY_EPS)
+    got = bvh.launch_closest(bvh._library(), scene, tree, prim, o, d, RAY_EPS,
+                             near_first=True)
     want = bvh.bvh_closest_hit_ordered_plain(scene, tree, prim, o, d, RAY_EPS)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert (got[1] == 8).all()
@@ -665,11 +728,13 @@ def test_walk_dfs_kernel_on_stale_tree(cuda, prim):
 
 @pytest.mark.gpu
 def test_walk_layouts_one_per_pool(cuda, walk, monkeypatch):
-    """On the card as in the emulation: a triangle, cylinder, triangle
-    sequence packs each pool once and checks each tree once."""
+    """On the card as in the emulation: a triangle, cylinder, sphere,
+    triangle, cylinder, sphere sequence packs each pool once and checks
+    the triangle tree once."""
     scene, o, d = walk[:3]
     packed, checked = [], []
-    for name in ("pack_nodes", "pack_triangles", "pack_cylinders"):
+    for name in ("pack_nodes", "pack_triangles", "pack_cylinders",
+                 "pack_spheres"):
         fn = getattr(bvh, name)
         monkeypatch.setattr(bvh, name, lambda *a, _fn=fn, _n=name: (
             packed.append(_n), _fn(*a))[1])
@@ -678,13 +743,13 @@ def test_walk_layouts_one_per_pool(cuda, walk, monkeypatch):
         checked.append(a[2]), fn(*a))[1])
     monkeypatch.setattr(bvh, "_DERIVED", {})
     with torch.no_grad():
-        for prim in ("tri", "cyl", "tri", "cyl"):
+        for prim in ("tri", "cyl", "sphere") * 2:
             tree = getattr(scene, BVH_OF[prim])
             bvh.bvh_closest_hit(scene, tree, bvh._PRIM_POOL[prim], o, d,
                                 RAY_EPS)
     assert packed == ["pack_nodes", "pack_triangles", "pack_nodes",
-                      "pack_cylinders"]
-    assert checked == ["tri", "cyl"]
+                      "pack_cylinders", "pack_nodes", "pack_spheres"]
+    assert checked == ["tri"]
 
 
 @pytest.mark.gpu

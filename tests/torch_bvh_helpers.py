@@ -199,16 +199,44 @@ def cyl_field(n: int = 1200, seed: int = 6, device="cpu"):
                                             device=device) for x in (o, d))
 
 
+def sphere_field(n: int = 1500, seed: int = 8, device="cpu"):
+    """A field of ``n`` random spheres (radius 0.05-0.25) in front of the
+    origin, each with one of FIELD_MATERIALS, so shadow rays stop early
+    in some walks and multiply fractional factors in others.  Returns
+    (scene, o, d, inside) with 576 rays: 512 from a small box near the
+    origin into the field, and 64 (``inside``, a bool mask) that start
+    at the centres of spheres 0, 7, 14, ... in random directions."""
+    rng = np.random.default_rng(seed)
+    b = SceneBuilder()
+    mats = [b.add_material(transparency=t, emission=e)
+            for t, e in FIELD_MATERIALS]
+    c = rng.uniform(-3.0, 3.0, (n, 3)) + [0.0, 0.0, 8.0]
+    rad = rng.uniform(0.05, 0.25, n)
+    mat = np.asarray(mats)[rng.integers(0, len(mats), n)]
+    for i in range(n):
+        b.add_sphere(c[i], rad[i], mat[i])
+    scene = b.build(device=device)
+    o = rng.uniform(-0.5, 0.5, (512, 3))
+    d = rng.uniform(-3.0, 3.0, (512, 3)) + [0.0, 0.0, 8.0] - o
+    o = np.concatenate([o, c[:7 * 64:7]])
+    d = np.concatenate([d, rng.normal(0.0, 1.0, (64, 3))])
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    inside = torch.arange(576, device=device) >= 512
+    return (scene,) + tuple(torch.as_tensor(x, dtype=torch.float32,
+                                            device=device)
+                            for x in (o, d)) + (inside,)
+
+
 # The far leaf's row that two_leaf_stale moves, and by how much along z.
 STALE_ROW, STALE_DZ = 3, -8.5
 
 
 def add_two_leaves(b, prim: str, m: int):
-    """16 primitives of kind "tri" or "cyl" in two leaves of 8, added to
-    a SceneBuilder (either package's) with material ``m``: the far
-    leaf's (x about -0.5, Morton first) at z 10-11.4, the near leaf's (x
-    about 0.5) at z 5-6.4, each across the rays of two_leaf_rays.  Build
-    with bvh_threshold=16."""
+    """16 primitives of kind "tri", "sphere" or "cyl" in two leaves of 8,
+    added to a SceneBuilder (either package's) with material ``m``: the
+    far leaf's (x about -0.5, Morton first) at z 10-11.4, the near
+    leaf's (x about 0.5) at z 5-6.4, each across the rays of
+    two_leaf_rays.  Build with bvh_threshold=16."""
     z = [10.0 + 0.2 * i for i in range(8)] + [5.0 + 0.2 * i for i in range(8)]
     dx = [0.0] * 8 + [1.0] * 8
     if prim == "tri":
@@ -217,7 +245,10 @@ def add_two_leaves(b, prim: str, m: int):
         b.add_triangles_raw(v[:, 0], v[:, 1], v[:, 2], m)
         return
     for x, zi in zip(dx, z):
-        b.add_cylinder((-1.5 + x, 0.0, zi), (0.5 + x, 0.0, zi), 0.3, m)
+        if prim == "sphere":
+            b.add_sphere((-0.5 + x, 0.0, zi), 0.6, m)
+        else:
+            b.add_cylinder((-1.5 + x, 0.0, zi), (0.5 + x, 0.0, zi), 0.3, m)
 
 
 def two_leaf_rays():
@@ -237,13 +268,16 @@ def stale_shift(n: int = 16):
 
 
 def move_pool(scene, prim: str, shift):
-    """The port's scene with the pool of kind "tri" or "cyl" moved by
-    ``shift`` (N, 3) per row: triangles through with_params (no refit),
-    cylinders through Scene.replace (they are no parameter)."""
+    """The port's scene with the pool of kind ``prim`` moved by ``shift``
+    (N, 3) per row: triangles and spheres through with_params (no
+    refit), cylinders through Scene.replace (they are no parameter)."""
     shift = torch.as_tensor(shift, dtype=torch.float32, device=scene.device)
+    params = scene.params
     if prim == "tri":
-        params = scene.params
         params["vertices"] = tuple(v + shift for v in params["vertices"])
+        return scene.with_params(params)
+    if prim == "sphere":
+        params["sphere_center"] = params["sphere_center"] + shift
         return scene.with_params(params)
     c = scene.cylinders
     return scene.replace(cylinders=c.replace(p0=c.p0 + shift,
