@@ -9,12 +9,15 @@ tensors every kernel wrapper runs its plain PyTorch version.
 
 ``render(scene, camera, cfg, key, spp)`` is the top entry point: ``spp``
 samples averaged, then post-processing.  Random draws take an explicit
-:class:`Key` (``Key.seed(seed, device)``).
+:class:`Key` (``Key.seed(seed, device)``).  :class:`Engine` is the
+progressive, animated shell around it, ``solr_tpu_torch.scenes`` the
+demo gallery and ``python -m solr_tpu_torch.viewer`` the render CLI.
 
 This package imports neither JAX nor ``solr_tpu``.
 """
 
 from solr_tpu_torch.constants import RAY_EPS
+from solr_tpu_torch.engine import Engine
 from solr_tpu_torch.ops.render import render, render_sample
 from solr_tpu_torch.ops.rng import Key
 from solr_tpu_torch.scene import SceneBuilder
@@ -26,7 +29,7 @@ from solr_tpu_torch.types import (BVH, Camera, CameraMode, Cylinders,
                                   TriAccel)
 
 __all__ = [
-    "BVH", "Camera", "CameraMode", "Cylinders", "Ellipsoids", "Key",
+    "BVH", "Camera", "CameraMode", "Cylinders", "Ellipsoids", "Engine", "Key",
     "Lights", "Materials", "PlaneAxis", "Planes", "PostFxConfig",
     "PostFxMode", "ProceduralKind", "RAY_EPS", "RenderConfig", "Scene",
     "SceneBuilder", "SceneInfo", "Spheres", "Textures", "Triangles",

@@ -16,6 +16,10 @@ PAD_ALIGN = 8
 # Primitives per BVH leaf.
 BVH_LEAF_SIZE = 8
 
+# Primitives per packet block of a scene built with the defaults (the
+# reference's SOLR_PACKET_BLOCK default).
+DEFAULT_BLOCK = 256
+
 # Pool codes, in the order traversal visits the pools (a tie across
 # pools goes to the lower code).
 POOL_SPHERE = 0

@@ -28,14 +28,13 @@ from __future__ import annotations
 
 import argparse
 import os
-import struct
 import sys
 import time
-import zlib
 
 import numpy as np
 import torch
 
+from solr_tpu_torch.io.image import save_image
 from solr_tpu_torch.ops.render import render_sample
 from solr_tpu_torch.scene import SceneBuilder
 from solr_tpu_torch.types import Camera, PlaneAxis, ProceduralKind, RenderConfig
@@ -137,23 +136,6 @@ def rgbd_loss(img, depth, target, target_depth, geometry: bool, keep=None):
 def _sync(device):
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
-
-
-def _save_png(path: str, rgb: np.ndarray) -> None:
-    """Write an (H, W, 3) image in [0, 1] as an 8-bit PNG."""
-    h, w, _ = rgb.shape
-    px = (np.clip(rgb, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
-    raw = b"".join(b"\x00" + px[y].tobytes() for y in range(h))
-
-    def chunk(tag, data):
-        return (struct.pack(">I", len(data)) + tag + data
-                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
-
-    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n"
-                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-                + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
 
 
 def _errors(p, true_params, geometry: bool) -> dict:
@@ -283,7 +265,8 @@ def main(argv=None) -> dict:
     with torch.no_grad():
         final_img, _ = render_sample(scene.with_params(p), cam, cfg)
         l_final = float(loss_of(p))
-    _save_png(args.out, final_img[..., :3].float().cpu().numpy())
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    save_image(args.out, final_img[..., :3].float().cpu().numpy())
     summary = dict(loss_start=l_start, loss_final=l_final,
                    loss_drop=l_start / max(l_final, 1e-12),
                    steps=args.steps, start_step=start_step, size=args.size,

@@ -1,8 +1,7 @@
 """The ball-and-stick molecule frame: the reference's ``MoleculeScene``
 with a PDB file (solr_tpu/scenes/gallery.py:149-179, ``load_pdb`` in
 ATOMS_AND_STICKS mode) standing over a reflective heightfield ground
-(the gallery's ``_height_mesh``, gallery.py:829-843), built without the
-reference package.
+(the gallery's ``height_mesh``), built without the reference package.
 
 No PDB file ships with the repository, so ``synthetic_pdb`` writes a
 seeded, protein-like one: a chain of heavy atoms folded into a globule
@@ -21,10 +20,11 @@ import numpy as np
 
 from solr_tpu_torch.io.pdb import GeometryMode, load_pdb
 from solr_tpu_torch.scene import SceneBuilder
+from solr_tpu_torch.scenes.gallery import height_mesh
 from solr_tpu_torch.types import Camera, RenderConfig
 
-__all__ = ["synthetic_pdb", "globule_radius", "height_mesh",
-           "molecule_scene_parts", "molecule_scene"]
+__all__ = ["synthetic_pdb", "globule_radius", "molecule_scene_parts",
+           "molecule_scene"]
 
 BOND = 1.53  # angstroms, a C-C single bond
 # cos and sin of 69 degrees, the turn between successive bonds at a bond
@@ -128,22 +128,12 @@ def synthetic_pdb(n_atoms: int = 100_000, seed: int = 42) -> str:
     return "\n".join(lines) + "\n"
 
 
-def height_mesh(res: int, extent: float, z0: float, y: float):
-    """The ground: a gentle heightfield about height y over
-    x in [-extent, extent], z in [z0, z0 + 2 extent], as the gallery's
-    ``_height_mesh`` lays it out (2 res^2 triangles)."""
-    xs = np.linspace(-extent, extent, res + 1, dtype=np.float32)
-    zs = np.linspace(z0, z0 + 2 * extent, res + 1, dtype=np.float32)
-    xg, zg = np.meshgrid(xs, zs)
-    yg = (y + 0.3 * np.sin(0.45 * xg) * np.cos(0.35 * zg)
-          + 0.1 * np.sin(1.3 * xg + 0.5) * np.sin(1.1 * zg)).astype(np.float32)
-    v = np.stack([xg, yg, zg], -1).reshape(-1, 3)
-    idx = np.arange((res + 1) ** 2).reshape(res + 1, res + 1)
-    q00, q10 = idx[:-1, :-1].ravel(), idx[:-1, 1:].ravel()
-    q01, q11 = idx[1:, :-1].ravel(), idx[1:, 1:].ravel()
-    f = np.concatenate([np.stack([q00, q10, q11], -1),
-                        np.stack([q00, q11, q01], -1)])
-    return v, f
+def _ground_height(y: float):
+    """The ground's gentle height function about height y."""
+    def fn(xg, zg):
+        return (y + 0.3 * np.sin(0.45 * xg) * np.cos(0.35 * zg)
+                + 0.1 * np.sin(1.3 * xg + 0.5) * np.sin(1.1 * zg))
+    return fn
 
 
 def molecule_scene_parts(n_atoms: int = 100_000, ground_res: int = 128,
@@ -151,7 +141,7 @@ def molecule_scene_parts(n_atoms: int = 100_000, ground_res: int = 128,
     """The PDB text, load_pdb settings, ground mesh, materials, light,
     camera and packet settings of the molecule frame."""
     vertices, faces = height_mesh(ground_res, GROUND["extent"], GROUND["z0"],
-                                  GROUND["y"])
+                                  _ground_height(GROUND["y"]))
     return dict(
         pdb=synthetic_pdb(n_atoms, seed),
         load=dict(mode=GeometryMode.ATOMS_AND_STICKS,

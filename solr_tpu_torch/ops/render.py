@@ -13,10 +13,10 @@ from __future__ import annotations
 
 import torch
 
-from solr_tpu_torch.constants import PARK_DIR, PARK_POS, RAY_EPS
+from solr_tpu_torch.constants import DEFAULT_BLOCK, PARK_DIR, PARK_POS, RAY_EPS
 from solr_tpu_torch.ops import textures as tex_ops
 from solr_tpu_torch.ops.camera import camera_rays, eye_rays
-from solr_tpu_torch.ops.packet import tile_permutation
+from solr_tpu_torch.ops.packet import build_tri_accel, tile_permutation
 from solr_tpu_torch.ops.postfx import apply_postfx
 from solr_tpu_torch.ops.shade import phong_shade
 from solr_tpu_torch.ops.traverse import (_spatial_keys, scene_closest_hit,
@@ -164,8 +164,9 @@ def trace_rays_tiled(scene: Scene, o, d, cfg: RenderConfig, key=None):
     the scene and frame allow it, under the reference's condition
     (render.py:273-285): a triangle BVH, ``use_bvh``, traversal "auto"
     or "packet", and whole tiles.  Its sphere and cylinder pools then
-    take packets too.  Otherwise the rays go in pixel order and every
-    accelerated pool takes the per-ray BVH walk."""
+    take packets too, where they have their accelerators.  Otherwise
+    the rays go in pixel order and every accelerated pool takes the
+    per-ray BVH walk."""
     n = o.shape[0]
     if (scene.tri_bvh is None or not cfg.use_bvh
             or cfg.traversal not in ("auto", "packet") or n % cfg.width != 0):
@@ -175,6 +176,12 @@ def trace_rays_tiled(scene: Scene, o, d, cfg: RenderConfig, key=None):
         return trace_rays(scene, o, d, cfg, key)
     spec = (cfg.packet_rays, cfg.packet_max_blocks, cfg.packet_tile_cand,
             cfg.packet_exact)
+    if scene.tri_accel is None:
+        # A triangle BVH without its accelerator (a loaded .irt file):
+        # derived for this frame, as the reference does (ROADMAP C16).
+        with torch.no_grad():
+            scene = scene.replace(tri_accel=build_tri_accel(
+                scene.triangles, scene.materials, DEFAULT_BLOCK))
     perm, inv = tile_permutation(cfg.width, h_loc, cfg.packet_tile_w,
                                  cfg.packet_tile_h)
     perm = torch.as_tensor(perm, device=o.device)

@@ -234,9 +234,9 @@ def _recompute_t(scene: Scene, o, d, pool, idx, t_min):
 def _packet_ok(scene: Scene, code: int, o, packet, bvh) -> bool:
     """Whether the pool takes the packet path, as in the reference: it
     has a BVH (``bvh``, None without one or without use_bvh) and its
-    packet accelerator, and the rays come in whole tiles.  (The
-    reference derives a missing triangle accelerator on the fly; the
-    port's builder and converter always carry one with the BVH.)"""
+    packet accelerator, and the rays come in whole tiles.  (A missing
+    triangle accelerator is derived per frame by
+    ``render.trace_rays_tiled``, as the reference derives it.)"""
     return (bvh is not None and packet is not None
             and _pool_accel(scene, code) is not None
             and o.shape[0] % packet[0] == 0)

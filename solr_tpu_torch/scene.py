@@ -30,7 +30,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from solr_tpu_torch.constants import PAD_ALIGN
+from solr_tpu_torch.constants import DEFAULT_BLOCK, PAD_ALIGN
 from solr_tpu_torch.ops.bvh import build_bvh, morton_codes, morton_order
 from solr_tpu_torch.ops.packet import (build_cyl_accel, build_sph_accel,
                                        build_tri_accel)
@@ -203,7 +203,7 @@ class SceneBuilder:
         mat = self.add_material(color=color, emission=float(intensity))
         return self.add_sphere(position, radius, mat)
 
-    def build(self, block: int = 256, use_bvh: bool = True,
+    def build(self, block: int = DEFAULT_BLOCK, use_bvh: bool = True,
               bvh_threshold: int = 64, device="cuda") -> Scene:
         """Freeze into a Scene on ``device``.  ``block`` is the packet
         accelerators' primitives per block."""

@@ -5,7 +5,8 @@ terrain, 3 bounces, built without the reference package.
 It joins two scenes of the reference's gallery: the glass scene
 (solr_tpu/scenes/gallery.py:299-323: its glass spheres, ellipsoid,
 mirror plane, light and camera) with the terrain scene's heightfield
-mesh (:280-289, ``_height_mesh`` :829, res 96, 18,432 triangles) in
+mesh (:280-289, ``height_mesh`` of solr_tpu_torch.scenes.gallery, res
+96, 18,432 triangles) in
 place of its checker plane.  The mesh starts at z = -10 instead of 5,
 so that it lies under the glass.  Its per-vertex uvs repeat the
 textures ``UV_REPEAT`` times across it.  Seven 256x256 textures, made
@@ -29,6 +30,7 @@ from __future__ import annotations
 import numpy as np
 
 from solr_tpu_torch.scene import SceneBuilder
+from solr_tpu_torch.scenes.gallery import height_mesh
 from solr_tpu_torch.types import (Camera, PlaneAxis, PostFxConfig,
                                   PostFxMode, RenderConfig, SceneInfo)
 
@@ -49,21 +51,12 @@ def _height(x, z):
             + 0.7 * np.sin(x * 1.1 + 2.0) * np.cos(z * 0.9) - 4.0)
 
 
-def _height_mesh(res):
-    """Vertices (V, 3), faces (F, 3) and uvs (V, 2) of the heightfield,
-    as the gallery's ``_height_mesh`` lays it out."""
-    xs = np.linspace(-EXTENT, EXTENT, res + 1, dtype=np.float32)
-    zs = np.linspace(Z0, Z0 + 2 * EXTENT, res + 1, dtype=np.float32)
-    xg, zg = np.meshgrid(xs, zs)
-    yg = _height(xg, zg).astype(np.float32)
-    v = np.stack([xg, yg, zg], -1).reshape(-1, 3)
-    idx = np.arange((res + 1) ** 2).reshape(res + 1, res + 1)
-    q00, q10 = idx[:-1, :-1].ravel(), idx[:-1, 1:].ravel()
-    q01, q11 = idx[1:, :-1].ravel(), idx[1:, 1:].ravel()
-    f = np.concatenate([np.stack([q00, q10, q11], -1),
-                        np.stack([q00, q11, q01], -1)])
-    uv = np.stack([(xg + EXTENT) / (2 * EXTENT),
-                   (zg - Z0) / (2 * EXTENT)], -1).reshape(-1, 2)
+def _terrain_mesh(res):
+    """Vertices (V, 3), faces (F, 3) and uvs (V, 2) of the heightfield
+    (the gallery's ``height_mesh`` of ``_height``)."""
+    v, f = height_mesh(res, EXTENT, Z0, _height)
+    uv = np.stack([(v[:, 0] + EXTENT) / (2 * EXTENT),
+                   (v[:, 2] - Z0) / (2 * EXTENT)], -1)
     return v, f, (uv * UV_REPEAT).astype(np.float32)
 
 
@@ -116,7 +109,7 @@ def textured_scene_parts(seed: int = 0, ground_res: int = 96) -> dict:
     material and mesh, each glass material and sphere, the amber
     material and ellipsoid, the mirror material and plane, the light."""
     rng = np.random.default_rng(seed)
-    vertices, faces, uvs = _height_mesh(ground_res)
+    vertices, faces, uvs = _terrain_mesh(ground_res)
     glass = [dict(color=(0.9, 0.95, 1.0, 1.0), transparency=0.9, ior=ior,
                   specular=0.9, specular_power=60.0) for ior in GLASS_IORS]
     return dict(

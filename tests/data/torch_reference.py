@@ -25,6 +25,12 @@ rendered by ``solr_tpu`` on the CPU:
   ambient occlusion (``image``), once more with FISHEYE
   (``image_fisheye``), and once with a lens (aperture 0.1) and depth of
   field (``image_dof``);
+* ``torch_gallery_ref.npz``: every scene of the gallery
+  (``solr_tpu.scenes.make_scene(name, seed=1)``) at the viewer's
+  settings (3 bounces, mono, no post-processing) at 32x32 (``<name>``),
+  and six of them at 64x64 (``<name>_64``: cornell, terrain, water,
+  metaballs, knot, neuron) for the card's viewer_reference phase; the
+  scenes in GALLERY_OP_BY_OP are rendered op by op (ROADMAP C12);
 * ``torch_grad_ref.npz``: gradients by ``jax.grad`` of ``solr_tpu``
   (float32) for three reduced cases: examples/inverse.py's scene at
   64x64 from its perturbed start (the RGB-D loss over the pixels
@@ -114,6 +120,17 @@ TEXTURED_FOCAL = 7.0
 CORNELL_REF_FILE = os.path.join(HERE, "torch_cornell_ref.npz")
 CORNELL_SIZE = 64
 CORNELL_BOUNCES = 2
+
+
+# The gallery frames (the "gallery" entry).
+GALLERY_REF_FILE = os.path.join(HERE, "torch_gallery_ref.npz")
+GALLERY_SEED = 1
+GALLERY_SIZE = 32
+GALLERY_CARD_SIZE = 64
+GALLERY_CARD_SCENES = ("cornell", "terrain", "water", "metaballs", "knot",
+                       "neuron")
+GALLERY_BOUNCES = 3
+GALLERY_OP_BY_OP = ("knot", "neuron")
 
 
 def pdb_sha256(text: str) -> str:
@@ -568,6 +585,35 @@ def write_textured_ref():
     print(f"wrote {TEXTURED_REF_FILE}")
 
 
+def write_gallery_ref():
+    _setup(256)
+    import jax
+
+    import solr_tpu as st
+    from solr_tpu.scenes import SCENE_REGISTRY, make_scene
+
+    out = {}
+    for name in sorted(SCENE_REGISTRY):
+        demo = make_scene(name, seed=GALLERY_SEED)
+        sizes = [GALLERY_SIZE] + (
+            [GALLERY_CARD_SIZE] if name in GALLERY_CARD_SCENES else [])
+        for size in sizes:
+            cfg = st.RenderConfig(width=size, height=size,
+                                  max_bounces=GALLERY_BOUNCES)
+            img = reference_full_render(demo.scene, demo.camera, cfg,
+                                        jit=name not in GALLERY_OP_BY_OP)
+            assert np.isfinite(img).all()
+            key = name if size == GALLERY_SIZE else f"{name}_{size}"
+            out[key] = img
+            print(f"{key}: digest {float(img.sum())!r}", flush=True)
+    np.savez_compressed(
+        GALLERY_REF_FILE, seed=GALLERY_SEED, size=GALLERY_SIZE,
+        card_size=GALLERY_CARD_SIZE, bounces=GALLERY_BOUNCES,
+        op_by_op=np.asarray(GALLERY_OP_BY_OP, dtype=str),
+        jax_version=jax.__version__, **out)
+    print(f"wrote {GALLERY_REF_FILE}")
+
+
 FRAMES = {
     "bench": write_bench_ref,
     "molecule": write_molecule_ref,
@@ -578,6 +624,7 @@ FRAMES = {
     "stereo": write_stereo_ref,
     "anaglyph": write_anaglyph_ref,
     "textured": write_textured_ref,
+    "gallery": write_gallery_ref,
 }
 
 

@@ -66,7 +66,8 @@ from solr_tpu_torch.ops.render import render, render_sample
 from solr_tpu_torch.ops.rng import Key
 from solr_tpu_torch.ops.traverse import _scene_box, scene_closest_hit
 from solr_tpu_torch.textured_scene import textured_scene
-from solr_tpu_torch.types import CameraMode, PostFxConfig, PostFxMode
+from solr_tpu_torch.types import (CameraMode, PostFxConfig, PostFxMode,
+                                  RenderConfig)
 from solr_tpu_torch.parallel.launch import spawn_group
 from torch_bvh_helpers import (STALE_ROW, cross_leaf_pairs, cyl_field,
                                fractional_materials, near_second_tie_cyl_scene,
@@ -915,3 +916,89 @@ def test_shard_render_two_ranks_share_the_card(cuda):
         np.testing.assert_allclose(img, want, atol=1e-6)
         assert min(launches["sweep_closest"],
                    launches["sweep_transmittance"]) > 0
+
+
+def _viewer_on_card(tmp_path, *flags):
+    """The viewer's default path (the card) at 64x64; returns its image
+    and the launches it made."""
+    from solr_tpu_torch.viewer import _parser, run
+
+    args = _parser().parse_args(["--width", "64", "--height", "64",
+                                 "--seed", "1", "--out",
+                                 str(tmp_path / "v.png"), *flags])
+    before = {**sweep.LAUNCHES, **bvh.LAUNCHES}
+    img = run(args, Key.seed(args.seed, "cuda"))
+    after = {**sweep.LAUNCHES, **bvh.LAUNCHES}
+    return img, {k: after[k] - before[k] for k in after}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["terrain", "knot"])
+def test_viewer_on_card_matches_reference(cuda, tmp_path, name):
+    """A triangle-BVH scene takes B1 and B2; the knot (spheres and
+    cylinders over the BVH threshold, no triangle BVH) walks both pools.
+    Each frame is held to the committed solr_tpu frame at 64x64
+    (tests/data/torch_gallery_ref.npz)."""
+    bvh.build()
+    img, launched = _viewer_on_card(tmp_path, "--scene", name)
+    ref = np.load(os.path.join(DATA, "torch_gallery_ref.npz"))
+    _held(torch.as_tensor(img), ref[f"{name}_64"])
+    if name == "terrain":
+        need = ["sweep_closest", "sweep_transmittance"]
+    else:
+        need = [bvh.kernel_name(e, p) for p in ("sphere", "cyl")
+                for e in bvh.ENTRIES]
+    assert min(launched[k] for k in need) > 0, launched
+
+
+@pytest.mark.gpu
+def test_engine_morphed_frames_on_card(cuda):
+    """Two morphed frames of one Engine walked on the card: each equals
+    the same morph of freshly built scenes, so no packed rows or
+    leaf-box answer of one frame serves the next."""
+    from solr_tpu_torch.engine import Engine, morph_scenes
+    from solr_tpu_torch.scenes import make_scene
+
+    def keys():  # the terrain, and the terrain moved with its tree
+        a = make_scene("terrain", seed=1, device=cuda).scene
+        t, tree = a.triangles, a.tri_bvh
+        return a, a.replace(
+            triangles=t.replace(v0=t.v0 + 0.3, v1=t.v1 + 0.3, v2=t.v2 + 0.3),
+            tri_bvh=tree.replace(aabb_min=tree.aabb_min + 0.3,
+                                 aabb_max=tree.aabb_max + 0.3,
+                                 leaf_center=tree.leaf_center + 0.3),
+            spheres=a.spheres.replace(center=a.spheres.center - 0.2))
+
+    cfg = RenderConfig(width=64, height=48, max_bounces=2, traversal="while")
+    eng = Engine(config=cfg, device=cuda)
+    eng.set_nb_frames(3)
+    eng.set_keyframes(*keys())
+    before = dict(bvh.LAUNCHES)
+    for t in (0.5, 1.0):
+        with torch.no_grad():
+            got, _ = render_sample(eng.next_frame(), eng.camera, cfg)
+            want, _ = render_sample(morph_scenes(*keys(), t), eng.camera, cfg)
+        assert torch.equal(got, want)
+    dfs = bvh.kernel_name("bvh_closest_hit", "tri", dfs=True)
+    assert bvh.LAUNCHES["bvh_closest_hit_tri"] > before["bvh_closest_hit_tri"]
+    assert bvh.LAUNCHES[dfs] == before[dfs]  # the lerped boxes hold
+
+
+@pytest.mark.gpu
+def test_irt_frame_on_card(cuda, tmp_path):
+    """A saved and loaded terrain frame on the card (the triangle
+    accelerator derived per frame, ROADMAP C16) equals the original's."""
+    from solr_tpu_torch.io import load_scene, save_scene
+    from solr_tpu_torch.scenes import make_scene
+
+    demo = make_scene("terrain", seed=1, device=cuda)
+    path = str(tmp_path / "t.irt")
+    save_scene(path, demo.scene, demo.camera)
+    scene, cam = load_scene(path, device=cuda)
+    cfg = RenderConfig(width=64, height=64, max_bounces=2)
+    before = sweep.LAUNCHES["sweep_closest"]
+    with torch.no_grad():
+        got = render_sample(scene, cam, cfg)[0]
+        want = render_sample(demo.scene, demo.camera, cfg)[0]
+    assert sweep.LAUNCHES["sweep_closest"] > before
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)

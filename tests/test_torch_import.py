@@ -26,7 +26,15 @@ def test_imports_with_jax_blocked():
         "solr_tpu_torch.ops.postfx, solr_tpu_torch.ops.rng, "
         "solr_tpu_torch.parallel, solr_tpu_torch.parallel.launch, "
         "solr_tpu_torch.utils.logging, solr_tpu_torch.utils.resumable, "
+        "solr_tpu_torch.utils.profiling, solr_tpu_torch.engine, "
+        "solr_tpu_torch.scenes, solr_tpu_torch.io, solr_tpu_torch.viewer, "
         "chip_smoke\n"
+        "from solr_tpu_torch.viewer import main\n"
+        "import tempfile, os\n"
+        "out = os.path.join(tempfile.mkdtemp(), 'k.png')\n"
+        "main(['--scene', 'knot', '--device', 'cpu', '--width', '16',\n"
+        "      '--height', '16', '--out', out])\n"
+        "assert os.path.getsize(out) > 0\n"
         "from solr_tpu_torch.bench_scene import bench_scene\n"
         "from solr_tpu_torch.ops.render import render_sample\n"
         "s, c, cfg = bench_scene(2000, block=128, width=32, height=32,\n"
