@@ -198,7 +198,28 @@ both started together.  Phases, each of which must pass:
    are reported: a row band regroups the packets, and an edge-grazing
    ray can flip, ROADMAP C13); the same directory run again with
    128-row chunks must start over (ROADMAP C5), held the same way;
-33. ``walk_profiles``: one more frame of 10 and of 19's ``stereo_while``
+33. ``oracle``: BASELINE config #1 (``config1_scene``: the Cornell box of
+   tests/scenes_fixtures.py with eight spheres, built by the port's
+   SceneBuilder) at 256x256, 2 bounces: render_sample on the card, a
+   warm-up and three timed frames, against the port's numpy float64
+   oracle (``solr_tpu_torch.oracle``) on the host by
+   tests/test_render_vs_oracle.py's criterion (RGB within 2e-2 on all
+   but 1% of the pixels, their mean error under 2e-3) and by config
+   #1's own bound (their mean error under 1e-5, the largest under
+   2e-3); frame ms, oracle seconds, outlier share and largest error;
+34. ``native``: the g++ host library (``solr_tpu_torch.native``):
+   ``obj_load`` against ``parse_obj`` on 26's 69,900-triangle OBJ and
+   on a seeded 1M-face OBJ (equal arrays, else the elements and ulps
+   that differ; both parse times), and ``build_bvh`` (the native LBVH)
+   against its numpy plain version ``build_bvh_plain`` over the 999,698
+   triangle AABBs of the bench scene's mesh (equal node arrays and
+   order; both times, twice each);
+35. ``bench_scaling``: ``python -m solr_tpu_torch.bench_scaling`` as a
+   child in its own session, within SCALING_TIMEOUT_S: exit 0, one
+   rays/s point (200k triangles, 256x256) whose frames launch B1 and
+   B2 and no walk, the 8-rank CPU dry run ok, and the fault harness on
+   the card at 48x48 ok, bit-identical, its work preserved;
+36. ``walk_profiles``: one more frame of 10 and of 19's ``stereo_while``
    under torch.profiler, after every timed phase: device kernels per
    frame and the device busy share (device time over the best timed
    frame).
@@ -207,8 +228,9 @@ Every spawned rank or worker must end within CHILD_DEADLINE_S seconds,
 or its phase fails.
 
 Each main path runs with the launch counts set to 0 just before it and
-read just after (28 and 29 in each rank; 23-26 per scene or file); the
-packet paths (4, 7, 16, 19, 28, 29) must launch no walk kernel.  Prints
+read just after (28 and 29 in each rank; 23-26 per scene or file; 35
+in its child); the packet paths (4, 7, 16, 19, 28, 29, 35) must launch
+no walk kernel.  Prints
 each viewer phase's record on a line of its own, the full record of the
 run on one line ("record: {...}"), the kernel table as one JSON line (each kernel's
 time, its plain version's, its bound: the larger of the bytes its
@@ -249,6 +271,19 @@ MOL_GROUND_RES = 128
 MOL_BLOCK = 256
 WALK_WIDTH, WALK_HEIGHT = 1920, 1080
 CORNELL_SIZE = 256
+# BASELINE config #1 and tests/test_render_vs_oracle.py's criterion:
+# RGB within ORACLE_PIX_TOL on all but ORACLE_OUTLIERS of the pixels,
+# and those pixels' mean error under ORACLE_MEAN_TOL.
+CONFIG1_SPHERES = 8
+ORACLE_PIX_TOL = 2e-2
+ORACLE_OUTLIERS = 0.01
+ORACLE_MEAN_TOL = 2e-3
+# Config #1's own bound, ten times past the sound frame's reading at
+# 256x256 on the card (inlier mean 1.9e-7, largest error 2.14e-4; NVIDIA
+# H100 80GB HBM3, 700 W): a frame shaded in half precision, or off by a
+# little everywhere, still meets the criterion above but fails this.
+CONFIG1_MEAN_TOL = 1e-5
+CONFIG1_MAX_TOL = 2e-3
 # BASELINE config #5's single-card frame: 32x8 tiles (tools/stereo_1080p.py).
 STEREO_TILE = (32, 8)
 STEREO_SLOW_S = 60.0
@@ -356,6 +391,13 @@ VIEWER_SWC_SAMPLES = 4_000
 # Timed viewer runs after the warm-up: the record keeps their median and
 # spread (one run is inside the spread of a frame between calls).
 VIEWER_RUNS = 5
+# The native phase's generated OBJ: NATIVE_OBJ_FACES random faces over
+# NATIVE_OBJ_VERTS random vertices, from NATIVE_SEED.
+NATIVE_OBJ_FACES = 1_000_000
+NATIVE_OBJ_VERTS = 500_000
+NATIVE_SEED = 0
+# The scaling harness's own time limit, inside CHILD_DEADLINE_S.
+SCALING_TIMEOUT_S = 480.0
 
 
 def _nvidia_smi() -> str:
@@ -1109,6 +1151,101 @@ def phase_cornell(rec, device):
     scene, cam, cfg = cornell_scene(CORNELL_SIZE, CORNELL_SIZE, BOUNCES,
                                     device=device)
     return phase_path(scene, cam, cfg, rec, "cornell", [])
+
+
+def config1_scene(width, height, device):
+    """(scene, camera, config) of BASELINE config #1, the Cornell box of
+    tests/scenes_fixtures.py (``cornell_box(n_spheres=8)`` and
+    ``cornell_camera``), built by the port's SceneBuilder: five walls,
+    eight spheres whose materials cycle diffuse (seeded colour), mirror
+    and glass, and one emissive light sphere; 2 bounces."""
+    import numpy as np
+
+    from solr_tpu_torch import Camera, PlaneAxis, RenderConfig, SceneBuilder
+
+    rng = np.random.default_rng(7)
+    b = SceneBuilder()
+    white = b.add_material(color=(0.75, 0.75, 0.75, 1.0))
+    red = b.add_material(color=(0.75, 0.15, 0.15, 1.0))
+    green = b.add_material(color=(0.15, 0.75, 0.15, 1.0))
+    b.add_plane(PlaneAxis.XZ, (0, -1, 1), (1, 1), white)
+    b.add_plane(PlaneAxis.XZ, (0, 1, 1), (1, 1), white)
+    b.add_plane(PlaneAxis.YZ, (-1, 0, 1), (1, 1), red)
+    b.add_plane(PlaneAxis.YZ, (1, 0, 1), (1, 1), green)
+    b.add_plane(PlaneAxis.XY, (0, 0, 2), (1, 1), white)
+    for i in range(CONFIG1_SPHERES):
+        if i % 3 == 0:
+            m = b.add_material(color=tuple(rng.uniform(0.2, 0.9, 3)) + (1.0,),
+                               specular=0.4, specular_power=30.0)
+        elif i % 3 == 1:
+            m = b.add_material(color=(0.9, 0.9, 0.9, 1.0), reflection=0.6,
+                               specular=0.8)
+        else:
+            m = b.add_material(color=(0.9, 0.95, 1.0, 1.0), transparency=0.8,
+                               ior=1.5)
+        c = (rng.uniform(-0.6, 0.6, 3) * np.array([1.0, 1.0, 0.5])
+             + np.array([0.0, -0.4, 1.2]))
+        b.add_sphere(tuple(c), float(rng.uniform(0.12, 0.3)), m)
+    b.add_light((0.0, 0.85, 1.0), color=(1.0, 1.0, 0.95, 1.0), intensity=1.0,
+                radius=0.1)
+    cam = Camera.create(position=(0.0, 0.0, -1.6), fov=1.1, device=device)
+    cfg = RenderConfig(width=width, height=height, max_bounces=BOUNCES)
+    return b.build(device=device), cam, cfg
+
+
+def oracle_mismatch(img, ref):
+    """tests/test_render_vs_oracle.py's criterion as numbers: the share
+    of pixels whose RGB is off by more than ORACLE_PIX_TOL, the mean
+    error of the others, and the largest error."""
+    import numpy as np
+
+    err = np.abs(np.asarray(img, np.float64)[..., :3]
+                 - np.asarray(ref, np.float64)[..., :3]).max(-1)
+    inlier = err <= ORACLE_PIX_TOL
+    return dict(finite=bool(np.isfinite(img).all()),
+                outlier_share=float(1.0 - inlier.mean()),
+                inlier_mean=float(err[inlier].mean()) if inlier.any()
+                else float("inf"),
+                max_abs_err=float(err.max()))
+
+
+def oracle_holds(m) -> bool:
+    """The oracle criterion, and config #1's own bound."""
+    criterion = (m["finite"] and m["outlier_share"] < ORACLE_OUTLIERS
+                 and m["inlier_mean"] < ORACLE_MEAN_TOL)
+    return (criterion and m["inlier_mean"] < CONFIG1_MEAN_TOL
+            and m["max_abs_err"] < CONFIG1_MAX_TOL)
+
+
+def phase_oracle(rec, device):
+    """BASELINE config #1 at 256x256, 2 bounces: render_sample on the
+    card (a warm-up and three timed frames) held to the port's numpy
+    float64 oracle on the host by the oracle criterion."""
+    import torch
+
+    from solr_tpu_torch.oracle import oracle_render
+    from solr_tpu_torch.ops.render import render_sample
+
+    scene, cam, cfg = config1_scene(CORNELL_SIZE, CORNELL_SIZE, device)
+    with torch.no_grad():
+        img = render_sample(scene, cam, cfg)[0]
+        _sync(device)
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            img = render_sample(scene, cam, cfg)[0]
+            _sync(device)
+            times.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    ref = oracle_render(scene, cam, cfg)
+    oracle_s = time.perf_counter() - t0
+    m = oracle_mismatch(img.cpu().numpy(), ref)
+    rec["oracle"] = r = dict(width=cfg.width, height=cfg.height,
+                             bounces=cfg.max_bounces, frame_ms=min(times),
+                             frames_ms=times, oracle_s=oracle_s, **m)
+    print(f"oracle: {json.dumps(r)}", flush=True)
+    if not oracle_holds(m):
+        raise AssertionError(f"config #1 off its oracle: {r}")
 
 
 def _stereo_cfg(cfg, width=WALK_WIDTH, height=WALK_HEIGHT):
@@ -2049,6 +2186,165 @@ def phase_resumable(scenes, rec, device):
         raise AssertionError(f"resumable: {r}")
 
 
+def _write_big_obj(directory):
+    """NATIVE_OBJ_VERTS seeded float32 vertices written with %.9g (each
+    parses back to itself exactly) and NATIVE_OBJ_FACES seeded faces."""
+    import numpy as np
+
+    rng = np.random.default_rng(NATIVE_SEED)
+    v = rng.normal(size=(NATIVE_OBJ_VERTS, 3)).astype(np.float32)
+    f = rng.integers(1, NATIVE_OBJ_VERTS + 1, (NATIVE_OBJ_FACES, 3))
+    path = os.path.join(directory, "big.obj")
+    with open(path, "w") as fh:
+        fh.writelines("v %.9g %.9g %.9g\n" % tuple(p) for p in v.tolist())
+        fh.writelines("f %d %d %d\n" % tuple(t) for t in f.tolist())
+    return path
+
+
+def _parse_both(path):
+    """(native.obj_load's and parse_obj's outputs, their seconds, the
+    arrays that differ with the float elements off and their largest
+    ulp distance)."""
+    import numpy as np
+
+    from solr_tpu_torch import native
+    from solr_tpu_torch.io.obj import parse_obj
+
+    t0 = time.perf_counter()
+    fast = native.obj_load(path)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain = parse_obj(path)
+    plain_s = time.perf_counter() - t0
+    differ = {}
+    for k, want in plain.items():
+        got = fast[k]
+        if isinstance(want, list):
+            if got != want:
+                differ[k] = "differs"
+        elif got.shape != want.shape or got.dtype != want.dtype:
+            differ[k] = f"{got.shape} {got.dtype} != {want.shape} {want.dtype}"
+        elif not np.array_equal(got, want):
+            off = got != want
+            entry = {"elements": int(off.sum())}
+            if got.dtype == np.float32:
+                ulp = np.abs(got[off].view(np.int32).astype(np.int64)
+                             - want[off].view(np.int32).astype(np.int64))
+                entry["max_ulp"] = int(ulp.max())
+            differ[k] = entry
+    return native_s, plain_s, differ
+
+
+def phase_native(rec):
+    """The native host library (g++): native.obj_load against parse_obj
+    on the viewer's 69,900-triangle OBJ and on a generated 1M-face OBJ
+    (equal arrays; both parse times), and build_bvh (the native LBVH)
+    against its numpy plain version over the bench scene's triangle
+    AABBs (equal node arrays and order; both times; the AABBs from
+    native.triangle_aabbs equal numpy's min and max)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from solr_tpu_torch import native
+    from solr_tpu_torch.bench_scene import bench_scene_arrays
+    from solr_tpu_torch.ops.bvh import build_bvh, build_bvh_plain
+
+    out = {}
+    t0 = time.perf_counter()
+    native.load_library()
+    out["build_s"] = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(prefix="solr_native_") as tmp:
+        standin, n_tris = _write_obj(tmp)
+        t0 = time.perf_counter()
+        big = _write_big_obj(tmp)
+        write_s = time.perf_counter() - t0
+        for name, path, faces in (("obj_standin", standin, n_tris),
+                                  ("obj_1m", big, NATIVE_OBJ_FACES)):
+            native_s, plain_s, differ = _parse_both(path)
+            out[name] = dict(faces=faces, bytes=os.path.getsize(path),
+                             native_s=native_s, parse_obj_s=plain_s,
+                             speedup=plain_s / native_s, differ=differ)
+        out["obj_1m"]["write_s"] = write_s
+
+    a = bench_scene_arrays(N_TRIS)
+    tri = a["vertices"][a["faces"]]
+    t0 = time.perf_counter()
+    amin, amax = native.triangle_aabbs(tri[:, 0], tri[:, 1], tri[:, 2])
+    aabb_s = time.perf_counter() - t0
+    aabbs_equal = bool(np.array_equal(amin, tri.min(1))
+                       and np.array_equal(amax, tri.max(1)))
+    times, built = {}, {}
+    builders = {"numpy": build_bvh_plain, "native": build_bvh}
+    for name in ("numpy", "native", "native", "numpy"):
+        t0 = time.perf_counter()
+        built[name] = builders[name](amin, amax, device="cpu")
+        times.setdefault(name, []).append(time.perf_counter() - t0)
+    (b_np, o_np), (b_nat, o_nat) = built["numpy"], built["native"]
+    fields = [f.name for f in dataclasses.fields(b_np)]
+    differing = [k for k in fields if not (
+        torch.equal(getattr(b_np, k), getattr(b_nat, k))
+        if isinstance(getattr(b_np, k), torch.Tensor)
+        else getattr(b_np, k) == getattr(b_nat, k))]
+    out["lbvh"] = dict(
+        triangles=int(amin.shape[0]), nodes=int(b_np.n_nodes),
+        numpy_s=times["numpy"], native_s=times["native"],
+        speedup=min(times["numpy"]) / min(times["native"]),
+        order_equal=bool(np.array_equal(o_np, o_nat)),
+        arrays_differing=differing, triangle_aabbs_s=aabb_s,
+        triangle_aabbs_equal=aabbs_equal)
+    rec["native"] = out
+    print(f"native: {json.dumps(out)}", flush=True)
+    if (out["obj_standin"]["differ"] or out["obj_1m"]["differ"] or differing
+            or not out["lbvh"]["order_equal"] or not aabbs_equal):
+        raise AssertionError(f"native: {out}")
+
+
+def phase_bench_scaling(rec):
+    """``python -m solr_tpu_torch.bench_scaling`` at its defaults (200k
+    triangles, 256x256, 2 bounces) as a child with a time limit of its
+    own: exit 0, one rays/s point whose frames launched B1 and B2 and no
+    walk, the CPU dry run ok, and the fault harness (--res 48, on the
+    card) ok, bit-identical and with its work preserved."""
+    import signal
+
+    t0 = time.perf_counter()
+    # Its own session, so that a child past its limit is ended with
+    # every process it started (ranks, fault-harness hosts).
+    child = subprocess.Popen([sys.executable, "-m",
+                              "solr_tpu_torch.bench_scaling"], cwd=ROOT,
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                             text=True, start_new_session=True)
+    try:
+        stdout, stderr = child.communicate(timeout=SCALING_TIMEOUT_S)
+    finally:
+        if child.poll() is None:
+            os.killpg(child.pid, signal.SIGKILL)
+            child.communicate()
+    child_s = time.perf_counter() - t0
+    try:
+        out = json.loads(stdout.strip().splitlines()[-1])
+    except (IndexError, ValueError):
+        raise AssertionError(f"bench_scaling printed no record (exit "
+                             f"{child.returncode}):\n{stderr[-3000:]}")
+    out.update(exit_code=child.returncode, child_s=child_s)
+    rec["bench_scaling"] = out
+    print(f"bench_scaling: {json.dumps(out)}", flush=True)
+    points = out["points"]
+    launched = points[0].get("launches", {}) if points else {}
+    vm, fi = out.get("virtual_multihost", {}), out.get("fault_injection", {})
+    if (child.returncode != 0 or len(points) != 1
+            or not all(launched.get(k, 0) > 0
+                       for k in ("sweep_closest", "sweep_transmittance"))
+            or any(k.startswith("bvh_") for k in launched)
+            or vm.get("host_chip_dryrun_ok") is not True
+            or not all(fi.get(k) is True for k in (
+                "fault_injection_ok", "bit_identical_to_uninterrupted",
+                "work_preserved"))):
+        raise AssertionError(f"bench_scaling: {out}\n{stderr[-3000:]}")
+
+
 def phase_walk_profiles(scenes, rec):
     """One more frame of ``walk_path`` and of ``stereo_while`` under
     torch.profiler, last, so that no profiler session runs before a
@@ -2640,6 +2936,9 @@ def main() -> int:
         ("parallel_nccl", lambda: phase_parallel_nccl(scenes, rec, par, images,
                                                       device)),
         ("resumable", lambda: phase_resumable(scenes, rec, device)),
+        ("oracle", lambda: phase_oracle(rec, device)),
+        ("native", lambda: phase_native(rec)),
+        ("bench_scaling", lambda: phase_bench_scaling(rec)),
         ("walk_profiles", lambda: phase_walk_profiles(scenes, rec)),
     )
     rec["phase_s"] = {}

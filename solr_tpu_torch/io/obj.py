@@ -1,16 +1,18 @@
 """Wavefront OBJ + MTL import (counterpart of solr_tpu/io/obj.py).
 
-One parser, in Python and numpy, with the output of the reference's
-default parser (its native one, ``solr_tpu.native.obj_load`` feeding
-``_emit_parsed``): polygons fan-triangulate, indices resolve 1-based
-and negative ones against the elements read so far, faces group by
-``usemtl`` slot (slots numbered by first appearance of each material
-name, faces before any ``usemtl`` taking the default material), and
-each group becomes one bulk triangle block, in slot order, with the
-group's normals and uvs when its first face carries them.  The model is
-centred on its bounding box and, with ``scale``, scaled so that its
-largest |coordinate| is ``scale``.  MTL materials come first, with
-``map_Kd`` and the other maps loaded through ``add_texture``.
+``load_obj`` parses geometry with the native C++ parser
+(``solr_tpu_torch.native.obj_load``), as the reference does by default;
+``parse_obj`` is its plain Python and numpy version, with the same
+output, which the tests hold the native parser to.  Polygons
+fan-triangulate, indices resolve 1-based and negative ones against the
+elements read so far, faces group by ``usemtl`` slot (slots numbered by
+first appearance of each material name, faces before any ``usemtl``
+taking the default material), and each group becomes one bulk triangle
+block, in slot order, with the group's normals and uvs when its first
+face carries them.  The model is centred on its bounding box and, with
+``scale``, scaled so that its largest |coordinate| is ``scale``.  MTL
+materials come first, with ``map_Kd`` and the other maps loaded through
+``add_texture``.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from typing import Dict, Optional
 
 import numpy as np
 
+from solr_tpu_torch import native
 from solr_tpu_torch.io.image import load_image
 
 __all__ = ["load_obj", "parse_mtl", "parse_obj"]
@@ -112,7 +115,8 @@ def _floats(rows, width: int) -> np.ndarray:
 
 
 def parse_obj(path: str) -> dict:
-    """The geometry of an OBJ file: ``v`` (nv, 3), ``vt`` (nvt, 2) and
+    """The geometry of an OBJ file, parsed in Python (the plain version
+    of ``native.obj_load``): ``v`` (nv, 3), ``vt`` (nvt, 2) and
     ``vn`` (nvn, 3) float32; per triangle ``f_v``, ``f_vt``, ``f_vn``
     (ntris, 3) int32, 0-based, -1 where absent, and ``f_slot`` (ntris,)
     int32 (-1 before any usemtl); ``mtllibs`` and the slot-ordered
@@ -163,8 +167,9 @@ def load_obj(path: str, builder, material: Optional[int] = None,
              load_materials: bool = True):
     """Import an OBJ file into ``builder``; returns the first triangle
     id, or None for a file without vertices.  ``material`` overrides the
-    MTL materials when given."""
-    parsed = parse_obj(path)
+    MTL materials when given.  The geometry is parsed by
+    ``native.obj_load``."""
+    parsed = native.obj_load(path)
     obj_dir = os.path.dirname(os.path.abspath(path))
     v = parsed["v"]
     if v.shape[0] == 0:

@@ -3,9 +3,10 @@ solr_tpu/ops/bvh.py).
 
 The BVH is a median-split tree over a Morton-ordered pool, flattened in
 DFS preorder with skip pointers: a ray that hits node i goes on to
-i + 1, one that misses jumps to ``skip[i]``.  It is built on the host in
-numpy (``build_bvh``, the reference's numpy path, whose node arrays its
-native builder reproduces) and refitted on the device (``bvh_refit``).
+i + 1, one that misses jumps to ``skip[i]``.  It is built on the host by
+the C++ builder of ``solr_tpu_torch.native`` (``build_bvh``, the
+reference's default; its plain version ``build_bvh_plain`` builds the
+same node arrays in numpy) and refitted on the device (``bvh_refit``).
 
 Two walks, each with a plain PyTorch version and a wrapper, for the
 sphere, triangle and cylinder pools:
@@ -68,6 +69,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from solr_tpu_torch import native
 from solr_tpu_torch.constants import (BVH_LEAF_SIZE, INTERSECT_EPS,
                                       POOL_CYLINDER, POOL_SPHERE,
                                       POOL_TRIANGLE, T_FAR)
@@ -80,6 +82,7 @@ __all__ = [
     "PRIMS",
     "build",
     "build_bvh",
+    "build_bvh_plain",
     "bvh_closest_hit",
     "bvh_closest_hit_ordered_plain",
     "bvh_closest_hit_plain",
@@ -205,16 +208,32 @@ def _preorder_ranges(n: int, leaf_size: int):
     return starts, ends, skips, depths
 
 
+def _check_aabbs(aabb_min, aabb_max):
+    aabb_min = np.asarray(aabb_min, np.float32)
+    aabb_max = np.asarray(aabb_max, np.float32)
+    if aabb_min.shape[0] == 0:
+        raise ValueError("cannot build a BVH over 0 primitives")
+    return aabb_min, aabb_max
+
+
 def build_bvh(aabb_min, aabb_max, leaf_size: int = BVH_LEAF_SIZE,
               device="cuda"):
     """Build the median-split BVH over primitives given their AABBs
-    (N, 3), on the host.  Returns (bvh with tensors on ``device``,
-    order): leaf ranges index the reordered pool ``pool[order]``."""
-    aabb_min = np.asarray(aabb_min, np.float32)
-    aabb_max = np.asarray(aabb_max, np.float32)
+    (N, 3), on the host, with the C++ builder of
+    ``solr_tpu_torch.native`` (compiled at first use; raises when it
+    cannot be).  Returns (bvh with tensors on ``device``, order): leaf
+    ranges index the reordered pool ``pool[order]``."""
+    aabb_min, aabb_max = _check_aabbs(aabb_min, aabb_max)
+    order, *nodes = native.lbvh_build(aabb_min, aabb_max, leaf_size)
+    return _assemble_bvh(*nodes, leaf_size, device), order
+
+
+def build_bvh_plain(aabb_min, aabb_max, leaf_size: int = BVH_LEAF_SIZE,
+                    device="cuda"):
+    """The plain version of ``build_bvh``: the same BVH and order, built
+    in numpy (the reference's numpy path)."""
+    aabb_min, aabb_max = _check_aabbs(aabb_min, aabb_max)
     n = aabb_min.shape[0]
-    if n == 0:
-        raise ValueError("cannot build a BVH over 0 primitives")
     order = morton_order(aabb_min, aabb_max)
     smin, smax = aabb_min[order], aabb_max[order]
     starts, ends, skips, depths = _preorder_ranges(n, leaf_size)

@@ -39,15 +39,14 @@ and live (S, SB); SB / G must be 32 for the kernels.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
 import shutil
-import subprocess
 import threading
 from pathlib import Path
 
 import torch
 
+from solr_tpu_torch import native
 from solr_tpu_torch.constants import T_FAR
 from solr_tpu_torch.ops.packet import PRIM_T, STRIP, _masked_max
 
@@ -87,7 +86,6 @@ LAUNCHES = {kernel_name(e, p): 0 for p in PRIMS
             for e in ("sweep_closest", "sweep_transmittance")}
 
 _SRC = Path(__file__).resolve().parents[1] / "csrc" / "sweep.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "solr_tpu_torch"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "--fmad=false",
     "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
@@ -209,25 +207,15 @@ def _nvcc() -> str:
 def compile_library(src: bytes, stem: str = "libsolr_sweep",
                     verbose: bool = False):
     """Compile the CUDA source ``src`` for sm_90a into
-    ``build/solr_tpu_torch/{stem}_{hash}.so``, unless it is there.
-    Returns (path, the compiler's output or '')."""
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = _BUILD_DIR / f"{stem}_{tag}.so"
-    if out.exists():
-        return out, ""
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = out.with_suffix(f".{os.getpid()}.cu")
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cu.write_bytes(src)
-    cmd = [_nvcc()] + NVCC_FLAGS + (["-Xptxas", "-v"] if verbose else []) \
-        + ["-o", str(tmp), str(cu)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    cu.unlink()
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           f"{res.stdout}\n{res.stderr}")
-    os.replace(tmp, out)
-    return out, res.stdout + res.stderr
+    ``build/solr_tpu_torch/{stem}_{hash}.so``, unless it is there
+    (``native.cached_build``).  Returns (path, the compiler's output or
+    '')."""
+    return native.cached_build(
+        stem, src + " ".join(NVCC_FLAGS).encode(),
+        lambda out, srcs: [_nvcc(), *NVCC_FLAGS,
+                           *(["-Xptxas", "-v"] if verbose else []),
+                           "-o", str(out), *map(str, srcs)],
+        sources=[(".cu", src)])
 
 
 def load_library(path):

@@ -79,14 +79,16 @@ def _random_aabbs(n):
 @pytest.mark.parametrize("backend", ["numpy", "auto"])
 @pytest.mark.parametrize("case", ["1", "9", "17", "777", "terrain"])
 def test_build_matches_reference(case, backend):
-    """Node arrays and order equal to both reference builders ("auto"
+    """Node arrays and order of the port's builder (native) and of its
+    plain version (numpy) equal to both reference builders ("auto"
     takes its native LBVH)."""
     amin, amax = _terrain_aabbs() if case == "terrain" else _random_aabbs(
         int(case))
     ref, ref_order = jbvh.build_bvh(amin, amax, 8, backend=backend)
-    port, order = bvh.build_bvh(amin, amax, 8, device="cpu")
-    np.testing.assert_array_equal(order, ref_order)
-    _assert_same_bvh(port, ref)
+    for build in (bvh.build_bvh, bvh.build_bvh_plain):
+        port, order = build(amin, amax, 8, device="cpu")
+        np.testing.assert_array_equal(order, ref_order)
+        _assert_same_bvh(port, ref)
 
 
 def _scenes(kind, f64=False, ties=False):

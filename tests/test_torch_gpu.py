@@ -32,6 +32,8 @@ plain, with the fisheye and with a lens and depth of field; the
 textured frame with a key (soft shadows, jitter, 2 samples) renders
 finite on the card.  ``shard_render`` over two gloo ranks sharing the
 card equals the one-process frame, with B1 and B2 launched in both.
+BASELINE config #1 at 64x64 on the card holds to the port's numpy
+oracle.
 
 These need a CUDA card and nvcc; without a card they skip.  The file
 imports neither JAX nor solr_tpu, so it runs where only PyTorch is
@@ -1002,3 +1004,24 @@ def test_irt_frame_on_card(cuda, tmp_path):
         want = render_sample(demo.scene, demo.camera, cfg)[0]
     assert sweep.LAUNCHES["sweep_closest"] > before
     torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_config1_on_card_matches_oracle(cuda):
+    """BASELINE config #1 (chip_smoke.py's config1_scene: the Cornell box
+    with eight spheres) at 64x64 on the card, held to the port's numpy
+    float64 oracle by tests/test_render_vs_oracle.py's criterion."""
+    import importlib.util
+
+    from solr_tpu_torch.oracle import oracle_render
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        "chip_smoke.py"))
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    scene, cam, cfg = chip_smoke.config1_scene(64, 64, cuda)
+    with torch.no_grad():
+        img = render_sample(scene, cam, cfg)[0].cpu().numpy()
+    m = chip_smoke.oracle_mismatch(img, oracle_render(scene, cam, cfg))
+    assert chip_smoke.oracle_holds(m), m

@@ -28,6 +28,8 @@ def test_imports_with_jax_blocked():
         "solr_tpu_torch.utils.logging, solr_tpu_torch.utils.resumable, "
         "solr_tpu_torch.utils.profiling, solr_tpu_torch.engine, "
         "solr_tpu_torch.scenes, solr_tpu_torch.io, solr_tpu_torch.viewer, "
+        "solr_tpu_torch.oracle, solr_tpu_torch.native, "
+        "solr_tpu_torch.fault_injection, solr_tpu_torch.bench_scaling, "
         "chip_smoke\n"
         "from solr_tpu_torch.viewer import main\n"
         "import tempfile, os\n"
