@@ -219,7 +219,20 @@ both started together.  Phases, each of which must pass:
    rays/s point (200k triangles, 256x256) whose frames launch B1 and
    B2 and no walk, the 8-rank CPU dry run ok, and the fault harness on
    the card at 48x48 ok, bit-identical, its work preserved;
-36. ``walk_profiles``: one more frame of 10 and of 19's ``stereo_while``
+36. ``bench``: the port's headline benchmark.  First its packet
+   diagnostics (``bench.packet_diagnostics``: B1 must launch) and frame
+   digest on the card at the reduced settings of
+   tests/data/torch_bench_diag_ref.json (2,000 triangles, 32x32, BLOCK
+   64, with the bench's list widths and with narrow ones), held to
+   bench.py's on the CPU (``bench.diagnostics_mismatch``; the digest
+   within 1e-5).  Then ``python -m solr_tpu_torch.bench`` at its defaults
+   (the bench frame: 1M triangles, 512x512, 2 bounces; both paths, each
+   in a child of its own) as a child in its own session, within
+   BENCH_TIMEOUT_S: exit 0, a summary line with BENCH_KEYS, the packet
+   path's timed frames launching B1 and B2 and no walk, the while path's
+   the triangle walks and no sweep, the packet digest equal to 4's, the
+   two paths' digests within 1e-3;
+37. ``walk_profiles``: one more frame of 10 and of 19's ``stereo_while``
    under torch.profiler, after every timed phase: device kernels per
    frame and the device busy share (device time over the best timed
    frame).
@@ -229,8 +242,8 @@ or its phase fails.
 
 Each main path runs with the launch counts set to 0 just before it and
 read just after (28 and 29 in each rank; 23-26 per scene or file; 35
-in its child); the packet paths (4, 7, 16, 19, 28, 29, 35) must launch
-no walk kernel.  Prints
+in its child; 36 in each path's child, around its timed frames); the
+packet paths (4, 7, 16, 19, 28, 29, 35, 36) must launch no walk kernel.  Prints
 each viewer phase's record on a line of its own, the full record of the
 run on one line ("record: {...}"), the kernel table as one JSON line (each kernel's
 time, its plain version's, its bound: the larger of the bytes its
@@ -398,15 +411,18 @@ NATIVE_OBJ_VERTS = 500_000
 NATIVE_SEED = 0
 # The scaling harness's own time limit, inside CHILD_DEADLINE_S.
 SCALING_TIMEOUT_S = 480.0
-
-
-def _nvidia_smi() -> str:
-    res = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvidia-smi failed: {res.stderr.strip()}")
-    return res.stdout.strip().splitlines()[0]
+# The bench phase: the reduced diagnostics' reference (bench.py on the
+# CPU, tests/data/torch_reference.py bench_diag), the digest's tolerance
+# there (as in tests/test_torch_bench.py), the full run's time limit and
+# the keys its summary line must carry.
+BENCH_DIAG_REF = os.path.join(ROOT, "tests", "data", "torch_bench_diag_ref.json")
+BENCH_DIGEST_RTOL = 1e-5
+BENCH_TIMEOUT_S = 480.0
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "frame_ms",
+              "frame_ms_mean", "frame_ms_runs", "warmup_s", "scene_build_s",
+              "device", "digest", "launches", "packet", "net", "paths",
+              "path_digest_rel_diff", "best_prev_rays_s",
+              "regression_vs_best_prev")
 
 
 def _reaches_roots(prim, o, d, w):
@@ -2345,6 +2361,104 @@ def phase_bench_scaling(rec):
         raise AssertionError(f"bench_scaling: {out}\n{stderr[-3000:]}")
 
 
+def _bench_reduced(device):
+    """The port's packet diagnostics and frame digest on the card at the
+    reduced settings of BENCH_DIAG_REF, for each of its cases, held to
+    bench.py's (``bench.diagnostics_mismatch``; the digest within
+    BENCH_DIGEST_RTOL); B1 must launch in the diagnostics."""
+    import torch
+
+    from solr_tpu_torch import bench
+    from solr_tpu_torch.ops import sweep
+    from solr_tpu_torch.ops.render import render_sample
+
+    with open(BENCH_DIAG_REF) as f:
+        ref = json.load(f)
+    st = ref["settings"]
+    flags = [x for k, v in st.items() for x in (f"--{k.replace('_', '-')}",
+                                                str(v))]
+    out, bad = {}, []
+    for case, want in ref["cases"].items():
+        args = bench.parse_args(flags + ["--k", str(want["k"]),
+                                         "--kt", str(want["kt"])])
+        scene, cam, cfg = bench.build_scene(args, device=device)
+        _reset_counts()
+        got = bench.packet_diagnostics(scene, cam, cfg)
+        b1 = sweep.LAUNCHES["sweep_closest"]
+        with torch.no_grad():
+            digest = float(render_sample(scene, cam, cfg)[0].double().sum())
+        mismatch = bench.diagnostics_mismatch(got, want["packet"],
+                                              st["width"] * st["height"])
+        digest_rel = abs(digest - want["digest"]) / abs(want["digest"])
+        out[case] = dict(k=want["k"], kt=want["kt"], packet=got,
+                         ref_packet=want["packet"], mismatch=mismatch,
+                         digest=digest, ref_digest=want["digest"],
+                         digest_rel_diff=digest_rel, b1_launches=b1)
+        if mismatch or b1 <= 0 or not digest_rel <= BENCH_DIGEST_RTOL:
+            bad.append(case)
+    return out, bad
+
+
+def phase_bench(rec, device):
+    """The reduced diagnostics (``_bench_reduced``), then ``python -m
+    solr_tpu_torch.bench`` at its defaults as a child in its own session,
+    within BENCH_TIMEOUT_S: exit 0, its summary line with BENCH_KEYS, the
+    packet path launching B1 and B2 and no walk, the while path the
+    triangle walks and no sweep, the packet digest equal to
+    ``main_path``'s (the same frame), the two digests within 1e-3."""
+    import signal
+
+    import torch
+
+    from solr_tpu_torch import bench
+    from solr_tpu_torch.ops import bvh
+
+    reduced, bad = _bench_reduced(device)
+    torch.cuda.empty_cache()  # the child's frames need the card's memory
+    t0 = time.perf_counter()
+    child = subprocess.Popen([sys.executable, "-m", "solr_tpu_torch.bench"],
+                             cwd=ROOT, stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True,
+                             start_new_session=True)
+    try:
+        stdout, stderr = child.communicate(timeout=BENCH_TIMEOUT_S)
+    finally:
+        if child.poll() is None:
+            os.killpg(child.pid, signal.SIGKILL)
+            child.communicate()
+    child_s = time.perf_counter() - t0
+    try:
+        out = json.loads(stdout.strip().splitlines()[-1])
+    except (IndexError, ValueError):
+        raise AssertionError(f"bench printed no record (exit "
+                             f"{child.returncode}):\n{stderr[-3000:]}")
+    rec["bench"] = dict(reduced=reduced, exit_code=child.returncode,
+                        child_s=child_s, summary=out)
+    print(f"bench: {json.dumps(rec['bench'])}", flush=True)
+    paths = out.get("paths", {})
+    tri_walks = {bvh.kernel_name(e, "tri") for e in bvh.ENTRIES}
+    launched = {p: paths.get(p, {}).get("launches", {}) for p in
+                bench.TRAVERSALS}
+    main_digest = rec.get("main_path", {}).get("digest")
+    problems = [f"reduced diagnostics differ: {c}" for c in bad]
+    if child.returncode != 0 or set(paths) != set(bench.TRAVERSALS):
+        problems.append("the run failed")
+    else:
+        if set(launched["packet"]) != {"sweep_closest", "sweep_transmittance"}:
+            problems.append(f"packet path launched {launched['packet']}")
+        if set(launched["while"]) != tri_walks:
+            problems.append(f"while path launched {launched['while']}")
+        if paths["packet"]["digest"] != main_digest:
+            problems.append(f"packet digest {paths['packet']['digest']!r} "
+                            f"is not main_path's {main_digest!r}")
+        missing = [k for k in BENCH_KEYS if k not in out]
+        if missing or not out["path_digest_rel_diff"] <= bench.DIGEST_RTOL:
+            problems.append(f"summary keys missing {missing}, or digests "
+                            "disagree")
+    if problems:
+        raise AssertionError(f"bench: {problems}\n{stderr[-3000:]}")
+
+
 def phase_walk_profiles(scenes, rec):
     """One more frame of ``walk_path`` and of ``stereo_while`` under
     torch.profiler, last, so that no profiler session runs before a
@@ -2819,10 +2933,11 @@ def main() -> int:
     from solr_tpu_torch.kernel_shapes import ptxas_usage
     from solr_tpu_torch.molecule_scene import molecule_scene
     from solr_tpu_torch.ops import bvh, sweep
+    from solr_tpu_torch.utils.card import card_name
 
     t_start = time.time()
     device = torch.device("cuda:0")
-    smi = _nvidia_smi()
+    smi = card_name(device)
     rec = {"nvidia_smi": smi, "torch": torch.__version__,
            "cuda": torch.version.cuda, "kernels": [], "walk_kernels": [],
            "failed": []}
@@ -2939,6 +3054,7 @@ def main() -> int:
         ("oracle", lambda: phase_oracle(rec, device)),
         ("native", lambda: phase_native(rec)),
         ("bench_scaling", lambda: phase_bench_scaling(rec)),
+        ("bench", lambda: phase_bench(rec, device)),
         ("walk_profiles", lambda: phase_walk_profiles(scenes, rec)),
     )
     rec["phase_s"] = {}
@@ -2960,7 +3076,7 @@ def main() -> int:
         return 1
 
     print(json.dumps({"kernels": _kernel_table(rec, paths)}))
-    print(_nvidia_smi())
+    print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -36,7 +36,6 @@ import concurrent.futures
 import itertools
 import json
 import re
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -50,6 +49,7 @@ from solr_tpu_torch.kernel_shapes import (fractional, primary_tiles,
 from solr_tpu_torch.molecule_scene import molecule_scene
 from solr_tpu_torch.ops import sweep
 from solr_tpu_torch.ops.traverse import scene_closest_hit
+from solr_tpu_torch.utils.card import card_name
 
 # The steps in the order the design was chosen: (name, constants that
 # differ from the shipped source, (shipped text, its replacement) pairs).
@@ -207,9 +207,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("sweep_steps: no CUDA device visible", file=sys.stderr)
         return 2
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True).stdout.strip()
+    smi = card_name("cuda:0")
 
     src = sweep._SRC.read_text()
     variants = [("0 parent", Path(a.parent) / "solr_tpu_torch" / "csrc"

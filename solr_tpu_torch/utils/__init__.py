@@ -1,9 +1,10 @@
 """Run utilities (counterpart of solr_tpu/utils): verbosity-gated
 logging, per-step metrics, profiler scopes and traces, checkpoint /
-resume of inverse-rendering runs, and resumable row-band rendering
-(``utils.resumable``).  ``cost_summary`` (XLA's cost analysis) has no
+resume of inverse-rendering runs, resumable row-band rendering
+(``utils.resumable``) and the card's name for records (``card_name``).  ``cost_summary`` (XLA's cost analysis) has no
 PyTorch counterpart and raises NotImplementedError."""
 
+from solr_tpu_torch.utils.card import card_name
 from solr_tpu_torch.utils.checkpoint import (CheckpointManager, RenderState,
                                              latest_step,
                                              restore_render_state,
@@ -19,6 +20,7 @@ __all__ = [
     "MetricsLogger",
     "RaysMeter",
     "RenderState",
+    "card_name",
     "cost_summary",
     "get_logger",
     "grad_norms",

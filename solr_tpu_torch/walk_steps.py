@@ -29,7 +29,6 @@ import argparse
 import concurrent.futures
 import dataclasses
 import json
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -44,6 +43,7 @@ from solr_tpu_torch.ops.render import render, render_sample
 from solr_tpu_torch.ops.rng import Key
 from solr_tpu_torch.sweep_steps import variant_source
 from solr_tpu_torch.textured_scene import textured_scene
+from solr_tpu_torch.utils.card import card_name
 
 _HEADS = ("__global__ void __launch_bounds__(kThreads)\n    closest_pairs(",
           "__global__ void __launch_bounds__(kThreads)\n    trans_pairs(")
@@ -215,9 +215,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("walk_steps: no CUDA device visible", file=sys.stderr)
         return 2
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True).stdout.strip()
+    smi = card_name("cuda:0")
 
     src = bvh._SRC.read_text()
     variants = [(name, variant_source(src, c, p)) for name, c, p, _ in STEPS]

@@ -31,6 +31,11 @@ rendered by ``solr_tpu`` on the CPU:
   and six of them at 64x64 (``<name>_64``: cornell, terrain, water,
   metaballs, knot, neuron) for the card's viewer_reference phase; the
   scenes in GALLERY_OP_BY_OP are rendered op by op (ROADMAP C12);
+* ``torch_bench_diag_ref.json``: bench.py's eight packet diagnostics
+  and its frame digest (the float32 image sum) at BENCH_DIAG (2,000
+  triangles, 32x32, BLOCK 64) with the bench's list widths and with
+  narrow ones (BENCH_DIAG_CASES), the Pallas kernels in interpret mode,
+  for the card's reduced bench diagnostics (that machine has no JAX);
 * ``torch_grad_ref.npz``: gradients by ``jax.grad`` of ``solr_tpu``
   (float32) for three reduced cases: examples/inverse.py's scene at
   64x64 from its perturbed start (the RGB-D loss over the pixels
@@ -131,6 +136,27 @@ GALLERY_CARD_SCENES = ("cornell", "terrain", "water", "metaballs", "knot",
                        "neuron")
 GALLERY_BOUNCES = 3
 GALLERY_OP_BY_OP = ("knot", "neuron")
+
+# bench.py's packet diagnostics and frame digest (the "bench_diag" entry)
+# at a reduced size, in two cases of the list widths K and Kt: the
+# bench's own, and lists narrow enough that about a quarter of the
+# primary rays need the exactness net.
+BENCH_DIAG_REF_FILE = os.path.join(HERE, "torch_bench_diag_ref.json")
+BENCH_DIAG = dict(tris=2000, width=32, height=32, bounces=2, block=64)
+BENCH_DIAG_CASES = {"headline": dict(k=64, kt=256), "tight": dict(k=8, kt=32)}
+# bench.py's settings for BENCH_DIAG, read from the environment.
+BENCH_DIAG_ENV = {
+    "JAX_PLATFORMS": "cpu",
+    # The Pallas kernels in interpret mode: the reference's diagnostics
+    # take their kernel branch (strip visits from sweep_closest), as the
+    # port's do.
+    "SOLR_PALLAS_INTERPRET": "1",
+    "SOLR_PACKET_BLOCK": str(BENCH_DIAG["block"]),
+    "SOLR_BENCH_TRIS": str(BENCH_DIAG["tris"]),
+    "SOLR_BENCH_WIDTH": str(BENCH_DIAG["width"]),
+    "SOLR_BENCH_HEIGHT": str(BENCH_DIAG["height"]),
+    "SOLR_BENCH_BOUNCES": str(BENCH_DIAG["bounces"]),
+}
 
 
 def pdb_sha256(text: str) -> str:
@@ -614,6 +640,49 @@ def write_gallery_ref():
     print(f"wrote {GALLERY_REF_FILE}")
 
 
+def bench_diag_records():
+    """bench.py's ``build_scene``, ``packet_diagnostics`` and jitted frame
+    sum at BENCH_DIAG, for each case of BENCH_DIAG_CASES, in this
+    process: bench.py reads its settings from the environment
+    (BENCH_DIAG_ENV; K and Kt at each ``build_scene``) and sets
+    SOLR_PACKET_BLOCK at import, so this runs in a process of its own."""
+    os.environ.update(BENCH_DIAG_ENV)
+    jax = _setup(BENCH_DIAG["block"])
+    import bench
+
+    # bench.py points JAX's persistent compilation cache at a directory
+    # of its own; this reference writes nothing outside the repository.
+    jax.config.update("jax_enable_compilation_cache", False)
+    import jax.numpy as jnp
+
+    from solr_tpu.ops.render import render_sample
+
+    assert (bench.N_TRIS, bench.WIDTH, bench.HEIGHT, bench.BOUNCES) == (
+        BENCH_DIAG["tris"], BENCH_DIAG["width"], BENCH_DIAG["height"],
+        BENCH_DIAG["bounces"])
+    cases = {}
+    for name, widths in BENCH_DIAG_CASES.items():
+        os.environ["SOLR_BENCH_K"] = str(widths["k"])
+        os.environ["SOLR_BENCH_KT"] = str(widths["kt"])
+        scene, cam, cfg = bench.build_scene()
+        diag = bench.packet_diagnostics(scene, cam, cfg)
+        digest = float(np.asarray(jax.jit(
+            lambda s, c: jnp.sum(render_sample(s, c, cfg)[0]))(scene, cam)))
+        cases[name] = dict(widths, packet=diag, digest=digest)
+    return {"settings": BENCH_DIAG, "cases": cases,
+            "jax_version": jax.__version__}
+
+
+def write_bench_diag_ref():
+    import json
+
+    rec = bench_diag_records()
+    with open(BENCH_DIAG_REF_FILE, "w") as f:
+        json.dump(rec, f, indent=1)
+        f.write("\n")
+    print(f"wrote {BENCH_DIAG_REF_FILE}: {rec}")
+
+
 FRAMES = {
     "bench": write_bench_ref,
     "molecule": write_molecule_ref,
@@ -625,6 +694,7 @@ FRAMES = {
     "anaglyph": write_anaglyph_ref,
     "textured": write_textured_ref,
     "gallery": write_gallery_ref,
+    "bench_diag": write_bench_diag_ref,
 }
 
 

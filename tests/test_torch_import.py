@@ -30,7 +30,7 @@ def test_imports_with_jax_blocked():
         "solr_tpu_torch.scenes, solr_tpu_torch.io, solr_tpu_torch.viewer, "
         "solr_tpu_torch.oracle, solr_tpu_torch.native, "
         "solr_tpu_torch.fault_injection, solr_tpu_torch.bench_scaling, "
-        "chip_smoke\n"
+        "solr_tpu_torch.bench, solr_tpu_torch.utils.card, chip_smoke\n"
         "from solr_tpu_torch.viewer import main\n"
         "import tempfile, os\n"
         "out = os.path.join(tempfile.mkdtemp(), 'k.png')\n"
@@ -92,3 +92,14 @@ def test_parallel_helpers_import_no_jax():
             mods.append(node.module)
     assert not [m for m in mods if m.split(".")[0] in
                 ("jax", "jaxlib", "solr_tpu", "torch_rng_helpers")], mods
+
+
+def test_bench_reads_no_environment():
+    """The port's bench takes its settings from flags alone: it reads no
+    environment variable, unlike bench.py."""
+    path = os.path.join(PKG, "bench.py")
+    tree = ast.parse(open(path).read(), path)
+    reads = [ast.unparse(node) for node in ast.walk(tree)
+             if isinstance(node, ast.Attribute)
+             and node.attr in ("environ", "getenv", "environb")]
+    assert not reads, reads
