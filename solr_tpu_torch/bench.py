@@ -38,10 +38,10 @@ standard output is the summary as one JSON object.  The process exits 1
 when an attempt fails or the digests disagree beyond 1e-3.
 
 Not ported from bench.py: ``bytes_by_phase`` and the ``roofline`` block
-(XLA cost analysis, which counts untaken ``lax.cond`` branches; the
-port's ``utils.profiling.cost_summary`` raises), and the reduced-scale
-ladder (N/5, N/20), which stood in for TPU worker crashes: a failed
-attempt here is a failure, and no smaller scale runs in its place.
+(XLA cost analysis, which counts untaken ``lax.cond`` branches and has
+no PyTorch counterpart), and the reduced-scale ladder (N/5, N/20),
+which stood in for TPU worker crashes: a failed attempt here is a
+failure, and no smaller scale runs in its place.
 """
 
 from __future__ import annotations

@@ -12,19 +12,16 @@ default 100k atoms over a res-128 ground, 512x512, BLOCK=256) on cuda:0,
 the given traversal, renders one warm-up frame, then:
 
 1. three plain frames, each timed on the host clock up to a device sync;
-2. on a CUDA device, one frame under ``torch.profiler``: the number of
-   device kernels, their summed time, the device's busy share of that
-   frame's wall time, and the largest kernels by name;
-3. one instrumented frame: each phase in ``PHASES`` timed on the host
-   clock with a device sync on both sides, and the exactness net's
-   counters (``traverse.NET_STATS``) read around each net call.  The
-   sweep and walk wrappers are timed per kernel ("kernel
-   sweep_closest_sphere", "kernel bvh_closest_hit_sphere").
+2. one frame under ``torch.profiler``, timed the same way: for each span
+   of the port (``utils.profiling.render_phase``, ``solr/<name>``) its
+   calls, its total ms (the union of its intervals) and its self ms (its
+   time less the part its child spans cover), and the exactness net's
+   counters (``traverse.NET_STATS``) over that frame; on a CUDA device
+   also the number of kernels, the device's busy share of the frame's
+   wall time (the union of kernel and copy intervals, so overlapping
+   kernels count once) and the largest kernels by name.
 
-The phases nest (the net calls the pool brute force when a union
-overflows), so their seconds do not add up to the frame.  The syncs make
-the instrumented frame a little slower than a plain one; both are
-reported.  Prints the record as JSON and writes it to ``--out`` if given.
+Prints the record as JSON and writes it to ``--out`` if given.
 """
 
 from __future__ import annotations
@@ -32,36 +29,19 @@ from __future__ import annotations
 import argparse
 import collections
 import dataclasses
-import contextlib
-import functools
-import inspect
 import json
+import math
 import time
 
 import torch
 
 from solr_tpu_torch.bench_scene import bench_scene
 from solr_tpu_torch.molecule_scene import molecule_scene
-from solr_tpu_torch.ops import bvh, packet, render, sweep, traverse
+from solr_tpu_torch.ops import render, traverse
 
-__all__ = ["PHASES", "profile_frame"]
+__all__ = ["profile_frame"]
 
-# (module, attribute, label): the calls the instrumented frame times.
-PHASES = (
-    (render, "_compact_perm", "compact_perm"),
-    (render, "scene_closest_hit", "scene_closest_hit"),
-    (render, "surface_at", "surface_at"),
-    (render, "phong_shade", "phong_shade"),
-    (packet, "strip_interval_select", "strip_interval_select"),
-    (sweep, "sweep_closest", "kernel sweep_closest"),
-    (sweep, "sweep_transmittance", "kernel sweep_transmittance"),
-    (bvh, "bvh_closest_hit", "kernel bvh_closest_hit"),
-    (bvh, "bvh_transmittance", "kernel bvh_transmittance"),
-    (traverse, "_compacted_net", "exactness net"),
-    (traverse, "_pool_closest", "pool_closest (small pools, net overflows)"),
-    (traverse, "_pool_transmittance_brute",
-     "pool_transmittance_brute (small pools, net overflows)"),
-)
+_COPIES = ("Memcpy", "Memset")
 
 
 def _sync(device):
@@ -76,69 +56,79 @@ def _frame(scene, cam, cfg, device):
     return img, time.perf_counter() - t0
 
 
-def _device_profile(scene, cam, cfg, device, top: int):
+def _union_ms(intervals) -> float:
+    """Length in ms of the union of (start_us, end_us) intervals."""
+    total, end = 0.0, -math.inf
+    for s, e in sorted(intervals):
+        if e > end:
+            total += e - max(s, end)
+            end = e
+    return total * 1e-3
+
+
+def _span_table(host) -> dict:
+    """Per span name (``solr/...``) of the host events ``host``, (name,
+    start_us, end_us): its calls, total ms (the union of its intervals)
+    and self ms (each span's time less what its child spans cover).
+    Spans nest on the host thread, so a span's children are the spans
+    that start inside it before it ends."""
+    spans = sorted(((s, e, n) for n, s, e in host if n.startswith("solr/")),
+                   key=lambda x: (x[0], -x[1]))
+    covered = [0.0] * len(spans)
+    open_spans = []
+    for i, (s, e, _) in enumerate(spans):
+        while open_spans and spans[open_spans[-1]][1] <= s:
+            open_spans.pop()
+        if open_spans:
+            parent_end = spans[open_spans[-1]][1]
+            covered[open_spans[-1]] += min(e, parent_end) - s
+        open_spans.append(i)
+    table = {}
+    for (s, e, name), child in zip(spans, covered):
+        row = table.setdefault(name, dict(calls=0, ms=[], self_ms=0.0))
+        row["calls"] += 1
+        row["ms"].append((s, e))
+        row["self_ms"] += (e - s - child) * 1e-3
+    for row in table.values():
+        row["ms"] = _union_ms(row["ms"])
+    return table
+
+
+def _profiled_frame(scene, cam, cfg, device, top: int) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, wall = _frame(scene, cam, cfg, device)
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e6
-    by_name = collections.defaultdict(lambda: [0.0, 0])
-    for e in kernels:
-        by_name[e.name][0] += e.time_range.elapsed_us() / 1e3
-        by_name[e.name][1] += 1
-    largest = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
-    return dict(frame_s=wall, device_kernels=len(kernels), device_busy_s=busy,
-                device_busy_share=busy / wall,
-                largest_kernels=[dict(name=n[:120], ms=ms, launches=c)
-                                 for n, (ms, c) in largest])
-
-
-@contextlib.contextmanager
-def _instrumented(device, seconds, calls, net_calls):
-    """Patch every phase in PHASES with a synced timer for the block."""
-    saved = []
-
-    def timed(fn, label, is_net):
-        kernels = fn.__module__ in (sweep.__name__, bvh.__name__)
-        sig = inspect.signature(fn) if kernels else None
-
-        @functools.wraps(fn)
-        def call(*args, **kwargs):
-            key = label
-            if sig is not None:  # one label per kernel of the wrapper
-                a = sig.bind(*args, **kwargs).arguments
-                if fn.__module__ == bvh.__name__:
-                    key = "kernel " + bvh.kernel_name(
-                        fn.__name__, bvh.POOL_PRIM[a["pool_code"]])
-                else:
-                    key = "kernel " + sweep.kernel_name(
-                        fn.__name__, a.get("prim", "tri"))
-            before = dict(traverse.NET_STATS)
-            _sync(device)
-            t0 = time.perf_counter()
-            try:
-                return fn(*args, **kwargs)
-            finally:
-                _sync(device)
-                seconds[key] += time.perf_counter() - t0
-                calls[key] += 1
-                if is_net:
-                    net_calls.append({k: traverse.NET_STATS[k] - before[k]
-                                      for k in before})
-        return call
-
-    try:
-        for mod, name, label in PHASES:
-            fn = getattr(mod, name)
-            saved.append((mod, name, fn))
-            is_net = mod is traverse and name == "_compacted_net"
-            setattr(mod, name, timed(fn, label, is_net))
-        yield
-    finally:
-        for mod, name, fn in reversed(saved):
-            setattr(mod, name, fn)
+    acts = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    for k in traverse.NET_STATS:
+        traverse.NET_STATS[k] = 0
+    with profile(activities=acts) as prof:
+        img, wall = _frame(scene, cam, cfg, device)
+    rec = dict(profiled_frame_s=wall,
+               profiled_digest=float(img.double().sum()),
+               net_stats=dict(traverse.NET_STATS))
+    host, activity = [], []
+    for ev in prof.profiler.kineto_results.events():
+        start = ev.start_ns() * 1e-3
+        item = (ev.name(), start, start + ev.duration_ns() * 1e-3)
+        (activity if ev.device_type() == DeviceType.CUDA else host).append(
+            item)
+    rec["spans"] = _span_table(host)
+    if device.type == "cuda":
+        kernels = [a for a in activity if not a[0].startswith(_COPIES)]
+        busy = _union_ms([(s, e) for _, s, e in activity]) * 1e-3
+        by_name = collections.defaultdict(lambda: [0.0, 0])
+        for name, s, e in kernels:
+            by_name[name][0] += (e - s) * 1e-3
+            by_name[name][1] += 1
+        largest = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+        rec["device"] = dict(
+            device_kernels=len(kernels), device_busy_s=busy,
+            device_busy_share=busy / wall,
+            largest_kernels=[dict(name=n[:120], ms=ms, launches=c)
+                             for n, (ms, c) in largest])
+    return rec
 
 
 def profile_frame(scene, cam, cfg, frames: int = 3, top: int = 12) -> dict:
@@ -150,19 +140,7 @@ def profile_frame(scene, cam, cfg, frames: int = 3, top: int = 12) -> dict:
         rec["frame_s"] = [_frame(scene, cam, cfg, device)[1]
                           for _ in range(frames)]
         rec["digest"] = float(img.double().sum())
-        if device.type == "cuda":
-            rec["device"] = _device_profile(scene, cam, cfg, device, top)
-        seconds = collections.defaultdict(float)
-        calls = collections.defaultdict(int)
-        net_calls = []
-        for k in traverse.NET_STATS:
-            traverse.NET_STATS[k] = 0
-        with _instrumented(device, seconds, calls, net_calls):
-            img2, rec["instrumented_frame_s"] = _frame(scene, cam, cfg, device)
-    rec["instrumented_digest"] = float(img2.double().sum())
-    rec["phases"] = {k: dict(s=seconds[k], calls=calls[k]) for k in seconds}
-    rec["net_calls"] = net_calls
-    rec["net_stats"] = dict(traverse.NET_STATS)
+        rec.update(_profiled_frame(scene, cam, cfg, device, top))
     return rec
 
 

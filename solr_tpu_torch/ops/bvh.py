@@ -76,6 +76,7 @@ from solr_tpu_torch.constants import (BVH_LEAF_SIZE, INTERSECT_EPS,
 from solr_tpu_torch.ops import intersect as isect
 from solr_tpu_torch.ops import sweep
 from solr_tpu_torch.types import BVH
+from solr_tpu_torch.utils.profiling import render_phase
 
 __all__ = [
     "LAUNCHES",
@@ -911,19 +912,20 @@ def bvh_closest_hit(scene, bvh: BVH, pool_code: int, o, d, t_min,
     shape.  Returns (t, idx): T_FAR and idx 0 on a miss.  The walk's
     order is :func:`walks_near_first`'s.  Raises under grad mode on an
     input that requires grad (sweep.check_detached)."""
-    prim = POOL_PRIM[pool_code]
-    sweep.check_detached(kernel_name("bvh_closest_hit", prim), o, d, t_max,
-                         *_pool_tensors(scene, prim, False))
-    near = walks_near_first(scene, bvh, prim)
-    if not _kernel_device(o):
-        plain = (bvh_closest_hit_ordered_plain if near
-                 else bvh_closest_hit_plain)
-        return plain(scene, bvh, prim, o, d, t_min, t_max)[:2]
-    out = launch_closest(_library(), scene, bvh, prim, o, d, t_min, t_max,
-                         near_first=near)
-    LAUNCHES[kernel_name("bvh_closest_hit", prim,
-                         dfs=prim == "tri" and not near)] += 1
-    return out[:2]
+    with render_phase("walk"):
+        prim = POOL_PRIM[pool_code]
+        sweep.check_detached(kernel_name("bvh_closest_hit", prim), o, d, t_max,
+                             *_pool_tensors(scene, prim, False))
+        near = walks_near_first(scene, bvh, prim)
+        if not _kernel_device(o):
+            plain = (bvh_closest_hit_ordered_plain if near
+                     else bvh_closest_hit_plain)
+            return plain(scene, bvh, prim, o, d, t_min, t_max)[:2]
+        out = launch_closest(_library(), scene, bvh, prim, o, d, t_min, t_max,
+                             near_first=near)
+        LAUNCHES[kernel_name("bvh_closest_hit", prim,
+                             dfs=prim == "tri" and not near)] += 1
+        return out[:2]
 
 
 def bvh_transmittance(scene, bvh: BVH, pool_code: int, o, d, t_min, t_max):
@@ -931,12 +933,13 @@ def bvh_transmittance(scene, bvh: BVH, pool_code: int, o, d, t_min, t_max):
     the product over every occluder with t_min < t < t_max of its
     material's transparency, emissive primitives never occluding.
     Raises under grad mode on an input that requires grad."""
-    prim = POOL_PRIM[pool_code]
-    sweep.check_detached(kernel_name("bvh_transmittance", prim), o, d, t_max,
-                         *_pool_tensors(scene, prim, True))
-    if not _kernel_device(o):
-        return bvh_transmittance_plain(scene, bvh, prim, o, d, t_min, t_max)[0]
-    out = launch_transmittance(_library(), scene, bvh, prim, o, d, t_min,
-                               t_max)
-    LAUNCHES[kernel_name("bvh_transmittance", prim)] += 1
-    return out[0]
+    with render_phase("walk"):
+        prim = POOL_PRIM[pool_code]
+        sweep.check_detached(kernel_name("bvh_transmittance", prim), o, d, t_max,
+                             *_pool_tensors(scene, prim, True))
+        if not _kernel_device(o):
+            return bvh_transmittance_plain(scene, bvh, prim, o, d, t_min, t_max)[0]
+        out = launch_transmittance(_library(), scene, bvh, prim, o, d, t_min,
+                                   t_max)
+        LAUNCHES[kernel_name("bvh_transmittance", prim)] += 1
+        return out[0]

@@ -24,6 +24,7 @@ import torch
 from solr_tpu_torch.constants import INTERSECT_EPS, T_FAR
 from solr_tpu_torch.ops.vecmath import cross, safe_inv
 from solr_tpu_torch.types import TriAccel
+from solr_tpu_torch.utils.profiling import render_phase
 
 __all__ = [
     "STRIP",
@@ -264,79 +265,80 @@ def strip_interval_select(o_t, d_t, live, accel: TriAccel, kt: int, ks: int,
     ascending entry bounds, T_FAR past counts, dropped (S, SB)).  Slots
     past ``counts`` hold block 0; the sweeps never read them.
     """
-    s_tiles, sb = o_t.shape[:2]
-    g = strips_per_tile(sb)
-    bb = accel.block_bounds
-    nb = bb.shape[0]
-    dev, dt = o_t.device, o_t.dtype
+    with render_phase("strips"):
+        s_tiles, sb = o_t.shape[:2]
+        g = strips_per_tile(sb)
+        bb = accel.block_bounds
+        nb = bb.shape[0]
+        dev, dt = o_t.device, o_t.dtype
 
-    if tm_t is None:
-        po, ro, axis, cos_g = make_bundles(o_t, d_t, live)
-        mask, near = cull_blocks(po, ro, axis, cos_g, bb[:, 0:3], bb[:, 3:6])
-    else:
-        po, ro, pa, ra = capsule_bundles(o_t, d_t, tm_t, live)
-        mask, near = cull_capsule(po, ro, pa, ra, bb[:, 0:3], bb[:, 3:6])
-    # Padding blocks (parked at +BIG) hold no hit.  A wide bundle passes
-    # them, and in the tile-drop box below their BIG corner would round
-    # the box's other corner away in f32, so they never enter the lists.
-    # The reference keeps them (ROADMAP C4).
-    mask = mask & live.any(1)[:, None] & (bb[:, 0] < 1e29)[None]
+        if tm_t is None:
+            po, ro, axis, cos_g = make_bundles(o_t, d_t, live)
+            mask, near = cull_blocks(po, ro, axis, cos_g, bb[:, 0:3], bb[:, 3:6])
+        else:
+            po, ro, pa, ra = capsule_bundles(o_t, d_t, tm_t, live)
+            mask, near = cull_capsule(po, ro, pa, ra, bb[:, 0:3], bb[:, 3:6])
+        # Padding blocks (parked at +BIG) hold no hit.  A wide bundle passes
+        # them, and in the tile-drop box below their BIG corner would round
+        # the box's other corner away in f32, so they never enter the lists.
+        # The reference keeps them (ROADMAP C4).
+        mask = mask & live.any(1)[:, None] & (bb[:, 0] < 1e29)[None]
 
-    kt_eff = min(kt, nb)
-    score = torch.where(mask, -near, torch.full_like(near, -_BIG))
-    topv, tile_cand = torch.topk(score, kt_eff, dim=1)
-    tile_valid = topv > -_BIG * 0.5
+        kt_eff = min(kt, nb)
+        score = torch.where(mask, -near, torch.full_like(near, -_BIG))
+        topv, tile_cand = torch.topk(score, kt_eff, dim=1)
+        tile_valid = topv > -_BIG * 0.5
 
-    # Tile-drop certificate: the ray's slab entry into the AABB of the
-    # cull-passing blocks the prefilter did not keep.
-    if nb > kt_eff:
-        sel = torch.zeros((s_tiles, nb), dtype=torch.bool, device=dev)
-        sel.scatter_(1, tile_cand, tile_valid)
-        drop = (mask & ~sel)[..., None]  # (S, B, 1)
-        lo = (bb[:, 0:3] - bb[:, 3:6])[None]
-        hi = (bb[:, 0:3] + bb[:, 3:6])[None]
-        dmin = torch.where(drop, lo, torch.full_like(lo, _BIG)).amin(1)
-        dmax = torch.where(drop, hi, torch.full_like(hi, -_BIG)).amax(1)
-        dc = 0.5 * (dmin + dmax)
-        dh = torch.clamp(0.5 * (dmax - dmin), min=0.0)
-        box = torch.cat([dc, dh, torch.zeros((s_tiles, 2), dtype=dt, device=dev)],
-                        -1)[:, None, :]
-        entry_d, hit_d = slab_entries_g(o_t, d_t, box, t_min)
-        any_drop = drop[..., 0].any(1)
-        tile_dropped = torch.where(hit_d[..., 0] & any_drop[:, None],
-                                   entry_d[..., 0],
-                                   torch.full_like(entry_d[..., 0], T_FAR))
-    else:
-        tile_dropped = torch.full((s_tiles, sb), T_FAR, dtype=dt, device=dev)
+        # Tile-drop certificate: the ray's slab entry into the AABB of the
+        # cull-passing blocks the prefilter did not keep.
+        if nb > kt_eff:
+            sel = torch.zeros((s_tiles, nb), dtype=torch.bool, device=dev)
+            sel.scatter_(1, tile_cand, tile_valid)
+            drop = (mask & ~sel)[..., None]  # (S, B, 1)
+            lo = (bb[:, 0:3] - bb[:, 3:6])[None]
+            hi = (bb[:, 0:3] + bb[:, 3:6])[None]
+            dmin = torch.where(drop, lo, torch.full_like(lo, _BIG)).amin(1)
+            dmax = torch.where(drop, hi, torch.full_like(hi, -_BIG)).amax(1)
+            dc = 0.5 * (dmin + dmax)
+            dh = torch.clamp(0.5 * (dmax - dmin), min=0.0)
+            box = torch.cat([dc, dh, torch.zeros((s_tiles, 2), dtype=dt, device=dev)],
+                            -1)[:, None, :]
+            entry_d, hit_d = slab_entries_g(o_t, d_t, box, t_min)
+            any_drop = drop[..., 0].any(1)
+            tile_dropped = torch.where(hit_d[..., 0] & any_drop[:, None],
+                                       entry_d[..., 0],
+                                       torch.full_like(entry_d[..., 0], T_FAR))
+        else:
+            tile_dropped = torch.full((s_tiles, sb), T_FAR, dtype=dt, device=dev)
 
-    entry, hitm = slab_entries_g(o_t, d_t, bb[tile_cand], t_min)
-    hitm = hitm & tile_valid[:, None, :] & live[..., None]
-    if tm_t is not None:
-        # Occluders live only in blocks whose interval starts before the
-        # light.
-        hitm = hitm & (entry <= tm_t[..., None])
+        entry, hitm = slab_entries_g(o_t, d_t, bb[tile_cand], t_min)
+        hitm = hitm & tile_valid[:, None, :] & live[..., None]
+        if tm_t is not None:
+            # Occluders live only in blocks whose interval starts before the
+            # light.
+            hitm = hitm & (entry <= tm_t[..., None])
 
-    e_s = torch.where(hitm, entry, torch.full_like(entry, _BIG)).reshape(
-        s_tiles, g, sb // g, kt_eff).amin(2)  # (S, G, Kt)
+        e_s = torch.where(hitm, entry, torch.full_like(entry, _BIG)).reshape(
+            s_tiles, g, sb // g, kt_eff).amin(2)  # (S, G, Kt)
 
-    ks_eff = min(ks, kt_eff)
-    v2, i2 = torch.topk(-e_s, min(ks_eff + 1, kt_eff), dim=-1)
-    valid2 = v2[..., :ks_eff] > -_BIG * 0.5
-    cand = torch.gather(tile_cand[:, None, :].expand(s_tiles, g, kt_eff), -1,
-                        i2[..., :ks_eff])
-    cand = torch.where(valid2, cand, torch.zeros_like(cand)).to(torch.int32)
-    counts = valid2.sum(-1).to(torch.int32)
-    far = torch.full_like(v2[..., :ks_eff], T_FAR)
-    nearb = torch.where(valid2, -v2[..., :ks_eff], far)
-    if kt_eff > ks_eff:
-        nxt = v2[..., ks_eff]
-        strip_dropped = torch.where(nxt > -_BIG * 0.5, -nxt,
-                                    torch.full_like(nxt, T_FAR))
-    else:
-        strip_dropped = torch.full((s_tiles, g), T_FAR, dtype=dt, device=dev)
-    dropped = torch.minimum(strip_dropped.repeat_interleave(sb // g, dim=1),
-                            tile_dropped)
-    return cand, counts, nearb, dropped
+        ks_eff = min(ks, kt_eff)
+        v2, i2 = torch.topk(-e_s, min(ks_eff + 1, kt_eff), dim=-1)
+        valid2 = v2[..., :ks_eff] > -_BIG * 0.5
+        cand = torch.gather(tile_cand[:, None, :].expand(s_tiles, g, kt_eff), -1,
+                            i2[..., :ks_eff])
+        cand = torch.where(valid2, cand, torch.zeros_like(cand)).to(torch.int32)
+        counts = valid2.sum(-1).to(torch.int32)
+        far = torch.full_like(v2[..., :ks_eff], T_FAR)
+        nearb = torch.where(valid2, -v2[..., :ks_eff], far)
+        if kt_eff > ks_eff:
+            nxt = v2[..., ks_eff]
+            strip_dropped = torch.where(nxt > -_BIG * 0.5, -nxt,
+                                        torch.full_like(nxt, T_FAR))
+        else:
+            strip_dropped = torch.full((s_tiles, g), T_FAR, dtype=dt, device=dev)
+        dropped = torch.minimum(strip_dropped.repeat_interleave(sb // g, dim=1),
+                                tile_dropped)
+        return cand, counts, nearb, dropped
 
 
 # --------------------------------------------------------------------------

@@ -20,10 +20,11 @@ from solr_tpu_torch.ops.packet import build_tri_accel, tile_permutation
 from solr_tpu_torch.ops.postfx import apply_postfx
 from solr_tpu_torch.ops.shade import phong_shade
 from solr_tpu_torch.ops.traverse import (_spatial_keys, scene_closest_hit,
-                                         surface_at)
+                                         set_bounce, surface_at)
 from solr_tpu_torch.ops.vecmath import (normalize, reflect, refract,
                                         spherical_uv)
 from solr_tpu_torch.types import Camera, CameraMode, RenderConfig, Scene
+from solr_tpu_torch.utils.profiling import render_phase
 
 __all__ = ["render", "render_sample", "trace_rays", "trace_rays_tiled",
            "background_color", "accumulate"]
@@ -89,23 +90,28 @@ def trace_rays(scene: Scene, o, d, cfg: RenderConfig, key=None, packet=None):
     keys = ([None] * cfg.max_bounces if key is None
             else key.split(cfg.max_bounces))
     primary_t = None
-    for bounce_key in keys:
+    for bounce, bounce_key in enumerate(keys):
+        set_bounce(bounce)
         target = None
         if packet is not None and cfg.compact_rays:
             # Wavefront compaction: live rays first, in Morton order of
             # their origins; dead rays park where every cull rejects.
-            with torch.no_grad():
-                o_sg = o.detach()
-                lv = live[:, None]
-                omin = torch.where(lv, o_sg, torch.full_like(o_sg, float("inf"))).amin(0)
-                omax = torch.where(lv, o_sg, torch.full_like(o_sg, float("-inf"))).amax(0)
-                perm, target = _compact_perm(live, _spatial_keys(o_sg, omin, omax))
-            o, d, thru, color, live, dist0 = (
-                o[perm], d[perm], thru[perm], color[perm], live[perm],
-                dist0[perm])
-            park = ~live[..., None]
-            o = torch.where(park, torch.full_like(o, PARK_POS), o)
-            d = torch.where(park, torch.full_like(d, PARK_DIR), d)
+            with render_phase("compact"):
+                with torch.no_grad():
+                    o_sg = o.detach()
+                    lv = live[:, None]
+                    omin = torch.where(lv, o_sg, torch.full_like(
+                        o_sg, float("inf"))).amin(0)
+                    omax = torch.where(lv, o_sg, torch.full_like(
+                        o_sg, float("-inf"))).amax(0)
+                    perm, target = _compact_perm(
+                        live, _spatial_keys(o_sg, omin, omax))
+                o, d, thru, color, live, dist0 = (
+                    o[perm], d[perm], thru[perm], color[perm], live[perm],
+                    dist0[perm])
+                park = ~live[..., None]
+                o = torch.where(park, torch.full_like(o, PARK_POS), o)
+                d = torch.where(park, torch.full_like(d, PARK_DIR), d)
 
         hit = scene_closest_hit(scene, o, d, use_bvh=cfg.use_bvh,
                                 packet=packet)
@@ -155,6 +161,7 @@ def trace_rays(scene: Scene, o, d, cfg: RenderConfig, key=None, packet=None):
                 x[target] for x in (o, d, thru, color, live, dist0, t_out))
         if primary_t is None:
             primary_t = t_out
+    set_bounce(0)
     color = torch.cat([color[..., :3], torch.ones_like(color[..., 3:])], -1)
     return color, primary_t
 
@@ -198,19 +205,21 @@ def render_sample(scene: Scene, camera: Camera, cfg: RenderConfig, key=None):
     grid is in the scene info's dtype, as in the reference: an f64
     scene with f32 info (the reference's SceneBuilder(dtype=float64))
     draws its pixel centres in f32."""
-    dtype = scene.info.background_color.dtype
-    if cfg.camera_mode == CameraMode.ANAGLYPH:
-        kl, kr = (None, None) if key is None else key.split(2)
-        ol, dl = eye_rays(camera, cfg, -1.0, kl, dtype)
-        o_r, d_r = eye_rays(camera, cfg, 1.0, kr, dtype)
-        cl, t = trace_rays(scene, ol, dl, cfg, kl)
-        cr, _ = trace_rays(scene, o_r, d_r, cfg, kr)
-        color = torch.stack([cl[..., 0], cr[..., 1], cr[..., 2],
-                             torch.ones_like(cl[..., 0])], -1)
-    else:
-        o, d = camera_rays(camera, cfg, key, dtype)
-        color, t = trace_rays_tiled(scene, o, d, cfg, key)
-    return color.reshape(cfg.height, cfg.width, 4), t.reshape(cfg.height, cfg.width)
+    with render_phase("frame"):
+        dtype = scene.info.background_color.dtype
+        if cfg.camera_mode == CameraMode.ANAGLYPH:
+            kl, kr = (None, None) if key is None else key.split(2)
+            ol, dl = eye_rays(camera, cfg, -1.0, kl, dtype)
+            o_r, d_r = eye_rays(camera, cfg, 1.0, kr, dtype)
+            cl, t = trace_rays(scene, ol, dl, cfg, kl)
+            cr, _ = trace_rays(scene, o_r, d_r, cfg, kr)
+            color = torch.stack([cl[..., 0], cr[..., 1], cr[..., 2],
+                                 torch.ones_like(cl[..., 0])], -1)
+        else:
+            o, d = camera_rays(camera, cfg, key, dtype)
+            color, t = trace_rays_tiled(scene, o, d, cfg, key)
+        return (color.reshape(cfg.height, cfg.width, 4),
+                t.reshape(cfg.height, cfg.width))
 
 
 def render(scene: Scene, camera: Camera, cfg: RenderConfig, key=None,

@@ -13,6 +13,7 @@ from solr_tpu_torch.ops import textures as tex_ops
 from solr_tpu_torch.ops.traverse import SurfaceInfo, scene_transmittance
 from solr_tpu_torch.ops.vecmath import dot, reflect
 from solr_tpu_torch.types import RenderConfig, Scene
+from solr_tpu_torch.utils.profiling import render_phase
 
 __all__ = ["surface_albedo", "phong_shade", "ball_jitter", "cbrt"]
 
@@ -61,73 +62,74 @@ def phong_shade(scene: Scene, surf: SurfaceInfo, view_dir, cfg: RenderConfig,
     ``soft_shadow_radius``, traces its own shadow rays, and the direct
     term is the mean of the S samples.
     """
-    info = scene.info
-    mats = scene.materials
-    m = surf.material
-    albedo = surface_albedo(scene, surf)
-    spec_scale, _, _ = tex_ops.material_map_scales(scene, m, surf.uv)
-    n = surf.shading_normal
-    p = surf.point
+    with render_phase("shade"):
+        info = scene.info
+        mats = scene.materials
+        m = surf.material
+        albedo = surface_albedo(scene, surf)
+        spec_scale, _, _ = tex_ops.material_map_scales(scene, m, surf.uv)
+        n = surf.shading_normal
+        p = surf.point
 
-    out = albedo * (info.ambient + mats.emission[m][..., None])
+        out = albedo * (info.ambient + mats.emission[m][..., None])
 
-    lights = scene.lights
-    n_lights = lights.position.shape[0]
-    if n_lights > 0:
-        lpos = lights.position[None]  # (1, L, 3)
-        if cfg.shadows and cfg.shadow_samples > 1 and key is not None:
-            jit = ball_jitter(key, (cfg.shadow_samples,) + p.shape[:-1]
-                              + (n_lights,), p.dtype)
-            lpos = (lpos[None] + jit * lights.radius[None, None, :, None]
-                    * info.soft_shadow_radius)  # (S, R, L, 3)
-        else:
-            lpos = lpos.expand(p.shape[0], n_lights, 3)[None]
-
-        # In the reference's op order: autograd sums the gradient parts
-        # of a tensor used twice (n, p) in the reverse of that order, so
-        # the order fixes the gradients' last bits.
-        def one_sample(lp):
-            to_l = lp - p[:, None, :]
-            dist = torch.sqrt(torch.clamp(dot(to_l, to_l), min=1e-12))
-            ldir = to_l / dist[..., None]
-            # Clipped to [0, 1]: a masked miss lane's garbage must not
-            # reach pow() (an inf forward value is a NaN backward).
-            ndotl = torch.clamp(dot(n[:, None, :], ldir), 0.0, 1.0)
-            refl = reflect(view_dir, n)
-            rdotl = torch.clamp(dot(refl[:, None, :], ldir), 0.0, 1.0)
-            spec_str = mats.specular[m][..., 0:1]
-            spec_pow = torch.clamp(mats.specular[m][..., 1:2], min=1.0)
-            spec = spec_str * spec_scale[..., None] * torch.pow(rdotl,
-                                                                spec_pow)
-            if cfg.shadows:
-                origin = (p + surf.normal * (RAY_EPS * 4.0))[:, None, :] \
-                    .expand_as(ldir)
-                # Shadow rays of miss lanes park far away pointing out of
-                # the scene, so their tiles cull to zero candidate blocks.
-                invalid = ~surf.valid[:, None, None]
-                origin = torch.where(invalid, torch.full_like(origin, PARK_POS),
-                                     origin)
-                sdir = torch.where(invalid, torch.full_like(ldir, PARK_DIR),
-                                   ldir)
-                t_max = dist - RAY_EPS
-                t_max = torch.where(invalid[..., 0], torch.ones_like(t_max),
-                                    t_max)
-                trans = scene_transmittance(scene, origin, sdir, t_max,
-                                            use_bvh=cfg.use_bvh,
-                                            packet=packet)
-                shadow = 1.0 - info.shadow_intensity * (1.0 - trans)
+        lights = scene.lights
+        n_lights = lights.position.shape[0]
+        if n_lights > 0:
+            lpos = lights.position[None]  # (1, L, 3)
+            if cfg.shadows and cfg.shadow_samples > 1 and key is not None:
+                jit = ball_jitter(key, (cfg.shadow_samples,) + p.shape[:-1]
+                                  + (n_lights,), p.dtype)
+                lpos = (lpos[None] + jit * lights.radius[None, None, :, None]
+                        * info.soft_shadow_radius)  # (S, R, L, 3)
             else:
-                shadow = torch.ones_like(ndotl)
-            contrib = (albedo[:, None, :] * ndotl[..., None]
-                       + spec[..., None]) * lights.color[None] \
-                * shadow[..., None]
-            return contrib.sum(1)
+                lpos = lpos.expand(p.shape[0], n_lights, 3)[None]
 
-        # One sample after another: each traces its own shadow rays.
-        direct = one_sample(lpos[0])
-        for i in range(1, lpos.shape[0]):
-            direct = direct + one_sample(lpos[i])
-        out = out + direct / lpos.shape[0]
+            # In the reference's op order: autograd sums the gradient parts
+            # of a tensor used twice (n, p) in the reverse of that order, so
+            # the order fixes the gradients' last bits.
+            def one_sample(lp):
+                to_l = lp - p[:, None, :]
+                dist = torch.sqrt(torch.clamp(dot(to_l, to_l), min=1e-12))
+                ldir = to_l / dist[..., None]
+                # Clipped to [0, 1]: a masked miss lane's garbage must not
+                # reach pow() (an inf forward value is a NaN backward).
+                ndotl = torch.clamp(dot(n[:, None, :], ldir), 0.0, 1.0)
+                refl = reflect(view_dir, n)
+                rdotl = torch.clamp(dot(refl[:, None, :], ldir), 0.0, 1.0)
+                spec_str = mats.specular[m][..., 0:1]
+                spec_pow = torch.clamp(mats.specular[m][..., 1:2], min=1.0)
+                spec = spec_str * spec_scale[..., None] * torch.pow(rdotl,
+                                                                    spec_pow)
+                if cfg.shadows:
+                    origin = (p + surf.normal * (RAY_EPS * 4.0))[:, None, :] \
+                        .expand_as(ldir)
+                    # Shadow rays of miss lanes park far away pointing out of
+                    # the scene, so their tiles cull to zero candidate blocks.
+                    invalid = ~surf.valid[:, None, None]
+                    origin = torch.where(invalid, torch.full_like(origin, PARK_POS),
+                                         origin)
+                    sdir = torch.where(invalid, torch.full_like(ldir, PARK_DIR),
+                                       ldir)
+                    t_max = dist - RAY_EPS
+                    t_max = torch.where(invalid[..., 0], torch.ones_like(t_max),
+                                        t_max)
+                    trans = scene_transmittance(scene, origin, sdir, t_max,
+                                                use_bvh=cfg.use_bvh,
+                                                packet=packet)
+                    shadow = 1.0 - info.shadow_intensity * (1.0 - trans)
+                else:
+                    shadow = torch.ones_like(ndotl)
+                contrib = (albedo[:, None, :] * ndotl[..., None]
+                           + spec[..., None]) * lights.color[None] \
+                    * shadow[..., None]
+                return contrib.sum(1)
 
-    out = torch.where(surf.valid[..., None], out, torch.zeros_like(out))
-    return torch.cat([out[..., :3], torch.ones_like(out[..., 3:])], -1)
+            # One sample after another: each traces its own shadow rays.
+            direct = one_sample(lpos[0])
+            for i in range(1, lpos.shape[0]):
+                direct = direct + one_sample(lpos[i])
+            out = out + direct / lpos.shape[0]
+
+        out = torch.where(surf.valid[..., None], out, torch.zeros_like(out))
+        return torch.cat([out[..., :3], torch.ones_like(out[..., 3:])], -1)

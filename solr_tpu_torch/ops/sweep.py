@@ -49,6 +49,7 @@ import torch
 from solr_tpu_torch import native
 from solr_tpu_torch.constants import T_FAR
 from solr_tpu_torch.ops.packet import PRIM_T, STRIP, _masked_max
+from solr_tpu_torch.utils.profiling import render_phase
 
 __all__ = [
     "LAUNCHES",
@@ -419,20 +420,21 @@ def sweep_closest(packed, o_t, d_t, t_cap, live, cand, counts, nearb, t_min,
     a miss, visits (S,)).  Raises under grad mode on an input that
     requires grad (:func:`check_detached`).
     """
-    check_detached(kernel_name("sweep_closest", prim), packed, o_t, d_t,
-                   t_cap, nearb)
-    if packed.device.type == "cpu":
-        return sweep_closest_plain(packed, o_t, d_t, t_cap, live, cand,
-                                   counts, nearb, t_min, prim)
-    if packed.device.type != "cuda":
-        raise ValueError(f"no sweep kernel for device {packed.device}")
-    _check_inputs(packed, o_t, d_t, t_cap, live, cand, counts, prim, nearb)
-    lib = _library()
-    _check_smem(lib, True, prim, packed.shape[2])
-    out = launch_closest(lib, packed, o_t, d_t, t_cap, live, cand, counts,
-                         nearb, t_min, prim)
-    LAUNCHES[kernel_name("sweep_closest", prim)] += 1
-    return out
+    with render_phase("sweep"):
+        check_detached(kernel_name("sweep_closest", prim), packed, o_t, d_t,
+                       t_cap, nearb)
+        if packed.device.type == "cpu":
+            return sweep_closest_plain(packed, o_t, d_t, t_cap, live, cand,
+                                       counts, nearb, t_min, prim)
+        if packed.device.type != "cuda":
+            raise ValueError(f"no sweep kernel for device {packed.device}")
+        _check_inputs(packed, o_t, d_t, t_cap, live, cand, counts, prim, nearb)
+        lib = _library()
+        _check_smem(lib, True, prim, packed.shape[2])
+        out = launch_closest(lib, packed, o_t, d_t, t_cap, live, cand, counts,
+                             nearb, t_min, prim)
+        LAUNCHES[kernel_name("sweep_closest", prim)] += 1
+        return out
 
 
 def sweep_transmittance(packed, o_t, d_t, t_max, live, cand, counts, t_min,
@@ -443,17 +445,18 @@ def sweep_transmittance(packed, o_t, d_t, t_max, live, cand, counts, t_min,
     :func:`sweep_closest`.  Returns (tr (S, SB) in [0, 1], visits (S,)).
     Raises under grad mode on an input that requires grad.
     """
-    check_detached(kernel_name("sweep_transmittance", prim), packed, o_t,
-                   d_t, t_max)
-    if packed.device.type == "cpu":
-        return sweep_transmittance_plain(packed, o_t, d_t, t_max, live, cand,
-                                         counts, t_min, prim)
-    if packed.device.type != "cuda":
-        raise ValueError(f"no sweep kernel for device {packed.device}")
-    _check_inputs(packed, o_t, d_t, t_max, live, cand, counts, prim)
-    lib = _library()
-    _check_smem(lib, False, prim, packed.shape[2])
-    out = launch_transmittance(lib, packed, o_t, d_t, t_max, live, cand,
-                               counts, t_min, prim)
-    LAUNCHES[kernel_name("sweep_transmittance", prim)] += 1
-    return out
+    with render_phase("sweep"):
+        check_detached(kernel_name("sweep_transmittance", prim), packed, o_t,
+                       d_t, t_max)
+        if packed.device.type == "cpu":
+            return sweep_transmittance_plain(packed, o_t, d_t, t_max, live, cand,
+                                             counts, t_min, prim)
+        if packed.device.type != "cuda":
+            raise ValueError(f"no sweep kernel for device {packed.device}")
+        _check_inputs(packed, o_t, d_t, t_max, live, cand, counts, prim)
+        lib = _library()
+        _check_smem(lib, False, prim, packed.shape[2])
+        out = launch_transmittance(lib, packed, o_t, d_t, t_max, live, cand,
+                                   counts, t_min, prim)
+        LAUNCHES[kernel_name("sweep_transmittance", prim)] += 1
+        return out

@@ -40,6 +40,7 @@ from solr_tpu_torch.ops import sweep
 from solr_tpu_torch.ops.textures import apply_normal_maps
 from solr_tpu_torch.ops.vecmath import cross, dot, normalize, spherical_uv
 from solr_tpu_torch.types import Scene
+from solr_tpu_torch.utils.profiling import render_phase
 
 __all__ = ["Hit", "SurfaceInfo", "POOL_SPHERE", "POOL_TRIANGLE",
            "POOL_CYLINDER", "POOL_ELLIPSOID", "POOL_PLANE", "BRUTE_CALLS",
@@ -74,9 +75,24 @@ _NET_UCAP = 512
 
 # What the exactness net did since the caller last zeroed these: net
 # calls, needy rays, chunks, the chunks' union widths in blocks, and the
-# chunks whose union overflowed into the whole-pool brute force.
+# chunks whose union overflowed into the whole-pool brute force.  The
+# needy rays again by query and bounce: closest hit or shadow, on the
+# primary bounce (0) or a later one; the four add up to "needy_rays".
 NET_STATS = {"calls": 0, "needy_rays": 0, "chunks": 0, "union_blocks": 0,
-             "overflows": 0}
+             "overflows": 0, "needy_primary_closest": 0,
+             "needy_primary_shadow": 0, "needy_later_closest": 0,
+             "needy_later_shadow": 0}
+
+# The bounce that the queries now running belong to (render.trace_rays
+# sets it); the net files its needy rays under it.
+_bounce = 0
+
+
+def set_bounce(bounce: int):
+    """File the net's needy rays from now on under ``bounce`` (0, the
+    primary rays, or a later bounce)."""
+    global _bounce
+    _bounce = bounce
 
 
 @dataclasses.dataclass(frozen=True)
@@ -177,11 +193,12 @@ def _pool_closest(o, d, scene: Scene, code: int, t_min, t_max):
         return (torch.full(r_shape, T_FAR, dtype=o.dtype, device=o.device),
                 torch.zeros(r_shape, dtype=torch.int32, device=o.device))
     BRUTE_CALLS[_POOL_NAME[code]] += 1
-    best_t, best_i = _chunked_min(
-        lambda s, c: _pool_t_chunk(scene, code, o, d, s, c, t_min),
-        n, r_shape, o)
-    far = torch.full_like(best_t, T_FAR)
-    return torch.where(best_t <= t_max, best_t, far), best_i
+    with render_phase("brute"):
+        best_t, best_i = _chunked_min(
+            lambda s, c: _pool_t_chunk(scene, code, o, d, s, c, t_min),
+            n, r_shape, o)
+        far = torch.full_like(best_t, T_FAR)
+        return torch.where(best_t <= t_max, best_t, far), best_i
 
 
 def scene_closest_hit(scene: Scene, o, d, t_min=RAY_EPS, t_max=T_FAR,
@@ -189,14 +206,15 @@ def scene_closest_hit(scene: Scene, o, d, t_min=RAY_EPS, t_max=T_FAR,
     """Closest hit across every pool.  ``use_bvh`` lets accelerated
     pools use their BVHs; ``packet`` = (tile_rays, K, Kt, exact) when the
     rays come in tile-coherent groups of tile_rays."""
-    with torch.no_grad():
-        raw = _scene_closest_hit_raw(scene, o.detach(), d.detach(), t_min,
-                                     t_max, use_bvh, packet)
-    t = _recompute_t(scene, o, d, raw.pool, raw.idx, t_min)
-    # Keep the traversal t on a miss and on rare recompute disagreements
-    # (f32 tangency); the two agree whenever both hit.
-    t = torch.where(raw.valid & (t < T_FAR * 0.5), t, raw.t)
-    return Hit(t=t, pool=raw.pool, idx=raw.idx)
+    with render_phase("closest"):
+        with torch.no_grad():
+            raw = _scene_closest_hit_raw(scene, o.detach(), d.detach(), t_min,
+                                         t_max, use_bvh, packet)
+        t = _recompute_t(scene, o, d, raw.pool, raw.idx, t_min)
+        # Keep the traversal t on a miss and on rare recompute disagreements
+        # (f32 tangency); the two agree whenever both hit.
+        t = torch.where(raw.valid & (t < T_FAR * 0.5), t, raw.t)
+        return Hit(t=t, pool=raw.pool, idx=raw.idx)
 
 
 def _recompute_t(scene: Scene, o, d, pool, idx, t_min):
@@ -360,27 +378,32 @@ def _spatial_keys(p, bmin, bmax):
     return spread(q[:, 0]) | (spread(q[:, 1]) << 1) | (spread(q[:, 2]) << 2)
 
 
-def _compacted_net(need, carry, walk_chunk, sort_key=None):
+def _compacted_net(need, carry, walk_chunk, query, sort_key=None):
     """Run the exactness net over only the rays in ``need`` (R,), in
     chunks of :func:`_net_capacity` rays, sorted by ``sort_key`` so each
     chunk is spatially tight.  ``walk_chunk(idx, carry)`` updates the
-    carry for the rays ``idx``.
+    carry for the rays ``idx``; ``query`` ("closest" or "shadow") files
+    the needy rays in NET_STATS.
 
     Counting ``need`` is a host sync; it replaces the reference's
     ``lax.cond``."""
-    n_need = int(need.sum())
-    NET_STATS["calls"] += 1
-    NET_STATS["needy_rays"] += n_need
-    if n_need == 0:
+    with render_phase("net"):
+        n_need = int(need.sum())
+        NET_STATS["calls"] += 1
+        NET_STATS["needy_rays"] += n_need
+        stage = "later" if _bounce else "primary"
+        NET_STATS[f"needy_{stage}_{query}"] += n_need
+        if n_need == 0:
+            return carry
+        cap = _net_capacity(need.shape[0])
+        idx_all = need.nonzero().squeeze(1)
+        if sort_key is not None:
+            order = torch.argsort(sort_key[idx_all].to(torch.float32),
+                                  stable=True)
+            idx_all = idx_all[order]
+        for c0 in range(0, idx_all.shape[0], cap):
+            carry = walk_chunk(idx_all[c0:c0 + cap], carry)
         return carry
-    cap = _net_capacity(need.shape[0])
-    idx_all = need.nonzero().squeeze(1)
-    if sort_key is not None:
-        order = torch.argsort(sort_key[idx_all].to(torch.float32), stable=True)
-        idx_all = idx_all[order]
-    for c0 in range(0, idx_all.shape[0], cap):
-        carry = walk_chunk(idx_all[c0:c0 + cap], carry)
-    return carry
 
 
 def _tri_packet_closest(scene: Scene, o, d, t_min, packet, prim="tri"):
@@ -419,7 +442,8 @@ def _tri_packet_closest(scene: Scene, o, d, t_min, packet, prim="tri"):
         bi_c[idx] = torch.where(better, i2, bi_c[idx])
         return bt_c, bi_c
 
-    return _compacted_net(need, (bt, bi), walk_chunk, sort_key=net_key)
+    return _compacted_net(need, (bt, bi), walk_chunk, "closest",
+                          sort_key=net_key)
 
 
 def scene_transmittance(scene: Scene, o, d, t_max, t_min=RAY_EPS,
@@ -427,28 +451,29 @@ def scene_transmittance(scene: Scene, o, d, t_max, t_min=RAY_EPS,
     """Shadow-ray transmittance in [0, 1]: the product over occluding
     primitives of their material transparency (emissive primitives are
     the lights and never occlude).  o/d (R, 3) or (R, L, 3)."""
-    trans = torch.ones(o.shape[:-1], dtype=o.dtype, device=o.device)
-    for code, size in _pool_sizes(scene).items():
-        if size == 0:
-            continue
-        bvh = _pool_bvh(scene, code, use_bvh)
-        if _packet_ok(scene, code, o, packet, bvh):
-            # Detached inputs: the accelerated pool's occluder
-            # transparency carries no gradient, as in the reference.
-            with torch.no_grad():
-                trans = trans * _tri_packet_transmittance(
-                    scene, o.detach(), d.detach(), t_max.detach(), t_min,
-                    packet, _POOL_PRIM[code])
-            continue
-        if bvh is not None:
-            with torch.no_grad():
-                trans = trans * bvh_mod.bvh_transmittance(
-                    scene, bvh, code, o.detach(), d.detach(), t_min,
-                    t_max.detach())
-            continue
-        trans = trans * _pool_transmittance_brute(scene, code, o, d, t_max,
-                                                  t_min)
-    return trans
+    with render_phase("shadow"):
+        trans = torch.ones(o.shape[:-1], dtype=o.dtype, device=o.device)
+        for code, size in _pool_sizes(scene).items():
+            if size == 0:
+                continue
+            bvh = _pool_bvh(scene, code, use_bvh)
+            if _packet_ok(scene, code, o, packet, bvh):
+                # Detached inputs: the accelerated pool's occluder
+                # transparency carries no gradient, as in the reference.
+                with torch.no_grad():
+                    trans = trans * _tri_packet_transmittance(
+                        scene, o.detach(), d.detach(), t_max.detach(), t_min,
+                        packet, _POOL_PRIM[code])
+                continue
+            if bvh is not None:
+                with torch.no_grad():
+                    trans = trans * bvh_mod.bvh_transmittance(
+                        scene, bvh, code, o.detach(), d.detach(), t_min,
+                        t_max.detach())
+                continue
+            trans = trans * _pool_transmittance_brute(scene, code, o, d, t_max,
+                                                      t_min)
+        return trans
 
 
 def _tri_packet_transmittance(scene: Scene, o, d, t_max, t_min, packet,
@@ -483,7 +508,7 @@ def _tri_packet_transmittance(scene: Scene, o, d, t_max, t_min, packet,
                 scene, accel, code, o2[idx], d2[idx], tm2[idx], t_min)
             return (tr_c,)
 
-        return _compacted_net(need, (tr,), walk_chunk,
+        return _compacted_net(need, (tr,), walk_chunk, "shadow",
                               sort_key=_spatial_keys(o2, bmin, bmax))[0]
 
     tm = t_max.expand(o.shape[:-1])
@@ -505,16 +530,17 @@ def _pool_transmittance_brute(scene: Scene, code: int, o, d, t_max,
     BRUTE_CALLS[_POOL_NAME[code]] += 1
     mats = scene.materials
     chunk = _prim_chunk(o[..., 0].numel(), size)
-    for ci in range((size + chunk - 1) // chunk):
-        start = min(ci * chunk, size - chunk)
-        t = _pool_t_chunk(scene, code, o, d, start, chunk, t_min)
-        idx = start + torch.arange(chunk, device=o.device)
-        occ = (t < t_max[..., None]) & (idx >= ci * chunk)
-        mat = _pool_material(scene, code, idx)
-        f = torch.where(mats.emission[mat] > 0.0,
-                        torch.ones_like(mats.transparency[mat]),
-                        mats.transparency[mat])
-        trans = trans * torch.where(occ, f, torch.ones_like(t)).prod(-1)
+    with render_phase("brute"):
+        for ci in range((size + chunk - 1) // chunk):
+            start = min(ci * chunk, size - chunk)
+            t = _pool_t_chunk(scene, code, o, d, start, chunk, t_min)
+            idx = start + torch.arange(chunk, device=o.device)
+            occ = (t < t_max[..., None]) & (idx >= ci * chunk)
+            mat = _pool_material(scene, code, idx)
+            f = torch.where(mats.emission[mat] > 0.0,
+                            torch.ones_like(mats.transparency[mat]),
+                            mats.transparency[mat])
+            trans = trans * torch.where(occ, f, torch.ones_like(t)).prod(-1)
     return trans
 
 
@@ -523,93 +549,94 @@ def surface_at(scene: Scene, hit: Hit, o, d) -> SurfaceInfo:
     material's normal and bump maps perturb the shading normal before
     the normals are flipped to oppose the ray, so the flip still holds
     for the perturbed normal."""
-    t = torch.where(hit.valid, hit.t, torch.ones_like(hit.t))
-    point = o + t[..., None] * d
-    r_shape = o.shape[:-1]
-    normal = torch.zeros_like(o)
-    normal[..., 2] = -1.0
-    shading = normal
-    uv = torch.zeros(r_shape + (2,), dtype=o.dtype, device=o.device)
-    material = torch.zeros(r_shape, dtype=torch.int64, device=o.device)
-    sizes = _pool_sizes(scene)
+    with render_phase("surface"):
+        t = torch.where(hit.valid, hit.t, torch.ones_like(hit.t))
+        point = o + t[..., None] * d
+        r_shape = o.shape[:-1]
+        normal = torch.zeros_like(o)
+        normal[..., 2] = -1.0
+        shading = normal
+        uv = torch.zeros(r_shape + (2,), dtype=o.dtype, device=o.device)
+        material = torch.zeros(r_shape, dtype=torch.int64, device=o.device)
+        sizes = _pool_sizes(scene)
 
-    def blend(mask, n_new, sn_new, uv_new, m_new):
-        m3 = mask[..., None]
-        return (torch.where(m3, n_new, normal), torch.where(m3, sn_new, shading),
-                torch.where(m3, uv_new, uv), torch.where(mask, m_new, material))
+        def blend(mask, n_new, sn_new, uv_new, m_new):
+            m3 = mask[..., None]
+            return (torch.where(m3, n_new, normal), torch.where(m3, sn_new, shading),
+                    torch.where(m3, uv_new, uv), torch.where(mask, m_new, material))
 
-    if sizes[POOL_SPHERE]:
-        p = scene.spheres
-        i = hit.idx.clamp(0, sizes[POOL_SPHERE] - 1).long()
-        r = torch.clamp(p.radius[i], min=1e-6)
-        n = normalize((point - p.center[i]) / r[..., None])
-        normal, shading, uv, material = blend(
-            hit.pool == POOL_SPHERE, n, n, spherical_uv(n),
-            p.material[i].long())
+        if sizes[POOL_SPHERE]:
+            p = scene.spheres
+            i = hit.idx.clamp(0, sizes[POOL_SPHERE] - 1).long()
+            r = torch.clamp(p.radius[i], min=1e-6)
+            n = normalize((point - p.center[i]) / r[..., None])
+            normal, shading, uv, material = blend(
+                hit.pool == POOL_SPHERE, n, n, spherical_uv(n),
+                p.material[i].long())
 
-    if sizes[POOL_TRIANGLE]:
-        p = scene.triangles
-        i = hit.idx.clamp(0, sizes[POOL_TRIANGLE] - 1).long()
-        v0, v1, v2 = p.v0[i], p.v1[i], p.v2[i]
-        gn = normalize(cross(v1 - v0, v2 - v0))
-        bu, bv = isect.triangle_bary(o, d, v0, v1, v2)
-        bw = 1.0 - bu - bv
-        sn = (bw[..., None] * p.n0[i] + bu[..., None] * p.n1[i]
-              + bv[..., None] * p.n2[i])
-        has_sn = dot(sn, sn) > 1e-12
-        sn = normalize(torch.where(has_sn[..., None], sn, gn))
-        uvt = (bw[..., None] * p.uv0[i] + bu[..., None] * p.uv1[i]
-               + bv[..., None] * p.uv2[i])
-        normal, shading, uv, material = blend(
-            hit.pool == POOL_TRIANGLE, gn, sn, uvt, p.material[i].long())
+        if sizes[POOL_TRIANGLE]:
+            p = scene.triangles
+            i = hit.idx.clamp(0, sizes[POOL_TRIANGLE] - 1).long()
+            v0, v1, v2 = p.v0[i], p.v1[i], p.v2[i]
+            gn = normalize(cross(v1 - v0, v2 - v0))
+            bu, bv = isect.triangle_bary(o, d, v0, v1, v2)
+            bw = 1.0 - bu - bv
+            sn = (bw[..., None] * p.n0[i] + bu[..., None] * p.n1[i]
+                  + bv[..., None] * p.n2[i])
+            has_sn = dot(sn, sn) > 1e-12
+            sn = normalize(torch.where(has_sn[..., None], sn, gn))
+            uvt = (bw[..., None] * p.uv0[i] + bu[..., None] * p.uv1[i]
+                   + bv[..., None] * p.uv2[i])
+            normal, shading, uv, material = blend(
+                hit.pool == POOL_TRIANGLE, gn, sn, uvt, p.material[i].long())
 
-    if sizes[POOL_CYLINDER]:
-        p = scene.cylinders
-        i = hit.idx.clamp(0, sizes[POOL_CYLINDER] - 1).long()
-        p0 = p.p0[i]
-        axis = p.p1[i] - p0
-        h2 = torch.clamp(dot(axis, axis), min=1e-12)
-        s = dot(point - p0, axis) / h2
-        n_side = normalize(point - (p0 + s[..., None] * axis))
-        # End-cap hits pin s to 0 or 1; their normal is the axis.
-        a_hat = axis / torch.sqrt(h2)[..., None]
-        n = torch.where((s < 1e-4)[..., None], -a_hat,
-                        torch.where((s > 1.0 - 1e-4)[..., None], a_hat, n_side))
-        uvc = torch.stack([spherical_uv(n_side)[..., 0], s], -1)
-        normal, shading, uv, material = blend(
-            hit.pool == POOL_CYLINDER, n, n, uvc, p.material[i].long())
+        if sizes[POOL_CYLINDER]:
+            p = scene.cylinders
+            i = hit.idx.clamp(0, sizes[POOL_CYLINDER] - 1).long()
+            p0 = p.p0[i]
+            axis = p.p1[i] - p0
+            h2 = torch.clamp(dot(axis, axis), min=1e-12)
+            s = dot(point - p0, axis) / h2
+            n_side = normalize(point - (p0 + s[..., None] * axis))
+            # End-cap hits pin s to 0 or 1; their normal is the axis.
+            a_hat = axis / torch.sqrt(h2)[..., None]
+            n = torch.where((s < 1e-4)[..., None], -a_hat,
+                            torch.where((s > 1.0 - 1e-4)[..., None], a_hat, n_side))
+            uvc = torch.stack([spherical_uv(n_side)[..., 0], s], -1)
+            normal, shading, uv, material = blend(
+                hit.pool == POOL_CYLINDER, n, n, uvc, p.material[i].long())
 
-    if sizes[POOL_ELLIPSOID]:
-        p = scene.ellipsoids
-        i = hit.idx.clamp(0, sizes[POOL_ELLIPSOID] - 1).long()
-        rad = torch.clamp(p.radii[i], min=1e-6)
-        local = (point - p.center[i]) / rad
-        n = normalize(local / rad)
-        normal, shading, uv, material = blend(
-            hit.pool == POOL_ELLIPSOID, n, n, spherical_uv(local),
-            p.material[i].long())
+        if sizes[POOL_ELLIPSOID]:
+            p = scene.ellipsoids
+            i = hit.idx.clamp(0, sizes[POOL_ELLIPSOID] - 1).long()
+            rad = torch.clamp(p.radii[i], min=1e-6)
+            local = (point - p.center[i]) / rad
+            n = normalize(local / rad)
+            normal, shading, uv, material = blend(
+                hit.pool == POOL_ELLIPSOID, n, n, spherical_uv(local),
+                p.material[i].long())
 
-    if sizes[POOL_PLANE]:
-        p = scene.planes
-        i = hit.idx.clamp(0, sizes[POOL_PLANE] - 1).long()
-        ax = p.axis[i].long()
-        n = torch.eye(3, dtype=o.dtype, device=o.device)[ax]
-        # The two in-plane axes, ascending: UV across the rectangle.
-        in_plane = torch.tensor([[1, 2], [0, 2], [0, 1]],
-                                device=o.device)[ax]
-        pu = torch.gather(point - p.origin[i], -1, in_plane)
-        uvp = 0.5 + 0.5 * pu / torch.clamp(p.half_extents[i], min=1e-6)
-        normal, shading, uv, material = blend(
-            hit.pool == POOL_PLANE, n, n, uvp, p.material[i].long())
+        if sizes[POOL_PLANE]:
+            p = scene.planes
+            i = hit.idx.clamp(0, sizes[POOL_PLANE] - 1).long()
+            ax = p.axis[i].long()
+            n = torch.eye(3, dtype=o.dtype, device=o.device)[ax]
+            # The two in-plane axes, ascending: UV across the rectangle.
+            in_plane = torch.tensor([[1, 2], [0, 2], [0, 1]],
+                                    device=o.device)[ax]
+            pu = torch.gather(point - p.origin[i], -1, in_plane)
+            uvp = 0.5 + 0.5 * pu / torch.clamp(p.half_extents[i], min=1e-6)
+            normal, shading, uv, material = blend(
+                hit.pool == POOL_PLANE, n, n, uvp, p.material[i].long())
 
-    if scene.textures.count > 0:
-        shading = apply_normal_maps(scene, material, uv, shading)
+        if scene.textures.count > 0:
+            shading = apply_normal_maps(scene, material, uv, shading)
 
-    # Flip normals to oppose the incoming ray; record backface hits.
-    backface = dot(d, normal) > 0.0
-    one = torch.ones_like(backface, dtype=o.dtype)
-    normal = normal * torch.where(backface, -one, one)[..., None]
-    shading = shading * torch.where(dot(d, shading) > 0.0, -one, one)[..., None]
-    return SurfaceInfo(point=point, normal=normal, shading_normal=shading,
-                       uv=uv, material=material, backface=backface,
-                       valid=hit.valid)
+        # Flip normals to oppose the incoming ray; record backface hits.
+        backface = dot(d, normal) > 0.0
+        one = torch.ones_like(backface, dtype=o.dtype)
+        normal = normal * torch.where(backface, -one, one)[..., None]
+        shading = shading * torch.where(dot(d, shading) > 0.0, -one, one)[..., None]
+        return SurfaceInfo(point=point, normal=normal, shading_normal=shading,
+                           uv=uv, material=material, backface=backface,
+                           valid=hit.valid)

@@ -24,6 +24,8 @@ from typing import Optional
 
 import torch
 
+from solr_tpu_torch.utils.profiling import render_phase
+
 __all__ = [
     "CameraMode",
     "PostFxMode",
@@ -414,14 +416,15 @@ class Scene:
                                                build_sph_accel,
                                                build_tri_accel)
 
-        updates = {}
-        if self.tri_accel is not None:
-            updates["tri_accel"] = build_tri_accel(
-                self.triangles, self.materials, self.tri_accel.block)
-        if self.sph_accel is not None:
-            updates["sph_accel"] = build_sph_accel(
-                self.spheres, self.materials, self.sph_accel.block)
-        if self.cyl_accel is not None:
-            updates["cyl_accel"] = build_cyl_accel(
-                self.cylinders, self.materials, self.cyl_accel.block)
-        return self.replace(**updates) if updates else self
+        with render_phase("refresh"):
+            updates = {}
+            if self.tri_accel is not None:
+                updates["tri_accel"] = build_tri_accel(
+                    self.triangles, self.materials, self.tri_accel.block)
+            if self.sph_accel is not None:
+                updates["sph_accel"] = build_sph_accel(
+                    self.spheres, self.materials, self.sph_accel.block)
+            if self.cyl_accel is not None:
+                updates["cyl_accel"] = build_cyl_accel(
+                    self.cylinders, self.materials, self.cyl_accel.block)
+            return self.replace(**updates) if updates else self

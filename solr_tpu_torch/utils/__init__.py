@@ -1,8 +1,9 @@
 """Run utilities (counterpart of solr_tpu/utils): verbosity-gated
 logging, per-step metrics, profiler scopes and traces, checkpoint /
 resume of inverse-rendering runs, resumable row-band rendering
-(``utils.resumable``) and the card's name for records (``card_name``).  ``cost_summary`` (XLA's cost analysis) has no
-PyTorch counterpart and raises NotImplementedError."""
+(``utils.resumable``) and the card's name for records (``card_name``).
+XLA's cost analysis (the reference's ``cost_summary``) has no PyTorch
+counterpart and is not ported."""
 
 from solr_tpu_torch.utils.card import card_name
 from solr_tpu_torch.utils.checkpoint import (CheckpointManager, RenderState,
@@ -13,7 +14,7 @@ from solr_tpu_torch.utils.logging import (get_logger, log_error, log_info,
                                           log_warning, set_verbosity)
 from solr_tpu_torch.utils.metrics import (MetricsLogger, RaysMeter,
                                           grad_norms, occupancy)
-from solr_tpu_torch.utils.profiling import cost_summary, render_phase, trace
+from solr_tpu_torch.utils.profiling import render_phase, trace
 
 __all__ = [
     "CheckpointManager",
@@ -21,7 +22,6 @@ __all__ = [
     "RaysMeter",
     "RenderState",
     "card_name",
-    "cost_summary",
     "get_logger",
     "grad_norms",
     "latest_step",

@@ -1,14 +1,14 @@
-"""Profiler scopes and traces (counterpart of solr_tpu/utils/profiling.py).
+"""Profiler spans and traces (counterpart of solr_tpu/utils/profiling.py).
 
-* :func:`render_phase` names a render phase ("raygen", "traverse",
-  "shade", ...) as a ``torch.profiler`` range, ``solr/<name>``, so it
-  shows up in profiler tables and timelines.
+* :func:`render_phase` is the port's one span: ``with
+  render_phase("net"):`` records ``solr/net`` in an active
+  ``torch.profiler`` session, as a host event on the clock of the
+  session's kernels and copies.  The spans nest on the host thread, so a
+  span's parent is the innermost span around it; ``solr/frame`` encloses
+  one sample.  With no session active it does nothing.
 * :func:`trace` profiles the CPU, and the card when there is one, for
   the duration of a ``with`` block and writes a Chrome trace (viewable
   in Perfetto or chrome://tracing) into a directory.
-* :func:`cost_summary` is the reference's XLA cost analysis
-  (``Compiled.cost_analysis()``); PyTorch has no compiled program to ask,
-  so it raises.
 """
 
 from __future__ import annotations
@@ -18,17 +18,28 @@ import os
 import time
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
+from torch._C._profiler import _RecordFunctionFast
 
-__all__ = ["render_phase", "trace", "cost_summary"]
+__all__ = ["render_phase", "trace"]
+
+_OFF = contextlib.nullcontext()
 
 
 def render_phase(name: str):
-    """Scope a render phase for the profiler::
+    """The span ``solr/<name>`` around a ``with`` block::
 
-        with render_phase("traverse"):
-            hit = scene_closest_hit(...)
-    """
-    return torch.profiler.record_function(f"solr/{name}")
+        with render_phase("closest"):
+            hit = _scene_closest_hit_raw(...)
+
+    A FUNCTION-scope record function (``_RecordFunctionFast``): unlike a
+    ``record_function`` range (USER_SCOPE), kineto does not mirror it
+    onto the card's stream as a ``gpu_user_annotation``, so the device
+    side of a trace holds kernels and copies only.  Without an active
+    profiler it returns a shared no-op context."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return _RecordFunctionFast("solr/" + name)
 
 
 @contextlib.contextmanager
@@ -44,12 +55,3 @@ def trace(log_dir: str):
         yield prof
     prof.export_chrome_trace(os.path.join(
         log_dir, f"trace-{os.getpid()}-{time.time_ns()}.json"))
-
-
-def cost_summary(fn, *args, **kwargs):
-    """Not available: the reference reads FLOPs and bytes from XLA's
-    ``Compiled.cost_analysis()``, and eager PyTorch compiles no program
-    that could report them."""
-    raise NotImplementedError(
-        "cost_summary reads XLA's Compiled.cost_analysis(); PyTorch runs "
-        "eagerly and has no compiled program to analyse")

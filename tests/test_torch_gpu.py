@@ -1025,3 +1025,33 @@ def test_config1_on_card_matches_oracle(cuda):
         img = render_sample(scene, cam, cfg)[0].cpu().numpy()
     m = chip_smoke.oracle_mismatch(img, oracle_render(scene, cam, cfg))
     assert chip_smoke.oracle_holds(m), m
+
+
+@pytest.mark.gpu
+def test_spans_stay_off_the_device(cuda):
+    """The port's spans (``render_phase``, ``solr/<name>``) are host events
+    of the profiler: a small packet frame with short lists (so the net
+    runs) profiled on the card leaves no CUDA-typed event with a
+    ``solr/`` name, its spans and the runtime's syncs sit among the host
+    events, and the image is the unprofiled one."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    scene, cam, cfg = bench_scene(4_000, block=64, width=32, height=32,
+                                  bounces=2, device=cuda)
+    cfg = dataclasses.replace(cfg, packet_max_blocks=2, packet_tile_cand=8)
+    with torch.no_grad():
+        plain = render_sample(scene, cam, cfg)[0]
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            img = render_sample(scene, cam, cfg)[0]
+            torch.cuda.synchronize()
+    events = list(prof.profiler.kineto_results.events())
+    device = [e.name() for e in events if e.device_type() == DeviceType.CUDA]
+    host = [e.name() for e in events if e.device_type() != DeviceType.CUDA]
+    assert device and not any(n.startswith("solr/") for n in device)
+    for name in ("frame", "closest", "shadow", "strips", "sweep", "net"):
+        assert "solr/" + name in host, name
+    assert "cudaStreamSynchronize" in host
+    assert torch.equal(img, plain)

@@ -1,14 +1,13 @@
-"""The frame profiler (solr_tpu_torch.frame_profile) on the CPU: it
-times every phase, reads the exactness net's counters around each net
-call, leaves the image as a plain frame renders it, and puts the
-patched functions back."""
+"""The frame profiler (solr_tpu_torch.frame_profile) on the CPU: it reads
+the port's spans (``solr/<name>``) and the exactness net's counters from
+one frame under ``torch.profiler``, and that frame is the plain one."""
 
 import dataclasses
 
 import torch
 
 from solr_tpu_torch.bench_scene import bench_scene
-from solr_tpu_torch.frame_profile import PHASES, profile_frame
+from solr_tpu_torch.frame_profile import profile_frame
 from solr_tpu_torch.ops import traverse
 from solr_tpu_torch.ops.render import render_sample
 
@@ -21,23 +20,24 @@ def test_profile_reads_phases_and_net_counters():
                                   bounces=2, device="cpu")
     # Two blocks per strip drop most candidates, so the net has work.
     cfg = dataclasses.replace(cfg, packet_max_blocks=2, packet_tile_cand=8)
-    originals = [getattr(mod, name) for mod, name, _ in PHASES]
     rec = profile_frame(scene, cam, cfg, frames=1)
-    assert [getattr(mod, name) for mod, name, _ in PHASES] == originals
 
-    assert rec["instrumented_digest"] == rec["digest"]
+    assert rec["profiled_digest"] == rec["digest"]
     assert "device" not in rec  # the device profile is taken on a card only
-    phases = rec["phases"]
-    assert phases["scene_closest_hit"]["calls"] == cfg.max_bounces
-    assert phases["kernel sweep_closest"]["calls"] >= 1
-    assert phases["kernel sweep_transmittance"]["calls"] >= 1
-    assert all(p["s"] >= 0.0 for p in phases.values())
+    spans = rec["spans"]
+    assert spans["solr/frame"]["calls"] == 1
+    assert spans["solr/closest"]["calls"] == cfg.max_bounces
+    assert spans["solr/sweep"]["calls"] >= 2 * cfg.max_bounces
+    assert "solr/walk" not in spans
+    for name, row in spans.items():
+        assert 0.0 <= row["self_ms"] <= row["ms"] + 1e-9, name
+    # The frame encloses every other span: its self time is what they
+    # leave over, and every span's self time adds up to the frame.
+    total_self = sum(row["self_ms"] for row in spans.values())
+    assert abs(total_self - spans["solr/frame"]["ms"]) < 1e-6
 
     stats = rec["net_stats"]
-    assert len(rec["net_calls"]) == phases["exactness net"]["calls"]
-    assert stats["calls"] == len(rec["net_calls"])
-    for key in stats:
-        assert sum(c[key] for c in rec["net_calls"]) == stats[key], key
+    assert spans["solr/net"]["calls"] == stats["calls"]
     assert stats["needy_rays"] > 0
     assert stats["chunks"] >= 1
     assert stats["union_blocks"] >= stats["chunks"]
@@ -60,13 +60,15 @@ def test_net_keeps_the_frame_exact_when_lists_are_short():
 
 
 def test_profile_times_the_walks_per_kernel():
-    """With traversal="while" the walk wrappers are timed per kernel."""
+    """With traversal="while" the frame walks: ``solr/walk`` for the
+    closest hit and the shadow rays of every bounce, no sweep, no net."""
     scene, cam, cfg = bench_scene(4_000, block=64, width=32, height=24,
                                   bounces=2, device="cpu")
     cfg = dataclasses.replace(cfg, traversal="while")
     rec = profile_frame(scene, cam, cfg, frames=1)
-    assert rec["instrumented_digest"] == rec["digest"]
-    phases = rec["phases"]
-    assert phases["kernel bvh_closest_hit_tri"]["calls"] == cfg.max_bounces
-    assert phases["kernel bvh_transmittance_tri"]["calls"] == cfg.max_bounces
-    assert "kernel sweep_closest" not in phases
+    assert rec["profiled_digest"] == rec["digest"]
+    spans = rec["spans"]
+    assert spans["solr/walk"]["calls"] == 2 * cfg.max_bounces
+    assert spans["solr/closest"]["calls"] == cfg.max_bounces
+    assert "solr/sweep" not in spans and "solr/net" not in spans
+    assert rec["net_stats"]["calls"] == 0

@@ -12,8 +12,8 @@
   against the one-shot one; a checkpointed progressive render resumed
   bit-equal to an uninterrupted one; a default-device call without a
   card raises.
-* Profiling: ``render_phase`` is a named profiler range, ``trace``
-  writes a Chrome trace, ``cost_summary`` raises NotImplementedError.
+* Profiling: ``render_phase`` is a named span (``solr/<name>``) of an
+  active profiler session and ``trace`` writes it into a Chrome trace.
 """
 
 import json
@@ -36,7 +36,7 @@ from solr_tpu_torch import Engine, Key, RenderConfig, SceneBuilder, render
 from solr_tpu_torch.engine import morph_scenes
 from solr_tpu_torch.io import load_image
 from solr_tpu_torch.ops.render import render_sample
-from solr_tpu_torch.utils import cost_summary, render_phase, trace
+from solr_tpu_torch.utils import render_phase, trace
 from solr_tpu_torch.viewer import _parser, main, run
 
 # Several test workers share the cores: keep each one's intra-op pool small.
@@ -251,5 +251,3 @@ def test_profiling_scopes(tmp_path):
     files = os.listdir(tmp_path / "tr")
     assert len(files) == 1 and files[0].endswith(".json")
     assert "solr/traverse" in open(tmp_path / "tr" / files[0]).read()
-    with pytest.raises(NotImplementedError):
-        cost_summary(lambda: None)
