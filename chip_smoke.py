@@ -195,8 +195,7 @@ both started together.  Phases, each of which must pass:
    first heartbeat; a second worker resumes the directory, and its frame
    must equal an uninterrupted resumable_render of the same chunks bit
    for bit, and render_sample as in 5 (the pixels that differ at all
-   are reported: a row band regroups the packets, and an edge-grazing
-   ray can flip, ROADMAP C13); the same directory run again with
+   are reported: a row band regroups the packets, ROADMAP C13); the same directory run again with
    128-row chunks must start over (ROADMAP C5), held the same way;
 33. ``oracle``: BASELINE config #1 (``config1_scene``: the Cornell box of
    tests/scenes_fixtures.py with eight spheres, built by the port's
@@ -2124,9 +2123,9 @@ def phase_resumable(scenes, rec, device):
     chunks and is SIGKILLed after its first heartbeat; a second worker
     resumes the directory.  Its frame must equal an uninterrupted
     resumable_render of the same chunks bit for bit, and render_sample
-    within the frame budget (row bands regroup the packets, and an
-    edge-grazing ray can flip where a net chunk overflows: ROADMAP
-    C13).  Then the same directory with twice the chunk height must
+    within the frame budget (row bands regroup the packets; since the
+    net has no union cap, ROADMAP C13, the bench frame's bands equal
+    it).  Then the same directory with twice the chunk height must
     start over (ROADMAP C5), within the same budget."""
     import multiprocessing
     import tempfile
@@ -2621,8 +2620,8 @@ def phase_viewer_modes(rec, out_dir):
     checkpointed and the rest resumed (bit-equal accumulators); a still
     in VIEWER_TILE_ROWS-row bands against the one-shot still (the pixels
     that differ are reported: the Cornell box, brute force, must be
-    bit-equal; a packet scene's bands may differ where a net chunk
-    overflows, ROADMAP C13, within the frame budget).  Then
+    bit-equal; a packet scene's bands are held within the frame budget,
+    ROADMAP C13).  Then
     VIEWER_FRAMES animation frames of the cubes and the water, each
     differing from the one before."""
     import numpy as np

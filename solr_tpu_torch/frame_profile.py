@@ -16,7 +16,9 @@ the given traversal, renders one warm-up frame, then:
    of the port (``utils.profiling.render_phase``, ``solr/<name>``) its
    calls, its total ms (the union of its intervals) and its self ms (its
    time less the part its child spans cover), and the exactness net's
-   counters (``traverse.NET_STATS``) over that frame; on a CUDA device
+   counters (``traverse.NET_STATS``: its needy rays, their 32-ray
+   strips, the blocks of the strips' lists and the sweep windows over
+   them) over that frame; on a CUDA device
    also the number of kernels, the device's busy share of the frame's
    wall time (the union of kernel and copy intervals, so overlapping
    kernels count once) and the largest kernels by name.

@@ -10,8 +10,10 @@ closest hit, :790-812 for shadows):
 * the packet path, where the pool has a BVH and its packet accelerator
   and the rays come in whole tiles: per-strip interval selection
   (:mod:`solr_tpu_torch.ops.packet`), the sweep kernels of its primitive
-  kind (:mod:`solr_tpu_torch.ops.sweep`) and the union-block exactness
-  net for the rays whose drop certificate fails;
+  kind (:mod:`solr_tpu_torch.ops.sweep`) and the exactness net for the
+  rays whose drop certificate fails: every 32-ray strip of those rays
+  gets its own list of the blocks its rays can hit, swept by the same
+  kernels;
 * else the per-ray BVH walk (:mod:`solr_tpu_torch.ops.bvh`), where the
   pool has a BVH;
 * else brute force over the whole pool (small pools, ellipsoids and
@@ -69,19 +71,32 @@ def _prim_chunk(n_rays: int, n: int) -> int:
     return min(n, max(_PRIM_CHUNK, _CHUNK_ELEMS // max(n_rays, 1)))
 
 
-# Union-net candidate width: a chunk whose block union is wider falls
-# back to the full pool brute, so exactness never depends on it.
-_NET_UCAP = 512
+# Strips of 32 rays per tile of the net's needy rays, as the sweep
+# kernels take them: (S, 32 * _NET_STRIPS, 3).
+_NET_STRIPS = 8
+
+# Blocks per sweep launch over the net's strip lists.  Every launch first
+# runs the launch-order kernel, whose shared memory is 4 (K + 1) 33
+# bytes for lists of up to K blocks (csrc/sweep.cu order_smem); the card
+# allows 232,448 bytes a CTA, so K is at most 1,759.  A wider list is
+# swept in successive windows of this width, in list order.
+_NET_WINDOW = 232_448 // (4 * 33) - 1
 
 # What the exactness net did since the caller last zeroed these: net
-# calls, needy rays, chunks, the chunks' union widths in blocks, and the
-# chunks whose union overflowed into the whole-pool brute force.  The
-# needy rays again by query and bounce: closest hit or shadow, on the
-# primary bounce (0) or a later one; the four add up to "needy_rays".
-NET_STATS = {"calls": 0, "needy_rays": 0, "chunks": 0, "union_blocks": 0,
-             "overflows": 0, "needy_primary_closest": 0,
-             "needy_primary_shadow": 0, "needy_later_closest": 0,
-             "needy_later_shadow": 0}
+# calls; needy rays; "strips", the 32-ray strips of needy rays, each
+# swept over its own block list; "strip_blocks", the sum of those
+# lists' lengths; "windows", the sweep launches over them (one per
+# _NET_WINDOW blocks of the widest list of a call).  Kept for their
+# readers: "chunks" counts the sweep launches too, "union_blocks"
+# equals "strip_blocks", and "overflows" always reads 0 (no list has a
+# cap, and the net never falls back to the whole-pool brute force).
+# The needy rays again by query and bounce: closest hit or shadow, on
+# the primary bounce (0) or a later one; the four add up to
+# "needy_rays".
+NET_STATS = {"calls": 0, "needy_rays": 0, "strips": 0, "strip_blocks": 0,
+             "windows": 0, "chunks": 0, "union_blocks": 0, "overflows": 0,
+             "needy_primary_closest": 0, "needy_primary_shadow": 0,
+             "needy_later_closest": 0, "needy_later_shadow": 0}
 
 # The bounce that the queries now running belong to (render.trace_rays
 # sets it); the net files its needy rays under it.
@@ -296,12 +311,6 @@ def _scene_box(accel):
     return bmin, bmax
 
 
-def _net_capacity(r: int) -> int:
-    """Compacted exactness-net chunk size: lane-aligned, capped at 2048
-    rays so the per-chunk (rays x blocks) slab matrices stay small."""
-    return min(r, max(512, min(2048, -(-r // 64 // 128) * 128)))
-
-
 def _ray_block_slabs(o, d, block_bounds, t_min):
     """Per-(ray, block) slab test: (entry (R, B), hit (R, B)); entry is
     clamped to 0, a lower bound on any hit t inside the block."""
@@ -309,63 +318,9 @@ def _ray_block_slabs(o, d, block_bounds, t_min):
     return entry[0], hit[0]
 
 
-def _union_candidates(hitm, n_blocks):
-    """The chunk's union of hit blocks as an ascending id list, and
-    whether it overflows the net's width."""
-    union = hitm.any(0)
-    width = int(union.sum())
-    overflow = width > min(_NET_UCAP, n_blocks)
-    NET_STATS["chunks"] += 1
-    NET_STATS["union_blocks"] += width
-    NET_STATS["overflows"] += int(overflow)
-    return union.nonzero().squeeze(1).to(torch.int32), overflow
-
-
-def _windowed_sweep(o_c, d_c, cand, accel, t_min, prim, tm_c=None):
-    """Sweep one chunk of needy rays over its union candidate list with
-    the block mirrors (the reference runs the same fold in 64-wide
-    windows under lax.cond; here the list is already exactly as long as
-    it needs to be)."""
-    counts = torch.full((1,), cand.shape[0], dtype=torch.int32,
-                        device=o_c.device)
-    if tm_c is None:
-        t, i = pk.tri_blocks_closest(accel.packed, o_c[None], d_c[None],
-                                     cand[None], counts, t_min, prim)
-        return t[0], i[0]
-    return pk.tri_blocks_transmittance(accel.packed, o_c[None], d_c[None],
-                                       tm_c[None], cand[None], counts,
-                                       t_min, prim)[0]
-
-
-def _block_net_closest(scene, accel, code, o_c, d_c, t_best, t_min):
-    """Exact closest hit for one chunk of needy rays: sweep only the
-    union of the blocks the rays' slabs enter before their current best
-    (blocks partition the pool), or brute-force the pool when the union
-    overflows."""
-    entry, hitm = _ray_block_slabs(o_c, d_c, accel.block_bounds, t_min)
-    hitm = hitm & (entry <= t_best[:, None])
-    cand, overflow = _union_candidates(hitm, accel.packed.shape[0])
-    if overflow:
-        return _pool_closest(o_c, d_c, scene, code, t_min, t_best)
-    return _windowed_sweep(o_c, d_c, cand, accel, t_min, _POOL_PRIM[code])
-
-
-def _block_net_transmittance(scene, accel, code, o_c, d_c, tm_c, t_min):
-    """Exact shadow transmittance for one chunk of needy rays (see
-    :func:`_block_net_closest`); occluders live only in blocks whose slab
-    interval starts before the light."""
-    entry, hitm = _ray_block_slabs(o_c, d_c, accel.block_bounds, t_min)
-    hitm = hitm & (entry <= tm_c[:, None])
-    cand, overflow = _union_candidates(hitm, accel.packed.shape[0])
-    if overflow:
-        return _pool_transmittance_brute(scene, code, o_c, d_c, tm_c, t_min)
-    return _windowed_sweep(o_c, d_c, cand, accel, t_min, _POOL_PRIM[code],
-                           tm_c)
-
-
 def _spatial_keys(p, bmin, bmax):
     """Coarse Morton key (64 cells per axis) of positions p (R, 3) in the
-    box; sorts needy rays into spatially tight net chunks."""
+    box; sorts needy rays into spatially tight net strips."""
     span = torch.clamp(bmax - bmin, min=1e-6)
     q = torch.clamp((p - bmin) / span * 64.0, 0.0, 63.0).to(torch.int32)
 
@@ -378,32 +333,177 @@ def _spatial_keys(p, bmin, bmax):
     return spread(q[:, 0]) | (spread(q[:, 1]) << 1) | (spread(q[:, 2]) << 2)
 
 
-def _compacted_net(need, carry, walk_chunk, query, sort_key=None):
-    """Run the exactness net over only the rays in ``need`` (R,), in
-    chunks of :func:`_net_capacity` rays, sorted by ``sort_key`` so each
-    chunk is spatially tight.  ``walk_chunk(idx, carry)`` updates the
-    carry for the rays ``idx``; ``query`` ("closest" or "shadow") files
-    the needy rays in NET_STATS.
+def _needy_tiles(need, sort_key, query):
+    """The rays in ``need`` (R,) that the net takes, sorted by
+    ``sort_key`` so that each strip is spatially tight, laid out in
+    whole tiles of the sweep kernels' strips.  Returns (idx (n,) the
+    needy rays in that order, slot (S * SB,) the ray in each slot of the
+    tiles, padding slots repeating ray 0, live (S, SB), false on
+    padding), or None when no ray needs the net.  ``query`` ("closest"
+    or "shadow") files the needy rays in NET_STATS.
 
-    Counting ``need`` is a host sync; it replaces the reference's
-    ``lax.cond``."""
+    Counting ``need`` is the net's first host sync; it replaces the
+    reference's ``lax.cond``.  The sort puts the needy rays first, so
+    their ids need no second count."""
+    n = int(need.sum())
+    NET_STATS["calls"] += 1
+    NET_STATS["needy_rays"] += n
+    stage = "later" if _bounce else "primary"
+    NET_STATS[f"needy_{stage}_{query}"] += n
+    if n == 0:
+        return None
+    key = torch.where(need, sort_key.to(torch.float32),
+                      torch.full(need.shape, float("inf"), device=need.device))
+    idx = torch.argsort(key, stable=True)[:n]
+    tile = pk.STRIP * _NET_STRIPS
+    n_pad = -(-n // tile) * tile
+    slot = torch.nn.functional.pad(idx, (0, n_pad - n))
+    live = (torch.arange(n_pad, device=need.device) < n).reshape(-1, tile)
+    NET_STATS["strips"] += -(-n // pk.STRIP)
+    return idx, slot, live
+
+
+def _strip_lists(o, d, live, bound, block_bounds, t_min):
+    """Each 32-ray strip's own block list: the blocks that some live ray
+    of the strip enters at or before its ``bound`` (its best t for a
+    closest hit, its light distance for a shadow ray).  Blocks partition
+    the pool, so the list holds every block that can hold a hit of the
+    strip's rays before their bounds.  o/d (N, 3), live and bound (N,),
+    N a whole number of strips.
+
+    Returns (cand (N / 32, K) int32, the list in ascending block id,
+    block 0 past its count; counts (N / 32,) int32; nearb (N / 32, K),
+    the suffix minimum of the strip's entry bounds over its list: a
+    lower bound on any hit in that block or a later one, ascending as
+    the sweeps' ``nearb`` does, so skipping a block once ``nearb >=
+    done`` stays exact in id order; T_FAR past the count), or None when
+    every list is empty.
+    The widest list and the lists' total are the net's second host
+    sync.  The slab test takes the rays in passes whose (rays x blocks)
+    matrices stay near _CHUNK_ELEMS elements."""
+    nb = block_bounds.shape[0]
+    real = block_bounds[:, 0] < 1e29  # padding blocks park at +1e30
+    rays = max(pk.STRIP, _CHUNK_ELEMS // nb // pk.STRIP * pk.STRIP)
+    on_s, entry_s = [], []
+    for r0 in range(0, o.shape[0], rays):
+        rs = slice(r0, r0 + rays)
+        entry, hit = _ray_block_slabs(o[rs], d[rs], block_bounds, t_min)
+        on = hit & (entry <= bound[rs, None]) & live[rs, None] & real
+        on = on.reshape(-1, pk.STRIP, nb)
+        on_s.append(on.any(1))
+        entry_s.append(entry.reshape(on.shape).masked_fill(~on, T_FAR)
+                       .amin(1))
+    on, entry = torch.cat(on_s), torch.cat(entry_s)
+    counts = on.sum(1, dtype=torch.int32)
+    k, total = torch.stack([counts.max(), counts.sum(dtype=torch.int32)]
+                           ).tolist()
+    NET_STATS["strip_blocks"] += total
+    NET_STATS["union_blocks"] += total
+    if k == 0:
+        return None
+    ids = torch.arange(nb, dtype=torch.int32, device=o.device)
+    ids = torch.where(on, ids, torch.full_like(ids, nb)).sort(1).values[:, :k]
+    listed = ids < nb
+    cand = torch.where(listed, ids, torch.zeros_like(ids))
+    nearb = torch.where(listed, torch.gather(entry, 1, cand.long()),
+                        torch.full_like(entry[:, :k], T_FAR))
+    nearb = nearb.flip(1).cummin(1).values.flip(1)
+    return cand, counts, nearb
+
+
+def _window(x, w0, shape):
+    """Columns [w0, w0 + _NET_WINDOW) of a strip list tensor (N / 32, K),
+    as the kernels take it: (S, G, width)."""
+    return x[:, w0:w0 + _NET_WINDOW].reshape(*shape, -1)
+
+
+def _window_counts(counts, w0, shape):
+    """The strips' list lengths within the window at ``w0``, (S, G); one
+    more sweep launch in NET_STATS."""
+    NET_STATS["windows"] += 1
+    NET_STATS["chunks"] += 1
+    return torch.clamp(counts - w0, 0, _NET_WINDOW).reshape(shape)
+
+
+def _net_closest(accel, prim, o, d, t_cap, bt, bi, need, sort_key, t_min):
+    """The exactness net of a closest hit.  The rays in ``need`` sweep,
+    32-ray strip by strip, the blocks of their strip's list with the
+    sweep kernel of ``prim``; a hit replaces the carry (bt, bi) (R,)
+    only where strictly closer, so a tie keeps the earlier block in id
+    order, then the lowest lane.  ``t_cap`` (R,) is each ray's
+    scene-box exit.  Returns (bt, bi), written in place."""
     with render_phase("net"):
-        n_need = int(need.sum())
-        NET_STATS["calls"] += 1
-        NET_STATS["needy_rays"] += n_need
-        stage = "later" if _bounce else "primary"
-        NET_STATS[f"needy_{stage}_{query}"] += n_need
-        if n_need == 0:
-            return carry
-        cap = _net_capacity(need.shape[0])
-        idx_all = need.nonzero().squeeze(1)
-        if sort_key is not None:
-            order = torch.argsort(sort_key[idx_all].to(torch.float32),
-                                  stable=True)
-            idx_all = idx_all[order]
-        for c0 in range(0, idx_all.shape[0], cap):
-            carry = walk_chunk(idx_all[c0:c0 + cap], carry)
-        return carry
+        rays = _needy_tiles(need, sort_key, "closest")
+        if rays is None:
+            return bt, bi
+        idx, slot, live = rays
+        o_n, d_n, best_t, best_i = o[slot], d[slot], bt[slot], bi[slot]
+        lists = _strip_lists(o_n, d_n, live.reshape(-1), best_t,
+                             accel.block_bounds, t_min)
+        if lists is None:
+            return bt, bi
+        cand, counts, nearb = lists
+        shape = (live.shape[0], _NET_STRIPS)
+        o_t = o_n.reshape(*live.shape, 3)
+        d_t = d_n.reshape(*live.shape, 3)
+        cap = t_cap[slot].reshape(live.shape)
+        best_t = best_t.reshape(live.shape)
+        best_i = best_i.reshape(live.shape)
+        for w0 in range(0, cand.shape[1], _NET_WINDOW):
+            t, i, _ = sweep.sweep_closest(
+                accel.packed, o_t, d_t, torch.minimum(best_t, cap), live,
+                _window(cand, w0, shape), _window_counts(counts, w0, shape),
+                _window(nearb, w0, shape), t_min, prim)
+            better = t < best_t
+            best_t = torch.where(better, t, best_t)
+            best_i = torch.where(better, i, best_i)
+        n = idx.shape[0]
+        bt[idx] = best_t.reshape(-1)[:n]
+        bi[idx] = best_i.reshape(-1)[:n]
+        return bt, bi
+
+
+def _net_transmittance(accel, prim, o, d, tm, tr, need, sort_key, t_min):
+    """The exactness net of shadow rays: each ray in ``need`` takes the
+    product, in block id order, of the factors of its strip's list, which
+    holds every block that can occlude it before ``tm`` (R,); that
+    product is its transmittance and replaces ``tr`` (R,) there.  A
+    list wider than one window multiplies the windows' products, and a
+    strip whose live rays are all at or below 1e-6 takes no further
+    window, as the kernel stops it between blocks (the same product
+    where the factors multiply exactly, as 0, 1 and powers of two do).
+    Returns ``tr``, written in place."""
+    with render_phase("net"):
+        rays = _needy_tiles(need, sort_key, "shadow")
+        if rays is None:
+            return tr
+        idx, slot, live = rays
+        o_n, d_n, tm_n = o[slot], d[slot], tm[slot]
+        lists = _strip_lists(o_n, d_n, live.reshape(-1), tm_n,
+                             accel.block_bounds, t_min)
+        n = idx.shape[0]
+        if lists is None:
+            tr[idx] = 1.0
+            return tr
+        cand, counts, _ = lists
+        shape = (live.shape[0], _NET_STRIPS)
+        o_t = o_n.reshape(*live.shape, 3)
+        d_t = d_n.reshape(*live.shape, 3)
+        tm_t = tm_n.reshape(live.shape)
+        prod = None
+        for w0 in range(0, cand.shape[1], _NET_WINDOW):
+            counts_w = _window_counts(counts, w0, shape)
+            if prod is not None:
+                lit = pk._masked_max(prod.reshape(-1, pk.STRIP),
+                                     live.reshape(-1, pk.STRIP))
+                counts_w = torch.where(lit.reshape(shape) > 1e-6, counts_w,
+                                       torch.zeros_like(counts_w))
+            p, _ = sweep.sweep_transmittance(
+                accel.packed, o_t, d_t, tm_t, live, _window(cand, w0, shape),
+                counts_w, t_min, prim)
+            prod = p if prod is None else prod * p
+        tr[idx] = prod.reshape(-1)[:n]
+        return tr
 
 
 def _tri_packet_closest(scene: Scene, o, d, t_min, packet, prim="tri"):
@@ -430,20 +530,11 @@ def _tri_packet_closest(scene: Scene, o, d, t_min, packet, prim="tri"):
         return bt, bi
     need = (live & (torch.minimum(bt.reshape(t_cap.shape), t_cap) > dropped)
             ).reshape(r)
-    t_mid = 0.5 * torch.minimum(bt, t_cap.reshape(r))
+    t_cap = t_cap.reshape(r)
+    t_mid = 0.5 * torch.minimum(bt, t_cap)
     net_key = _spatial_keys(o + d * t_mid[:, None], bmin, bmax)
-
-    def walk_chunk(idx, carry):
-        bt_c, bi_c = carry
-        t2, i2 = _block_net_closest(scene, accel, code, o[idx], d[idx],
-                                    bt_c[idx], t_min)
-        better = t2 < bt_c[idx]
-        bt_c[idx] = torch.where(better, t2, bt_c[idx])
-        bi_c[idx] = torch.where(better, i2, bi_c[idx])
-        return bt_c, bi_c
-
-    return _compacted_net(need, (bt, bi), walk_chunk, "closest",
-                          sort_key=net_key)
+    return _net_closest(accel, prim, o, d, t_cap, bt, bi, need, net_key,
+                        t_min)
 
 
 def scene_transmittance(scene: Scene, o, d, t_max, t_min=RAY_EPS,
@@ -501,15 +592,8 @@ def _tri_packet_transmittance(scene: Scene, o, d, t_max, t_min, packet,
         need = (live & (dropped < torch.clamp(tm_t, max=T_FAR * 0.5))
                 ).reshape(-1)
         bmin, bmax = _scene_box(accel)
-
-        def walk_chunk(idx, carry):
-            (tr_c,) = carry
-            tr_c[idx] = _block_net_transmittance(
-                scene, accel, code, o2[idx], d2[idx], tm2[idx], t_min)
-            return (tr_c,)
-
-        return _compacted_net(need, (tr,), walk_chunk, "shadow",
-                              sort_key=_spatial_keys(o2, bmin, bmax))[0]
+        return _net_transmittance(accel, prim, o2, d2, tm2, tr, need,
+                                  _spatial_keys(o2, bmin, bmax), t_min)
 
     tm = t_max.expand(o.shape[:-1])
     if o.dim() == 3:

@@ -1055,3 +1055,55 @@ def test_spans_stay_off_the_device(cuda):
         assert "solr/" + name in host, name
     assert "cudaStreamSynchronize" in host
     assert torch.equal(img, plain)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [None, 5], ids=["one_window", "windows"])
+@pytest.mark.parametrize("prim", ["tri", "sphere", "cyl"])
+def test_net_strip_lists_on_the_kernels_match_plain(walk, prim, window,
+                                                    monkeypatch):
+    """The exactness net on the reduced molecule scene (fractional
+    materials): 40% of the camera rays, and of the shadow rays toward
+    the light, sweep their 32-ray strips' block lists with the kernels
+    on the card and with the plain versions on the CPU, bit for bit, in
+    one window and in windows of 5 blocks."""
+    from solr_tpu_torch.constants import T_FAR
+    from solr_tpu_torch.ops import traverse
+
+    if window is not None:
+        monkeypatch.setattr(traverse, "_NET_WINDOW", window)
+    scene, o, d, so, sd, tm = walk
+    accel = getattr(scene, {"tri": "tri_accel", **ACCEL}[prim])
+    gen = torch.Generator().manual_seed(4)
+    need = (torch.rand(o.shape[0], generator=gen) < 0.4).to(o.device)
+    bmin, bmax = _scene_box(accel)
+    key = traverse._spatial_keys(o + d * 10.0, bmin, bmax)
+    cap = pk.ray_box_exit(o, d, bmin, bmax)
+    far = torch.full(need.shape, T_FAR, device=o.device)
+    miss = torch.full(need.shape, -1, dtype=torch.int32, device=o.device)
+    ones = torch.ones(need.shape, device=o.device)
+    skey = traverse._spatial_keys(so, bmin, bmax)
+
+    def net(dev):
+        a = accel.replace(packed=accel.packed.to(dev),
+                          block_bounds=accel.block_bounds.to(dev))
+        c = [x.to(dev) for x in (o, d, cap, far, miss, need, key, so, sd, tm,
+                                 ones, skey)]
+        traverse.NET_STATS.update(dict.fromkeys(traverse.NET_STATS, 0))
+        with torch.no_grad():
+            t, i = traverse._net_closest(a, prim, *c[:6], c[6], RAY_EPS)
+            tr = traverse._net_transmittance(a, prim, *c[7:10], c[10], c[5],
+                                             c[11], RAY_EPS)
+        return [x.cpu() for x in (t, i, tr)], dict(traverse.NET_STATS)
+
+    before = sum(sweep.LAUNCHES.values())
+    card, stats = net(o.device)
+    assert sum(sweep.LAUNCHES.values()) - before == stats["windows"] > 0
+    host, _ = net("cpu")
+    assert (host[0] < T_FAR).any()
+    if prim != "tri":  # the ground occludes no shadow ray
+        assert (host[2] < 1.0).any()
+    if window is not None:
+        assert stats["windows"] > 2
+    for a, b in zip(card, host):
+        assert torch.equal(a, b)

@@ -41,6 +41,10 @@ def test_profile_reads_phases_and_net_counters():
     assert stats["needy_rays"] > 0
     assert stats["chunks"] >= 1
     assert stats["union_blocks"] >= stats["chunks"]
+    assert stats["strips"] >= -(-stats["needy_rays"] // 32)
+    assert stats["strip_blocks"] == stats["union_blocks"] > 0
+    assert stats["windows"] == stats["chunks"]
+    assert stats["overflows"] == 0
 
 
 def test_net_keeps_the_frame_exact_when_lists_are_short():

@@ -56,6 +56,7 @@ def _frame(scene, cam, cfg):
 def test_a_frame_shows_its_spans_and_its_image(short_frame):
     scene, cam, cfg = short_frame
     plain = _frame(scene, cam, cfg)
+    traverse.NET_STATS.update(dict.fromkeys(traverse.NET_STATS, 0))
     img, spans = _spans(lambda: _frame(scene, cam, cfg))
     assert torch.equal(img, plain)
     names = [s[0] for s in spans]
@@ -70,9 +71,16 @@ def test_a_frame_shows_its_spans_and_its_image(short_frame):
     for name in ("closest", "surface", "shade", "compact"):
         assert names.count("solr/" + name) == cfg.max_bounces, name
     # One pool takes packets: a strip selection and a sweep for the
-    # closest hit and the shadow rays of each bounce.
-    for name in ("strips", "sweep"):
-        assert names.count("solr/" + name) == 2 * cfg.max_bounces, name
+    # closest hit and the shadow rays of each bounce; the net sweeps its
+    # strip lists too, one launch per window, inside its span.
+    windows = traverse.NET_STATS["windows"]
+    assert windows > 0
+    assert names.count("solr/strips") == 2 * cfg.max_bounces
+    assert names.count("solr/sweep") == 2 * cfg.max_bounces + windows
+    nets = [s for s in spans if s[0] == "solr/net"]
+    inner = [s for s in spans if s[0] == "solr/sweep"
+             and any(_inside(s, n) for n in nets)]
+    assert len(inner) == windows
 
 
 def test_the_net_nests_in_its_query(short_frame):
@@ -87,24 +95,44 @@ def test_the_net_nests_in_its_query(short_frame):
     shades = [s for s in spans if s[0] == "solr/shade"]
     assert all(any(_inside(s, h) for h in shades) for s in shadows)
     # The sphere pool (24 spheres, no BVH) takes the brute force outside
-    # the net; with the union cap as it is, no chunk overflows here.
+    # the net.
     brutes = [s for s in spans if s[0] == "solr/brute"]
     assert brutes and not any(_inside(b, n) for b in brutes for n in nets)
 
 
-def test_an_overflowing_union_shows_the_brute_inside_the_net(short_frame,
-                                                             monkeypatch):
+@pytest.mark.parametrize("bounces", [1, 2])
+def test_the_net_sweeps_strip_lists_and_never_the_brute(short_frame,
+                                                        bounces):
+    """The net sweeps one list per 32-ray strip of needy rays with the
+    sweep kernels: no whole-pool brute force runs inside it, nothing
+    overflows, and its counters add up per call."""
     scene, cam, cfg = short_frame
-    plain = _frame(scene, cam, cfg)
-    monkeypatch.setattr(traverse, "_NET_UCAP", 1)
+    cfg = dataclasses.replace(cfg, max_bounces=bounces)
+    calls = []
+    net_tiles = traverse._needy_tiles
+
+    def needy_tiles(need, sort_key, query):
+        calls.append(int(need.sum()))
+        return net_tiles(need, sort_key, query)
+
     traverse.NET_STATS.update(dict.fromkeys(traverse.NET_STATS, 0))
-    img, spans = _spans(lambda: _frame(scene, cam, cfg))
-    assert traverse.NET_STATS["overflows"] > 0
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(traverse, "_needy_tiles", needy_tiles)
+        _, spans = _spans(lambda: _frame(scene, cam, cfg))
+    stats = dict(traverse.NET_STATS)
     nets = [s for s in spans if s[0] == "solr/net"]
-    inner = [s for s in spans if s[0] == "solr/brute"
-             and any(_inside(s, n) for n in nets)]
-    assert len(inner) == traverse.NET_STATS["overflows"]
-    torch.testing.assert_close(img, plain, rtol=0.0, atol=1e-5)
+    brutes = [s for s in spans if s[0] == "solr/brute"]
+    assert nets and brutes
+    assert not any(_inside(b, n) for b in brutes for n in nets)
+    assert stats["overflows"] == 0
+    assert len(calls) == stats["calls"] == len(nets)
+    assert sum(calls) == stats["needy_rays"] > 0
+    assert stats["strips"] == sum(-(-n // 32) for n in calls) > 0
+    assert stats["strip_blocks"] > 0
+    assert stats["windows"] >= sum(n > 0 for n in calls) > 0
+    # The keys the net's older readers index: sweep launches, list blocks.
+    assert stats["chunks"] == stats["windows"]
+    assert stats["union_blocks"] == stats["strip_blocks"]
 
 
 @pytest.mark.parametrize("bounces", [1, 2])
