@@ -11,8 +11,8 @@ import torch
 from solbench import systems
 
 
-def control_frames(cell, raw, device):
-    return systems.RefFrames(cell, raw, device, torch.bfloat16)
+def control_frames(cell, raw, device, seed):
+    return systems.RefFrames(cell, raw, device, torch.bfloat16, seed)
 
 
 def control_grad(cell, raw, device, target):

@@ -29,12 +29,8 @@ import time
 import torch
 
 from solbench import check, devtrace, manifest, systems
-from solbench.reference import render as ref
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "solr_tpu")
-# Every configuration has one light: a frame traces, per pixel and
-# bounce, one closest-hit ray and one shadow ray per light.
-LIGHTS = 1
 
 
 def loaded_forbidden() -> list:
@@ -76,6 +72,22 @@ class _Clock:
         if self.cuda:
             return [a.elapsed_time(b) for a, b in self.marks]
         return [(b - a) * 1e3 for a, b in self.marks]
+
+
+def frame_rays(cell) -> int:
+    """The rays of one frame: per pixel, sample, eye and bounce, one
+    closest-hit ray and, per light, one shadow ray per shadow sample (the
+    transmittance queries the shading traces).  Samples and soft shadows
+    need a key (a keyed cell), else the program takes one sample and
+    hard shadows; an anaglyph traces two eyes; post-processing is
+    screen-space and traces none."""
+    w, s = cell.workload, cell.settings
+    spp = cell.spp if cell.keyed else 1
+    soft = s.get("shadow_samples", 1) if cell.keyed else 1
+    shadow_rays = cell.lights * max(soft, 1) if s.get("shadows", True) else 0
+    eyes = 2 if s.get("camera_mode") == "ANAGLYPH" else 1
+    return (w["width"] * w["height"] * spp * eyes * w["bounces"]
+            * (1 + shadow_rays))
 
 
 def _digest(img) -> float:
@@ -147,10 +159,10 @@ def _peak(device) -> int:
         device.type == "cuda" else 0
 
 
-def _run_frames(cell, raw, device, seconds, trace, t_start, make_system,
-                notes):
+def _run_frames(cell, raw, seed, device, seconds, trace, t_start,
+                make_system, notes):
     w = cell.workload
-    system = make_system(cell, raw, device)
+    system = make_system(cell, raw, device, seed)
     _digest(system.frame())  # warm-up: every kernel of the frame is built
     system.reset_counters()
     setup_s = time.perf_counter() - t_start
@@ -176,8 +188,7 @@ def _run_frames(cell, raw, device, seconds, trace, t_start, make_system,
     t_ref = time.perf_counter()
     scene = cell.reference_kind.reference_scene(raw, cell.config, device,
                                                 torch.float64)
-    ref_rgb = ref.render(scene, cell.config["camera"], w["width"],
-                         w["height"], w["bounces"])
+    ref_rgb = systems.reference_frame(cell, scene, seed).reshape(-1, 3)
     _note(f"setup {setup_s:.3f} s, {len(digests)} frames in {elapsed:.3f} s, "
           f"reference {time.perf_counter() - t_ref:.3f} s", notes)
     numbers = check.frame_numbers(checked, ref_rgb, digests,
@@ -185,8 +196,8 @@ def _run_frames(cell, raw, device, seconds, trace, t_start, make_system,
     limit = w["check"]["limits"]["digest_gap"]
     failed = sum(1 for g in digests if not abs(g - digests[-1])
                  <= limit * max(abs(digests[-1]), 1e-30))
-    rays = w["width"] * w["height"] * w["bounces"] * (1 + LIGHTS)
-    e2e = {"setup_s": setup_s, "rays_per_s": rays * len(digests) / elapsed,
+    e2e = {"setup_s": setup_s,
+           "rays_per_s": frame_rays(cell) * len(digests) / elapsed,
            "frame_ms_p95": _percentile(frame_ms, 95)}
     samples = {"rays_per_s": len(digests), "frame_ms_p95": len(frame_ms)}
     layer = LayerInputs("frames", w["trace_units"], len(digests),
@@ -253,7 +264,7 @@ def run(cell, seed: int, seconds: float, trace: bool, device, t_start: float,
     raw = cell.scene_kind.make_inputs(cell.config, seed)
     mode = cell.workload["mode"]
     if mode == "frames":
-        out = _run_frames(cell, raw, device, seconds, trace, t_start,
+        out = _run_frames(cell, raw, seed, device, seconds, trace, t_start,
                           make_system or systems.PortFrames, notes)
     elif mode == "grad":
         out = _run_grad(cell, raw, seed, device, seconds, trace, t_start,

@@ -26,17 +26,19 @@ def _load(path: Path) -> dict:
 
 
 class Cell:
-    """One entry of ``workloads``: its workload file, configuration and
+    """One entry of ``workloads``: its workload file (in ``workloads``,
+    ``workloads/`` beside this file by default), configuration and
     metrics."""
 
-    def __init__(self, name: str, bench: dict | None = None):
+    def __init__(self, name: str, bench: dict | None = None,
+                 workloads: Path = HERE / "workloads"):
         bench = benchmark() if bench is None else bench
         entries = {w["name"]: w for w in bench["workloads"]}
         if name not in entries:
             raise KeyError(f"no workload {name!r} in BENCHMARK.json")
         self.name = name
         self.entry = entries[name]
-        self.workload = _load(HERE / "workloads" / f"{name}.json")
+        self.workload = _load(Path(workloads) / f"{name}.json")
         configs = {c["name"]: c for c in bench["configs"]}
         self.config_entry = configs[self.entry["config"]]
         self.config = _load(ROOT / self.config_entry["file"])
@@ -55,9 +57,34 @@ class Cell:
 
     @property
     def reference_kind(self):
-        """The module that makes the reference's scene."""
+        """The module that makes the reference's scene, and may render
+        it (``render``)."""
         return importlib.import_module(
             f"solbench.reference.{self.config['kind']}")
+
+    @property
+    def settings(self) -> dict:
+        """The configuration's ``render`` block: RenderConfig fields as
+        JSON scalars, enums by name; empty where it has none."""
+        return self.config.get("render", {})
+
+    @property
+    def spp(self) -> int:
+        """Samples per pixel of a keyed frame (the workload's ``spp``)."""
+        return self.workload.get("spp", 1)
+
+    @property
+    def keyed(self) -> bool:
+        """Whether the frames draw from a key seeded by ``--seed``."""
+        return self.workload.get("keyed", False)
+
+    @property
+    def lights(self) -> int:
+        """The configuration's lights: its ``lights`` list, or one
+        ``light``."""
+        if "lights" in self.config:
+            return len(self.config["lights"])
+        return int("light" in self.config)
 
 
 def reader(metric: str):

@@ -59,17 +59,13 @@ def within(spans, outer) -> list:
     return out
 
 
-def span_ms(inputs, mode: str, name: str, inside: str | None = None):
-    """ms per profiled unit of the union of the spans ``solr/<name>``
-    (those inside a ``solr/<inside>`` span where given); spans of one
-    name nested in each other count once."""
+def span_ms(inputs, mode: str, name: str):
+    """ms per profiled unit of the union of the spans ``solr/<name>``;
+    spans of one name nested in each other count once."""
     trace = traced(inputs, mode)
     if trace is None:
         return None
-    spans = intervals(trace, name)
-    if inside is not None:
-        spans = within(spans, intervals(trace, inside))
-    return union_s(spans) * 1e3 / inputs.units
+    return union_s(intervals(trace, name)) * 1e3 / inputs.units
 
 
 def idle_ms(inputs, mode: str, name: str):

@@ -1,7 +1,8 @@
 """What a cell times: the program through its public API, or the plain
 reference put in its place (the control, and the faults of the tests).
 
-A frame system has ``frame()`` -> image (H, W, >= 3); a gradient system
+A frame system is made with the run's seed, which keys the frames of a
+keyed cell, and has ``frame()`` -> image (H, W, >= 3); a gradient system
 has ``leaves`` (name -> tensor), ``step()`` -> loss (a float: the step
 ends in a sync), ``lr`` and ``kept`` (None, or a dict that the next
 steps fill with their gradients).  Both have ``build_s``, ``counters()``,
@@ -56,23 +57,53 @@ def _descend(system):
             t.grad = None
 
 
+def render_config(cell):
+    """The program's RenderConfig of ``cell``: the workload's size,
+    bounces and traversal, the configuration's background and packet
+    fields, and its ``render`` block (``camera_mode`` and ``postfx`` by
+    enum name, ``postfx_samples`` the pass's samples)."""
+    from solr_tpu_torch import (CameraMode, PostFxConfig, PostFxMode,
+                                RenderConfig)
+
+    w = cell.workload
+    extra = dict(cell.settings)
+    if "camera_mode" in extra:
+        extra["camera_mode"] = CameraMode[extra["camera_mode"]]
+    if "postfx" in extra:
+        samples = extra.pop("postfx_samples", PostFxConfig.samples)
+        extra["postfx"] = PostFxConfig(PostFxMode[extra["postfx"]], samples)
+    return RenderConfig(
+        width=w["width"], height=w["height"], max_bounces=w["bounces"],
+        gradient_background=cell.config["gradient_background"],
+        traversal=w["traversal"], **cell.config["packet"], **extra)
+
+
+def reference_frame(cell, scene, seed):
+    """The plain reference's frame (H, W, 3) of ``scene``: the scene
+    kind's own ``render(scene, camera, workload, settings, seed)`` where
+    ``reference/<kind>.py`` defines one, else ``reference/render.py``'s
+    (hard shadows, one sample, no key)."""
+    w = cell.workload
+    own = getattr(cell.reference_kind, "render", None)
+    if own is None:
+        rgb = ref.render(scene, cell.config["camera"], w["width"],
+                         w["height"], w["bounces"])
+    else:
+        rgb = own(scene, cell.config["camera"], w, cell.settings, seed)
+    return rgb.reshape(w["height"], w["width"], 3)
+
+
 class _Port:
     """The program: the scene built from the raw inputs by the scene
     kind, its RenderConfig, and its counters."""
 
     def __init__(self, cell, raw, device):
-        from solr_tpu_torch import RenderConfig
-
         t0 = time.perf_counter()
         self.scene, self.cam = cell.scene_kind.build_port(raw, cell.config,
                                                           device)
         sync(device)
         self.build_s = time.perf_counter() - t0
-        w = cell.workload
-        self.cfg = RenderConfig(
-            width=w["width"], height=w["height"], max_bounces=w["bounces"],
-            gradient_background=cell.config["gradient_background"],
-            traversal=w["traversal"], **cell.config["packet"])
+        self.cfg = render_config(cell)
 
     @staticmethod
     def _counters():
@@ -93,11 +124,27 @@ class _Port:
 
 
 class PortFrames(_Port):
+    """One sample of ``render_sample`` a frame; a cell with render
+    settings, samples or a key renders through ``render``, keyed by
+    ``Key.seed(seed)``: the same key every frame, so every frame of the
+    window is the same image."""
+
+    def __init__(self, cell, raw, device, seed):
+        super().__init__(cell, raw, device)
+        self.spp, self.key = cell.spp, None
+        if cell.keyed:
+            from solr_tpu_torch import Key
+
+            self.key = Key.seed(seed, device)
+        self.plain = not cell.settings and self.spp == 1 and not cell.keyed
+
     def frame(self):
-        from solr_tpu_torch import render_sample
+        from solr_tpu_torch import render, render_sample
 
         with torch.no_grad():
-            return render_sample(self.scene, self.cam, self.cfg)[0]
+            if self.plain:
+                return render_sample(self.scene, self.cam, self.cfg)[0]
+            return render(self.scene, self.cam, self.cfg, self.key, self.spp)
 
 
 class PortGrad(_Port):
@@ -136,15 +183,15 @@ class PortGrad(_Port):
 
 
 class _Reference:
-    """The plain reference in the program's place, in ``dtype``."""
+    """The plain reference in the program's place, in ``dtype``; ``seed``
+    as the program's frames get it."""
 
     build_s = 0.0
 
-    def __init__(self, cell, raw, device, dtype):
+    def __init__(self, cell, raw, device, dtype, seed=None):
         self.scene = cell.reference_kind.reference_scene(
             raw, cell.config, device, dtype)
-        self.camera = cell.config["camera"]
-        self.w = cell.workload
+        self.cell, self.seed = cell, seed
 
     def counters(self) -> dict:
         return {}
@@ -156,10 +203,7 @@ class _Reference:
         self.scene = None
 
     def render(self):
-        w = self.w
-        rgb = ref.render(self.scene, self.camera, w["width"], w["height"],
-                         w["bounces"])
-        return rgb.reshape(w["height"], w["width"], 3)
+        return reference_frame(self.cell, self.scene, self.seed)
 
 
 class RefFrames(_Reference):

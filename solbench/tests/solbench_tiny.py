@@ -14,6 +14,8 @@ import copy
 
 from solbench import manifest
 
+# The tiny sizes of the accepted kinds; a later kind keeps its own as
+# ``TINY`` in its scene module, ``scenes/<kind>.py``.
 TINY_CONFIG = {"terrain": {"n_tris": 2000}, "molecule": {"n_atoms": 300}}
 TINY_LIMITS = {"frames": {"bad_px_share": 0.02, "mean_err": 1e-4,
                           "digest_gap": 0.0},
@@ -21,13 +23,16 @@ TINY_LIMITS = {"frames": {"bad_px_share": 0.02, "mean_err": 1e-4,
                         "change_gap": 0.1}}
 
 
-def tiny_cell(name: str, **workload):
-    """The cell ``name`` at tiny size; ``workload`` overrides keys of its
-    workload file (``traversal="while"`` walks a packet cell's frame)."""
-    cell = manifest.Cell(name)
+def tiny_cell(cell, **workload):
+    """The cell ``cell`` (its name, or a :class:`manifest.Cell`) at tiny
+    size; ``workload`` overrides keys of its workload file
+    (``traversal="while"`` walks a packet cell's frame)."""
+    cell = manifest.Cell(cell) if isinstance(cell, str) else cell
     cell.config = copy.deepcopy(cell.config)
     cell.workload = copy.deepcopy(cell.workload)
-    cell.config.update(TINY_CONFIG[cell.config["kind"]])
+    kind = cell.config["kind"]
+    cell.config.update(TINY_CONFIG[kind] if kind in TINY_CONFIG
+                       else cell.scene_kind.TINY)
     cell.workload.update(width=32, height=32, **workload)
     cell.workload["check"]["limits"] = dict(
         TINY_LIMITS[cell.workload["mode"]])
