@@ -11,6 +11,7 @@ import math
 import torch
 
 from solr_tpu_torch.types import Camera, PostFxMode, RenderConfig, Scene
+from solr_tpu_torch.utils.profiling import render_phase
 
 __all__ = ["apply_postfx", "depth_of_field", "ambient_occlusion", "cartoon",
            "enlightment"]
@@ -114,15 +115,16 @@ def apply_postfx(img, depth, scene: Scene, camera: Camera, cfg: RenderConfig,
     mode = cfg.postfx.mode
     if mode == PostFxMode.NONE:
         return img
-    if mode == PostFxMode.DEPTH_OF_FIELD:
-        return depth_of_field(img, depth, camera.focal_distance,
-                              torch.clamp(camera.aperture, min=0.05) * 8.0,
-                              cfg.postfx.samples)
-    if mode == PostFxMode.AMBIENT_OCCLUSION:
-        return ambient_occlusion(img, depth, scene.info.shadow_intensity,
-                                 samples=cfg.postfx.samples)
-    if mode == PostFxMode.CARTOON:
-        return cartoon(img, depth)
-    if mode == PostFxMode.ENLIGHTMENT:
-        return enlightment(img, depth, samples=cfg.postfx.samples)
-    raise NotImplementedError(mode)
+    with render_phase("postfx"):
+        if mode == PostFxMode.DEPTH_OF_FIELD:
+            return depth_of_field(img, depth, camera.focal_distance,
+                                  torch.clamp(camera.aperture, min=0.05) * 8.0,
+                                  cfg.postfx.samples)
+        if mode == PostFxMode.AMBIENT_OCCLUSION:
+            return ambient_occlusion(img, depth, scene.info.shadow_intensity,
+                                     samples=cfg.postfx.samples)
+        if mode == PostFxMode.CARTOON:
+            return cartoon(img, depth)
+        if mode == PostFxMode.ENLIGHTMENT:
+            return enlightment(img, depth, samples=cfg.postfx.samples)
+        raise NotImplementedError(mode)

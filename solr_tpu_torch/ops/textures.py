@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from solr_tpu_torch.utils.profiling import render_phase
+
 __all__ = ["sample_texture", "material_map_scales", "tangent_basis",
            "apply_normal_maps", "procedural_color", "mandelbrot", "julia",
            "value_noise", "turbulence", "BUMP_STRENGTH"]
@@ -25,32 +27,35 @@ def sample_texture(tex, tex_id, uv):
     if tex.count == 0:
         return torch.ones(uv.shape[:-1] + (4,), dtype=uv.dtype,
                           device=uv.device)
-    tid = tex_id.clamp(0, tex.count - 1).long()
-    wi, hi = tex.width[tid], tex.height[tid]
-    off = tex.offset[tid]
-    u = uv[..., 0] - torch.floor(uv[..., 0])
-    v = uv[..., 1] - torch.floor(uv[..., 1])
-    x = u * wi.to(uv.dtype) - 0.5
-    y = v * hi.to(uv.dtype) - 0.5
-    x0 = torch.floor(x)
-    y0 = torch.floor(y)
-    fx = (x - x0)[..., None]
-    fy = (y - y0)[..., None]
+    with render_phase("texture"):
+        tid = tex_id.clamp(0, tex.count - 1).long()
+        wi, hi = tex.width[tid], tex.height[tid]
+        off = tex.offset[tid]
+        u = uv[..., 0] - torch.floor(uv[..., 0])
+        v = uv[..., 1] - torch.floor(uv[..., 1])
+        x = u * wi.to(uv.dtype) - 0.5
+        y = v * hi.to(uv.dtype) - 0.5
+        x0 = torch.floor(x)
+        y0 = torch.floor(y)
+        fx = (x - x0)[..., None]
+        fy = (y - y0)[..., None]
 
-    def texel(xi, yi):
-        # Floor modulo, as jnp.mod: texel -1 wraps to the last column.
-        xi = torch.remainder(xi.to(torch.int32), wi.clamp(min=1))
-        yi = torch.remainder(yi.to(torch.int32), hi.clamp(min=1))
-        return tex.atlas[(off + yi * wi + xi).long()].to(uv.dtype) / 255.0
+        def texel(xi, yi):
+            # Floor modulo, as jnp.mod: texel -1 wraps to the last column.
+            xi = torch.remainder(xi.to(torch.int32), wi.clamp(min=1))
+            yi = torch.remainder(yi.to(torch.int32), hi.clamp(min=1))
+            return tex.atlas[(off + yi * wi + xi).long()].to(uv.dtype) \
+                / 255.0
 
-    c00 = texel(x0, y0)
-    c10 = texel(x0 + 1, y0)
-    c01 = texel(x0, y0 + 1)
-    c11 = texel(x0 + 1, y0 + 1)
-    top = c00 * (1 - fx) + c10 * fx
-    bot = c01 * (1 - fx) + c11 * fx
-    rgba = top * (1 - fy) + bot * fy
-    return torch.where((tex_id >= 0)[..., None], rgba, torch.ones_like(rgba))
+        c00 = texel(x0, y0)
+        c10 = texel(x0 + 1, y0)
+        c01 = texel(x0, y0 + 1)
+        c11 = texel(x0 + 1, y0 + 1)
+        top = c00 * (1 - fx) + c10 * fx
+        bot = c01 * (1 - fx) + c11 * fx
+        rgba = top * (1 - fy) + bot * fy
+        return torch.where((tex_id >= 0)[..., None], rgba,
+                           torch.ones_like(rgba))
 
 
 def _luminance(rgba):
@@ -66,15 +71,16 @@ def material_map_scales(scene, material, uv):
     if tex.count == 0:
         one = torch.ones(uv.shape[:-1], dtype=uv.dtype, device=uv.device)
         return one, one, one
-    mats = scene.materials
+    with render_phase("texture"):
+        mats = scene.materials
 
-    def scale(tid_per_mat):
-        tid = tid_per_mat[material]
-        lum = _luminance(sample_texture(tex, tid, uv))
-        return torch.where(tid >= 0, lum, torch.ones_like(lum))
+        def scale(tid_per_mat):
+            tid = tid_per_mat[material]
+            lum = _luminance(sample_texture(tex, tid, uv))
+            return torch.where(tid >= 0, lum, torch.ones_like(lum))
 
-    return (scale(mats.texture_specular), scale(mats.texture_reflection),
-            scale(mats.texture_transparency))
+        return (scale(mats.texture_specular), scale(mats.texture_reflection),
+                scale(mats.texture_transparency))
 
 
 def tangent_basis(n):
@@ -104,29 +110,31 @@ def apply_normal_maps(scene, material, uv, n):
     tex = scene.textures
     if tex.count == 0:
         return n
-    mats = scene.materials
-    tn = mats.texture_normal[material]
-    tb = mats.texture_bump[material]
-    t, bt = tangent_basis(n)
+    with render_phase("texture"):
+        mats = scene.materials
+        tn = mats.texture_normal[material]
+        tb = mats.texture_bump[material]
+        t, bt = tangent_basis(n)
 
-    rgb = sample_texture(tex, tn, uv)[..., :3] * 2.0 - 1.0
-    nm = _unit(rgb[..., 0:1] * t + rgb[..., 1:2] * bt + rgb[..., 2:3] * n)
-    out = torch.where((tn >= 0)[..., None], nm, n)
+        rgb = sample_texture(tex, tn, uv)[..., :3] * 2.0 - 1.0
+        nm = _unit(rgb[..., 0:1] * t + rgb[..., 1:2] * bt + rgb[..., 2:3] * n)
+        out = torch.where((tn >= 0)[..., None], nm, n)
 
-    tid = tb.clamp(0, tex.count - 1).long()
-    du = 1.0 / torch.clamp(tex.width[tid].to(uv.dtype), min=1.0)
-    dv = 1.0 / torch.clamp(tex.height[tid].to(uv.dtype), min=1.0)
+        tid = tb.clamp(0, tex.count - 1).long()
+        du = 1.0 / torch.clamp(tex.width[tid].to(uv.dtype), min=1.0)
+        dv = 1.0 / torch.clamp(tex.height[tid].to(uv.dtype), min=1.0)
 
-    def height(uv_s):
-        return _luminance(sample_texture(tex, tb, uv_s))
+        def height(uv_s):
+            return _luminance(sample_texture(tex, tb, uv_s))
 
-    zero = torch.zeros_like(du)
-    step_u = torch.stack([du, zero], -1)
-    step_v = torch.stack([zero, dv], -1)
-    gu = (height(uv + step_u) - height(uv - step_u)) / (2.0 * du)
-    gv = (height(uv + step_v) - height(uv - step_v)) / (2.0 * dv)
-    bumped = _unit(n - BUMP_STRENGTH * (gu[..., None] * t + gv[..., None] * bt))
-    return torch.where((tb >= 0)[..., None], bumped, out)
+        zero = torch.zeros_like(du)
+        step_u = torch.stack([du, zero], -1)
+        step_v = torch.stack([zero, dv], -1)
+        gu = (height(uv + step_u) - height(uv - step_u)) / (2.0 * du)
+        gv = (height(uv + step_v) - height(uv - step_v)) / (2.0 * dv)
+        bumped = _unit(n - BUMP_STRENGTH * (gu[..., None] * t
+                                            + gv[..., None] * bt))
+        return torch.where((tb >= 0)[..., None], bumped, out)
 
 
 def _escape_time(c_re, c_im, z_re, z_im, iters: int):
