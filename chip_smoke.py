@@ -231,7 +231,15 @@ both started together.  Phases, each of which must pass:
    path's timed frames launching B1 and B2 and no walk, the while path's
    the triangle walks and no sweep, the packet digest equal to 4's, the
    two paths' digests within 1e-3;
-37. ``walk_profiles``: one more frame of 10 and of 19's ``stereo_while``
+37. ``gather_backward``: the gathers' backward (``gather_rows_bwd``,
+   csrc/gather.cu) on every call of one gradient step of the bench
+   frame at 512x512 with traversal="while" (terrain1m.grad's shapes):
+   each call held to a float64 index_add_ within the float32 rounding
+   of any order of its adds and, with its rows made small integers,
+   bit-equal to index_add_; the launches counted, and its ms beside
+   its plain version's, PyTorch's index_put_(accumulate=True)'s (the
+   library yardstick) and its bound;
+38. ``walk_profiles``: one more frame of 10 and of 19's ``stereo_while``
    under torch.profiler, after every timed phase: device kernels per
    frame and the device busy share (device time over the best timed
    frame).
@@ -345,6 +353,9 @@ WALK_OPS_PER_LANE = {"tri": 52, "sphere": 17, "cyl": 85}
 PACKED_OPS_PER_LANE = {"tri": 46, "sphere": 16, "cyl": 75}
 WALK_REPLACES = {"bvh_closest_hit": "solr_tpu/ops/bvh.py:333",
                  "bvh_transmittance": "solr_tpu/ops/bvh.py:397"}
+GATHER_DESIGN = ("warp-aggregated segment sum: zero rows dropped, "
+                 "__match_any_sync groups, a shuffle tree, one atomic a "
+                 "group; shared-memory table up to 48 KB")
 # Gradient checks: per-leaf f32 tolerances of the inverse scene, the
 # vertex L1 total's rtol and the rows' L1 difference bound of the bench
 # frames, the leaves a gradient step trains, the inverse demo's runs.
@@ -963,10 +974,10 @@ def phase_walk_stale(scenes, rec, paths, device):
 
 
 def _reset_counts():
-    from solr_tpu_torch.ops import bvh, sweep, traverse
+    from solr_tpu_torch.ops import bvh, gather, sweep, traverse
 
-    for counts in (sweep.LAUNCHES, bvh.LAUNCHES, traverse.NET_STATS,
-                   traverse.BRUTE_CALLS):
+    for counts in (sweep.LAUNCHES, bvh.LAUNCHES, gather.LAUNCHES,
+                   traverse.NET_STATS, traverse.BRUTE_CALLS):
         for k in counts:
             counts[k] = 0
 
@@ -1598,7 +1609,7 @@ def phase_grad_path(scene, cam, cfg, rec, key, kernels, idle=(),
     One more backward runs under torch.profiler."""
     import torch
 
-    from solr_tpu_torch.ops import bvh, sweep
+    from solr_tpu_torch.ops import bvh, gather, sweep
     from solr_tpu_torch.ops.render import render_sample
 
     device = scene.device
@@ -1629,7 +1640,7 @@ def phase_grad_path(scene, cam, cfg, rec, key, kernels, idle=(),
         _sync(device)
         parts.append(dict(refresh_ms=refresh_ms, forward_ms=forward_ms,
                           backward_ms=(time.perf_counter() - t0) * 1e3))
-    launches = {**sweep.LAUNCHES, **bvh.LAUNCHES}
+    launches = {**sweep.LAUNCHES, **bvh.LAUNCHES, **gather.LAUNCHES}
     peak = torch.cuda.max_memory_allocated() / 2**30
     g = _grad_tree(p)
     finite = all(bool(torch.isfinite(x).all()) for x in _grad_leaf_list(g))
@@ -1656,6 +1667,110 @@ def phase_grad_path(scene, cam, cfg, rec, key, kernels, idle=(),
         raise AssertionError(f"{key}: kernels never launched {missing}, "
                              f"launched {stray}")
     return launches
+
+
+def _rounding_excess(got, grad, idx, n):
+    """How far ``got`` lies past the float32 rounding of the gathers'
+    backward in any order of its adds: each entry within (k - 1) 2^-24
+    times the magnitudes of its k rows of a float64 index_add_, and
+    2^-126 more for each of its at most 2k atomic adds (a group's, then
+    its CTA's), since the card's float atomics flush subnormal values to
+    zero.  <= 0 when it holds."""
+    import torch
+
+    from solr_tpu_torch.ops.gather import gather_rows_bwd_plain as plain
+
+    g64 = grad.double()
+    want, mag = plain(g64, idx, n), plain(g64.abs(), idx, n)
+    k = plain(torch.ones(idx.shape, dtype=torch.float64, device=idx.device),
+              idx, n).reshape((n,) + (1,) * (want.dim() - 1))
+    bound = (k - 1).clamp(min=0) * 2.0 ** -24 * mag + 2 * k * 2.0 ** -126
+    return float(((got.double() - want).abs() - bound).max())
+
+
+def phase_gather_backward(scene, cam, cfg, rec):
+    """``gather_backward``: the gathers' backward (``gather_rows_bwd``,
+    csrc/gather.cu) at the gradient step's shapes.  One step of
+    terrain1m.grad's kind (the bench frame with traversal="while", the
+    MSE to 0.8 x its own image, backward over GRAD_KEYS) records each
+    call; gather.LAUNCHES must count every one.  Each recorded call: the
+    rows, those not exactly zero and their distinct indices; the kernel
+    held to a float64 index_add_ (``_rounding_excess``: its atomics add
+    in no fixed order), and on the call's own indices and zero rows with
+    its other rows made small integers (whose sums are exact in any
+    order) bit-equal to index_add_ (``exact``), so a row lost or doubled
+    on a shared index shows however many rows share it; ms of the kernel
+    call (its zero fill and the kernel), of its plain version (index_add_
+    into zeros) and of PyTorch's index_put_(accumulate=True) (the library
+    yardstick: the backward of x[i] the step took before), each the mean
+    of 3 calls after a warm-up between CUDA events; and the bound: the
+    rows and indices read and the table's gradient written once at 3.35
+    TB/s.  Their sums over the step too."""
+    import dataclasses
+    import math
+
+    import torch
+
+    from solr_tpu_torch.kernel_shapes import time_ms
+    from solr_tpu_torch.ops import gather
+    from solr_tpu_torch.ops.render import render_sample
+
+    device = scene.device
+    wcfg = dataclasses.replace(cfg, traversal="while")
+    with torch.no_grad():
+        target = render_sample(scene, cam, wcfg)[0][..., :3] * 0.8
+    p = _leaves(scene.params, GRAD_KEYS)
+    calls, kernel = [], gather.gather_rows_bwd
+
+    def recorded(grad, idx, n):
+        calls.append((grad.detach().clone(), idx.clone(), n))
+        return kernel(grad, idx, n)
+
+    gather.LAUNCHES["gather_rows_bwd"] = 0
+    gather.gather_rows_bwd = recorded
+    try:
+        img, _ = render_sample(scene.with_params(p), cam, wcfg)
+        ((img[..., :3] - target) ** 2).mean().backward()
+    finally:
+        gather.gather_rows_bwd = kernel
+    _sync(device)
+    out = dict(width=wcfg.width, height=wcfg.height,
+               launches=gather.LAUNCHES["gather_rows_bwd"], calls=[])
+    gen = torch.Generator(device=device).manual_seed(23)
+    for grad, idx, n in calls:
+        row = tuple(grad.shape[idx.dim():])
+        width = math.prod(row)
+        nonzero = grad.reshape(idx.numel(), -1).ne(0).any(-1)
+        flat = idx.reshape(-1)
+        got = kernel(grad, idx, n)
+        ints = torch.randint(-8, 9, grad.shape, device=device,
+                             generator=gen).float()
+        ints.reshape(idx.numel(), -1)[~nonzero] = 0.0
+        exact = torch.equal(
+            kernel(ints, idx, n),
+            gather.gather_rows_bwd_plain(ints.double(), idx, n).float())
+        lib = (lambda: torch.zeros((n,) + row, device=device).index_put_(
+            (flat,), grad.reshape((-1,) + row), accumulate=True))
+        out["calls"].append(dict(
+            table=[n, *row], rows=idx.numel(), nonzero=int(nonzero.sum()),
+            distinct=int(flat[nonzero].unique().numel()),
+            excess=_rounding_excess(got, grad, idx, n), exact=exact,
+            ms=time_ms(lambda: kernel(grad, idx, n), 3),
+            plain_ms=time_ms(
+                lambda: gather.gather_rows_bwd_plain(grad, idx, n), 3),
+            library_ms=time_ms(lib, 3),
+            bound_ms=(idx.numel() * (4 * width + 8) + n * width * 4)
+            / 3.35e12 * 1e3))
+    for k in ("ms", "plain_ms", "library_ms", "bound_ms"):
+        out[f"step_{k}"] = sum(c[k] for c in out["calls"])
+    rec["gather_backward"] = out
+    print(f"gather_backward: {json.dumps(out)}", flush=True)
+    bad = [c for c in out["calls"]
+           if not (c["excess"] <= 0.0 and c["exact"])]
+    if not calls or out["launches"] != len(calls) or bad:
+        raise AssertionError(f"gather_backward: {len(calls)} calls, "
+                             f"{out['launches']} launches counted, past "
+                             f"the rounding bound or not exact: {bad}")
 
 
 def phase_inverse(rec):
@@ -2916,6 +3031,17 @@ def _kernel_table(rec, paths):
             tests_per_ray=k["tests_per_ray"],
             own_visits_per_ray=k["own_visits_per_ray"],
             own_tests_per_ray=k["own_tests_per_ray"]))
+    g = rec["gather_backward"]  # timed at grad_walk_path's shapes
+    table.append(dict(
+        name="gather_rows_bwd", route="cuda", design=GATHER_DESIGN,
+        source="solr_tpu_torch/csrc/gather.cu",
+        replaces="none (XLA's scatter-add transpose of table[idx])",
+        launches=paths["grad_walk_path"]["gather_rows_bwd"],
+        launches_main_path=paths["grad_main_path"]["gather_rows_bwd"],
+        max_excess=max(c["excess"] for c in g["calls"]),
+        ms=g["step_ms"], plain_ms=g["step_plain_ms"],
+        bound_ms=g["step_bound_ms"], bound_by="bytes",
+        library_ms=g["step_library_ms"], calls=len(g["calls"])))
     return table
 
 
@@ -2988,6 +3114,7 @@ def main() -> int:
     six = [bvh.kernel_name(e, p) for p in bvh.PRIMS for e in bvh.ENTRIES]
     dfs_walks = [k for k in walks if k not in six]
     tri_walks = [bvh.kernel_name(e, "tri") for e in bvh.ENTRIES]
+    gathers = ["gather_rows_bwd"]
 
     def molecule_while():
         scene, cam, cfg = scenes["molecule"]
@@ -3020,11 +3147,12 @@ def main() -> int:
         ("cornell", lambda: paths.update(cornell=phase_cornell(rec, device))),
         ("grad_reference", lambda: phase_grad_reference(rec, device)),
         ("grad_main_path", lambda: paths.update(grad_main_path=phase_grad_path(
-            *scenes["bench"], rec, "grad_main_path", tri, idle=walks))),
+            *scenes["bench"], rec, "grad_main_path", tri + gathers,
+            idle=walks))),
         ("grad_walk_path", lambda: paths.update(grad_walk_path=phase_grad_path(
             scenes["bench"][0], scenes["bench"][1],
-            _walk_cfg(scenes["bench"][2]), rec, "grad_walk_path", tri_walks,
-            idle=tri))),
+            _walk_cfg(scenes["bench"][2]), rec, "grad_walk_path",
+            tri_walks + gathers, idle=tri))),
         ("inverse", lambda: phase_inverse(rec)),
         ("stereo_path", lambda: paths.update(stereo_path=phase_path(
             scenes["bench"][0], scenes["bench"][1],
@@ -3054,6 +3182,8 @@ def main() -> int:
         ("native", lambda: phase_native(rec)),
         ("bench_scaling", lambda: phase_bench_scaling(rec)),
         ("bench", lambda: phase_bench(rec, device)),
+        ("gather_backward",
+         lambda: phase_gather_backward(*scenes["bench"], rec)),
         ("walk_profiles", lambda: phase_walk_profiles(scenes, rec)),
     )
     rec["phase_s"] = {}

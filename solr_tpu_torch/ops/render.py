@@ -16,6 +16,7 @@ import torch
 from solr_tpu_torch.constants import DEFAULT_BLOCK, PARK_DIR, PARK_POS, RAY_EPS
 from solr_tpu_torch.ops import textures as tex_ops
 from solr_tpu_torch.ops.camera import camera_rays, eye_rays
+from solr_tpu_torch.ops.gather import gather_rows
 from solr_tpu_torch.ops.packet import build_tri_accel, tile_permutation
 from solr_tpu_torch.ops.postfx import apply_postfx
 from solr_tpu_torch.ops.shade import phong_shade
@@ -144,12 +145,13 @@ def trace_rays(scene: Scene, o, d, cfg: RenderConfig, key=None, packet=None):
 
         # Continuation: refract if transparent, else reflect.
         n = surf.shading_normal
-        ior = mats.ior[m]
+        ior = gather_rows(mats.ior, m)
         eta = torch.where(surf.backface, ior, 1.0 / torch.clamp(ior, min=1e-3))
         refr_d, _ = refract(d, n, eta)
         nd = normalize(torch.where(has_refr[..., None], refr_d, reflect(d, n)))
         no = surf.point + nd * (RAY_EPS * 4.0)
-        tint = torch.where(has_refr[..., None], mats.color[m] * 0.98 + 0.02,
+        tint = torch.where(has_refr[..., None],
+                           gather_rows(mats.color, m) * 0.98 + 0.02,
                            torch.ones_like(local))
         thru = thru * w[..., None] * tint
         live = valid & (w > 1e-4) & (thru[..., :3].amax(-1) > _MIN_THROUGHPUT)

@@ -10,6 +10,7 @@ import torch
 
 from solr_tpu_torch.constants import PARK_DIR, PARK_POS, RAY_EPS
 from solr_tpu_torch.ops import textures as tex_ops
+from solr_tpu_torch.ops.gather import gather_rows
 from solr_tpu_torch.ops.traverse import SurfaceInfo, scene_transmittance
 from solr_tpu_torch.ops.vecmath import dot, reflect
 from solr_tpu_torch.types import RenderConfig, Scene
@@ -41,7 +42,7 @@ def surface_albedo(scene: Scene, surf: SurfaceInfo):
     m = surf.material
     color = tex_ops.procedural_color(mats.procedural[m],
                                      mats.procedural_scale[m], surf.uv,
-                                     mats.color[m])
+                                     gather_rows(mats.color, m))
     if scene.textures.count > 0:
         tid = mats.texture_diffuse[m]
         sampled = tex_ops.sample_texture(scene.textures, tid, surf.uv)

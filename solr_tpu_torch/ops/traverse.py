@@ -39,6 +39,7 @@ from solr_tpu_torch.ops import bvh as bvh_mod
 from solr_tpu_torch.ops import intersect as isect
 from solr_tpu_torch.ops import packet as pk
 from solr_tpu_torch.ops import sweep
+from solr_tpu_torch.ops.gather import gather_rows
 from solr_tpu_torch.ops.textures import apply_normal_maps
 from solr_tpu_torch.ops.vecmath import cross, dot, normalize, spherical_uv
 from solr_tpu_torch.types import Scene
@@ -232,35 +233,34 @@ def scene_closest_hit(scene: Scene, o, d, t_min=RAY_EPS, t_max=T_FAR,
         return Hit(t=t, pool=raw.pool, idx=raw.idx)
 
 
+def _hit_rows(scene: Scene, code: int, idx, *fields):
+    """The rows of pool ``code``'s ``fields`` at ``idx`` clamped into the
+    pool: a ray on another pool, or on none, gathers a don't-care row
+    that its caller's ``torch.where`` drops (and whose gradient it
+    zeroes)."""
+    p = _pool(scene, code)
+    i = idx.clamp(0, _pool_sizes(scene)[code] - 1).long()
+    return [gather_rows(getattr(p, f), i) for f in fields]
+
+
+# Each pool's differentiable hit distance and the fields it takes.
+_T_OF_POOL = {
+    POOL_SPHERE: (isect.sphere_t_p, ("center", "radius")),
+    POOL_TRIANGLE: (isect.triangle_t_p, ("v0", "v1", "v2")),
+    POOL_CYLINDER: (isect.cylinder_t_p, ("p0", "p1", "radius")),
+    POOL_ELLIPSOID: (isect.ellipsoid_t_p, ("center", "radii")),
+    POOL_PLANE: (isect.plane_t_p, ("axis", "origin", "half_extents")),
+}
+
+
 def _recompute_t(scene: Scene, o, d, pool, idx, t_min):
     """Differentiable hit distance for the already-selected primitive."""
-    sizes = _pool_sizes(scene)
     t = torch.full(o.shape[:-1], T_FAR, dtype=o.dtype, device=o.device)
-    if sizes[POOL_SPHERE]:
-        p = scene.spheres
-        i = idx.clamp(0, sizes[POOL_SPHERE] - 1).long()
-        t = torch.where(pool == POOL_SPHERE, isect.sphere_t_p(
-            o, d, p.center[i], p.radius[i], t_min), t)
-    if sizes[POOL_TRIANGLE]:
-        p = scene.triangles
-        i = idx.clamp(0, sizes[POOL_TRIANGLE] - 1).long()
-        t = torch.where(pool == POOL_TRIANGLE, isect.triangle_t_p(
-            o, d, p.v0[i], p.v1[i], p.v2[i], t_min), t)
-    if sizes[POOL_CYLINDER]:
-        p = scene.cylinders
-        i = idx.clamp(0, sizes[POOL_CYLINDER] - 1).long()
-        t = torch.where(pool == POOL_CYLINDER, isect.cylinder_t_p(
-            o, d, p.p0[i], p.p1[i], p.radius[i], t_min), t)
-    if sizes[POOL_ELLIPSOID]:
-        p = scene.ellipsoids
-        i = idx.clamp(0, sizes[POOL_ELLIPSOID] - 1).long()
-        t = torch.where(pool == POOL_ELLIPSOID, isect.ellipsoid_t_p(
-            o, d, p.center[i], p.radii[i], t_min), t)
-    if sizes[POOL_PLANE]:
-        p = scene.planes
-        i = idx.clamp(0, sizes[POOL_PLANE] - 1).long()
-        t = torch.where(pool == POOL_PLANE, isect.plane_t_p(
-            o, d, p.axis[i], p.origin[i], p.half_extents[i], t_min), t)
+    for code, size in _pool_sizes(scene).items():
+        if size:
+            t_of, fields = _T_OF_POOL[code]
+            t = torch.where(pool == code, t_of(
+                o, d, *_hit_rows(scene, code, idx, *fields), t_min), t)
     return t
 
 
@@ -650,35 +650,33 @@ def surface_at(scene: Scene, hit: Hit, o, d) -> SurfaceInfo:
                     torch.where(m3, uv_new, uv), torch.where(mask, m_new, material))
 
         if sizes[POOL_SPHERE]:
-            p = scene.spheres
-            i = hit.idx.clamp(0, sizes[POOL_SPHERE] - 1).long()
-            r = torch.clamp(p.radius[i], min=1e-6)
-            n = normalize((point - p.center[i]) / r[..., None])
+            center, radius, mat = _hit_rows(scene, POOL_SPHERE, hit.idx,
+                                            "center", "radius", "material")
+            r = torch.clamp(radius, min=1e-6)
+            n = normalize((point - center) / r[..., None])
             normal, shading, uv, material = blend(
-                hit.pool == POOL_SPHERE, n, n, spherical_uv(n),
-                p.material[i].long())
+                hit.pool == POOL_SPHERE, n, n, spherical_uv(n), mat.long())
 
         if sizes[POOL_TRIANGLE]:
-            p = scene.triangles
-            i = hit.idx.clamp(0, sizes[POOL_TRIANGLE] - 1).long()
-            v0, v1, v2 = p.v0[i], p.v1[i], p.v2[i]
+            v0, v1, v2, n0, n1, n2, uv0, uv1, uv2, mat = _hit_rows(
+                scene, POOL_TRIANGLE, hit.idx, "v0", "v1", "v2", "n0", "n1",
+                "n2", "uv0", "uv1", "uv2", "material")
             gn = normalize(cross(v1 - v0, v2 - v0))
             bu, bv = isect.triangle_bary(o, d, v0, v1, v2)
             bw = 1.0 - bu - bv
-            sn = (bw[..., None] * p.n0[i] + bu[..., None] * p.n1[i]
-                  + bv[..., None] * p.n2[i])
+            sn = (bw[..., None] * n0 + bu[..., None] * n1
+                  + bv[..., None] * n2)
             has_sn = dot(sn, sn) > 1e-12
             sn = normalize(torch.where(has_sn[..., None], sn, gn))
-            uvt = (bw[..., None] * p.uv0[i] + bu[..., None] * p.uv1[i]
-                   + bv[..., None] * p.uv2[i])
+            uvt = (bw[..., None] * uv0 + bu[..., None] * uv1
+                   + bv[..., None] * uv2)
             normal, shading, uv, material = blend(
-                hit.pool == POOL_TRIANGLE, gn, sn, uvt, p.material[i].long())
+                hit.pool == POOL_TRIANGLE, gn, sn, uvt, mat.long())
 
         if sizes[POOL_CYLINDER]:
-            p = scene.cylinders
-            i = hit.idx.clamp(0, sizes[POOL_CYLINDER] - 1).long()
-            p0 = p.p0[i]
-            axis = p.p1[i] - p0
+            p0, p1, mat = _hit_rows(scene, POOL_CYLINDER, hit.idx, "p0", "p1",
+                                    "material")
+            axis = p1 - p0
             h2 = torch.clamp(dot(axis, axis), min=1e-12)
             s = dot(point - p0, axis) / h2
             n_side = normalize(point - (p0 + s[..., None] * axis))
@@ -688,30 +686,31 @@ def surface_at(scene: Scene, hit: Hit, o, d) -> SurfaceInfo:
                             torch.where((s > 1.0 - 1e-4)[..., None], a_hat, n_side))
             uvc = torch.stack([spherical_uv(n_side)[..., 0], s], -1)
             normal, shading, uv, material = blend(
-                hit.pool == POOL_CYLINDER, n, n, uvc, p.material[i].long())
+                hit.pool == POOL_CYLINDER, n, n, uvc, mat.long())
 
         if sizes[POOL_ELLIPSOID]:
-            p = scene.ellipsoids
-            i = hit.idx.clamp(0, sizes[POOL_ELLIPSOID] - 1).long()
-            rad = torch.clamp(p.radii[i], min=1e-6)
-            local = (point - p.center[i]) / rad
+            center, radii, mat = _hit_rows(scene, POOL_ELLIPSOID, hit.idx,
+                                           "center", "radii", "material")
+            rad = torch.clamp(radii, min=1e-6)
+            local = (point - center) / rad
             n = normalize(local / rad)
             normal, shading, uv, material = blend(
                 hit.pool == POOL_ELLIPSOID, n, n, spherical_uv(local),
-                p.material[i].long())
+                mat.long())
 
         if sizes[POOL_PLANE]:
-            p = scene.planes
-            i = hit.idx.clamp(0, sizes[POOL_PLANE] - 1).long()
-            ax = p.axis[i].long()
+            axis, origin, half, mat = _hit_rows(
+                scene, POOL_PLANE, hit.idx, "axis", "origin", "half_extents",
+                "material")
+            ax = axis.long()
             n = torch.eye(3, dtype=o.dtype, device=o.device)[ax]
             # The two in-plane axes, ascending: UV across the rectangle.
             in_plane = torch.tensor([[1, 2], [0, 2], [0, 1]],
                                     device=o.device)[ax]
-            pu = torch.gather(point - p.origin[i], -1, in_plane)
-            uvp = 0.5 + 0.5 * pu / torch.clamp(p.half_extents[i], min=1e-6)
+            pu = torch.gather(point - origin, -1, in_plane)
+            uvp = 0.5 + 0.5 * pu / torch.clamp(half, min=1e-6)
             normal, shading, uv, material = blend(
-                hit.pool == POOL_PLANE, n, n, uvp, p.material[i].long())
+                hit.pool == POOL_PLANE, n, n, uvp, mat.long())
 
         if scene.textures.count > 0:
             shading = apply_normal_maps(scene, material, uv, shading)

@@ -33,7 +33,9 @@ textured frame with a key (soft shadows, jitter, 2 samples) renders
 finite on the card.  ``shard_render`` over two gloo ranks sharing the
 card equals the one-process frame, with B1 and B2 launched in both.
 BASELINE config #1 at 64x64 on the card holds to the port's numpy
-oracle.
+oracle.  The gathers' backward kernel (csrc/gather.cu) holds to a
+float64 index_add_ at the gradient step's shapes, in float32 and
+float64, and a float64 gradient step on the card matches the CPU's.
 
 These need a CUDA card and nvcc; without a card they skip.  The file
 imports neither JAX nor solr_tpu, so it runs where only PyTorch is
@@ -781,6 +783,50 @@ def test_while_frame_on_card_matches_cpu(cuda):
     assert float((err > 1e-4).float().mean()) <= 0.002
 
 
+def _grads_on_card_and_cpu(cuda, height, cast=lambda x: x):
+    """One gradient step through the reduced bench frame (``cast`` applied
+    to its scene and camera) on the CPU and on the card, where the
+    traversal's kernels (B1 and B2 on packets, the triangle walks at
+    64x56) and the gathers' backward must launch.  Returns the vertex
+    gradients' L1 total and the albedo and light gradients of each."""
+    from solr_tpu_torch.ops import gather
+
+    kernels = (("sweep_closest", "sweep_transmittance") if height == SIZE
+               else ("bvh_closest_hit_tri", "bvh_transmittance_tri"))
+    grads = []
+    for dev in ("cpu", cuda):
+        scene, cam, cfg = bench_scene(N_TRIS, block=BLOCK, width=SIZE,
+                                      height=height, device=dev)
+        scene, cam = cast(scene), cast(cam)
+        with torch.no_grad():
+            target = render_sample(scene, cam, cfg)[0][..., :3] * 0.8
+        p = {k: (tuple(x.detach().clone().requires_grad_() for x in v)
+                 if isinstance(v, tuple)
+                 else v.detach().clone().requires_grad_())
+             for k, v in scene.params.items()}
+        before = {**sweep.LAUNCHES, **bvh.LAUNCHES, **gather.LAUNCHES}
+        img, _ = render_sample(scene.with_params(p), cam, cfg)
+        ((img[..., :3] - target) ** 2).mean().backward()
+        if dev != "cpu":
+            after = {**sweep.LAUNCHES, **bvh.LAUNCHES, **gather.LAUNCHES}
+            assert min(after[k] - before[k]
+                       for k in kernels + ("gather_rows_bwd",)) > 0
+        grads.append({
+            "l1": sum(float(x.grad.abs().sum()) for x in p["vertices"]),
+            "albedo": p["albedo"].grad.cpu(),
+            "light": p["light_position"].grad.cpu()})
+    return grads
+
+
+def _assert_card_matches_cpu(cpu, card):
+    assert cpu["l1"] > 0
+    assert abs(card["l1"] / cpu["l1"] - 1.0) <= 1e-3
+    for k in ("albedo", "light"):
+        assert torch.isfinite(card[k]).all()
+        scale = float(cpu[k].abs().max())
+        assert float((card[k] - cpu[k]).abs().max()) <= 1e-2 * scale
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("height", [SIZE, 56], ids=["packets", "walk"])
 def test_gradients_on_card_match_cpu(cuda, height):
@@ -791,36 +837,102 @@ def test_gradients_on_card_match_cpu(cuda, height):
     gradients within 1e-2 of their largest entry (on the CPU the port and
     solr_tpu differ by 2e-3 and 3e-3 there, through f32 edge flips; the
     two devices' elementwise kernels can flip edges too)."""
-    grads = []
-    for dev in ("cpu", cuda):
-        scene, cam, cfg = bench_scene(N_TRIS, block=BLOCK, width=SIZE,
-                                      height=height, device=dev)
-        with torch.no_grad():
-            target = render_sample(scene, cam, cfg)[0][..., :3] * 0.8
-        p = {k: (tuple(x.detach().clone().requires_grad_() for x in v)
-                 if isinstance(v, tuple)
-                 else v.detach().clone().requires_grad_())
-             for k, v in scene.params.items()}
-        before = {**sweep.LAUNCHES, **bvh.LAUNCHES}
-        img, _ = render_sample(scene.with_params(p), cam, cfg)
-        ((img[..., :3] - target) ** 2).mean().backward()
-        if dev != "cpu":
-            kernels = (("sweep_closest", "sweep_transmittance")
-                       if height == SIZE else
-                       ("bvh_closest_hit_tri", "bvh_transmittance_tri"))
-            after = {**sweep.LAUNCHES, **bvh.LAUNCHES}
-            assert min(after[k] - before[k] for k in kernels) > 0
-        grads.append({
-            "l1": sum(float(x.grad.abs().sum()) for x in p["vertices"]),
-            "albedo": p["albedo"].grad.cpu(),
-            "light": p["light_position"].grad.cpu()})
-    cpu, card = grads
-    assert cpu["l1"] > 0
-    assert abs(card["l1"] / cpu["l1"] - 1.0) <= 1e-3
-    for k in ("albedo", "light"):
-        assert torch.isfinite(card[k]).all()
-        scale = float(cpu[k].abs().max())
-        assert float((card[k] - cpu[k]).abs().max()) <= 1e-2 * scale
+    _assert_card_matches_cpu(*_grads_on_card_and_cpu(cuda, height))
+
+
+def _chip_smoke():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        "chip_smoke.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["one_index", "step_pattern",
+                                  "step_pattern_integers", "one_index_f64",
+                                  "step_pattern_f64"])
+def test_gather_backward_kernel_against_float64(cuda, case):
+    """The gathers' backward (csrc/gather.cu) through ``gather_rows`` on
+    the card.  ``one_index``: 262,144 rows on one row of a (24, 3) table
+    (the shared-memory path).  ``step_pattern``: a (999,698, 3) table (the
+    global path) under the gradient step's pattern: half the rows exact
+    zeros on row 0 (the rays that missed the pool), the rest in pairs and
+    runs of equal rows.  Where the rows are small integers (in float64
+    with a multiple of 2^-30 that float32 would round away), every order
+    of their sums is exact, so the kernel is bit-equal to the float64
+    index_add_ however many rows share an index.  ``step_pattern``'s rows
+    are random: each entry within (k - 1) 2^-24 times the magnitudes of
+    its k rows of a float64 index_add_, the float32 rounding of any order
+    of the adds (the kernel's atomics add in no fixed order), and 2^-126
+    more for each of its at most 2k atomic adds (float atomics flush
+    subnormal values to zero).  gather.LAUNCHES counts the launch."""
+    from solr_tpu_torch.ops import gather
+
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    rays = 262_144
+    dtype = torch.float64 if case.endswith("f64") else torch.float32
+    if case.startswith("one_index"):
+        n = 24
+        idx = torch.full((rays,), 7, dtype=torch.int64, device=cuda)
+        miss = torch.zeros(rays, dtype=torch.bool, device=cuda)
+    else:
+        n = 999_698
+        idx = torch.randint(0, n, (rays,), generator=gen, device=cuda)
+        idx[1::2] = idx[::2]
+        idx[:4096] = 5
+        miss = torch.rand(rays, generator=gen, device=cuda) < 0.5
+        idx[miss] = 0
+    if case == "step_pattern":
+        g = torch.randn((rays, 3), generator=gen, device=cuda)
+    else:
+        g = torch.randint(-8, 9, (rays, 3), generator=gen,
+                          device=cuda).to(dtype)
+        if dtype == torch.float64:
+            g += torch.randint(-8, 9, (rays, 3), generator=gen,
+                               device=cuda) * 2.0 ** -30
+    g[miss] = 0.0
+    table = torch.zeros((n, 3), dtype=dtype, device=cuda, requires_grad=True)
+    before = gather.LAUNCHES["gather_rows_bwd"]
+    gather.gather_rows(table, idx).backward(g)
+    torch.cuda.synchronize()
+    assert gather.LAUNCHES["gather_rows_bwd"] == before + 1
+    assert table.grad.dtype == dtype
+    if case == "step_pattern":
+        assert _chip_smoke()._rounding_excess(table.grad, g, idx, n) <= 0.0
+    else:
+        want = torch.zeros((n, 3), dtype=torch.float64,
+                           device=cuda).index_add_(0, idx, g.double())
+        assert torch.equal(table.grad.double(), want)
+
+
+def _float64(x):
+    """A scene or camera with its float leaves in float64; the packet
+    accelerators and the BVHs stay as built (structure, not values)."""
+    from solr_tpu_torch.types import BVH, TriAccel
+
+    if isinstance(x, torch.Tensor):
+        return x.double() if x.is_floating_point() else x
+    if isinstance(x, (BVH, TriAccel)) or not dataclasses.is_dataclass(x):
+        return x
+    return x.replace(**{f.name: _float64(getattr(x, f.name))
+                        for f in dataclasses.fields(x)})
+
+
+@pytest.mark.gpu
+def test_f64_gradients_on_card_match_cpu(cuda):
+    """test_gradients_on_card_match_cpu's walk step (64x56) with the
+    scene and camera in float64: the gathers' backward takes float64
+    rows on the card, every gradient is float64 and finite, and the
+    card's agree with the CPU's within that test's tolerances.  Packets
+    are left out: the step's refresh packs the float64 vertices into a
+    float64 accelerator, and the sweep kernels take float32 only."""
+    cpu, card = _grads_on_card_and_cpu(cuda, 56, _float64)
+    assert card["albedo"].dtype == cpu["albedo"].dtype == torch.float64
+    _assert_card_matches_cpu(cpu, card)
 
 
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
@@ -1011,15 +1123,9 @@ def test_config1_on_card_matches_oracle(cuda):
     """BASELINE config #1 (chip_smoke.py's config1_scene: the Cornell box
     with eight spheres) at 64x64 on the card, held to the port's numpy
     float64 oracle by tests/test_render_vs_oracle.py's criterion."""
-    import importlib.util
-
     from solr_tpu_torch.oracle import oracle_render
 
-    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(
-        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-        "chip_smoke.py"))
-    chip_smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(chip_smoke)
+    chip_smoke = _chip_smoke()
     scene, cam, cfg = chip_smoke.config1_scene(64, 64, cuda)
     with torch.no_grad():
         img = render_sample(scene, cam, cfg)[0].cpu().numpy()

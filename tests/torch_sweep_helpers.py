@@ -1,13 +1,14 @@
 """Helpers of the kernel tests: inputs with forced ties, and a CPU
-emulation of the CUDA kernels in solr_tpu_torch/csrc/sweep.cu and
-bvh_walk.cu.
+emulation of the CUDA kernels in solr_tpu_torch/csrc/sweep.cu,
+bvh_walk.cu and gather.cu.
 
 The emulation compiles a kernel source with the host's C++ compiler
 against a
 stand-in for the CUDA runtime: one std::thread per CUDA thread, the
 CTAs of a launch one after another, __syncthreads, __syncwarp and the
 warp shuffles and matches as real barriers, cp.async as a plain copy,
-and shared memory filled with NaN before each CTA.  It runs the kernels' own control flow (which
+atomicAdd under one lock, two multiprocessors, and shared memory filled
+with NaN before each CTA.  It runs the kernels' own control flow (which
 thread owns which lanes, the barriers, the slice combine, the early-out
 and stop rules) on CPU tensors through the same C entry points, so the
 tests can hold it to the plain PyTorch versions bit for bit.  It says
@@ -53,7 +54,8 @@ struct float2 { float x, y; };
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1,
-       cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+       cudaFuncAttributeMaxDynamicSharedMemorySize = 8,
+       cudaDevAttrMultiProcessorCount = 16 };
 using std::max;
 using std::min;
 inline int __ffs(unsigned x) { return __builtin_ffs(x); }
@@ -62,6 +64,11 @@ inline int __float_as_int(float f) { int i; memcpy(&i, &f, 4); return i; }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 template <class T> cudaError_t cudaFuncSetAttribute(T, int, int) { return 0; }
 inline cudaError_t cudaGetLastError() { return 0; }
+inline cudaError_t cudaGetDevice(int* dev) { *dev = 0; return 0; }
+inline cudaError_t cudaDeviceGetAttribute(int* value, int attr, int) {
+  *value = attr == cudaDevAttrMultiProcessorCount ? 2 : 0;
+  return 0;
+}
 
 // A barrier that aborts the process instead of hanging when a thread
 // never arrives (control flow that is not uniform where it must be).
@@ -84,7 +91,10 @@ struct EmuBarrier {
 inline EmuBarrier* emu_cta;
 inline std::vector<EmuBarrier*> emu_warps;
 inline float emu_lanes[32][32];
+inline double emu_lanes64[32][32];
 inline int emu_keys[32][32];
+inline long long emu_keys64[32][32];
+inline std::mutex emu_atomic;
 inline float* emu_smem;
 inline void __syncthreads() { emu_cta->wait(); }
 inline void __syncwarp() { emu_warps[threadIdx.x / 32]->wait(); }
@@ -95,6 +105,38 @@ inline float __shfl_xor_sync(unsigned, float v, int off) {
   const float r = emu_lanes[w][l ^ off];
   emu_warps[w]->wait();
   return r;
+}
+inline float __shfl_sync(unsigned, float v, int src) {
+  const int w = threadIdx.x / 32, l = threadIdx.x % 32;
+  emu_lanes[w][l] = v;
+  emu_warps[w]->wait();
+  const float r = emu_lanes[w][src];
+  emu_warps[w]->wait();
+  return r;
+}
+inline double __shfl_sync(unsigned, double v, int src) {
+  const int w = threadIdx.x / 32, l = threadIdx.x % 32;
+  emu_lanes64[w][l] = v;
+  emu_warps[w]->wait();
+  const double r = emu_lanes64[w][src];
+  emu_warps[w]->wait();
+  return r;
+}
+inline unsigned __match_any_sync(unsigned, long long v) {
+  const int w = threadIdx.x / 32, l = threadIdx.x % 32;
+  emu_keys64[w][l] = v;
+  emu_warps[w]->wait();
+  unsigned peers = 0;
+  for (int j = 0; j < 32; ++j)
+    peers |= (emu_keys64[w][j] == v ? 1u : 0u) << j;
+  emu_warps[w]->wait();
+  return peers;
+}
+template <class T> inline T atomicAdd(T* p, T v) {
+  std::lock_guard<std::mutex> l(emu_atomic);
+  const T old = *p;
+  *p = old + v;
+  return old;
 }
 inline unsigned __match_any_sync(unsigned, int v) {
   const int w = threadIdx.x / 32, l = threadIdx.x % 32;
@@ -110,6 +152,7 @@ inline void emu_launch(unsigned grid, unsigned block, int64_t smem,
   std::vector<float> buf(smem / 4 + 4);
   emu_smem = buf.data();
   blockDim.x = block;
+  gridDim.x = grid;
   for (unsigned b = 0; b < grid; ++b) {
     emu_block_idx.x = b;
     std::fill(buf.begin(), buf.end(), NAN);
@@ -131,7 +174,7 @@ inline void emu_launch(unsigned grid, unsigned block, int64_t smem,
 
 
 def emulated_source(src: str) -> str:
-    """``src`` (sweep.cu or bvh_walk.cu) rewritten for the stand-in
+    """``src`` (sweep.cu, bvh_walk.cu or gather.cu) rewritten for the stand-in
     runtime: launches call emu_launch, cp.async copies at once, the
     dynamic shared array is the emulator's buffer."""
     def launch(m):
@@ -152,6 +195,10 @@ def emulated_source(src: str) -> str:
     out = out.replace("__cvta_generic_to_shared(dst)", "0")
     out = out.replace("extern __shared__ __align__(16) float smem[];",
                       "float* smem = emu_smem;")
+    out = out.replace(
+        "extern __shared__ __align__(16) unsigned char smem_bytes[];",
+        "unsigned char* smem_bytes = reinterpret_cast<unsigned char*>("
+        "emu_smem);")
     assert "__shared__" not in out, "static shared memory is not emulated"
     return out
 
