@@ -11,7 +11,8 @@ have passed; the last one finishes after that, and the rates are taken
 over every frame or step and up to its sync.  With ``--trace 1`` the
 first ``trace_units`` frames or steps of the window run under
 ``torch.profiler`` and the line carries the per-layer metrics instead of
-the end-to-end ones.
+the end-to-end ones.  A gradient cell's notes also give each step of the
+window on the host's clock (``step_note``); the line does not.
 """
 
 from __future__ import annotations
@@ -206,6 +207,24 @@ def _run_frames(cell, raw, seed, device, seconds, trace, t_start,
                 samples=samples, layer=layer, numbers=numbers, peak=peak)
 
 
+HEAD_STEPS = 5  # the window's first steps, summed apart from the rest
+STEPS = "window steps "  # the note's prefix; JSON follows
+
+
+def step_note(step_ms: list, cpu_s: float) -> str:
+    """The window's step times (host clock, ms) and the process's CPU
+    seconds over it, as one line of JSON for the run's notes."""
+    head, rest = step_ms[:HEAD_STEPS], step_ms[HEAD_STEPS:]
+    summary = {"count": len(step_ms),
+               "median_ms": statistics.median(step_ms),
+               "p10_ms": _percentile(step_ms, 10),
+               "p90_ms": _percentile(step_ms, 90), "max_ms": max(step_ms),
+               "head_mean_ms": statistics.fmean(head),
+               "rest_mean_ms": statistics.fmean(rest) if rest else None,
+               "cpu_s": cpu_s, "step_ms": [round(x, 3) for x in step_ms]}
+    return STEPS + json.dumps(summary)
+
+
 def _run_grad(cell, raw, seed, device, seconds, trace, t_start, make_system,
               notes):
     w = cell.workload
@@ -218,7 +237,17 @@ def _run_grad(cell, raw, seed, device, seconds, trace, t_start, make_system,
     system.reset_counters()
     setup_s = time.perf_counter() - t_start
     window = _Window(device, seconds, w["trace_units"] if trace else 0)
-    losses, elapsed = window.run(system.step)
+    step_ms = []
+
+    def one():
+        start = time.perf_counter()  # each step ends in a sync: its loss
+        loss = system.step()
+        step_ms.append((time.perf_counter() - start) * 1e3)
+        return loss
+
+    cpu0 = time.process_time()
+    losses, elapsed = window.run(one)
+    cpu_s = time.process_time() - cpu0
     peak = _peak(device)
     counters, build_s = system.counters(), system.build_s
     system.close()
@@ -233,6 +262,7 @@ def _run_grad(cell, raw, seed, device, seconds, trace, t_start, make_system,
     counted, moved = check.counted_leaves(ref_record,
                                           w["check"]["leaf_floor"],
                                           w["check"]["change_floor"])
+    _note(step_note(step_ms, cpu_s), notes)
     _note(f"setup {setup_s:.3f} s, {len(losses)} steps in {elapsed:.3f} s, "
           f"reference {time.perf_counter() - t_ref:.3f} s; losses "
           f"{record.losses} / {ref_record.losses}; gradient gaps by leaf "
