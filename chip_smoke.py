@@ -437,9 +437,9 @@ BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "frame_ms",
 
 def _reaches_roots(prim, o, d, w):
     """The (ray, primitive) pairs of one block test, broadcast as
-    packet.PRIM_T, that need their roots: a sphere's where disc > 0 and
+    sweep.PRIM_T, that need their roots: a sphere's where disc > 0 and
     r > 0, a cylinder's side roots where disc > 0, a > 1e-8 and r > 0
-    (packet._sphere_t and packet.cyl_core, in their association)."""
+    (sweep._sphere_t and intersect.cyl_core, in their association)."""
     import torch
 
     from solr_tpu_torch.constants import INTERSECT_EPS
@@ -470,21 +470,21 @@ def _plain_with_root_pairs(plain, args, prim):
     (ray, primitive) tests reach their roots (0 for triangles), counted
     by wrapping its block test: the plain version tests just the blocks
     that the kernel visits."""
-    from solr_tpu_torch.ops import packet
+    from solr_tpu_torch.ops import sweep
 
     if prim == "tri":
         return plain(*args, prim=prim), 0
-    test, pairs = packet.PRIM_T[prim], []
+    test, pairs = sweep.PRIM_T[prim], []
 
     def counting(o, d, w, t_min):
         pairs.append(int(_reaches_roots(prim, o, d, w).sum()))
         return test(o, d, w, t_min)
 
-    packet.PRIM_T[prim] = counting
+    sweep.PRIM_T[prim] = counting
     try:
         out = plain(*args, prim=prim)
     finally:
-        packet.PRIM_T[prim] = test
+        sweep.PRIM_T[prim] = test
     return out, sum(pairs)
 
 
@@ -528,7 +528,7 @@ def _check_kernel(rec, entry, prim, args, label=None, timed=True):
     equal = all(torch.equal(a, b) for a, b in zip(got, want))
     counts = args[6]  # its launch order, on the same counts
     equal &= torch.equal(
-        sweep.launch_order(sweep._library(), counts, args[5].shape[2]),
+        sweep.launch_order(sweep.LIBRARY.load(), counts, args[5].shape[2]),
         sweep.longest_first(counts))
     torch.cuda.synchronize()
     visits = int(got[-1].sum())
@@ -632,21 +632,20 @@ def _walk_root_pairs(scene, prim, o, d, first, cnt, leaf_size):
     roots (_reaches_roots on the lanes' rows)."""
     import torch
 
+    from solr_tpu_torch.ops.pools import BY_PRIM
+
+    pool = BY_PRIM[prim]
     lanes = torch.arange(leaf_size, device=cnt.device, dtype=cnt.dtype)
+    pids = (first[:, None] + lanes).clamp(0, pool.size(scene) - 1).long()
+    geo = [x[pids] for x in pool.geometry(scene)]
     if prim == "sphere":
-        p = scene.spheres
-        n = p.radius.shape[0]
-        pids = (first[:, None] + lanes).clamp(0, n - 1).long()
-        w = torch.cat([p.center[pids], p.radius[pids][..., None]], -1)
+        w = torch.cat([geo[0], geo[1][..., None]], -1)
     else:
-        p = scene.cylinders
-        n = p.radius.shape[0]
-        pids = (first[:, None] + lanes).clamp(0, n - 1).long()
-        axis = p.p1[pids] - p.p0[pids]
+        p0, p1, r = geo
+        axis = p1 - p0
         h2 = (axis[..., 0] * axis[..., 0] + axis[..., 1] * axis[..., 1]
               + axis[..., 2] * axis[..., 2])
-        w = torch.cat([p.p0[pids], p.radius[pids][..., None], axis,
-                       h2[..., None]], -1)
+        w = torch.cat([p0, r[..., None], axis, h2[..., None]], -1)
     reach = _reaches_roots(prim, o[:, None, :], d[:, None, :],
                            w.transpose(1, 2))[:, 0, :]
     return int((reach & (lanes < cnt[:, None])).sum())
@@ -684,17 +683,16 @@ def _walk_bound_ms(prim, closest, scene, tree, args, outs, visits, tests,
     (``ops_per_lane`` per test where given) against the f32 rate."""
     import torch
 
-    p = {"tri": scene.triangles, "sphere": scene.spheres,
-         "cyl": scene.cylinders}[prim]
-    pool = {"tri": ("v0", "v1", "v2"), "sphere": ("center", "radius"),
-            "cyl": ("p0", "p1", "radius")}[prim]
+    from solr_tpu_torch.ops.pools import BY_PRIM
+
+    pool = BY_PRIM[prim]
     tensors = [x for x in list(args) + list(outs)
                if isinstance(x, torch.Tensor)]
     tensors += [tree.aabb_min, tree.aabb_max, tree.skip, tree.first_prim,
-                tree.prim_count] + [getattr(p, k) for k in pool]
+                tree.prim_count, *pool.geometry(scene)]
     if not closest:
         m = scene.materials
-        tensors += [p.material, m.emission, m.transparency]
+        tensors += [pool.of(scene).material, m.emission, m.transparency]
     nbytes = sum(x.numel() * x.element_size() for x in tensors)
     n_rays = args[3].shape[0]
     ops = (n_rays * WALK_OPS_PER_RAY + visits * WALK_OPS_PER_VISIT
@@ -727,8 +725,6 @@ WALK_DESIGN = {
                            "order, stack",
     "bvh_transmittance_cyl": "packed child pairs and cylinder rows, DFS "
                              "order, stack"}
-PACK_ROWS = {"tri": "pack_triangles", "sphere": "pack_spheres",
-             "cyl": "pack_cylinders"}
 
 
 def _walk_usage(rec, name):
@@ -778,7 +774,7 @@ def _check_walk(rec, scene, call, label=None):
     args = (scene, tree, prim, o, d, t_min, t_max)
     if closest:
         def launch():
-            return bvh.launch_closest(bvh._library(), *args,
+            return bvh.launch_closest(bvh.LIBRARY.load(), *args,
                                       near_first=near_first)
 
         def plain():
@@ -786,7 +782,7 @@ def _check_walk(rec, scene, call, label=None):
                                                      near_first=near_first)
     else:
         def launch():
-            return bvh.launch_transmittance(bvh._library(), *args)
+            return bvh.launch_transmittance(bvh.LIBRARY.load(), *args)
     got = launch()
     dfs, root_pairs = _walk_plain_with_root_pairs(dfs_plain, args, prim)
     own = plain() if closest else dfs
@@ -811,9 +807,8 @@ def _check_walk(rec, scene, call, label=None):
         ptxas=_walk_usage(rec, name))
     if near_first:
         entry_rec["dfs_plain_ms"] = _warm_ms(lambda: dfs_plain(*args))
-    pack_rows = getattr(bvh, PACK_ROWS[prim])
     entry_rec["repack_ms"] = time_ms(
-        lambda: (bvh.pack_nodes(tree), pack_rows(scene)), 5)
+        lambda: (bvh.pack_nodes(tree), bvh.pack_rows(scene, prim)), 5)
     if closest:
         entry_rec["hits"] = int((own[0] < 1e30).sum())
     else:
@@ -881,10 +876,10 @@ def _stale_case(rec, key, cam, cfg, moved, prims, kernels, idle, paths,
     checked as in kernels_walk (label "stale tree")."""
     from solr_tpu_torch.kernel_shapes import first_walk_calls
     from solr_tpu_torch.ops import bvh, sweep
+    from solr_tpu_torch.ops.pools import BY_PRIM
     from solr_tpu_torch.ops.render import render_sample
 
-    trees = {p: getattr(moved, {"tri": "tri_bvh", "sphere": "sph_bvh",
-                                "cyl": "cyl_bvh"}[p]) for p in prims}
+    trees = {p: BY_PRIM[p].bvh(moved) for p in prims}
     strays = {p: int(bvh.outside_leaf_boxes(moved, t, p).sum())
               for p, t in trees.items()}
     if not all(strays.values()):
@@ -2634,12 +2629,14 @@ def _viewer_timed(argv):
 
 
 def _pools_of(name):
-    """Which pools of the gallery scene ``name`` have a BVH (built on the
-    host: the dispatch depends only on that)."""
+    """The kinds of the pools of the gallery scene ``name`` that have a
+    BVH (built on the host: the dispatch depends only on that), in
+    ``PRIMS`` order."""
+    from solr_tpu_torch.ops.pools import BY_PRIM, PRIMS
     from solr_tpu_torch.scenes import make_scene
 
     s = make_scene(name, seed=VIEWER_SEED, device="cpu").scene
-    return {k for k in ("tri_bvh", "sph_bvh", "cyl_bvh") if getattr(s, k)}
+    return [p for p in PRIMS if BY_PRIM[p].bvh(s) is not None]
 
 
 def _check_launches(name, launched, need, allowed):
@@ -2673,26 +2670,22 @@ def phase_viewer_gallery(rec, out_dir):
         px = load_image(path)[..., :3].astype(np.float64) / 255.0
         r.update(pools=sorted(pools), png_std=float(px.std()))
         scenes[name] = r
-        if "tri_bvh" in pools:
-            need = ["sweep_closest", "sweep_transmittance"]
-            need += [sweep.kernel_name(e, p) for p in ("sphere", "cyl")
-                     for e in ("sweep_closest", "sweep_transmittance")
-                     if ("sph_bvh" if p == "sphere" else "cyl_bvh") in pools]
-            allowed = need
+        if "tri" in pools:
+            need = [sweep.kernel_name(e, p) for p in pools
+                    for e in ("sweep_closest", "sweep_transmittance")]
         else:
-            need = [bvh.kernel_name(e, p) for p in ("sphere", "cyl")
-                    for e in bvh.ENTRIES
-                    if ("sph_bvh" if p == "sphere" else "cyl_bvh") in pools]
-            allowed = need
+            need = [bvh.kernel_name(e, p) for p in pools
+                    for e in bvh.ENTRIES]
+        allowed = need
         try:
             _check_launches(name, r["launches"], need, allowed)
             if not r["png_std"] > 1e-3:
                 raise AssertionError(f"{name}: flat PNG ({r['png_std']})")
         except AssertionError as e:
             bad.append(str(e))
-    tri = sorted(n for n, r in scenes.items() if "tri_bvh" in r["pools"])
+    tri = sorted(n for n, r in scenes.items() if "tri" in r["pools"])
     walked = sorted(n for n, r in scenes.items()
-                    if r["pools"] and "tri_bvh" not in r["pools"])
+                    if r["pools"] and "tri" not in r["pools"])
     rec["viewer_gallery"] = dict(width=512, height=512, bounces=3,
                                  triangle_bvh_scenes=tri,
                                  sphere_cylinder_walk_scenes=walked,
@@ -2717,9 +2710,7 @@ def phase_viewer_walk(rec, out_dir):
             "--scene", name, "--seed", str(VIEWER_SEED), "--width",
             str(WALK_WIDTH), "--height", str(WALK_HEIGHT), "--out",
             os.path.join(out_dir, f"{name}_1080.png")])
-        prims = [p for p, k in (("tri", "tri_bvh"), ("sphere", "sph_bvh"),
-                                ("cyl", "cyl_bvh")) if k in pools]
-        need = [bvh.kernel_name(e, p) for p in prims for e in bvh.ENTRIES]
+        need = [bvh.kernel_name(e, p) for p in pools for e in bvh.ENTRIES]
         r["pools"] = sorted(pools)
         out[name] = r
         _check_launches(name, r["launches"], need, need)

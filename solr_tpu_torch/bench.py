@@ -180,7 +180,7 @@ def diagnostics_mismatch(got: dict, want: dict, rays: int) -> dict:
     one strip visit over the frame's strips, and one visit for each of
     that strip's rays over the rays; the rates by 2 / rays.  The
     rounded keys also get one unit of their last decimal."""
-    from solr_tpu_torch.ops.packet import STRIP
+    from solr_tpu_torch.ops.sweep import STRIP
 
     slack = {"mean_strip_visits": STRIP / rays, "mean_visits": STRIP / rays,
              "net_ray_rate": 2 / rays, "strip_drop_rate": 2 / rays}

@@ -40,6 +40,7 @@ import torch
 from solr_tpu_torch.bench_scene import bench_scene
 from solr_tpu_torch.molecule_scene import molecule_scene
 from solr_tpu_torch.ops import render, traverse
+from solr_tpu_torch.ops.pools import BY_PRIM
 
 __all__ = ["profile_frame"]
 
@@ -181,10 +182,7 @@ def main(argv=None) -> int:
     rec.update(size=args.size, height=height, traversal=args.traversal,
                block=block,
                scene_build_s=time.perf_counter() - t0,
-               pools={k: int(v) for k, v in (
-                   ("spheres", scene.spheres.radius.shape[0]),
-                   ("triangles", scene.triangles.v0.shape[0]),
-                   ("cylinders", scene.cylinders.radius.shape[0]))},
+               pools={p.attr: p.size(scene) for p in BY_PRIM.values()},
                **profile_frame(scene, cam, cfg))
     text = json.dumps(rec, indent=1)
     print(text)

@@ -15,6 +15,7 @@ import torch
 from solr_tpu_torch.constants import PARK_DIR, PARK_POS, RAY_EPS, T_FAR
 from solr_tpu_torch.ops import packet as pk
 from solr_tpu_torch.ops.camera import camera_rays
+from solr_tpu_torch.ops.pools import POOLS
 from solr_tpu_torch.ops.traverse import (POOL_TRIANGLE, Hit, _scene_box,
                                          surface_at)
 
@@ -109,9 +110,10 @@ def first_walk_calls(frame):
 
     def recorder(entry):
         def call(scene, tree, code, o, d, t_min, t_max, **kw):
-            key = bvh.kernel_name(entry, bvh.POOL_PRIM[code])
+            prim = POOLS[code].name
+            key = bvh.kernel_name(entry, prim)
             if key not in calls:
-                calls[key] = (entry, bvh.POOL_PRIM[code], tree, o.clone(),
+                calls[key] = (entry, prim, tree, o.clone(),
                               d.clone(), t_min, torch.as_tensor(
                                   t_max, dtype=o.dtype, device=o.device)
                               .expand(o.shape[:-1]).clone())

@@ -19,9 +19,9 @@ resolves to), so a library built for one CPU is never loaded on
 another.  Nothing falls back: a failed build or load raises with the
 compiler's message.
 
-``cached_build`` is the build cache of every native library of the
-port: this one, and the CUDA kernels that ``ops.sweep`` and ``ops.bvh``
-build with nvcc.
+``cached_build`` is the build cache, and ``Library`` the handle built
+and loaded at first use, of every native library of the port: this one,
+and the CUDA kernels that ``ops.cudalib`` builds with nvcc.
 """
 
 from __future__ import annotations
@@ -36,9 +36,9 @@ from pathlib import Path
 
 import numpy as np
 
-__all__ = ["load_library", "lbvh_build", "triangle_aabbs", "obj_load",
-           "cached_build", "compile_library", "BUILD_DIR", "CXX_FLAGS",
-           "SOURCES"]
+__all__ = ["Library", "load_library", "lbvh_build", "triangle_aabbs",
+           "obj_load", "cached_build", "compile_library", "BUILD_DIR",
+           "CXX_FLAGS", "SOURCES"]
 
 _SRC_DIR = Path(__file__).resolve().parent / "src"
 SOURCES = (_SRC_DIR / "lbvh.cc", _SRC_DIR / "objparse.cc")
@@ -47,9 +47,6 @@ CXX_FLAGS = ["-O3", "-march=native", "-std=c++17", "-shared", "-fPIC"]
 # The names buffer of the first obj_parse call; a file whose material
 # names need more is parsed again with a buffer of its own size.
 _NAMES_BYTES = 1 << 20
-
-_lock = threading.Lock()
-_lib = None
 
 
 def _compiler_fingerprint() -> str:
@@ -115,6 +112,35 @@ def compile_library(sources=SOURCES, build_dir=BUILD_DIR) -> Path:
         build_dir=build_dir, timeout=300)[0]
 
 
+class Library:
+    """A native library, built and loaded at first use, once a process:
+    ``compile(verbose)`` returns (its path, the compiler's output or
+    ''), ``load(path)`` loads it and declares its entry points; ``src``
+    is the path of its one source, where it has one.  A failed build or
+    load raises."""
+
+    def __init__(self, compile, load, src=None):
+        self._compile, self._load, self.src = compile, load, src
+        self._lib = None
+        self._lock = threading.Lock()
+
+    def build(self, verbose: bool = False) -> str:
+        """Build the library unless it is there, and load it.  Returns
+        the compiler's output when it built, '' when the library was
+        already there."""
+        with self._lock:
+            path, log = self._compile(verbose)
+            if self._lib is None:
+                self._lib = self._load(path)
+            return log
+
+    def load(self):
+        """The loaded library, built first if need be."""
+        if self._lib is None:
+            self.build()
+        return self._lib
+
+
 def _declare(lib):
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
     lib.solr_lbvh_build.restype = i64
@@ -130,14 +156,14 @@ def _declare(lib):
     return lib
 
 
+_LIBRARY = Library(lambda verbose: (compile_library(), ""),
+                   lambda path: _declare(ctypes.CDLL(str(path))))
+
+
 def load_library():
     """Build (once per source, flag and compiler set) and load the
     library.  Raises on any failure."""
-    global _lib
-    with _lock:
-        if _lib is None:
-            _lib = _declare(ctypes.CDLL(str(compile_library())))
-        return _lib
+    return _LIBRARY.load()
 
 
 def _ptr(a: np.ndarray) -> ctypes.c_void_p:

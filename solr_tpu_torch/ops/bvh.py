@@ -37,9 +37,9 @@ Both also count, per ray, the nodes visited (1 for the root and 2 for
 each inner node whose box is hit, the shadow walk's nodes up to its
 stop) and the leaf lanes tested.  CPU tensors take the plain versions
 (the closest hit in the order the kernel would walk); CUDA tensors take
-the hand-written kernels of ``solr_tpu_torch/csrc/bvh_walk.cu``, built
-with nvcc at first use (``sweep.compile_library``, the same flags) and
-loaded with ctypes.  A build or launch failure raises; nothing falls
+the hand-written kernels of ``solr_tpu_torch/csrc/bvh_walk.cu``
+(``LIBRARY``, built at first use by ``ops.cudalib``, as the sweep
+kernels are).  A build or launch failure raises; nothing falls
 back.  Kernel and plain version agree bit for bit on the same device:
 the same association in every primitive test and in the slab test, no
 FMA contraction, IEEE division and square root.
@@ -63,23 +63,22 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import threading
-from pathlib import Path
 
 import numpy as np
 import torch
 
 from solr_tpu_torch import native
-from solr_tpu_torch.constants import (BVH_LEAF_SIZE, INTERSECT_EPS,
-                                      POOL_CYLINDER, POOL_SPHERE,
-                                      POOL_TRIANGLE, T_FAR)
+from solr_tpu_torch.constants import BVH_LEAF_SIZE, INTERSECT_EPS, T_FAR
+from solr_tpu_torch.ops import cudalib
 from solr_tpu_torch.ops import intersect as isect
-from solr_tpu_torch.ops import sweep
+from solr_tpu_torch.ops.cudalib import check_detached, ptr, raise_on
+from solr_tpu_torch.ops.pools import BY_PRIM, POOLS, PRIMS, shadow_factor
 from solr_tpu_torch.types import BVH
 from solr_tpu_torch.utils.profiling import render_phase
 
 __all__ = [
     "LAUNCHES",
+    "LIBRARY",
     "PRIMS",
     "build",
     "build_bvh",
@@ -100,6 +99,7 @@ __all__ = [
     "outside_leaf_boxes",
     "pack_cylinders",
     "pack_nodes",
+    "pack_rows",
     "pack_spheres",
     "pack_triangles",
     "pool_aabbs",
@@ -108,12 +108,6 @@ __all__ = [
 
 _AABB_PAD = 1e-5
 
-# Primitive kinds in the order of their codes in csrc/bvh_walk.cu, and
-# the pool each walks.
-PRIMS = ("tri", "sphere", "cyl")
-_PRIM_POOL = {"tri": POOL_TRIANGLE, "sphere": POOL_SPHERE,
-              "cyl": POOL_CYLINDER}
-POOL_PRIM = {c: p for p, c in _PRIM_POOL.items()}
 ENTRIES = ("bvh_closest_hit", "bvh_transmittance")
 
 
@@ -130,10 +124,6 @@ def kernel_name(entry: str, prim: str, dfs: bool = False) -> str:
 # wrapper launches that kernel.
 LAUNCHES = {kernel_name(e, p): 0 for p in PRIMS for e in ENTRIES}
 LAUNCHES[kernel_name("bvh_closest_hit", "tri", dfs=True)] = 0
-
-_SRC = Path(__file__).resolve().parents[1] / "csrc" / "bvh_walk.cu"
-_lib = None
-_lock = threading.Lock()
 
 # Steps of the plain walks between two checks for finished rays.
 _CHECK_EVERY = 8
@@ -292,29 +282,12 @@ def _assemble_bvh(starts, ends, skips, depths, nmin, nmax, leaf_size: int,
         leaf_size=int(leaf_size))
 
 
-def _prim_aabbs(scene, prim: str):
-    """Per-primitive AABBs (N, 3) each of the pool of kind ``prim``, as
-    tensors on the pool's device: a sphere's c -+ r, a triangle's
-    vertex min and max, a cylinder's end-point min and max -+ r."""
-    if prim == "sphere":
-        c, r = scene.spheres.center, scene.spheres.radius[:, None]
-        return c - r, c + r
-    if prim == "tri":
-        t = scene.triangles
-        return (torch.minimum(torch.minimum(t.v0, t.v1), t.v2),
-                torch.maximum(torch.maximum(t.v0, t.v1), t.v2))
-    p = scene.cylinders
-    r = p.radius[:, None]
-    return torch.minimum(p.p0, p.p1) - r, torch.maximum(p.p0, p.p1) + r
-
-
 def pool_aabbs(scene, pool_code: int):
     """Per-primitive AABBs (numpy (N, 3) each) of an accelerated pool."""
-    if pool_code not in POOL_PRIM:
+    if pool_code not in range(len(POOLS)) or POOLS[pool_code].bounds is None:
         raise ValueError(f"pool {pool_code} is not BVH-accelerated")
     with torch.no_grad():
-        return tuple(x.cpu().numpy()
-                     for x in _prim_aabbs(scene, POOL_PRIM[pool_code]))
+        return tuple(x.cpu().numpy() for x in POOLS[pool_code].aabbs(scene))
 
 
 @torch.no_grad()
@@ -346,30 +319,16 @@ def bvh_refit(bvh: BVH, prim_min, prim_max) -> BVH:
 # --------------------------------------------------------------------------
 
 
-def _pool_size(scene, prim: str) -> int:
-    return {"tri": scene.triangles.v0, "sphere": scene.spheres.radius,
-            "cyl": scene.cylinders.radius}[prim].shape[0]
-
-
 def _leaf_t(scene, prim: str, o, d, first, cnt, leaf_size: int, t_min):
     """t of each ray (R, 3) against the ``leaf_size`` lanes from
     ``first`` (R,): (R, leaf_size), T_FAR where the lane is not below
     ``cnt`` (R,); the pool tests the brute force takes
     (ops/intersect.py).  Also returns the lanes' pool rows."""
+    pool = BY_PRIM[prim]
     lanes = torch.arange(leaf_size, device=cnt.device, dtype=cnt.dtype)
-    pids = (first[:, None] + lanes).clamp(0, _pool_size(scene, prim) - 1).long()
-    ob, db = o[:, None, :], d[:, None, :]
-    if prim == "sphere":
-        p = scene.spheres
-        t = isect.sphere_t_p(ob, db, p.center[pids], p.radius[pids], t_min)
-    elif prim == "tri":
-        p = scene.triangles
-        t = isect.triangle_t_p(ob, db, p.v0[pids], p.v1[pids], p.v2[pids],
-                               t_min)
-    else:
-        p = scene.cylinders
-        t = isect.cylinder_t_p(ob, db, p.p0[pids], p.p1[pids],
-                               p.radius[pids], t_min)
+    pids = (first[:, None] + lanes).clamp(0, pool.size(scene) - 1).long()
+    t = pool.t_p(o[:, None, :], d[:, None, :],
+                 *(x[pids] for x in pool.geometry(scene)), t_min)
     return torch.where(lanes < cnt[:, None], t, torch.full_like(t, T_FAR)), pids
 
 
@@ -391,8 +350,7 @@ def _walk(scene, bvh: BVH, prim, o, d, t_min, t_max, closest: bool):
     ptr = torch.zeros(n_rays, dtype=torch.int64, device=dev)
     ids = torch.arange(n_rays, device=dev)
     mats = scene.materials
-    pool = {"tri": scene.triangles, "sphere": scene.spheres,
-            "cyl": scene.cylinders}[prim]
+    pool = BY_PRIM[prim].of(scene)
     # The rays still walking, compacted: their state and inputs.
     st = [ptr, value, best_i, visits, tests, o, d, inv_d, tm]
     while ids.numel():
@@ -422,10 +380,7 @@ def _walk(scene, bvh: BVH, prim, o, d, t_min, t_max, closest: bool):
                 bi = torch.where(better, first + la, bi)
             else:
                 occ = t < tmc[:, None]  # lanes past cnt are T_FAR
-                m = pool.material[pids].long()
-                f = torch.where(mats.emission[m] > 0.0,
-                                torch.ones_like(mats.transparency[m]),
-                                mats.transparency[m])
+                f = shadow_factor(pool.material[pids], mats)
                 prod = torch.ones_like(val)
                 for j in range(bvh.leaf_size):
                     prod = prod * torch.where(occ[:, j], f[:, j],
@@ -587,28 +542,10 @@ def load_library(path):
     return lib
 
 
-def build(verbose: bool = False) -> str:
-    """Compile ``csrc/bvh_walk.cu`` for sm_90a (once per source and flag
-    set) and load it.  Returns the compiler's output when it built, ''
-    when the library was already there.  Raises on any failure."""
-    global _lib
-    with _lock:
-        path, log = sweep.compile_library(_SRC.read_bytes(),
-                                          stem="libsolr_bvh_walk",
-                                          verbose=verbose)
-        if _lib is None:
-            _lib = load_library(path)
-        return log
-
-
-def _library():
-    if _lib is None:
-        build()
-    return _lib
-
-
-def _ptr(x):
-    return ctypes.c_void_p(x.data_ptr())
+# csrc/bvh_walk.cu, compiled for sm_90a at first use; ``build`` reports
+# the compiler's output.
+LIBRARY = cudalib.library("bvh_walk.cu", load_library)
+build = LIBRARY.build
 
 
 # The deepest stack of the kernels (kMaxStack in bvh_walk.cu).
@@ -649,15 +586,6 @@ def pack_nodes(bvh: BVH):
         -1, 4, 4)
 
 
-def _shadow_factor(material, mats):
-    """Each row's shadow factor (float32): 1 for an emissive material,
-    else its transparency."""
-    m = material.long()
-    return torch.where(mats.emission[m] > 0.0,
-                       torch.ones_like(mats.transparency[m]),
-                       mats.transparency[m]).to(torch.float32)
-
-
 def pack_triangles(scene):
     """The triangle kernels' rows (N, 3, 4) float32, in pool order:
     (v0, e1.x), (e1.yz, e2.xy), (e2.z, factor, 0, 0) with e1 = v1 - v0
@@ -670,7 +598,7 @@ def pack_triangles(scene):
         return x.to(torch.float32)
 
     v0 = f32(p.v0)
-    factor = _shadow_factor(p.material, scene.materials)
+    factor = shadow_factor(p.material, scene.materials).to(torch.float32)
     return torch.cat([v0, f32(p.v1) - v0, f32(p.v2) - v0, factor[:, None],
                       torch.zeros_like(v0[:, :2])], 1).contiguous().view(
                           -1, 3, 4)
@@ -684,7 +612,7 @@ def pack_spheres(scene):
     p = scene.spheres
     c = p.center.to(torch.float32)
     r = p.radius.to(torch.float32)
-    factor = _shadow_factor(p.material, scene.materials)
+    factor = shadow_factor(p.material, scene.materials).to(torch.float32)
     zero = torch.zeros_like(r)
     return torch.stack([c[:, 0], c[:, 1], c[:, 2], r, r * r, factor, zero,
                         zero], 1).contiguous().view(-1, 2, 4)
@@ -694,7 +622,7 @@ def pack_cylinders(scene):
     """The cylinder kernels' rows (N, 3, 4) float32, in pool order:
     (p0, r), (axis, h2), (1 / max(h2, 1e-8), r * r, factor, 0) with
     axis = p1 - p0 and h2 = (x * x + y * y) + z * z in float32, each term
-    by the f32 operations of intersect.cylinder_t_p -> packet.cyl_core,
+    by the f32 operations of intersect.cylinder_t_p -> cyl_core,
     and the row's shadow factor: 1 for an emissive material, else its
     transparency."""
     p = scene.cylinders
@@ -704,10 +632,16 @@ def pack_cylinders(scene):
     ax, ay, az = axis.unbind(1)
     h2 = ax * ax + ay * ay + az * az
     inv_h2 = 1.0 / torch.clamp(h2, min=INTERSECT_EPS)
-    factor = _shadow_factor(p.material, scene.materials)
+    factor = shadow_factor(p.material, scene.materials).to(torch.float32)
     return torch.stack([p0[:, 0], p0[:, 1], p0[:, 2], r, ax, ay, az, h2,
                         inv_h2, r * r, factor, torch.zeros_like(r)],
                        1).contiguous().view(-1, 3, 4)
+
+
+def pack_rows(scene, prim: str):
+    """The kernels' rows of the pool of kind ``prim``."""
+    return {"tri": pack_triangles, "sphere": pack_spheres,
+            "cyl": pack_cylinders}[prim](scene)
 
 
 # One derived value per kind: (the source tensors, their keys, the
@@ -749,7 +683,7 @@ def outside_leaf_boxes(scene, bvh: BVH, prim: str):
     the leaf that holds them, or is NaN.  Inner boxes hold their
     children by construction (``build_bvh``, ``bvh_refit``), so a tree
     without such a row has boxes that contain their primitives."""
-    pmin, pmax = _prim_aabbs(scene, prim)
+    pmin, pmax = BY_PRIM[prim].aabbs(scene)
     n, dev = pmin.shape[0], pmin.device
     lane = torch.arange(bvh.leaf_size, device=dev)
     pidx = (bvh.first_prim[:, None] + lane).clamp(0, n - 1)
@@ -788,26 +722,11 @@ def _packed_layouts(scene, bvh: BVH, prim: str, rows=None):
     if bvh.max_depth + 1 > _MAX_STACK:
         raise ValueError(f"the walk kernels take trees of at most "
                          f"{_MAX_STACK - 1} levels, got {bvh.max_depth}")
-    mats = scene.materials
     nodes = _derived(f"nodes_{prim}", _tree_tensors(bvh),
                      lambda: pack_nodes(bvh))
-    if rows is not None:
-        return nodes, rows
-    if prim == "tri":
-        p = scene.triangles
-        rows = _derived("tris", (p.v0, p.v1, p.v2, p.material, mats.emission,
-                                 mats.transparency),
-                        lambda: pack_triangles(scene))
-    elif prim == "sphere":
-        p = scene.spheres
-        rows = _derived("sphs", (p.center, p.radius, p.material,
-                                 mats.emission, mats.transparency),
-                        lambda: pack_spheres(scene))
-    else:
-        p = scene.cylinders
-        rows = _derived("cyls", (p.p0, p.p1, p.radius, p.material,
-                                 mats.emission, mats.transparency),
-                        lambda: pack_cylinders(scene))
+    if rows is None:
+        rows = _derived(f"rows_{prim}", _pool_tensors(scene, prim, True),
+                        lambda: pack_rows(scene, prim))
     return nodes, rows
 
 
@@ -840,16 +759,14 @@ def launch_closest(lib, scene, bvh: BVH, prim: str, o, d, t_min,
     out_t = torch.empty(n, dtype=torch.float32, device=of.device)
     out_i, vis, tst = (torch.empty(n, dtype=torch.int32, device=of.device)
                        for _ in range(3))
-    stream = ctypes.c_void_p(torch.cuda.current_stream(of.device).cuda_stream)
-    outs = (_ptr(out_t), _ptr(out_i), _ptr(vis), _ptr(tst), stream)
+    outs = (ptr(out_t), ptr(out_i), ptr(vis), ptr(tst),
+            cudalib.stream(of.device))
     layouts = _packed_layouts(scene, bvh, prim, rows)
     err = lib.solr_bvh_closest_packed(
         PRIMS.index(prim), int(near_first),
-        *(_ptr(x) for x in layouts + (of, df, tm)), n, float(t_min), *outs)
-    if err != 0:
-        name = kernel_name("bvh_closest_hit", prim,
-                           dfs=prim == "tri" and not near_first)
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+        *(ptr(x) for x in layouts + (of, df, tm)), n, float(t_min), *outs)
+    raise_on(err, kernel_name("bvh_closest_hit", prim,
+                              dfs=prim == "tri" and not near_first))
     r_shape = o.shape[:-1]
     return tuple(x.reshape(r_shape) for x in (out_t, out_i, vis, tst))
 
@@ -865,44 +782,26 @@ def launch_transmittance(lib, scene, bvh: BVH, prim: str, o, d, t_min,
     out_tr = torch.empty(n, dtype=torch.float32, device=of.device)
     vis, tst = (torch.empty(n, dtype=torch.int32, device=of.device)
                 for _ in range(2))
-    stream = ctypes.c_void_p(torch.cuda.current_stream(of.device).cuda_stream)
-    outs = (_ptr(out_tr), _ptr(vis), _ptr(tst), stream)
+    outs = (ptr(out_tr), ptr(vis), ptr(tst), cudalib.stream(of.device))
     layouts = _packed_layouts(scene, bvh, prim, rows)
     err = lib.solr_bvh_transmittance_packed(
-        PRIMS.index(prim), *(_ptr(x) for x in layouts + (of, df, tm)), n,
+        PRIMS.index(prim), *(ptr(x) for x in layouts + (of, df, tm)), n,
         float(t_min), *outs)
-    if err != 0:
-        raise RuntimeError(f"{kernel_name('bvh_transmittance', prim)} kernel "
-                           f"launch failed: cudaError {err}")
+    raise_on(err, kernel_name("bvh_transmittance", prim))
     r_shape = o.shape[:-1]
     return tuple(x.reshape(r_shape) for x in (out_tr, vis, tst))
 
 
 def _pool_tensors(scene, prim: str, shadow: bool):
     """The scene tensors a walk reads: the pool's geometry, and for the
-    shadow walk its materials' emission and transparency."""
-    if prim == "tri":
-        p = scene.triangles
-        geo = (p.v0, p.v1, p.v2)
-    elif prim == "sphere":
-        p = scene.spheres
-        geo = (p.center, p.radius)
-    else:
-        p = scene.cylinders
-        geo = (p.p0, p.p1, p.radius)
+    shadow walk its material ids and the materials' emission and
+    transparency, which its rows' shadow factors derive from."""
+    pool = BY_PRIM[prim]
+    geo = pool.geometry(scene)
     if shadow:
-        geo += (scene.materials.emission, scene.materials.transparency)
+        geo += (pool.of(scene).material, scene.materials.emission,
+                scene.materials.transparency)
     return geo
-
-
-def _kernel_device(o) -> bool:
-    """True for CUDA rays (the kernel), False for CPU ones (the plain
-    version); other devices raise."""
-    if o.device.type == "cpu":
-        return False
-    if o.device.type != "cuda":
-        raise ValueError(f"no BVH walk kernel for device {o.device}")
-    return True
 
 
 def bvh_closest_hit(scene, bvh: BVH, pool_code: int, o, d, t_min,
@@ -911,18 +810,18 @@ def bvh_closest_hit(scene, bvh: BVH, pool_code: int, o, d, t_min,
     code) for rays o, d (..., 3) and t_max, a number or of the rays'
     shape.  Returns (t, idx): T_FAR and idx 0 on a miss.  The walk's
     order is :func:`walks_near_first`'s.  Raises under grad mode on an
-    input that requires grad (sweep.check_detached)."""
+    input that requires grad (cudalib.check_detached)."""
     with render_phase("walk"):
-        prim = POOL_PRIM[pool_code]
-        sweep.check_detached(kernel_name("bvh_closest_hit", prim), o, d, t_max,
-                             *_pool_tensors(scene, prim, False))
+        prim = POOLS[pool_code].name
+        check_detached(kernel_name("bvh_closest_hit", prim), o, d, t_max,
+                       *_pool_tensors(scene, prim, False))
         near = walks_near_first(scene, bvh, prim)
-        if not _kernel_device(o):
+        if not cudalib.on_card(o, "BVH walk"):
             plain = (bvh_closest_hit_ordered_plain if near
                      else bvh_closest_hit_plain)
             return plain(scene, bvh, prim, o, d, t_min, t_max)[:2]
-        out = launch_closest(_library(), scene, bvh, prim, o, d, t_min, t_max,
-                             near_first=near)
+        out = launch_closest(LIBRARY.load(), scene, bvh, prim, o, d, t_min,
+                             t_max, near_first=near)
         LAUNCHES[kernel_name("bvh_closest_hit", prim,
                              dfs=prim == "tri" and not near)] += 1
         return out[:2]
@@ -934,12 +833,12 @@ def bvh_transmittance(scene, bvh: BVH, pool_code: int, o, d, t_min, t_max):
     material's transparency, emissive primitives never occluding.
     Raises under grad mode on an input that requires grad."""
     with render_phase("walk"):
-        prim = POOL_PRIM[pool_code]
-        sweep.check_detached(kernel_name("bvh_transmittance", prim), o, d, t_max,
-                             *_pool_tensors(scene, prim, True))
-        if not _kernel_device(o):
+        prim = POOLS[pool_code].name
+        check_detached(kernel_name("bvh_transmittance", prim), o, d, t_max,
+                       *_pool_tensors(scene, prim, True))
+        if not cudalib.on_card(o, "BVH walk"):
             return bvh_transmittance_plain(scene, bvh, prim, o, d, t_min, t_max)[0]
-        out = launch_transmittance(_library(), scene, bvh, prim, o, d, t_min,
-                                   t_max)
+        out = launch_transmittance(LIBRARY.load(), scene, bvh, prim, o, d,
+                                   t_min, t_max)
         LAUNCHES[kernel_name("bvh_transmittance", prim)] += 1
         return out[0]

@@ -13,13 +13,13 @@ ray on a pool of a few rows or on one material lands on the same row.
 PyTorch's own backward of ``table[idx]`` walks each run of equal indices
 serially; ``csrc/gather.cu`` sums them warp by warp instead.
 
-:func:`gather_rows_bwd` dispatches on the device of its tensors: CPU
-tensors take the plain version (``index_add_`` into zeros, in row
-order), CUDA tensors the kernel, built with nvcc at first use
-(``sweep.compile_library``) and loaded with ctypes.  A build or launch
-failure raises, and so does a table the kernel does not take (neither
-float32 nor float64, or rows wider than 4 values); nothing falls back
-to the plain version.  On the card the sums of equal indices come in an order that
+:func:`gather_rows_bwd` dispatches on the device of its tensors
+(``cudalib.on_card``): CPU tensors take the plain version (``index_add_``
+into zeros, in row order), CUDA tensors the kernel (``LIBRARY``, built
+at first use by ``ops.cudalib``).  A build or launch failure raises, and
+so does a table the kernel does not take (neither float32 nor float64,
+or rows wider than 4 values); nothing falls back to the plain
+version.  On the card the sums of equal indices come in an order that
 changes from run to run (atomics).
 """
 
@@ -27,17 +27,16 @@ from __future__ import annotations
 
 import ctypes
 import math
-import threading
-from pathlib import Path
 
 import torch
 from torch.autograd.function import once_differentiable
 
-from solr_tpu_torch.ops import sweep
+from solr_tpu_torch.ops import cudalib
+from solr_tpu_torch.ops.cudalib import ptr, raise_on
 
-__all__ = ["DTYPES", "LAUNCHES", "MAX_WIDTH", "build", "gather_rows",
-           "gather_rows_bwd", "gather_rows_bwd_plain", "launch",
-           "load_library"]
+__all__ = ["DTYPES", "LAUNCHES", "LIBRARY", "MAX_WIDTH", "build",
+           "gather_rows", "gather_rows_bwd", "gather_rows_bwd_plain",
+           "launch", "load_library"]
 
 # Kernel launches since the caller last zeroed this.
 LAUNCHES = {"gather_rows_bwd": 0}
@@ -45,10 +44,6 @@ LAUNCHES = {"gather_rows_bwd": 0}
 # The widest row, in values, that the kernel takes, and its value types.
 MAX_WIDTH = 4
 DTYPES = (torch.float32, torch.float64)
-
-_SRC = Path(__file__).resolve().parents[1] / "csrc" / "gather.cu"
-_lib = None
-_lock = threading.Lock()
 
 
 def gather_rows_bwd_plain(grad, idx, n: int):
@@ -71,24 +66,10 @@ def load_library(path):
     return lib
 
 
-def build(verbose: bool = False) -> str:
-    """Compile ``csrc/gather.cu`` for sm_90a (once per source and flag
-    set) and load it.  Returns the compiler's output when it built, ''
-    when the library was already there.  Raises on any failure."""
-    global _lib
-    with _lock:
-        path, log = sweep.compile_library(_SRC.read_bytes(),
-                                          stem="libsolr_gather",
-                                          verbose=verbose)
-        if _lib is None:
-            _lib = load_library(path)
-        return log
-
-
-def _library():
-    if _lib is None:
-        build()
-    return _lib
+# csrc/gather.cu, compiled for sm_90a at first use; ``build`` reports the
+# compiler's output.
+LIBRARY = cudalib.library("gather.cu", load_library)
+build = LIBRARY.build
 
 
 def launch(lib, grad, idx, n: int):
@@ -106,26 +87,20 @@ def launch(lib, grad, idx, n: int):
     g = grad.contiguous()
     i = idx.to(torch.int64).contiguous()
     out = torch.zeros((n,) + row, dtype=grad.dtype, device=grad.device)
-    stream = (torch.cuda.current_stream(grad.device).cuda_stream
-              if grad.is_cuda else None)
-    err = lib.solr_gather_rows_bwd(
-        ctypes.c_void_p(g.data_ptr()), ctypes.c_void_p(i.data_ptr()),
-        i.numel(), n, width, g.element_size(),
-        ctypes.c_void_p(out.data_ptr()),
-        ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"gather_rows_bwd kernel launch failed: "
-                           f"cudaError {err}")
+    err = lib.solr_gather_rows_bwd(ptr(g), ptr(i), i.numel(), n, width,
+                                   g.element_size(), ptr(out),
+                                   cudalib.stream(grad.device))
+    raise_on(err, "gather_rows_bwd")
     return out
 
 
 def gather_rows_bwd(grad, idx, n: int):
     """The gradient of ``table[idx]`` for a table of ``n`` rows:
     :func:`gather_rows_bwd_plain` on CPU tensors, the kernel on CUDA
-    tensors."""
-    if grad.device.type == "cpu":
+    tensors; any other device raises ValueError."""
+    if not cudalib.on_card(grad, "gather_rows_bwd"):
         return gather_rows_bwd_plain(grad, idx, n)
-    out = launch(_library(), grad, idx, n)
+    out = launch(LIBRARY.load(), grad, idx, n)
     LAUNCHES["gather_rows_bwd"] += 1
     return out
 

@@ -14,12 +14,12 @@ from __future__ import annotations
 import torch
 
 from solr_tpu_torch.constants import INTERSECT_EPS, T_FAR
-from solr_tpu_torch.ops.packet import cyl_core
 from solr_tpu_torch.ops.vecmath import cross, dot, safe_inv
 
 __all__ = ["sphere_t_p", "sphere_t", "triangle_t_p", "triangle_t",
-           "cylinder_t_p", "cylinder_t", "ellipsoid_t_p", "ellipsoid_t",
-           "plane_t_p", "plane_t", "triangle_bary", "aabb_slab", "aabb_hit"]
+           "cyl_core", "cylinder_t_p", "cylinder_t", "ellipsoid_t_p",
+           "ellipsoid_t", "plane_t_p", "plane_t", "triangle_bary",
+           "aabb_slab", "aabb_hit"]
 
 
 def _far(x):
@@ -59,11 +59,57 @@ def triangle_t_p(o, d, v0, v1, v2, t_min):
     return torch.where(valid & (t > t_min), t, _far(t))
 
 
+def cyl_core(c, r, t_min):
+    """Capped cylinder (side plus both end disks, two-sided; radius <= 0
+    never hits), as solr_tpu.ops.packet.cyl_core: ``c(i)`` is ray
+    component i (0..2 origin, 4..6 direction), ``r(i)`` row i of the
+    rows ``packet.cylinder_pack`` stores (p0, radius, axis, |axis|^2);
+    both broadcast.  The CUDA kernels' ``cyl_t`` repeats it operation
+    for operation."""
+    ocx, ocy, ocz = c(0) - r(0), c(1) - r(1), c(2) - r(2)
+    dx, dy, dz = c(4), c(5), c(6)
+    rad = r(3)
+    h2 = r(7)
+    inv_h2 = 1.0 / torch.clamp(h2, min=INTERSECT_EPS)
+    d_a = dx * r(4) + dy * r(5) + dz * r(6)
+    oc_a = ocx * r(4) + ocy * r(5) + ocz * r(6)
+    a = 1.0 - d_a * d_a * inv_h2
+    b = (ocx * dx + ocy * dy + ocz * dz) - d_a * oc_a * inv_h2
+    cq = (ocx * ocx + ocy * ocy + ocz * ocz) - oc_a * oc_a * inv_h2 \
+        - rad * rad
+    safe_a = torch.clamp(a, min=INTERSECT_EPS)
+    disc = b * b - safe_a * cq
+    base = (disc > 0.0) & (a > INTERSECT_EPS) & (rad > 0.0)
+    sq = torch.sqrt(torch.where(base, disc, torch.ones_like(disc)))
+    t1 = (-b - sq) / safe_a
+    t2 = (-b + sq) / safe_a
+    s1 = oc_a + t1 * d_a
+    s2 = oc_a + t2 * d_a
+    far = torch.full_like(t1, T_FAR)
+    t1 = torch.where(base & (s1 >= 0.0) & (s1 <= h2) & (t1 > t_min), t1, far)
+    t2 = torch.where(base & (s2 >= 0.0) & (s2 <= h2) & (t2 > t_min), t2, far)
+    t_side = torch.minimum(t1, t2)
+
+    ax_safe = d_a.abs() > INTERSECT_EPS
+    inv_da = safe_inv(d_a, ax_safe)
+
+    def cap(plane_s, off_scale):
+        tc = (plane_s - oc_a) * inv_da
+        qx = ocx + tc * dx - off_scale * r(4)
+        qy = ocy + tc * dy - off_scale * r(5)
+        qz = ocz + tc * dz - off_scale * r(6)
+        rad2 = qx * qx + qy * qy + qz * qz
+        ok = ax_safe & (rad > 0.0) & (rad2 <= rad * rad) & (tc > t_min)
+        return torch.where(ok, tc, far)
+
+    return torch.minimum(t_side, torch.minimum(cap(0.0, 0.0), cap(h2, 1.0)))
+
+
 def cylinder_t_p(o, d, p0, p1, radius, t_min):
     """Capped cylinder p0 -> p1: the side surface plus both end disks,
-    two-sided: :func:`packet.cyl_core` on the rows ``cylinder_pack``
-    stores (p0, radius, axis, |axis|^2), so the pool test and the block
-    test share one formula (the reference writes it out twice)."""
+    two-sided: :func:`cyl_core` on the rows ``cylinder_pack`` stores
+    (p0, radius, axis, |axis|^2), so the pool test and the block test
+    share one formula (the reference writes it out twice)."""
     axis = p1 - p0
     rows = [p0[..., 0], p0[..., 1], p0[..., 2], radius,
             axis[..., 0], axis[..., 1], axis[..., 2], dot(axis, axis)]

@@ -5,9 +5,9 @@ Each accelerated pool (triangles, spheres, cylinders), in Morton order,
 is cut into blocks of ``block`` primitives.  Rays come in spatially
 coherent 16x16-pixel tiles; each tile culls the whole block list with a
 bundle test, keeps its Kt nearest survivors, slab-tests every ray
-against them, and every 32-ray strip gets its own entry-sorted
-front-to-back candidate list of at most K blocks.  Any block a list had to drop is certified per ray by
-``dropped``: a lower bound on the hit distance inside every dropped
+against them, and every strip of ``sweep.STRIP`` rays gets its own
+entry-sorted front-to-back candidate list of at most K blocks.  Any
+block a list had to drop is certified per ray by ``dropped``: a lower bound on the hit distance inside every dropped
 block.  The sweep kernels in :mod:`solr_tpu_torch.ops.sweep` consume the
 lists; the exactness net in :mod:`solr_tpu_torch.ops.traverse`
 re-walks the rays whose certificate does not hold.
@@ -21,13 +21,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from solr_tpu_torch.constants import INTERSECT_EPS, T_FAR
-from solr_tpu_torch.ops.vecmath import cross, safe_inv
+from solr_tpu_torch.constants import T_FAR
+from solr_tpu_torch.ops.pools import shadow_factor
+from solr_tpu_torch.ops.sweep import STRIP
+from solr_tpu_torch.ops.vecmath import cross, masked_max, safe_inv
 from solr_tpu_torch.types import TriAccel
 from solr_tpu_torch.utils.profiling import render_phase
 
 __all__ = [
-    "STRIP",
     "strips_per_tile",
     "tile_permutation",
     "make_bundles",
@@ -43,21 +44,9 @@ __all__ = [
     "build_tri_accel",
     "build_sph_accel",
     "build_cyl_accel",
-    "cyl_core",
-    "PRIM_T",
-    "tri_blocks_closest",
-    "tri_blocks_transmittance",
 ]
 
-# Rays per strip: the granularity of the per-strip candidate lists and
-# the width of one warp in the sweep kernels.
-STRIP = 32
-
 _BIG = 1.0e30
-
-# Candidate blocks evaluated per step of the block mirrors (bounds the
-# (T, TR, chunk, block) intermediates).
-_MIRROR_CHUNK = 16
 
 
 def strips_per_tile(tile_rays: int) -> int:
@@ -83,10 +72,6 @@ def _masked_mean(x, live, n_live):
     return torch.where(live, x, torch.zeros_like(x)).sum(1) / denom
 
 
-def _masked_max(x, live):
-    return torch.where(live, x, torch.zeros_like(x)).amax(1)
-
-
 def make_bundles(o_t, d_t, live):
     """Per-tile bundle: origin sphere (po, ro) plus direction cone
     (axis, cos of the half angle), over the tile's live rays."""
@@ -97,7 +82,7 @@ def make_bundles(o_t, d_t, live):
     py = _masked_mean(oy, live, n_live)
     pz = _masked_mean(oz, live, n_live)
     rx, ry, rz = ox - px[:, None], oy - py[:, None], oz - pz[:, None]
-    ro = torch.sqrt(_masked_max(rx * rx + ry * ry + rz * rz, live))
+    ro = torch.sqrt(masked_max(rx * rx + ry * ry + rz * rz, live))
     ax = _masked_mean(dx, live, n_live)
     ay = _masked_mean(dy, live, n_live)
     az = _masked_mean(dz, live, n_live)
@@ -121,13 +106,13 @@ def capsule_bundles(o_t, d_t, tmax_t, live):
     px = _masked_mean(ox, live, n_live)
     py = _masked_mean(oy, live, n_live)
     pz = _masked_mean(oz, live, n_live)
-    ro = torch.sqrt(_masked_max(
+    ro = torch.sqrt(masked_max(
         (ox - px[:, None]) ** 2 + (oy - py[:, None]) ** 2
         + (oz - pz[:, None]) ** 2, live))
     qx = _masked_mean(ex, live, n_live)
     qy = _masked_mean(ey, live, n_live)
     qz = _masked_mean(ez, live, n_live)
-    ra = torch.sqrt(_masked_max(
+    ra = torch.sqrt(masked_max(
         (ex - qx[:, None]) ** 2 + (ey - qy[:, None]) ** 2
         + (ez - qz[:, None]) ** 2, live))
     return (torch.stack([px, py, pz], -1), ro,
@@ -478,15 +463,6 @@ def _group_blocks(packed, centers, half, block: int) -> TriAccel:
                     block=block)
 
 
-def _shadow_factor(material, materials):
-    """Per-primitive shadow factor: the material's transparency, 1 for
-    emissive primitives (the lights never occlude)."""
-    m = material.long()
-    return torch.where(materials.emission[m] > 0.0,
-                       torch.ones_like(materials.transparency[m]),
-                       materials.transparency[m])
-
-
 @torch.no_grad()
 def build_tri_accel(triangles, materials, block: int) -> TriAccel:
     """The triangle accelerator; row 15 of ``packed`` carries the shadow
@@ -494,7 +470,7 @@ def build_tri_accel(triangles, materials, block: int) -> TriAccel:
     accelerator is detached traversal data, built from inputs that may
     require grad (``Scene.refresh_accel``) without keeping a graph."""
     packed, centers, half = block_pack(
-        triangles, _shadow_factor(triangles.material, materials), block)
+        triangles, shadow_factor(triangles.material, materials), block)
     return _group_blocks(packed, centers, half, block)
 
 
@@ -502,7 +478,7 @@ def build_tri_accel(triangles, materials, block: int) -> TriAccel:
 def build_sph_accel(spheres, materials, block: int) -> TriAccel:
     """The sphere-pool accelerator (the sweeps' ``prim="sphere"``)."""
     packed, centers, half = sphere_pack(
-        spheres, _shadow_factor(spheres.material, materials), block)
+        spheres, shadow_factor(spheres.material, materials), block)
     return _group_blocks(packed, centers, half, block)
 
 
@@ -510,161 +486,5 @@ def build_sph_accel(spheres, materials, block: int) -> TriAccel:
 def build_cyl_accel(cylinders, materials, block: int) -> TriAccel:
     """The cylinder-pool accelerator (the sweeps' ``prim="cyl"``)."""
     packed, centers, half = cylinder_pack(
-        cylinders, _shadow_factor(cylinders.material, materials), block)
+        cylinders, shadow_factor(cylinders.material, materials), block)
     return _group_blocks(packed, centers, half, block)
-
-
-# --------------------------------------------------------------------------
-# Block mirrors: the exactness net's sweeps and the plain side of the
-# kernels' Woop arithmetic.
-# --------------------------------------------------------------------------
-
-
-def _woop_t(o, d, w, t_min):
-    """Woop intersection.  o/d (..., 3) broadcast against the packed rows
-    w (..., 16, block) as rays (..., R, 1) x lanes (..., 1, block).
-
-    The association ((ox*r0 + oy*r1) + oz*r2) + r3 is the one the CUDA
-    kernels use (built without FMA contraction), so both agree bit for
-    bit on the same device."""
-    ox, oy, oz = (o[..., i, None] for i in range(3))
-    dx, dy, dz = (d[..., i, None] for i in range(3))
-    r = [w[..., None, i, :] for i in range(12)]
-    opx = ox * r[0] + oy * r[1] + oz * r[2] + r[3]
-    opy = ox * r[4] + oy * r[5] + oz * r[6] + r[7]
-    opz = ox * r[8] + oy * r[9] + oz * r[10] + r[11]
-    dpx = dx * r[0] + dy * r[1] + dz * r[2]
-    dpy = dx * r[4] + dy * r[5] + dz * r[6]
-    dpz = dx * r[8] + dy * r[9] + dz * r[10]
-    safe = dpz.abs() > 1e-12
-    inv = safe_inv(dpz, safe)
-    t = -opz * inv
-    u = opx + t * dpx
-    v = opy + t * dpy
-    valid = safe & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > t_min)
-    return torch.where(valid, t, torch.full_like(t, T_FAR))
-
-
-def _sphere_t(o, d, w, t_min):
-    """Sphere test, broadcast as :func:`_woop_t`; rows per
-    :func:`sphere_pack`.  The nearest root > t_min (the exit root for a
-    ray that starts inside).  The association is the CUDA kernels'."""
-    ocx, ocy, ocz = (o[..., i, None] - w[..., None, i, :] for i in range(3))
-    dx, dy, dz = (d[..., i, None] for i in range(3))
-    rad = w[..., None, 3, :]
-    b = ocx * dx + ocy * dy + ocz * dz
-    c0 = ocx * ocx + ocy * ocy + ocz * ocz - rad * rad
-    disc = b * b - c0
-    valid = (disc > 0.0) & (rad > 0.0)
-    sq = torch.sqrt(torch.where(valid, disc, torch.ones_like(disc)))
-    far = torch.full_like(disc, T_FAR)
-    t1 = torch.where(valid & (-b - sq > t_min), -b - sq, far)
-    t2 = torch.where(valid & (-b + sq > t_min), -b + sq, far)
-    return torch.minimum(t1, t2)
-
-
-def cyl_core(c, r, t_min):
-    """Capped cylinder (side plus both end disks, two-sided; radius <= 0
-    never hits), as solr_tpu.ops.packet.cyl_core: ``c(i)`` is ray
-    component i (0..2 origin, 4..6 direction), ``r(i)`` packed row i
-    (:func:`cylinder_pack`); both broadcast.  The CUDA kernels'
-    ``cyl_t`` repeats it operation for operation."""
-    ocx, ocy, ocz = c(0) - r(0), c(1) - r(1), c(2) - r(2)
-    dx, dy, dz = c(4), c(5), c(6)
-    rad = r(3)
-    h2 = r(7)
-    inv_h2 = 1.0 / torch.clamp(h2, min=INTERSECT_EPS)
-    d_a = dx * r(4) + dy * r(5) + dz * r(6)
-    oc_a = ocx * r(4) + ocy * r(5) + ocz * r(6)
-    a = 1.0 - d_a * d_a * inv_h2
-    b = (ocx * dx + ocy * dy + ocz * dz) - d_a * oc_a * inv_h2
-    cq = (ocx * ocx + ocy * ocy + ocz * ocz) - oc_a * oc_a * inv_h2 \
-        - rad * rad
-    safe_a = torch.clamp(a, min=INTERSECT_EPS)
-    disc = b * b - safe_a * cq
-    base = (disc > 0.0) & (a > INTERSECT_EPS) & (rad > 0.0)
-    sq = torch.sqrt(torch.where(base, disc, torch.ones_like(disc)))
-    t1 = (-b - sq) / safe_a
-    t2 = (-b + sq) / safe_a
-    s1 = oc_a + t1 * d_a
-    s2 = oc_a + t2 * d_a
-    far = torch.full_like(t1, T_FAR)
-    t1 = torch.where(base & (s1 >= 0.0) & (s1 <= h2) & (t1 > t_min), t1, far)
-    t2 = torch.where(base & (s2 >= 0.0) & (s2 <= h2) & (t2 > t_min), t2, far)
-    t_side = torch.minimum(t1, t2)
-
-    ax_safe = d_a.abs() > INTERSECT_EPS
-    inv_da = safe_inv(d_a, ax_safe)
-
-    def cap(plane_s, off_scale):
-        tc = (plane_s - oc_a) * inv_da
-        qx = ocx + tc * dx - off_scale * r(4)
-        qy = ocy + tc * dy - off_scale * r(5)
-        qz = ocz + tc * dz - off_scale * r(6)
-        rad2 = qx * qx + qy * qy + qz * qz
-        ok = ax_safe & (rad > 0.0) & (rad2 <= rad * rad) & (tc > t_min)
-        return torch.where(ok, tc, far)
-
-    return torch.minimum(t_side, torch.minimum(cap(0.0, 0.0), cap(h2, 1.0)))
-
-
-def _cyl_t(o, d, w, t_min):
-    """Cylinder test, broadcast as :func:`_woop_t`."""
-    return cyl_core(
-        lambda i: o[..., i, None] if i < 3 else d[..., i - 4, None],
-        lambda i: w[..., None, i, :], t_min)
-
-
-# The block test of each primitive kind: (o, d, packed rows, t_min) -> t.
-PRIM_T = {"tri": _woop_t, "sphere": _sphere_t, "cyl": _cyl_t}
-
-
-def tri_blocks_closest(packed, o_t, d_t, cand, counts, t_min,
-                       prim: str = "tri"):
-    """Closest hit of every ray against its tile's candidate blocks.
-
-    packed (B, 16, block) rows of kind ``prim``; o_t/d_t (T, TR, 3);
-    cand (T, K) block ids; counts (T,).  Returns (t (T, TR), prim idx
-    (T, TR), -1 on a miss).
-    Ties go to the earliest candidate, then the lowest lane, as in the
-    reference's sequential scan: the first minimum of each flattened
-    (candidate, lane) chunk is exactly that order.
-    """
-    block = packed.shape[2]
-    k_max = cand.shape[1]
-    best_t = torch.full(o_t.shape[:2], T_FAR, dtype=o_t.dtype, device=o_t.device)
-    best_i = torch.full(o_t.shape[:2], -1, dtype=torch.int32, device=o_t.device)
-    ks = torch.arange(k_max, device=o_t.device)
-    for k0 in range(0, k_max, _MIRROR_CHUNK):
-        kc = cand[:, k0:k0 + _MIRROR_CHUNK].long()  # (T, C)
-        w = packed[kc]  # (T, C, 16, block)
-        t = PRIM_T[prim](o_t[:, None], d_t[:, None], w, t_min)  # (T, C, TR, block)
-        ok = ks[k0:k0 + kc.shape[1]][None] < counts[:, None]  # (T, C)
-        t = torch.where(ok[:, :, None, None], t, torch.full_like(t, T_FAR))
-        t = t.permute(0, 2, 1, 3).reshape(t.shape[0], t.shape[2], -1)
-        c_min, flat = t.min(-1)
-        blk = torch.gather(kc, 1, flat // block)
-        c_idx = (blk * block + flat % block).to(torch.int32)
-        better = c_min < best_t
-        best_t = torch.where(better, c_min, best_t)
-        best_i = torch.where(better, c_idx, best_i)
-    return best_t, best_i
-
-
-def tri_blocks_transmittance(packed, o_t, d_t, t_max_t, cand, counts, t_min,
-                             prim: str = "tri"):
-    """Shadow transmittance of every ray through its tile's candidate
-    blocks: the product of the row-15 factor of every triangle hit with
-    t < t_max.  (T, TR) in [0, 1]."""
-    k_max = cand.shape[1]
-    trans = torch.ones(o_t.shape[:2], dtype=o_t.dtype, device=o_t.device)
-    ks = torch.arange(k_max, device=o_t.device)
-    for k0 in range(0, k_max, _MIRROR_CHUNK):
-        kc = cand[:, k0:k0 + _MIRROR_CHUNK].long()
-        w = packed[kc]  # (T, C, 16, block)
-        t = PRIM_T[prim](o_t[:, None], d_t[:, None], w, t_min)
-        ok = ks[k0:k0 + kc.shape[1]][None] < counts[:, None]
-        occ = (t < t_max_t[:, None, :, None]) & ok[:, :, None, None]
-        f = torch.where(occ, w[:, :, None, 15, :], torch.ones_like(t))
-        trans = trans * f.prod(-1).prod(1)
-    return trans

@@ -20,8 +20,8 @@ from solr_tpu_torch.ops.gather import gather_rows
 from solr_tpu_torch.ops.packet import build_tri_accel, tile_permutation
 from solr_tpu_torch.ops.postfx import apply_postfx
 from solr_tpu_torch.ops.shade import phong_shade
-from solr_tpu_torch.ops.traverse import (_spatial_keys, scene_closest_hit,
-                                         set_bounce, surface_at)
+from solr_tpu_torch.ops.traverse import (scene_closest_hit, set_bounce,
+                                         spatial_keys, surface_at)
 from solr_tpu_torch.ops.vecmath import (normalize, reflect, refract,
                                         spherical_uv)
 from solr_tpu_torch.types import Camera, CameraMode, RenderConfig, Scene
@@ -106,7 +106,7 @@ def trace_rays(scene: Scene, o, d, cfg: RenderConfig, key=None, packet=None):
                     omax = torch.where(lv, o_sg, torch.full_like(
                         o_sg, float("-inf"))).amax(0)
                     perm, target = _compact_perm(
-                        live, _spatial_keys(o_sg, omin, omax))
+                        live, spatial_keys(o_sg, omin, omax))
                 o, d, thru, color, live, dist0 = (
                     o[perm], d[perm], thru[perm], color[perm], live[perm],
                     dist0[perm])

@@ -4,7 +4,7 @@ kernels of the port (counterpart of solr_tpu/ops/pallas_kernels.py).
 Each entry point has a plain PyTorch version and a wrapper, and takes
 ``prim``, the kind of the packed rows: "tri" (Woop rows,
 packet.block_pack), "sphere" (packet.sphere_pack) or "cyl"
-(packet.cylinder_pack):
+(packet.cylinder_pack), whose block test is ``PRIM_T[prim]``:
 
 * ``sweep_closest`` (replaces ``sweep_closest`` / ``_closest_kernel`` at
   solr_tpu/ops/pallas_kernels.py:175 with ``_woop_rows`` :108,
@@ -21,42 +21,43 @@ packet.block_pack), "sphere" (packet.sphere_pack) or "cyl"
   once the max of its live rays' transmittance is <= 1e-6.
 
 Both also count strip visits per tile.  The wrappers dispatch on the
-device of the tensors: CPU tensors go to the plain version, CUDA tensors
-to the hand-written kernels in ``solr_tpu_torch/csrc/sweep.cu``, which
-are built with nvcc at first use and loaded with ctypes.  A build or
-launch failure raises, and so does a BLOCK whose rows do not fit the
-shared memory of the kernel it would run (every kernel stages them
-there, and takes its strips longest list first); nothing falls back to
-the plain version.  The plain and kernel
-versions agree bit for bit on the same device: the same association in
-every primitive test, no FMA contraction, IEEE sqrt and division, the
-same tie rules and product order (ascending lanes within a block).
+device of the tensors (``cudalib.on_card``): CPU tensors go to the plain
+version, CUDA tensors to the hand-written kernels in
+``solr_tpu_torch/csrc/sweep.cu`` (``LIBRARY``, built at first use).  A
+build or launch failure raises, and so does a BLOCK whose rows do not
+fit the shared memory of the kernel it would run (every kernel stages
+them there, and takes its strips longest list first); nothing falls
+back to the plain version.  The plain and kernel versions agree bit for
+bit on the same device: the same association in every primitive test,
+no FMA contraction, IEEE sqrt and division, the same tie rules and
+product order (ascending lanes within a block).
 
 Rays are passed directly as o_t/d_t (S, SB, 3), t_cap or t_max (S, SB)
-and live (S, SB); SB / G must be 32 for the kernels.
+and live (S, SB); the kernels take strips of ``STRIP`` rays, so SB / G
+must be ``STRIP`` for them.
 """
 
 from __future__ import annotations
 
 import ctypes
-import os
-import shutil
-import threading
-from pathlib import Path
 
 import torch
 
-from solr_tpu_torch import native
 from solr_tpu_torch.constants import T_FAR
-from solr_tpu_torch.ops.packet import PRIM_T, STRIP, _masked_max
+from solr_tpu_torch.ops import cudalib
+from solr_tpu_torch.ops.cudalib import check_detached, ptr, raise_on
+from solr_tpu_torch.ops.intersect import cyl_core
+from solr_tpu_torch.ops.pools import PRIMS
+from solr_tpu_torch.ops.vecmath import masked_max, safe_inv
 from solr_tpu_torch.utils.profiling import render_phase
 
 __all__ = [
     "LAUNCHES",
+    "LIBRARY",
     "PRIMS",
+    "PRIM_T",
+    "STRIP",
     "build",
-    "check_detached",
-    "compile_library",
     "kernel_name",
     "kernel_shape",
     "launch_closest",
@@ -70,8 +71,9 @@ __all__ = [
     "sweep_transmittance_plain",
 ]
 
-# Primitive kinds in the order of their codes in csrc/sweep.cu.
-PRIMS = ("tri", "sphere", "cyl")
+# Rays per strip: the granularity of the per-strip candidate lists and
+# the width of one warp in the kernels.
+STRIP = 32
 
 
 def kernel_name(entry: str, prim: str) -> str:
@@ -86,19 +88,66 @@ def kernel_name(entry: str, prim: str) -> str:
 LAUNCHES = {kernel_name(e, p): 0 for p in PRIMS
             for e in ("sweep_closest", "sweep_transmittance")}
 
-_SRC = Path(__file__).resolve().parents[1] / "csrc" / "sweep.cu"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "--fmad=false",
-    "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
-]
-
-_lib = None
-_lock = threading.Lock()
-
 
 # --------------------------------------------------------------------------
 # Plain versions
 # --------------------------------------------------------------------------
+
+
+def _woop_t(o, d, w, t_min):
+    """Woop intersection.  o/d (..., 3) broadcast against the packed rows
+    w (..., 16, block) as rays (..., R, 1) x lanes (..., 1, block).
+
+    The association ((ox*r0 + oy*r1) + oz*r2) + r3 is the one the CUDA
+    kernels use (built without FMA contraction), so both agree bit for
+    bit on the same device."""
+    ox, oy, oz = (o[..., i, None] for i in range(3))
+    dx, dy, dz = (d[..., i, None] for i in range(3))
+    r = [w[..., None, i, :] for i in range(12)]
+    opx = ox * r[0] + oy * r[1] + oz * r[2] + r[3]
+    opy = ox * r[4] + oy * r[5] + oz * r[6] + r[7]
+    opz = ox * r[8] + oy * r[9] + oz * r[10] + r[11]
+    dpx = dx * r[0] + dy * r[1] + dz * r[2]
+    dpy = dx * r[4] + dy * r[5] + dz * r[6]
+    dpz = dx * r[8] + dy * r[9] + dz * r[10]
+    safe = dpz.abs() > 1e-12
+    inv = safe_inv(dpz, safe)
+    t = -opz * inv
+    u = opx + t * dpx
+    v = opy + t * dpy
+    valid = safe & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > t_min)
+    return torch.where(valid, t, torch.full_like(t, T_FAR))
+
+
+def _sphere_t(o, d, w, t_min):
+    """Sphere test, broadcast as :func:`_woop_t`; rows per
+    ``packet.sphere_pack``.  The nearest root > t_min (the exit root for
+    a ray that starts inside).  The association is the CUDA kernels'."""
+    ocx, ocy, ocz = (o[..., i, None] - w[..., None, i, :] for i in range(3))
+    dx, dy, dz = (d[..., i, None] for i in range(3))
+    rad = w[..., None, 3, :]
+    b = ocx * dx + ocy * dy + ocz * dz
+    c0 = ocx * ocx + ocy * ocy + ocz * ocz - rad * rad
+    disc = b * b - c0
+    valid = (disc > 0.0) & (rad > 0.0)
+    sq = torch.sqrt(torch.where(valid, disc, torch.ones_like(disc)))
+    far = torch.full_like(disc, T_FAR)
+    t1 = torch.where(valid & (-b - sq > t_min), -b - sq, far)
+    t2 = torch.where(valid & (-b + sq > t_min), -b + sq, far)
+    return torch.minimum(t1, t2)
+
+
+def _cyl_t(o, d, w, t_min):
+    """Cylinder test, broadcast as :func:`_woop_t`: ``intersect.cyl_core``
+    on the rows of ``packet.cylinder_pack``."""
+    return cyl_core(
+        lambda i: o[..., i, None] if i < 3 else d[..., i - 4, None],
+        lambda i: w[..., None, i, :], t_min)
+
+
+# The block test of each primitive kind: (o, d, packed rows, t_min) -> t.
+# The plain sweeps look it up at every call.
+PRIM_T = {"tri": _woop_t, "sphere": _sphere_t, "cyl": _cyl_t}
 
 
 def _strips(o_t, d_t, ray_vals, live, g):
@@ -121,7 +170,7 @@ def sweep_closest_plain(packed, o_t, d_t, t_cap, live, cand, counts, nearb,
     nb = nearb.reshape(s * g, k_max)
     best_t = torch.full(cap.shape, T_FAR, dtype=o.dtype, device=o.device)
     best_i = torch.full(cap.shape, -1, dtype=torch.int32, device=o.device)
-    done = _masked_max(cap, lv)
+    done = masked_max(cap, lv)
     visits = torch.zeros(s * g, dtype=torch.int32, device=o.device)
     for k in range(k_max):
         rows = ((k < n) & (nb[:, k] < done)).nonzero().squeeze(1)
@@ -138,7 +187,7 @@ def sweep_closest_plain(packed, o_t, d_t, t_cap, live, cand, counts, nearb,
         best_t[rows] = bt
         best_i[rows] = torch.where(
             better, (blk[:, None] * block + lane).to(torch.int32), best_i[rows])
-        done[rows] = _masked_max(torch.minimum(bt, cap[rows]), lv[rows])
+        done[rows] = masked_max(torch.minimum(bt, cap[rows]), lv[rows])
         visits[rows] += 1
     return (best_t.reshape(s, sb), best_i.reshape(s, sb),
             visits.reshape(s, g).sum(1, dtype=torch.int32))
@@ -186,7 +235,7 @@ def sweep_transmittance_plain(packed, o_t, d_t, t_max, live, cand, counts,
         p = _lane_ordered_product(t < tm[rows][..., None], w[:, 15, :])
         new = tr[rows] * p
         tr[rows] = new
-        lit[rows] = _masked_max(new, lv[rows])
+        lit[rows] = masked_max(new, lv[rows])
         visits[rows] += 1
     return tr.reshape(s, sb), visits.reshape(s, g).sum(1, dtype=torch.int32)
 
@@ -194,29 +243,6 @@ def sweep_transmittance_plain(packed, o_t, d_t, t_max, live, cand, counts,
 # --------------------------------------------------------------------------
 # CUDA build and wrappers
 # --------------------------------------------------------------------------
-
-
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    for cand in ([os.path.join(home, "bin", "nvcc")] if home else []) + [
-            shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"]:
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the sweep kernels need the CUDA toolkit")
-
-
-def compile_library(src: bytes, stem: str = "libsolr_sweep",
-                    verbose: bool = False):
-    """Compile the CUDA source ``src`` for sm_90a into
-    ``build/solr_tpu_torch/{stem}_{hash}.so``, unless it is there
-    (``native.cached_build``).  Returns (path, the compiler's output or
-    '')."""
-    return native.cached_build(
-        stem, src + " ".join(NVCC_FLAGS).encode(),
-        lambda out, srcs: [_nvcc(), *NVCC_FLAGS,
-                           *(["-Xptxas", "-v"] if verbose else []),
-                           "-o", str(out), *map(str, srcs)],
-        sources=[(".cu", src)])
 
 
 def load_library(path):
@@ -242,38 +268,10 @@ def load_library(path):
     return lib
 
 
-def build(verbose: bool = False) -> str:
-    """Compile ``csrc/sweep.cu`` for sm_90a (once per source and flag
-    set) and load it.  Returns the compiler's output when it built, ''
-    when the library was already there.  Raises on any failure."""
-    global _lib
-    with _lock:
-        path, log = compile_library(_SRC.read_bytes(), verbose=verbose)
-        if _lib is None:
-            _lib = load_library(path)
-        return log
-
-
-def _library():
-    if _lib is None:
-        build()
-    return _lib
-
-
-def check_detached(name: str, *tensors):
-    """Raise if grad mode is on and any of ``tensors`` requires grad.
-
-    The differentiability contract: traversal runs detached and the hit
-    distance is recomputed with autograd afterwards, so no kernel needs
-    a backward pass.  A kernel wrapper called on a tensor that requires
-    grad, with grad mode on, breaks that contract; this guard says so
-    rather than returning a result with no gradient."""
-    if torch.is_grad_enabled() and any(
-            isinstance(x, torch.Tensor) and x.requires_grad for x in tensors):
-        raise RuntimeError(
-            f"{name} has no backward: call it under torch.no_grad() on "
-            f"detached tensors (traversal runs detached, the hit distance "
-            f"is recomputed with autograd)")
+# csrc/sweep.cu, compiled for sm_90a at first use; ``build`` reports the
+# compiler's output.
+LIBRARY = cudalib.library("sweep.cu", load_library)
+build = LIBRARY.build
 
 
 def _check_inputs(packed, o_t, d_t, ray_vals, live, cand, counts, prim,
@@ -309,15 +307,6 @@ def _i32(x):
     return x.to(torch.int32).contiguous()
 
 
-def _ptr(x):
-    return ctypes.c_void_p(x.data_ptr())
-
-
-def _raise_on(err: int, name: str):
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
-
-
 def _check_smem(lib, closest: bool, prim: str, block: int):
     """Raise if the rows of ``block`` primitives do not fit the shared
     memory of the kernel that the entry runs for ``prim``."""
@@ -335,7 +324,7 @@ def kernel_shape(entry: str, prim: str, block: int, lib=None) -> dict:
     the built ``csrc/sweep.cu``): its design, "staged" (one CTA of
     ``warps_per_cta`` warps per strip), and the dynamic shared memory it
     takes at this ``block``, in bytes."""
-    lib = lib or _library()
+    lib = lib or LIBRARY.load()
     closest, code = int(entry == "sweep_closest"), PRIMS.index(prim)
     return dict(design="staged",
                 warps_per_cta=lib.solr_sweep_warps(closest, code),
@@ -358,10 +347,9 @@ def launch_order(lib, counts, k_max: int):
     counts = _i32(counts)
     order = torch.empty(counts.numel(), dtype=torch.int32,
                         device=counts.device)
-    stream = torch.cuda.current_stream(counts.device).cuda_stream
-    _raise_on(lib.solr_sweep_order(_ptr(counts), counts.numel(), k_max,
-                                   _ptr(order), ctypes.c_void_p(stream)),
-              "launch order")
+    raise_on(lib.solr_sweep_order(ptr(counts), counts.numel(), k_max,
+                                  ptr(order), cudalib.stream(counts.device)),
+             "launch order")
     return order
 
 
@@ -379,12 +367,11 @@ def launch_closest(lib, packed, o_t, d_t, t_cap, live, cand, counts, nearb,
     out_t = torch.empty((s, sb), dtype=torch.float32, device=packed.device)
     out_i = torch.empty((s, sb), dtype=torch.int32, device=packed.device)
     out_v = torch.empty((s, g), dtype=torch.int32, device=packed.device)
-    stream = torch.cuda.current_stream(packed.device).cuda_stream
     err = lib.solr_sweep_closest(
-        PRIMS.index(prim), _ptr(ins[0]), packed.shape[2],
-        *(_ptr(x) for x in ins[1:]), s * g, k_max, float(t_min), _ptr(out_t),
-        _ptr(out_i), _ptr(out_v), ctypes.c_void_p(stream))
-    _raise_on(err, kernel_name("sweep_closest", prim))
+        PRIMS.index(prim), ptr(ins[0]), packed.shape[2],
+        *(ptr(x) for x in ins[1:]), s * g, k_max, float(t_min), ptr(out_t),
+        ptr(out_i), ptr(out_v), cudalib.stream(packed.device))
+    raise_on(err, kernel_name("sweep_closest", prim))
     return out_t, out_i, out_v.sum(1, dtype=torch.int32)
 
 
@@ -400,12 +387,11 @@ def launch_transmittance(lib, packed, o_t, d_t, t_max, live, cand, counts,
            torch.empty(s * g, dtype=torch.int32, device=packed.device))
     out_tr = torch.empty((s, sb), dtype=torch.float32, device=packed.device)
     out_v = torch.empty((s, g), dtype=torch.int32, device=packed.device)
-    stream = torch.cuda.current_stream(packed.device).cuda_stream
     err = lib.solr_sweep_transmittance(
-        PRIMS.index(prim), _ptr(ins[0]), packed.shape[2],
-        *(_ptr(x) for x in ins[1:]), s * g, k_max, float(t_min), _ptr(out_tr),
-        _ptr(out_v), ctypes.c_void_p(stream))
-    _raise_on(err, kernel_name("sweep_transmittance", prim))
+        PRIMS.index(prim), ptr(ins[0]), packed.shape[2],
+        *(ptr(x) for x in ins[1:]), s * g, k_max, float(t_min), ptr(out_tr),
+        ptr(out_v), cudalib.stream(packed.device))
+    raise_on(err, kernel_name("sweep_transmittance", prim))
     return out_tr, out_v.sum(1, dtype=torch.int32)
 
 
@@ -423,13 +409,11 @@ def sweep_closest(packed, o_t, d_t, t_cap, live, cand, counts, nearb, t_min,
     with render_phase("sweep"):
         check_detached(kernel_name("sweep_closest", prim), packed, o_t, d_t,
                        t_cap, nearb)
-        if packed.device.type == "cpu":
+        if not cudalib.on_card(packed, "sweep"):
             return sweep_closest_plain(packed, o_t, d_t, t_cap, live, cand,
                                        counts, nearb, t_min, prim)
-        if packed.device.type != "cuda":
-            raise ValueError(f"no sweep kernel for device {packed.device}")
         _check_inputs(packed, o_t, d_t, t_cap, live, cand, counts, prim, nearb)
-        lib = _library()
+        lib = LIBRARY.load()
         _check_smem(lib, True, prim, packed.shape[2])
         out = launch_closest(lib, packed, o_t, d_t, t_cap, live, cand, counts,
                              nearb, t_min, prim)
@@ -448,13 +432,11 @@ def sweep_transmittance(packed, o_t, d_t, t_max, live, cand, counts, t_min,
     with render_phase("sweep"):
         check_detached(kernel_name("sweep_transmittance", prim), packed, o_t,
                        d_t, t_max)
-        if packed.device.type == "cpu":
+        if not cudalib.on_card(packed, "sweep"):
             return sweep_transmittance_plain(packed, o_t, d_t, t_max, live, cand,
                                              counts, t_min, prim)
-        if packed.device.type != "cuda":
-            raise ValueError(f"no sweep kernel for device {packed.device}")
         _check_inputs(packed, o_t, d_t, t_max, live, cand, counts, prim)
-        lib = _library()
+        lib = LIBRARY.load()
         _check_smem(lib, False, prim, packed.shape[2])
         out = launch_transmittance(lib, packed, o_t, d_t, t_max, live, cand,
                                    counts, t_min, prim)

@@ -1,9 +1,10 @@
 """Scene-level closest-hit and shadow queries (counterpart of
 solr_tpu/ops/traverse.py).
 
-The scene is split into typed pools: spheres, triangles, capped
-cylinders, ellipsoids and planes, visited in that code order (the strict
-``<`` across pools makes the earlier pool win a tie).  Each pool takes
+The scene is split into typed pools (:mod:`solr_tpu_torch.ops.pools`):
+spheres, triangles, capped cylinders, ellipsoids and planes, visited in
+that code order (the strict ``<`` across pools makes the earlier pool
+win a tie).  Each pool takes
 one of three paths, as in the reference (traverse.py:290-313 for the
 closest hit, :790-812 for shadows):
 
@@ -36,29 +37,27 @@ from solr_tpu_torch.constants import (PARK_THRESHOLD, POOL_CYLINDER,
                                       POOL_ELLIPSOID, POOL_PLANE, POOL_SPHERE,
                                       POOL_TRIANGLE, RAY_EPS, T_FAR)
 from solr_tpu_torch.ops import bvh as bvh_mod
+from solr_tpu_torch.ops import cudalib
 from solr_tpu_torch.ops import intersect as isect
 from solr_tpu_torch.ops import packet as pk
 from solr_tpu_torch.ops import sweep
 from solr_tpu_torch.ops.gather import gather_rows
+from solr_tpu_torch.ops.pools import POOLS, shadow_factor
+from solr_tpu_torch.ops.sweep import STRIP
 from solr_tpu_torch.ops.textures import apply_normal_maps
-from solr_tpu_torch.ops.vecmath import cross, dot, normalize, spherical_uv
+from solr_tpu_torch.ops.vecmath import (cross, dot, masked_max, normalize,
+                                        spherical_uv)
 from solr_tpu_torch.types import Scene
 from solr_tpu_torch.utils.profiling import render_phase
 
 __all__ = ["Hit", "SurfaceInfo", "POOL_SPHERE", "POOL_TRIANGLE",
            "POOL_CYLINDER", "POOL_ELLIPSOID", "POOL_PLANE", "BRUTE_CALLS",
-           "scene_closest_hit", "scene_transmittance", "surface_at"]
-
-# The sweep kernels' primitive kind of each accelerated pool.
-_POOL_PRIM = {POOL_SPHERE: "sphere", POOL_TRIANGLE: "tri",
-              POOL_CYLINDER: "cyl"}
-_PRIM_POOL = {p: c for c, p in _POOL_PRIM.items()}
-_POOL_NAME = {**_POOL_PRIM, POOL_ELLIPSOID: "ellipsoid",
-              POOL_PLANE: "plane"}
+           "scene_closest_hit", "scene_transmittance", "spatial_keys",
+           "surface_at"]
 
 # Brute-force sweeps over a whole pool since the caller last zeroed
-# these, closest-hit and shadow together, by pool.
-BRUTE_CALLS = {name: 0 for name in _POOL_NAME.values()}
+# these, closest-hit and shadow together, by pool name.
+BRUTE_CALLS = {pool.name: 0 for pool in POOLS}
 
 # Brute-force sweeps take the primitives in chunks of at least
 # _PRIM_CHUNK, and of as many more as keep the (rays x chunk) matrices
@@ -79,25 +78,21 @@ _NET_STRIPS = 8
 # Blocks per sweep launch over the net's strip lists.  Every launch first
 # runs the launch-order kernel, whose shared memory is 4 (K + 1) 33
 # bytes for lists of up to K blocks (csrc/sweep.cu order_smem); the card
-# allows 232,448 bytes a CTA, so K is at most 1,759.  A wider list is
+# allows SMEM_LIMIT bytes a CTA, so K is at most 1,759.  A wider list is
 # swept in successive windows of this width, in list order.
-_NET_WINDOW = 232_448 // (4 * 33) - 1
+_NET_WINDOW = cudalib.SMEM_LIMIT // (4 * 33) - 1
 
 # What the exactness net did since the caller last zeroed these: net
 # calls; needy rays; "strips", the 32-ray strips of needy rays, each
 # swept over its own block list; "strip_blocks", the sum of those
 # lists' lengths; "windows", the sweep launches over them (one per
-# _NET_WINDOW blocks of the widest list of a call).  Kept for their
-# readers: "chunks" counts the sweep launches too, "union_blocks"
-# equals "strip_blocks", and "overflows" always reads 0 (no list has a
-# cap, and the net never falls back to the whole-pool brute force).
-# The needy rays again by query and bounce: closest hit or shadow, on
-# the primary bounce (0) or a later one; the four add up to
-# "needy_rays".
+# _NET_WINDOW blocks of the widest list of a call).  The needy rays
+# again by query and bounce: closest hit or shadow, on the primary
+# bounce (0) or a later one; the four add up to "needy_rays".
 NET_STATS = {"calls": 0, "needy_rays": 0, "strips": 0, "strip_blocks": 0,
-             "windows": 0, "chunks": 0, "union_blocks": 0, "overflows": 0,
-             "needy_primary_closest": 0, "needy_primary_shadow": 0,
-             "needy_later_closest": 0, "needy_later_shadow": 0}
+             "windows": 0, "needy_primary_closest": 0,
+             "needy_primary_shadow": 0, "needy_later_closest": 0,
+             "needy_later_shadow": 0}
 
 # The bounce that the queries now running belong to (render.trace_rays
 # sets it); the net files its needy rays under it.
@@ -133,32 +128,6 @@ class SurfaceInfo:
     valid: Any  # (R,) bool
 
 
-def _pool_sizes(scene: Scene):
-    return {POOL_SPHERE: scene.spheres.radius.shape[0],
-            POOL_TRIANGLE: scene.triangles.v0.shape[0],
-            POOL_CYLINDER: scene.cylinders.radius.shape[0],
-            POOL_ELLIPSOID: scene.ellipsoids.center.shape[0],
-            POOL_PLANE: scene.planes.axis.shape[0]}
-
-
-def _pool(scene: Scene, code: int):
-    return {POOL_SPHERE: scene.spheres, POOL_TRIANGLE: scene.triangles,
-            POOL_CYLINDER: scene.cylinders, POOL_ELLIPSOID: scene.ellipsoids,
-            POOL_PLANE: scene.planes}[code]
-
-
-def _pool_accel(scene: Scene, code: int):
-    return {POOL_SPHERE: scene.sph_accel, POOL_TRIANGLE: scene.tri_accel,
-            POOL_CYLINDER: scene.cyl_accel}.get(code)
-
-
-def _pool_bvh(scene: Scene, code: int, use_bvh: bool):
-    if not use_bvh:
-        return None
-    return {POOL_SPHERE: scene.sph_bvh, POOL_TRIANGLE: scene.tri_bvh,
-            POOL_CYLINDER: scene.cyl_bvh}.get(code)
-
-
 def _chunked_min(t_fn, n: int, r_shape, like):
     """Fold (best_t, best_idx) over primitive chunks.  The last partial
     chunk's start clamps to n - chunk; re-testing the overlap is
@@ -177,41 +146,22 @@ def _chunked_min(t_fn, n: int, r_shape, like):
     return best_t, best_i
 
 
-def _pool_t_chunk(scene: Scene, code: int, o, d, start, chunk, t_min):
+def _pool_t_chunk(scene: Scene, pool, o, d, start, chunk, t_min):
     rows = slice(start, start + chunk)
-    if code == POOL_SPHERE:
-        p = scene.spheres
-        return isect.sphere_t(o, d, p.center[rows], p.radius[rows], t_min)
-    if code == POOL_CYLINDER:
-        p = scene.cylinders
-        return isect.cylinder_t(o, d, p.p0[rows], p.p1[rows], p.radius[rows],
-                                t_min)
-    if code == POOL_ELLIPSOID:
-        p = scene.ellipsoids
-        return isect.ellipsoid_t(o, d, p.center[rows], p.radii[rows], t_min)
-    if code == POOL_PLANE:
-        p = scene.planes
-        return isect.plane_t(o, d, p.axis[rows], p.origin[rows],
-                             p.half_extents[rows], t_min)
-    p = scene.triangles
-    return isect.triangle_t(o, d, p.v0[rows], p.v1[rows], p.v2[rows], t_min)
+    return pool.t(o, d, *(x[rows] for x in pool.geometry(scene)), t_min)
 
 
-def _pool_material(scene: Scene, code: int, idx):
-    return _pool(scene, code).material[idx].long()
-
-
-def _pool_closest(o, d, scene: Scene, code: int, t_min, t_max):
+def _pool_closest(o, d, scene: Scene, pool, t_min, t_max):
     """Brute-force closest hit within one pool: (best_t, best_idx)."""
-    n = _pool_sizes(scene)[code]
+    n = pool.size(scene)
     r_shape = o.shape[:-1]
     if n == 0:
         return (torch.full(r_shape, T_FAR, dtype=o.dtype, device=o.device),
                 torch.zeros(r_shape, dtype=torch.int32, device=o.device))
-    BRUTE_CALLS[_POOL_NAME[code]] += 1
+    BRUTE_CALLS[pool.name] += 1
     with render_phase("brute"):
         best_t, best_i = _chunked_min(
-            lambda s, c: _pool_t_chunk(scene, code, o, d, s, c, t_min),
+            lambda s, c: _pool_t_chunk(scene, pool, o, d, s, c, t_min),
             n, r_shape, o)
         far = torch.full_like(best_t, T_FAR)
         return torch.where(best_t <= t_max, best_t, far), best_i
@@ -238,40 +188,31 @@ def _hit_rows(scene: Scene, code: int, idx, *fields):
     pool: a ray on another pool, or on none, gathers a don't-care row
     that its caller's ``torch.where`` drops (and whose gradient it
     zeroes)."""
-    p = _pool(scene, code)
-    i = idx.clamp(0, _pool_sizes(scene)[code] - 1).long()
+    pool = POOLS[code]
+    p = pool.of(scene)
+    i = idx.clamp(0, pool.size(scene) - 1).long()
     return [gather_rows(getattr(p, f), i) for f in fields]
 
 
-# Each pool's differentiable hit distance and the fields it takes.
-_T_OF_POOL = {
-    POOL_SPHERE: (isect.sphere_t_p, ("center", "radius")),
-    POOL_TRIANGLE: (isect.triangle_t_p, ("v0", "v1", "v2")),
-    POOL_CYLINDER: (isect.cylinder_t_p, ("p0", "p1", "radius")),
-    POOL_ELLIPSOID: (isect.ellipsoid_t_p, ("center", "radii")),
-    POOL_PLANE: (isect.plane_t_p, ("axis", "origin", "half_extents")),
-}
-
-
-def _recompute_t(scene: Scene, o, d, pool, idx, t_min):
+def _recompute_t(scene: Scene, o, d, hit_pool, idx, t_min):
     """Differentiable hit distance for the already-selected primitive."""
     t = torch.full(o.shape[:-1], T_FAR, dtype=o.dtype, device=o.device)
-    for code, size in _pool_sizes(scene).items():
-        if size:
-            t_of, fields = _T_OF_POOL[code]
-            t = torch.where(pool == code, t_of(
-                o, d, *_hit_rows(scene, code, idx, *fields), t_min), t)
+    for pool in POOLS:
+        if pool.size(scene):
+            t = torch.where(hit_pool == pool.code, pool.t_p(
+                o, d, *_hit_rows(scene, pool.code, idx, *pool.fields),
+                t_min), t)
     return t
 
 
-def _packet_ok(scene: Scene, code: int, o, packet, bvh) -> bool:
+def _packet_ok(scene: Scene, pool, o, packet, bvh) -> bool:
     """Whether the pool takes the packet path, as in the reference: it
     has a BVH (``bvh``, None without one or without use_bvh) and its
     packet accelerator, and the rays come in whole tiles.  (A missing
     triangle accelerator is derived per frame by
     ``render.trace_rays_tiled``, as the reference derives it.)"""
     return (bvh is not None and packet is not None
-            and _pool_accel(scene, code) is not None
+            and pool.accel(scene) is not None
             and o.shape[0] % packet[0] == 0)
 
 
@@ -281,21 +222,20 @@ def _scene_closest_hit_raw(scene: Scene, o, d, t_min, t_max, use_bvh,
     best_t = torch.full(r_shape, T_FAR, dtype=o.dtype, device=o.device)
     best_pool = torch.full(r_shape, -1, dtype=torch.int32, device=o.device)
     best_idx = torch.zeros(r_shape, dtype=torch.int32, device=o.device)
-    for code, size in _pool_sizes(scene).items():
-        if size == 0:
+    for pool in POOLS:
+        if pool.size(scene) == 0:
             continue
-        bvh = _pool_bvh(scene, code, use_bvh)
-        if _packet_ok(scene, code, o, packet, bvh) and o.dim() == 2:
-            t, i = _tri_packet_closest(scene, o, d, t_min, packet,
-                                       _POOL_PRIM[code])
+        bvh = pool.bvh(scene) if use_bvh else None
+        if _packet_ok(scene, pool, o, packet, bvh) and o.dim() == 2:
+            t, i = _packet_closest(scene, pool, o, d, t_min, packet)
         elif bvh is not None:
-            t, i = bvh_mod.bvh_closest_hit(scene, bvh, code, o, d, t_min,
+            t, i = bvh_mod.bvh_closest_hit(scene, bvh, pool.code, o, d, t_min,
                                            t_max)
         else:
-            t, i = _pool_closest(o, d, scene, code, t_min, t_max)
+            t, i = _pool_closest(o, d, scene, pool, t_min, t_max)
         better = t < best_t
         best_t = torch.where(better, t, best_t)
-        best_pool = torch.where(better, torch.full_like(best_pool, code),
+        best_pool = torch.where(better, torch.full_like(best_pool, pool.code),
                                 best_pool)
         best_idx = torch.where(better, i, best_idx)
     return Hit(t=best_t, pool=best_pool, idx=best_idx)
@@ -318,9 +258,10 @@ def _ray_block_slabs(o, d, block_bounds, t_min):
     return entry[0], hit[0]
 
 
-def _spatial_keys(p, bmin, bmax):
+def spatial_keys(p, bmin, bmax):
     """Coarse Morton key (64 cells per axis) of positions p (R, 3) in the
-    box; sorts needy rays into spatially tight net strips."""
+    box; sorts rays into spatially tight strips (the net's needy rays,
+    and ``render``'s live rays of a bounce)."""
     span = torch.clamp(bmax - bmin, min=1e-6)
     q = torch.clamp((p - bmin) / span * 64.0, 0.0, 63.0).to(torch.int32)
 
@@ -355,11 +296,11 @@ def _needy_tiles(need, sort_key, query):
     key = torch.where(need, sort_key.to(torch.float32),
                       torch.full(need.shape, float("inf"), device=need.device))
     idx = torch.argsort(key, stable=True)[:n]
-    tile = pk.STRIP * _NET_STRIPS
+    tile = STRIP * _NET_STRIPS
     n_pad = -(-n // tile) * tile
     slot = torch.nn.functional.pad(idx, (0, n_pad - n))
     live = (torch.arange(n_pad, device=need.device) < n).reshape(-1, tile)
-    NET_STATS["strips"] += -(-n // pk.STRIP)
+    NET_STATS["strips"] += -(-n // STRIP)
     return idx, slot, live
 
 
@@ -383,13 +324,13 @@ def _strip_lists(o, d, live, bound, block_bounds, t_min):
     matrices stay near _CHUNK_ELEMS elements."""
     nb = block_bounds.shape[0]
     real = block_bounds[:, 0] < 1e29  # padding blocks park at +1e30
-    rays = max(pk.STRIP, _CHUNK_ELEMS // nb // pk.STRIP * pk.STRIP)
+    rays = max(STRIP, _CHUNK_ELEMS // nb // STRIP * STRIP)
     on_s, entry_s = [], []
     for r0 in range(0, o.shape[0], rays):
         rs = slice(r0, r0 + rays)
         entry, hit = _ray_block_slabs(o[rs], d[rs], block_bounds, t_min)
         on = hit & (entry <= bound[rs, None]) & live[rs, None] & real
-        on = on.reshape(-1, pk.STRIP, nb)
+        on = on.reshape(-1, STRIP, nb)
         on_s.append(on.any(1))
         entry_s.append(entry.reshape(on.shape).masked_fill(~on, T_FAR)
                        .amin(1))
@@ -398,7 +339,6 @@ def _strip_lists(o, d, live, bound, block_bounds, t_min):
     k, total = torch.stack([counts.max(), counts.sum(dtype=torch.int32)]
                            ).tolist()
     NET_STATS["strip_blocks"] += total
-    NET_STATS["union_blocks"] += total
     if k == 0:
         return None
     ids = torch.arange(nb, dtype=torch.int32, device=o.device)
@@ -421,7 +361,6 @@ def _window_counts(counts, w0, shape):
     """The strips' list lengths within the window at ``w0``, (S, G); one
     more sweep launch in NET_STATS."""
     NET_STATS["windows"] += 1
-    NET_STATS["chunks"] += 1
     return torch.clamp(counts - w0, 0, _NET_WINDOW).reshape(shape)
 
 
@@ -494,8 +433,8 @@ def _net_transmittance(accel, prim, o, d, tm, tr, need, sort_key, t_min):
         for w0 in range(0, cand.shape[1], _NET_WINDOW):
             counts_w = _window_counts(counts, w0, shape)
             if prod is not None:
-                lit = pk._masked_max(prod.reshape(-1, pk.STRIP),
-                                     live.reshape(-1, pk.STRIP))
+                lit = masked_max(prod.reshape(-1, STRIP),
+                                 live.reshape(-1, STRIP))
                 counts_w = torch.where(lit.reshape(shape) > 1e-6, counts_w,
                                        torch.zeros_like(counts_w))
             p, _ = sweep.sweep_transmittance(
@@ -506,14 +445,14 @@ def _net_transmittance(accel, prim, o, d, tm, tr, need, sort_key, t_min):
         return tr
 
 
-def _tri_packet_closest(scene: Scene, o, d, t_min, packet, prim="tri"):
-    """Packet closest hit over the pool of kind ``prim``: strip interval
+def _packet_closest(scene: Scene, pool, o, d, t_min, packet):
+    """Packet closest hit over an accelerated pool: strip interval
     lists -> front-to-back sweep -> exactness net for rays whose drop
     certificate fails."""
     tile_rays, ks, kt, exact = packet
     r = o.shape[0]
-    code = _PRIM_POOL[prim]
-    accel = _pool_accel(scene, code)
+    prim = pool.name
+    accel = pool.accel(scene)
     o_t = o.reshape(-1, tile_rays, 3)
     d_t = d.reshape(-1, tile_rays, 3)
     live = o_t[..., 0] < PARK_THRESHOLD
@@ -532,7 +471,7 @@ def _tri_packet_closest(scene: Scene, o, d, t_min, packet, prim="tri"):
             ).reshape(r)
     t_cap = t_cap.reshape(r)
     t_mid = 0.5 * torch.minimum(bt, t_cap)
-    net_key = _spatial_keys(o + d * t_mid[:, None], bmin, bmax)
+    net_key = spatial_keys(o + d * t_mid[:, None], bmin, bmax)
     return _net_closest(accel, prim, o, d, t_cap, bt, bi, need, net_key,
                         t_min)
 
@@ -544,36 +483,35 @@ def scene_transmittance(scene: Scene, o, d, t_max, t_min=RAY_EPS,
     the lights and never occlude).  o/d (R, 3) or (R, L, 3)."""
     with render_phase("shadow"):
         trans = torch.ones(o.shape[:-1], dtype=o.dtype, device=o.device)
-        for code, size in _pool_sizes(scene).items():
-            if size == 0:
+        for pool in POOLS:
+            if pool.size(scene) == 0:
                 continue
-            bvh = _pool_bvh(scene, code, use_bvh)
-            if _packet_ok(scene, code, o, packet, bvh):
+            bvh = pool.bvh(scene) if use_bvh else None
+            if _packet_ok(scene, pool, o, packet, bvh):
                 # Detached inputs: the accelerated pool's occluder
                 # transparency carries no gradient, as in the reference.
                 with torch.no_grad():
-                    trans = trans * _tri_packet_transmittance(
-                        scene, o.detach(), d.detach(), t_max.detach(), t_min,
-                        packet, _POOL_PRIM[code])
+                    trans = trans * _packet_transmittance(
+                        scene, pool, o.detach(), d.detach(), t_max.detach(),
+                        t_min, packet)
                 continue
             if bvh is not None:
                 with torch.no_grad():
                     trans = trans * bvh_mod.bvh_transmittance(
-                        scene, bvh, code, o.detach(), d.detach(), t_min,
+                        scene, bvh, pool.code, o.detach(), d.detach(), t_min,
                         t_max.detach())
                 continue
-            trans = trans * _pool_transmittance_brute(scene, code, o, d, t_max,
+            trans = trans * _pool_transmittance_brute(scene, pool, o, d, t_max,
                                                       t_min)
         return trans
 
 
-def _tri_packet_transmittance(scene: Scene, o, d, t_max, t_min, packet,
-                              prim="tri"):
-    """Packet shadow transmittance over the pool of kind ``prim``; lights
+def _packet_transmittance(scene: Scene, pool, o, d, t_max, t_min, packet):
+    """Packet shadow transmittance over an accelerated pool; lights
     unroll as a Python loop over the (R, L, 3) rays."""
     tile_rays, ks, kt, exact = packet
-    code = _PRIM_POOL[prim]
-    accel = _pool_accel(scene, code)
+    prim = pool.name
+    accel = pool.accel(scene)
 
     def one_light(o2, d2, tm2):
         o_t = o2.reshape(-1, tile_rays, 3)
@@ -593,7 +531,7 @@ def _tri_packet_transmittance(scene: Scene, o, d, t_max, t_min, packet,
                 ).reshape(-1)
         bmin, bmax = _scene_box(accel)
         return _net_transmittance(accel, prim, o2, d2, tm2, tr, need,
-                                  _spatial_keys(o2, bmin, bmax), t_min)
+                                  spatial_keys(o2, bmin, bmax), t_min)
 
     tm = t_max.expand(o.shape[:-1])
     if o.dim() == 3:
@@ -602,28 +540,25 @@ def _tri_packet_transmittance(scene: Scene, o, d, t_max, t_min, packet,
     return one_light(o, d, tm)
 
 
-def _pool_transmittance_brute(scene: Scene, code: int, o, d, t_max,
+def _pool_transmittance_brute(scene: Scene, pool, o, d, t_max,
                               t_min=RAY_EPS):
     """Brute-force transmittance over one pool, chunk by chunk.  The last
     partial chunk clamps its start and masks the rows already covered, so
     every factor applies exactly once."""
-    size = _pool_sizes(scene)[code]
+    size = pool.size(scene)
     trans = torch.ones(o.shape[:-1], dtype=o.dtype, device=o.device)
     if size == 0:
         return trans
-    BRUTE_CALLS[_POOL_NAME[code]] += 1
-    mats = scene.materials
+    BRUTE_CALLS[pool.name] += 1
+    material = pool.of(scene).material
     chunk = _prim_chunk(o[..., 0].numel(), size)
     with render_phase("brute"):
         for ci in range((size + chunk - 1) // chunk):
             start = min(ci * chunk, size - chunk)
-            t = _pool_t_chunk(scene, code, o, d, start, chunk, t_min)
+            t = _pool_t_chunk(scene, pool, o, d, start, chunk, t_min)
             idx = start + torch.arange(chunk, device=o.device)
             occ = (t < t_max[..., None]) & (idx >= ci * chunk)
-            mat = _pool_material(scene, code, idx)
-            f = torch.where(mats.emission[mat] > 0.0,
-                            torch.ones_like(mats.transparency[mat]),
-                            mats.transparency[mat])
+            f = shadow_factor(material[idx], scene.materials)
             trans = trans * torch.where(occ, f, torch.ones_like(t)).prod(-1)
     return trans
 
@@ -642,14 +577,13 @@ def surface_at(scene: Scene, hit: Hit, o, d) -> SurfaceInfo:
         shading = normal
         uv = torch.zeros(r_shape + (2,), dtype=o.dtype, device=o.device)
         material = torch.zeros(r_shape, dtype=torch.int64, device=o.device)
-        sizes = _pool_sizes(scene)
 
         def blend(mask, n_new, sn_new, uv_new, m_new):
             m3 = mask[..., None]
             return (torch.where(m3, n_new, normal), torch.where(m3, sn_new, shading),
                     torch.where(m3, uv_new, uv), torch.where(mask, m_new, material))
 
-        if sizes[POOL_SPHERE]:
+        if POOLS[POOL_SPHERE].size(scene):
             center, radius, mat = _hit_rows(scene, POOL_SPHERE, hit.idx,
                                             "center", "radius", "material")
             r = torch.clamp(radius, min=1e-6)
@@ -657,7 +591,7 @@ def surface_at(scene: Scene, hit: Hit, o, d) -> SurfaceInfo:
             normal, shading, uv, material = blend(
                 hit.pool == POOL_SPHERE, n, n, spherical_uv(n), mat.long())
 
-        if sizes[POOL_TRIANGLE]:
+        if POOLS[POOL_TRIANGLE].size(scene):
             v0, v1, v2, n0, n1, n2, uv0, uv1, uv2, mat = _hit_rows(
                 scene, POOL_TRIANGLE, hit.idx, "v0", "v1", "v2", "n0", "n1",
                 "n2", "uv0", "uv1", "uv2", "material")
@@ -673,7 +607,7 @@ def surface_at(scene: Scene, hit: Hit, o, d) -> SurfaceInfo:
             normal, shading, uv, material = blend(
                 hit.pool == POOL_TRIANGLE, gn, sn, uvt, mat.long())
 
-        if sizes[POOL_CYLINDER]:
+        if POOLS[POOL_CYLINDER].size(scene):
             p0, p1, mat = _hit_rows(scene, POOL_CYLINDER, hit.idx, "p0", "p1",
                                     "material")
             axis = p1 - p0
@@ -688,7 +622,7 @@ def surface_at(scene: Scene, hit: Hit, o, d) -> SurfaceInfo:
             normal, shading, uv, material = blend(
                 hit.pool == POOL_CYLINDER, n, n, uvc, mat.long())
 
-        if sizes[POOL_ELLIPSOID]:
+        if POOLS[POOL_ELLIPSOID].size(scene):
             center, radii, mat = _hit_rows(scene, POOL_ELLIPSOID, hit.idx,
                                            "center", "radii", "material")
             rad = torch.clamp(radii, min=1e-6)
@@ -698,7 +632,7 @@ def surface_at(scene: Scene, hit: Hit, o, d) -> SurfaceInfo:
                 hit.pool == POOL_ELLIPSOID, n, n, spherical_uv(local),
                 mat.long())
 
-        if sizes[POOL_PLANE]:
+        if POOLS[POOL_PLANE].size(scene):
             axis, origin, half, mat = _hit_rows(
                 scene, POOL_PLANE, hit.idx, "axis", "origin", "half_extents",
                 "material")

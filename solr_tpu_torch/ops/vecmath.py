@@ -10,8 +10,8 @@ import torch
 
 from solr_tpu_torch.constants import NORMAL_EPS
 
-__all__ = ["dot", "cross", "norm", "normalize", "safe_inv", "reflect",
-           "refract", "spherical_uv", "rotate_euler"]
+__all__ = ["dot", "cross", "norm", "normalize", "safe_inv", "masked_max",
+           "reflect", "refract", "spherical_uv", "rotate_euler"]
 
 
 def dot(a, b, keepdim: bool = False):
@@ -43,6 +43,12 @@ def safe_inv(x, ok):
     no lane divides by zero and gradients stay finite."""
     one = torch.ones_like(x)
     return torch.where(ok, one, torch.zeros_like(x)) / torch.where(ok, x, one)
+
+
+def masked_max(x, live):
+    """The maximum over dim 1 of ``x``, its entries that are not ``live``
+    read as 0."""
+    return torch.where(live, x, torch.zeros_like(x)).amax(1)
 
 
 def reflect(incident, normal):

@@ -47,7 +47,7 @@ from solr_tpu_torch.kernel_shapes import (fractional, primary_tiles,
                                           shadow_rays, sweep_args, time_ms,
                                           triangle_hits)
 from solr_tpu_torch.molecule_scene import molecule_scene
-from solr_tpu_torch.ops import sweep
+from solr_tpu_torch.ops import cudalib, sweep
 from solr_tpu_torch.ops.traverse import scene_closest_hit
 from solr_tpu_torch.utils.card import card_name
 
@@ -209,7 +209,7 @@ def main(argv=None) -> int:
         return 2
     smi = card_name("cuda:0")
 
-    src = sweep._SRC.read_text()
+    src = sweep.LIBRARY.src.read_text()
     variants = [("0 parent", Path(a.parent) / "solr_tpu_torch" / "csrc"
                  / "sweep.cu")] if a.parent else []
     variants += [(name, variant_source(src, c, p))
@@ -217,9 +217,9 @@ def main(argv=None) -> int:
     t0 = time.time()
     with concurrent.futures.ThreadPoolExecutor(len(variants)) as pool:
         built = list(pool.map(
-            lambda v: sweep.compile_library(
+            lambda v: cudalib.compile_library(
                 (v[1].read_text() if isinstance(v[1], Path) else v[1]).encode(),
-                stem="libsolr_sweep_variant", verbose=True), variants))
+                "libsolr_sweep_variant", verbose=True), variants))
     libs = [sweep.load_library(p) for p, _ in built]
     build_s = time.time() - t0
     ptxas = {name: _registers(log) for (name, _), (_, log) in
@@ -227,7 +227,7 @@ def main(argv=None) -> int:
 
     device = torch.device("cuda:0")
     calls = _inputs(device)
-    shipped = sweep._library()
+    shipped = sweep.LIBRARY.load()
     rec = {"nvidia_smi": smi, "torch": torch.__version__, "build_s": build_s,
            "ptxas": ptxas, "calls": {}, "steps": []}
     with torch.no_grad():

@@ -38,7 +38,8 @@ import torch
 from solr_tpu_torch.bench_scene import bench_scene
 from solr_tpu_torch.kernel_shapes import first_walk_calls, ptxas_usage, time_ms
 from solr_tpu_torch.molecule_scene import molecule_scene
-from solr_tpu_torch.ops import bvh, sweep
+from solr_tpu_torch.ops import bvh, cudalib
+from solr_tpu_torch.ops.pools import shadow_factor
 from solr_tpu_torch.ops.render import render, render_sample
 from solr_tpu_torch.ops.rng import Key
 from solr_tpu_torch.sweep_steps import variant_source
@@ -129,7 +130,7 @@ def _sphere_rows16(scene):
     16 bytes) just before them, factor j at the rows' float -1 - j."""
     p = scene.spheres
     n = p.radius.shape[0]
-    factor = bvh._shadow_factor(p.material, scene.materials)
+    factor = shadow_factor(p.material, scene.materials).to(torch.float32)
     side = torch.cat([torch.zeros_like(factor[:(-n) % 4]), factor.flip(0)])
     rows = torch.cat([p.center.to(torch.float32),
                       p.radius.to(torch.float32)[:, None]], 1)
@@ -217,13 +218,13 @@ def main(argv=None) -> int:
         return 2
     smi = card_name("cuda:0")
 
-    src = bvh._SRC.read_text()
+    src = bvh.LIBRARY.src.read_text()
     variants = [(name, variant_source(src, c, p)) for name, c, p, _ in STEPS]
     layouts = {name: rows for name, _, _, rows in STEPS}
     t0 = time.time()
     with concurrent.futures.ThreadPoolExecutor(len(variants)) as pool:
-        built = list(pool.map(lambda v: sweep.compile_library(
-            v[1].encode(), stem="libsolr_bvh_walk_variant", verbose=True),
+        built = list(pool.map(lambda v: cudalib.compile_library(
+            v[1].encode(), "libsolr_bvh_walk_variant", verbose=True),
             variants))
     libs = [bvh.load_library(p) for p, _ in built]
     build_s = time.time() - t0
@@ -233,7 +234,7 @@ def main(argv=None) -> int:
 
     device = torch.device("cuda:0")
     calls = _calls(device)
-    shipped = bvh._library()
+    shipped = bvh.LIBRARY.load()
     rec = {"nvidia_smi": smi, "torch": torch.__version__, "build_s": build_s,
            "ptxas": ptxas, "calls": {}, "steps": []}
     counts = {name: {} for name, _ in variants}

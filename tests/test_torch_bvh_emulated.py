@@ -29,6 +29,7 @@ from solr_tpu_torch.constants import POOL_TRIANGLE, RAY_EPS
 from solr_tpu_torch.molecule_scene import molecule_scene
 from solr_tpu_torch.ops import bvh
 from solr_tpu_torch.ops.camera import camera_rays
+from solr_tpu_torch.ops.pools import BY_PRIM
 from solr_tpu_torch.ops.traverse import scene_closest_hit
 from solr_tpu_torch.scene import SceneBuilder
 from solr_tpu_torch.types import RenderConfig
@@ -50,7 +51,7 @@ BVH_OF = {"tri": "tri_bvh", "sphere": "sph_bvh", "cyl": "cyl_bvh"}
 def emulated(tmp_path_factory):
     if compiler() is None:
         pytest.skip("needs a C++17 compiler to build the emulation")
-    return bvh.load_library(build_emulated(bvh._SRC,
+    return bvh.load_library(build_emulated(bvh.LIBRARY.src,
                                            tmp_path_factory.mktemp("emu")))
 
 
@@ -303,7 +304,7 @@ def test_emulated_layouts_one_per_pool(emulated, monkeypatch, molecule):
     monkeypatch.setattr(bvh, "_DERIVED", {})
     for prim in ("tri", "cyl", "sphere") * 2:
         _closest_equal(monkeypatch, emulated, scene, prim, o, d)
-        code = bvh._PRIM_POOL[prim]
+        code = BY_PRIM[prim].code
         bvh.bvh_closest_hit(scene, getattr(scene, BVH_OF[prim]), code, o, d,
                             RAY_EPS)
     assert packed == ["pack_nodes", "pack_triangles", "pack_nodes",

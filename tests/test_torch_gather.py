@@ -125,6 +125,17 @@ def test_gradient_flows_through_the_scene_gathers():
     assert torch.equal(center.grad, want)
 
 
+def test_backward_rejects_devices_without_a_kernel():
+    """The device rule of every kernel wrapper: a tensor on neither the
+    CPU nor a CUDA card raises, and reaches no kernel."""
+    before = dict(gather.LAUNCHES)
+    grad = torch.zeros(4, 3, device="meta")
+    with pytest.raises(ValueError, match="no gather_rows_bwd kernel"):
+        gather.gather_rows_bwd(grad, torch.zeros(4, dtype=torch.int64,
+                                                 device="meta"), 8)
+    assert gather.LAUNCHES == before
+
+
 def test_kernel_refuses_what_it_does_not_take():
     with pytest.raises(ValueError, match="float32 or float64 rows of 1-4"):
         gather.launch(None, torch.zeros(4, 5),
@@ -144,7 +155,7 @@ def emulated(tmp_path_factory):
     if compiler() is None:
         pytest.skip("needs a C++17 compiler to build the emulation")
     return gather.load_library(build_emulated(
-        gather._SRC, tmp_path_factory.mktemp("emu")))
+        gather.LIBRARY.src, tmp_path_factory.mktemp("emu")))
 
 
 def _exact_grad(shape, gen, dtype=torch.float32):

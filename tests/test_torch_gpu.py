@@ -66,6 +66,7 @@ from solr_tpu_torch.ops import bvh
 from solr_tpu_torch.ops import packet as pk
 from solr_tpu_torch.ops import sweep
 from solr_tpu_torch.ops.camera import camera_rays
+from solr_tpu_torch.ops.pools import BY_PRIM
 from solr_tpu_torch.ops.render import render, render_sample
 from solr_tpu_torch.ops.rng import Key
 from solr_tpu_torch.ops.traverse import _scene_box, scene_closest_hit
@@ -493,7 +494,7 @@ def test_launch_order_matches_stable_sort(cuda, counts):
                           dtype=torch.int32)
     else:
         c = torch.full((8193,), 64, dtype=torch.int32, device=cuda)
-    got = sweep.launch_order(sweep._library(), c, 64)
+    got = sweep.launch_order(sweep.LIBRARY.load(), c, 64)
     torch.cuda.synchronize()
     assert torch.equal(got, sweep.longest_first(c))
 
@@ -527,7 +528,7 @@ def test_walk_closest_kernel_matches_plain(walk, prim):
     tree = getattr(scene, BVH_OF[prim])
     name = bvh.kernel_name("bvh_closest_hit", prim)
     before = bvh.LAUNCHES[name]
-    got = bvh.bvh_closest_hit(scene, tree, bvh._PRIM_POOL[prim], o, d,
+    got = bvh.bvh_closest_hit(scene, tree, BY_PRIM[prim].code, o, d,
                               RAY_EPS)
     assert bvh.LAUNCHES[name] == before + 1
     want = bvh.bvh_closest_hit_plain(scene, tree, prim, o, d, RAY_EPS)
@@ -535,7 +536,7 @@ def test_walk_closest_kernel_matches_plain(walk, prim):
     for a, b in zip(got, want):  # t, idx
         assert torch.equal(a, b)
     for near in (True, False):  # each order's own counts
-        lib_out = bvh.launch_closest(bvh._library(), scene, tree, prim, o, d,
+        lib_out = bvh.launch_closest(bvh.LIBRARY.load(), scene, tree, prim, o, d,
                                      RAY_EPS, near_first=near)
         want = bvh.bvh_closest_hit_ordered_plain(scene, tree, prim, o, d,
                                                  RAY_EPS, near_first=near)
@@ -553,12 +554,12 @@ def test_walk_transmittance_kernel_matches_plain(walk, prim, rays):
     tree = getattr(scene, BVH_OF[prim])
     name = bvh.kernel_name("bvh_transmittance", prim)
     before = bvh.LAUNCHES[name]
-    got = bvh.bvh_transmittance(scene, tree, bvh._PRIM_POOL[prim], so, sd,
+    got = bvh.bvh_transmittance(scene, tree, BY_PRIM[prim].code, so, sd,
                                 RAY_EPS, tm)
     assert bvh.LAUNCHES[name] == before + 1
     want = bvh.bvh_transmittance_plain(scene, tree, prim, so, sd, RAY_EPS, tm)
     assert torch.equal(got, want[0])
-    lib_out = bvh.launch_transmittance(bvh._library(), scene, tree, prim, so,
+    lib_out = bvh.launch_transmittance(bvh.LIBRARY.load(), scene, tree, prim, so,
                                        sd, RAY_EPS, tm)
     for a, b in zip(lib_out[1:], want[1:]):  # visits, tests
         assert torch.equal(a, b)
@@ -575,7 +576,7 @@ def test_walk_closest_ties(cuda, prim):
     tree = getattr(scene, BVH_OF[prim])
     want = bvh.bvh_closest_hit_plain(scene, tree, prim, o, d, RAY_EPS)
     for near in (True, False):
-        got = bvh.launch_closest(bvh._library(), scene, tree, prim, o, d,
+        got = bvh.launch_closest(bvh.LIBRARY.load(), scene, tree, prim, o, d,
                                  RAY_EPS, near_first=near)
         for a, b in zip(got[:2], want[:2]):  # t, idx
             assert torch.equal(a, b)
@@ -600,7 +601,7 @@ def test_walk_tri_kernels_order_and_stop(cuda, case):
     scene, o, d = (tri_field(device=cuda) if case == "field"
                    else near_second_tie_scene(device=cuda))
     tree = scene.tri_bvh
-    got = bvh.launch_closest(bvh._library(), scene, tree, "tri", o, d,
+    got = bvh.launch_closest(bvh.LIBRARY.load(), scene, tree, "tri", o, d,
                              RAY_EPS)
     dfs = bvh.bvh_closest_hit_plain(scene, tree, "tri", o, d, RAY_EPS)
     near = bvh.bvh_closest_hit_ordered_plain(scene, tree, "tri", o, d,
@@ -610,7 +611,7 @@ def test_walk_tri_kernels_order_and_stop(cuda, case):
     if case == "near_second_tie":
         assert (got[1] == 7).all()
     tm = torch.full(o.shape[:1], 100.0, device=o.device)
-    got = bvh.launch_transmittance(bvh._library(), scene, tree, "tri", o, d,
+    got = bvh.launch_transmittance(bvh.LIBRARY.load(), scene, tree, "tri", o, d,
                                    RAY_EPS, tm)
     want = bvh.bvh_transmittance_plain(scene, tree, "tri", o, d, RAY_EPS, tm)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
@@ -629,7 +630,7 @@ def test_walk_cyl_kernels_order_and_stop(cuda, case):
     tree = scene.cyl_bvh
     dfs = bvh.bvh_closest_hit_plain(scene, tree, "cyl", o, d, RAY_EPS)
     for near in (True, False):
-        got = bvh.launch_closest(bvh._library(), scene, tree, "cyl", o, d,
+        got = bvh.launch_closest(bvh.LIBRARY.load(), scene, tree, "cyl", o, d,
                                  RAY_EPS, near_first=near)
         own = bvh.bvh_closest_hit_ordered_plain(scene, tree, "cyl", o, d,
                                                 RAY_EPS, near_first=near)
@@ -638,7 +639,7 @@ def test_walk_cyl_kernels_order_and_stop(cuda, case):
         if case == "near_second_tie":
             assert (got[1] == 7).all()
     tm = torch.full(o.shape[:1], 100.0, device=o.device)
-    got = bvh.launch_transmittance(bvh._library(), scene, tree, "cyl", o, d,
+    got = bvh.launch_transmittance(bvh.LIBRARY.load(), scene, tree, "cyl", o, d,
                                    RAY_EPS, tm)
     want = bvh.bvh_transmittance_plain(scene, tree, "cyl", o, d, RAY_EPS, tm)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
@@ -651,13 +652,13 @@ def _sphere_kernels_equal(scene, o, d, tm):
     tree = scene.sph_bvh
     dfs = bvh.bvh_closest_hit_plain(scene, tree, "sphere", o, d, RAY_EPS)
     for near in (False, True):
-        got = bvh.launch_closest(bvh._library(), scene, tree, "sphere", o, d,
+        got = bvh.launch_closest(bvh.LIBRARY.load(), scene, tree, "sphere", o, d,
                                  RAY_EPS, near_first=near)
         own = bvh.bvh_closest_hit_ordered_plain(scene, tree, "sphere", o, d,
                                                 RAY_EPS, near_first=near)
         assert all(torch.equal(a, b) for a, b in zip(got, own))
         assert all(torch.equal(a, b) for a, b in zip(got[:2], dfs[:2]))
-    got = bvh.launch_transmittance(bvh._library(), scene, tree, "sphere", o,
+    got = bvh.launch_transmittance(bvh.LIBRARY.load(), scene, tree, "sphere", o,
                                    d, RAY_EPS, tm)
     want = bvh.bvh_transmittance_plain(scene, tree, "sphere", o, d, RAY_EPS,
                                        tm)
@@ -712,19 +713,19 @@ def test_walk_dfs_kernel_on_stale_tree(cuda, prim):
     name = bvh.kernel_name("bvh_closest_hit", prim, dfs=prim == "tri")
     before = dict(bvh.LAUNCHES)
     with torch.no_grad():
-        t, idx = bvh.bvh_closest_hit(scene, tree, bvh._PRIM_POOL[prim], o, d,
+        t, idx = bvh.bvh_closest_hit(scene, tree, BY_PRIM[prim].code, o, d,
                                      RAY_EPS)
     assert bvh.LAUNCHES[name] == before[name] + 1
     assert all(bvh.LAUNCHES[k] == before[k] for k in before if k != name)
     dfs = bvh.bvh_closest_hit_plain(scene, tree, prim, o, d, RAY_EPS)
     assert torch.equal(t, dfs[0]) and torch.equal(idx, dfs[1])
     assert (idx == STALE_ROW).all()
-    got = bvh.launch_closest(bvh._library(), scene, tree, prim, o, d, RAY_EPS,
+    got = bvh.launch_closest(bvh.LIBRARY.load(), scene, tree, prim, o, d, RAY_EPS,
                              near_first=False)
     want = bvh.bvh_closest_hit_ordered_plain(scene, tree, prim, o, d, RAY_EPS,
                                              near_first=False)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
-    got = bvh.launch_closest(bvh._library(), scene, tree, prim, o, d, RAY_EPS,
+    got = bvh.launch_closest(bvh.LIBRARY.load(), scene, tree, prim, o, d, RAY_EPS,
                              near_first=True)
     want = bvh.bvh_closest_hit_ordered_plain(scene, tree, prim, o, d, RAY_EPS)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
@@ -750,7 +751,7 @@ def test_walk_layouts_one_per_pool(cuda, walk, monkeypatch):
     with torch.no_grad():
         for prim in ("tri", "cyl", "sphere") * 2:
             tree = getattr(scene, BVH_OF[prim])
-            bvh.bvh_closest_hit(scene, tree, bvh._PRIM_POOL[prim], o, d,
+            bvh.bvh_closest_hit(scene, tree, BY_PRIM[prim].code, o, d,
                                 RAY_EPS)
     assert packed == ["pack_nodes", "pack_triangles", "pack_nodes",
                       "pack_cylinders", "pack_nodes", "pack_spheres"]
@@ -1183,12 +1184,12 @@ def test_net_strip_lists_on_the_kernels_match_plain(walk, prim, window,
     gen = torch.Generator().manual_seed(4)
     need = (torch.rand(o.shape[0], generator=gen) < 0.4).to(o.device)
     bmin, bmax = _scene_box(accel)
-    key = traverse._spatial_keys(o + d * 10.0, bmin, bmax)
+    key = traverse.spatial_keys(o + d * 10.0, bmin, bmax)
     cap = pk.ray_box_exit(o, d, bmin, bmax)
     far = torch.full(need.shape, T_FAR, device=o.device)
     miss = torch.full(need.shape, -1, dtype=torch.int32, device=o.device)
     ones = torch.ones(need.shape, device=o.device)
-    skey = traverse._spatial_keys(so, bmin, bmax)
+    skey = traverse.spatial_keys(so, bmin, bmax)
 
     def net(dev):
         a = accel.replace(packed=accel.packed.to(dev),

@@ -20,7 +20,8 @@ def test_imports_with_jax_blocked():
         "solr_tpu_torch.frame_profile, solr_tpu_torch.molecule_scene, "
         "solr_tpu_torch.io.pdb, solr_tpu_torch.kernel_shapes, "
         "solr_tpu_torch.sweep_steps, solr_tpu_torch.walk_steps, "
-        "solr_tpu_torch.ops.bvh, "
+        "solr_tpu_torch.ops.bvh, solr_tpu_torch.ops.pools, "
+        "solr_tpu_torch.ops.cudalib, "
         "solr_tpu_torch.cornell_scene, solr_tpu_torch.utils, "
         "solr_tpu_torch.inverse, solr_tpu_torch.textured_scene, "
         "solr_tpu_torch.ops.postfx, solr_tpu_torch.ops.rng, "
@@ -76,6 +77,46 @@ def test_no_jax_or_reference_imports_in_source():
                 if top in ("jax", "jaxlib", "solr_tpu"):
                     bad.append(f"{path}: {m}")
     assert not bad, bad
+
+
+def _ops_imports(name):
+    """(the port's modules that ops/{name}.py imports, the private names
+    it takes from them)."""
+    tree = ast.parse(open(os.path.join(PKG, "ops", name + ".py")).read())
+    mods, private, aliases = set(), [], set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom) and node.module and \
+                node.module.startswith("solr_tpu_torch"):
+            for a in node.names:
+                if node.module in ("solr_tpu_torch", "solr_tpu_torch.ops"):
+                    mods.add(f"{node.module}.{a.name}")
+                    aliases.add(a.asname or a.name)
+                else:
+                    mods.add(node.module)
+                    if a.name.startswith("_"):
+                        private.append(f"{node.module}.{a.name}")
+        elif isinstance(node, ast.Attribute) and \
+                isinstance(node.value, ast.Name) and \
+                node.value.id in aliases and node.attr.startswith("_") and \
+                not node.attr.startswith("__"):
+            private.append(f"{node.value.id}.{node.attr}")
+    return mods, private
+
+
+def test_ops_import_arrows_point_one_way():
+    """Within ops/: the primitive math and the sweep kernels import
+    nothing of the packet layer, which only traversal and rendering
+    import; the walks and the gathers import nothing of the sweep
+    module; and no module takes another's private name."""
+    names = [f[:-3] for f in os.listdir(os.path.join(PKG, "ops"))
+             if f.endswith(".py")]
+    imports = {n: _ops_imports(n) for n in names}
+    packet = "solr_tpu_torch.ops.packet"
+    assert sorted(n for n in names if packet in imports[n][0]) == \
+        ["render", "traverse"]
+    for n in ("bvh", "gather"):
+        assert "solr_tpu_torch.ops.sweep" not in imports[n][0], n
+    assert not [p for n in names for p in imports[n][1]]
 
 
 def test_parallel_helpers_import_no_jax():

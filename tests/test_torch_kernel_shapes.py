@@ -18,7 +18,7 @@ from solr_tpu_torch.kernel_shapes import (fractional, primary_tiles,
                                           shadow_rays, sweep_args,
                                           triangle_hits)
 from solr_tpu_torch.molecule_scene import molecule_scene
-from solr_tpu_torch.ops import packet, sweep
+from solr_tpu_torch.ops import sweep
 from solr_tpu_torch.ops.traverse import POOL_TRIANGLE
 from solr_tpu_torch.sweep_steps import STEPS, _registers, variant_source
 
@@ -33,7 +33,7 @@ def _const(src, name):
 @pytest.mark.parametrize("step", range(len(STEPS)))
 def test_each_step_sets_its_constants(step):
     name, consts, patches = STEPS[step]
-    src = sweep._SRC.read_text()
+    src = sweep.LIBRARY.src.read_text()
     out = variant_source(src, consts, patches)
     for key, value in consts.items():
         assert _const(out, key) == str(value)
@@ -46,9 +46,9 @@ def test_each_step_sets_its_constants(step):
 
 def test_variant_source_rejects_an_unknown_constant():
     with pytest.raises(ValueError, match="kNoSuchConstant"):
-        variant_source(sweep._SRC.read_text(), {"kNoSuchConstant": 1})
+        variant_source(sweep.LIBRARY.src.read_text(), {"kNoSuchConstant": 1})
     with pytest.raises(ValueError, match="not found once"):
-        variant_source(sweep._SRC.read_text(), {}, (("no such text", ""),))
+        variant_source(sweep.LIBRARY.src.read_text(), {}, (("no such text", ""),))
 
 
 def test_longest_first_orders_tiles_by_list_length():
@@ -122,10 +122,10 @@ def test_bound_counts_roots_where_reached(prim):
     accel = scene.sph_accel if prim == "sphere" else scene.cyl_accel
     o_t, d_t, live = primary_tiles(cam, cfg)
     args = sweep_args(accel, o_t, d_t, live, cfg, True)
-    test = packet.PRIM_T[prim]
+    test = sweep.PRIM_T[prim]
     (t, idx, visits), pairs = _plain_with_root_pairs(
         sweep.sweep_closest_plain, args, prim)
-    assert packet.PRIM_T[prim] is test
+    assert sweep.PRIM_T[prim] is test
     want = sweep.sweep_closest_plain(*args, prim=prim)
     assert all(torch.equal(a, b) for a, b in zip((t, idx, visits), want))
     hits = int((t < 1e30).sum())

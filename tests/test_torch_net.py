@@ -1,7 +1,8 @@
 """The exactness net (solr_tpu_torch.ops.traverse) on the CPU: one block
 list per 32-ray strip of needy rays, swept by the sweep kernels' plain
 versions, against the chunk-union net it replaced, rebuilt here from the
-block mirrors (``packet.tri_blocks_closest`` / ``_transmittance`` over
+block mirrors (``tri_blocks_closest`` / ``tri_blocks_transmittance`` of
+tests/torch_sweep_helpers.py over
 each 512-ray chunk's union of hit blocks), on fields whose unions never
 reach the old 512-block cap.
 
@@ -21,6 +22,7 @@ from solr_tpu_torch.ops import packet as pk
 from solr_tpu_torch.ops import traverse
 from solr_tpu_torch.ops.camera import camera_rays
 from solr_tpu_torch.types import Camera
+from torch_sweep_helpers import tri_blocks_closest, tri_blocks_transmittance
 
 # Several test workers share the cores: keep each one's intra-op pool small.
 torch.set_num_threads(2)
@@ -73,7 +75,7 @@ def field(request):
                      torch.full((r,), -1, dtype=torch.int32))
     tm = 8.0 + 24.0 * torch.rand(r, generator=gen)
     tr = torch.rand(r, generator=gen)
-    key = traverse._spatial_keys(o + d * 10.0, bmin, bmax)
+    key = traverse.spatial_keys(o + d * 10.0, bmin, bmax)
     return prim, accel, o, d, t_cap, key, tm, (bt, bi, tr)
 
 
@@ -102,14 +104,13 @@ def _old_net(accel, prim, o, d, need, key, bound, carry, query):
         counts = torch.tensor([cand.shape[1]], dtype=torch.int32)
         if query == "closest":
             bt, bi = carry
-            t, i = pk.tri_blocks_closest(accel.packed, o[idx][None],
-                                         d[idx][None], cand, counts, T_MIN,
-                                         prim)
+            t, i = tri_blocks_closest(accel.packed, o[idx][None],
+                                      d[idx][None], cand, counts, T_MIN, prim)
             better = t[0] < bt[idx]
             bt[idx] = torch.where(better, t[0], bt[idx])
             bi[idx] = torch.where(better, i[0], bi[idx])
         else:
-            carry[0][idx] = pk.tri_blocks_transmittance(
+            carry[0][idx] = tri_blocks_transmittance(
                 accel.packed, o[idx][None], d[idx][None], bound[idx][None],
                 cand, counts, T_MIN, prim)[0]
     return carry
@@ -161,9 +162,8 @@ def test_strip_lists_give_the_chunk_union_net_bit_for_bit(field, query):
     stats = traverse.NET_STATS
     assert stats["calls"] == 1 and stats["needy_rays"] == 1500
     assert stats["strips"] == -(-1500 // 32)
-    assert stats["windows"] == stats["chunks"] == 1
-    assert stats["strip_blocks"] == stats["union_blocks"] > stats["strips"]
-    assert stats["overflows"] == 0
+    assert stats["windows"] == 1
+    assert stats["strip_blocks"] > stats["strips"]
 
 
 @pytest.mark.parametrize("query", ["closest", "shadow"])

@@ -43,6 +43,7 @@ from scenes_fixtures import (random_cylinder_field, random_sphere_field,
 from solr_tpu_torch.bench_scene import bench_scene_arrays
 from solr_tpu_torch.convert import scene_from_numpy
 from solr_tpu_torch.ops import packet as tpk
+from torch_sweep_helpers import tri_blocks_closest, tri_blocks_transmittance
 
 # Several test workers share the cores: keep each one's intra-op pool small.
 torch.set_num_threads(2)
@@ -226,7 +227,7 @@ def test_block_mirrors_match_reference(case):
     tm = np.full(o_t.shape[:2], 30.0, np.float32)
     jargs = [jnp.asarray(x) for x in (packed, o_t, d_t, cand, counts)]
     t_j, i_j = jpk.tri_blocks_closest(*jargs, 1e-4)
-    t_t, i_t = tpk.tri_blocks_closest(
+    t_t, i_t = tri_blocks_closest(
         torch.from_numpy(packed), torch.from_numpy(o_t), torch.from_numpy(d_t),
         torch.from_numpy(cand), torch.from_numpy(counts), 1e-4)
     np.testing.assert_allclose(t_t.numpy(), np.asarray(t_j), rtol=1e-5)
@@ -235,7 +236,7 @@ def test_block_mirrors_match_reference(case):
     np.testing.assert_array_equal(i_t.numpy()[hit], np.asarray(i_j)[hit])
     tr_j = jpk.tri_blocks_transmittance(*jargs[:3], jnp.asarray(tm),
                                         *jargs[3:], 1e-4)
-    tr_t = tpk.tri_blocks_transmittance(
+    tr_t = tri_blocks_transmittance(
         torch.from_numpy(packed), torch.from_numpy(o_t), torch.from_numpy(d_t),
         torch.from_numpy(tm), torch.from_numpy(cand), torch.from_numpy(counts),
         1e-4)
@@ -304,7 +305,7 @@ def test_sphere_and_cylinder_mirrors_match_reference(prim_case):
              for x in (packed, o_t, d_t, cand, counts)]
     t_j, i_j = (np.asarray(x) for x in jpk.tri_blocks_closest(
         *jargs, 1e-4, prim=prim))
-    t_t, i_t = (x.numpy() for x in tpk.tri_blocks_closest(
+    t_t, i_t = (x.numpy() for x in tri_blocks_closest(
         *targs, 1e-4, prim=prim))
     hit_j, hit_t = t_j < 1e30, t_t < 1e30
     assert hit_j.sum() > 100
@@ -314,7 +315,7 @@ def test_sphere_and_cylinder_mirrors_match_reference(prim_case):
     np.testing.assert_array_equal(i_t[both], i_j[both])
     tr_j = jpk.tri_blocks_transmittance(*jargs[:3], jnp.asarray(tm),
                                         *jargs[3:], 1e-4, prim=prim)
-    tr_t = tpk.tri_blocks_transmittance(*targs[:3], torch.from_numpy(tm),
-                                        *targs[3:], 1e-4, prim=prim)
+    tr_t = tri_blocks_transmittance(*targs[:3], torch.from_numpy(tm),
+                                    *targs[3:], 1e-4, prim=prim)
     np.testing.assert_allclose(tr_t.numpy(), np.asarray(tr_j), atol=1e-6)
     assert (tr_t.numpy() < 1.0).any()

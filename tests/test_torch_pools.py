@@ -202,6 +202,36 @@ def test_builder_new_pools_match_reference():
                 np.asarray(getattr(getattr(ref, key), f)), err_msg=key)
 
 
+def test_pool_table_holds_every_pool_of_a_built_scene():
+    """``ops.pools`` has one record per pool code, in the order traversal
+    visits them; each names the scene's pool, its geometry (of the
+    pool's length) and, for the three accelerated pools, the BVH and
+    accelerator ``SceneBuilder.build`` made, under the kernels'
+    primitive kinds."""
+    from solr_tpu_torch.constants import (POOL_CYLINDER, POOL_ELLIPSOID,
+                                          POOL_PLANE, POOL_SPHERE,
+                                          POOL_TRIANGLE)
+    from solr_tpu_torch.ops import bvh, sweep, traverse
+    from solr_tpu_torch.ops.pools import BY_PRIM, POOLS, PRIMS
+
+    port = SceneBuilder()
+    _fill(port, PlaneAxis)
+    port = port.build(device="cpu")
+    assert [p.code for p in POOLS] == [POOL_SPHERE, POOL_TRIANGLE,
+                                       POOL_CYLINDER, POOL_ELLIPSOID,
+                                       POOL_PLANE] == list(range(5))
+    assert list(traverse.BRUTE_CALLS) == [p.name for p in POOLS]
+    assert sweep.PRIMS is bvh.PRIMS is PRIMS and sorted(BY_PRIM) == sorted(PRIMS)
+    for pool in POOLS:
+        n = pool.size(port)
+        assert n > 0 and all(x.shape[0] == n for x in pool.geometry(port))
+        assert (pool.bvh(port) is None) == (pool.name not in BY_PRIM)
+        assert (pool.accel(port) is None) == (pool.name not in BY_PRIM)
+    for pool in BY_PRIM.values():
+        lo, hi = pool.aabbs(port)
+        assert lo.shape == hi.shape == (pool.size(port), 3)
+
+
 def test_build_without_bvh_keeps_insertion_order():
     b = SceneBuilder()
     for i in range(70):

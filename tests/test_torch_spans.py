@@ -124,15 +124,16 @@ def test_the_net_sweeps_strip_lists_and_never_the_brute(short_frame,
     brutes = [s for s in spans if s[0] == "solr/brute"]
     assert nets and brutes
     assert not any(_inside(b, n) for b in brutes for n in nets)
-    assert stats["overflows"] == 0
     assert len(calls) == stats["calls"] == len(nets)
     assert sum(calls) == stats["needy_rays"] > 0
     assert stats["strips"] == sum(-(-n // 32) for n in calls) > 0
     assert stats["strip_blocks"] > 0
     assert stats["windows"] >= sum(n > 0 for n in calls) > 0
-    # The keys the net's older readers index: sweep launches, list blocks.
-    assert stats["chunks"] == stats["windows"]
-    assert stats["union_blocks"] == stats["strip_blocks"]
+    # The net keeps no other counter.
+    assert set(stats) == {"calls", "needy_rays", "strips", "strip_blocks",
+                          "windows", "needy_primary_closest",
+                          "needy_primary_shadow", "needy_later_closest",
+                          "needy_later_shadow"}
 
 
 @pytest.mark.parametrize("bounces", [1, 2])

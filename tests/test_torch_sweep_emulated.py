@@ -20,7 +20,7 @@ from solr_tpu_torch.constants import RAY_EPS
 from solr_tpu_torch.kernel_shapes import fractional, primary_tiles
 from solr_tpu_torch.molecule_scene import molecule_scene
 from solr_tpu_torch.ops import packet as pk
-from solr_tpu_torch.ops import sweep
+from solr_tpu_torch.ops import cudalib, sweep
 from solr_tpu_torch.ops.traverse import _scene_box
 from torch_sweep_helpers import build_emulated, compiler, forced_ties
 
@@ -38,7 +38,7 @@ SPHERE_K = 16
 def emulated(tmp_path_factory):
     if compiler() is None:
         pytest.skip("needs a C++17 compiler to build the emulation")
-    return sweep.load_library(build_emulated(sweep._SRC,
+    return sweep.load_library(build_emulated(sweep.LIBRARY.src,
                                              tmp_path_factory.mktemp("emu")))
 
 
@@ -248,6 +248,12 @@ def test_emulated_launch_order(emulated, monkeypatch, n, k_max):
     assert torch.equal(got, sweep.longest_first(counts))
     with pytest.raises(RuntimeError, match="launch order"):
         sweep.launch_order(emulated, counts, 4000)
+
+
+def test_emulated_smem_limit_is_the_ports(emulated):
+    """The library's shared memory per CTA (kMaxSmem) is the limit the
+    port sizes the net's sweep windows by."""
+    assert emulated.solr_sweep_smem_limit() == cudalib.SMEM_LIMIT
 
 
 def test_emulated_kernel_shapes(emulated):

@@ -1,6 +1,12 @@
-"""Helpers of the kernel tests: inputs with forced ties, and a CPU
-emulation of the CUDA kernels in solr_tpu_torch/csrc/sweep.cu,
-bvh_walk.cu and gather.cu.
+"""Helpers of the kernel tests: inputs with forced ties, the block
+mirrors, and a CPU emulation of the CUDA kernels in
+solr_tpu_torch/csrc/sweep.cu, bvh_walk.cu and gather.cu.
+
+The block mirrors (``tri_blocks_closest`` / ``tri_blocks_transmittance``)
+test every ray of a tile against every block of the tile's candidate
+list with the sweeps' block tests (``sweep.PRIM_T``), as the
+reference's mirrors of the same names do: tests hold them to the
+reference, and the exactness net to them.
 
 The emulation compiles a kernel source with the host's C++ compiler
 against a
@@ -23,6 +29,9 @@ import subprocess
 from pathlib import Path
 
 import torch
+
+from solr_tpu_torch.constants import T_FAR
+from solr_tpu_torch.ops.sweep import PRIM_T
 
 _RUNTIME = r"""
 #pragma once
@@ -248,3 +257,59 @@ def forced_ties(packed, cand, counts, nearb=None):
         nbd[1] = 0.0
         out.append(nbd.contiguous())
     return out
+
+
+# Candidate blocks evaluated per step of the block mirrors (bounds the
+# (T, TR, chunk, block) intermediates).
+_MIRROR_CHUNK = 16
+
+
+def tri_blocks_closest(packed, o_t, d_t, cand, counts, t_min,
+                       prim: str = "tri"):
+    """Closest hit of every ray against its tile's candidate blocks.
+
+    packed (B, 16, block) rows of kind ``prim``; o_t/d_t (T, TR, 3);
+    cand (T, K) block ids; counts (T,).  Returns (t (T, TR), prim idx
+    (T, TR), -1 on a miss).
+    Ties go to the earliest candidate, then the lowest lane, as in the
+    reference's sequential scan: the first minimum of each flattened
+    (candidate, lane) chunk is exactly that order.
+    """
+    block = packed.shape[2]
+    k_max = cand.shape[1]
+    best_t = torch.full(o_t.shape[:2], T_FAR, dtype=o_t.dtype, device=o_t.device)
+    best_i = torch.full(o_t.shape[:2], -1, dtype=torch.int32, device=o_t.device)
+    ks = torch.arange(k_max, device=o_t.device)
+    for k0 in range(0, k_max, _MIRROR_CHUNK):
+        kc = cand[:, k0:k0 + _MIRROR_CHUNK].long()  # (T, C)
+        w = packed[kc]  # (T, C, 16, block)
+        t = PRIM_T[prim](o_t[:, None], d_t[:, None], w, t_min)  # (T, C, TR, block)
+        ok = ks[k0:k0 + kc.shape[1]][None] < counts[:, None]  # (T, C)
+        t = torch.where(ok[:, :, None, None], t, torch.full_like(t, T_FAR))
+        t = t.permute(0, 2, 1, 3).reshape(t.shape[0], t.shape[2], -1)
+        c_min, flat = t.min(-1)
+        blk = torch.gather(kc, 1, flat // block)
+        c_idx = (blk * block + flat % block).to(torch.int32)
+        better = c_min < best_t
+        best_t = torch.where(better, c_min, best_t)
+        best_i = torch.where(better, c_idx, best_i)
+    return best_t, best_i
+
+
+def tri_blocks_transmittance(packed, o_t, d_t, t_max_t, cand, counts, t_min,
+                             prim: str = "tri"):
+    """Shadow transmittance of every ray through its tile's candidate
+    blocks: the product of the row-15 factor of every primitive hit with
+    t < t_max.  (T, TR) in [0, 1]."""
+    k_max = cand.shape[1]
+    trans = torch.ones(o_t.shape[:2], dtype=o_t.dtype, device=o_t.device)
+    ks = torch.arange(k_max, device=o_t.device)
+    for k0 in range(0, k_max, _MIRROR_CHUNK):
+        kc = cand[:, k0:k0 + _MIRROR_CHUNK].long()
+        w = packed[kc]  # (T, C, 16, block)
+        t = PRIM_T[prim](o_t[:, None], d_t[:, None], w, t_min)
+        ok = ks[k0:k0 + kc.shape[1]][None] < counts[:, None]
+        occ = (t < t_max_t[:, None, :, None]) & ok[:, :, None, None]
+        f = torch.where(occ, w[:, :, None, 15, :], torch.ones_like(t))
+        trans = trans * f.prod(-1).prod(1)
+    return trans
