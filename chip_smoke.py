@@ -239,7 +239,17 @@ both started together.  Phases, each of which must pass:
    bit-equal to index_add_; the launches counted, and its ms beside
    its plain version's, PyTorch's index_put_(accumulate=True)'s (the
    library yardstick) and its bound;
-38. ``walk_profiles``: one more frame of 10 and of 19's ``stereo_while``
+38. ``procedural``: the procedural albedo's kernels (csrc/procedural.cu)
+   through procedural_color and its autograd Function at 262,144 and
+   2,073,600 rays (a 512x512 and a 1920x1080 bounce), with every ray of
+   kind NONE (the cells' materials), a kind a warp and a kind a ray: the
+   forward bit-equal to procedural_color_plain, the backward held to
+   autograd through it, one launch a call counted; ms of the forward and
+   of the backward (all three gradients), of the plain forward and of
+   its autograd forward and backward, and each mix's bounds (the frame
+   and gradient paths above must launch procedural_color, the gradient
+   paths its backward too);
+39. ``walk_profiles``: one more frame of 10 and of 19's ``stereo_while``
    under torch.profiler, after every timed phase: device kernels per
    frame and the device busy share (device time over the best timed
    frame).
@@ -353,6 +363,27 @@ WALK_OPS_PER_LANE = {"tri": 52, "sphere": 17, "cyl": 85}
 PACKED_OPS_PER_LANE = {"tri": 46, "sphere": 16, "cyl": 75}
 WALK_REPLACES = {"bvh_closest_hit": "solr_tpu/ops/bvh.py:333",
                  "bvh_transmittance": "solr_tpu/ops/bvh.py:397"}
+PROCEDURAL_DESIGN = ("a thread a ray, branching on its own kind; an "
+                     "escape-time lane stops at its first escape")
+# Bytes a ray of the procedural kernels in float32.  Every ray: the forward
+# reads the kind and base_color and writes the albedo (36); the backward
+# reads the kind and the incoming gradient and writes the gradients of uv,
+# scale and base_color (48).  A ray of a kind other than NONE also reads
+# scale and uv (12 more each way), and the backward of NOISE, MARBLE and
+# GRANITE base_color (16 more).  A warp reads a tensor's sectors if any of
+# its 32 lanes reads it.
+PROCEDURAL_BYTES = {"fwd": 36, "bwd": 48, "tinted": 12, "bwd_base": 16}
+PROCEDURAL_KINDS = 7
+# The backward's gradients are bit-equal to autograd through
+# procedural_color_plain for these kinds (NONE, MANDELBROT, JULIA, CHECKER);
+# for the others within PROCEDURAL_GRAD_TOL of each kind's largest entry
+# (float32: the chain rule in another association), as the card's tests.
+PROCEDURAL_EXACT_KINDS = (0, 1, 2, 3)
+PROCEDURAL_GRAD_TOL = 1e-5
+# GPU clock cycles of the spin that the procedural phase queues ahead of the
+# calls it times on the device (about 25 ms at the H100's 1.98 GHz): longer
+# than the host takes to launch them, so they run back to back.
+SPIN_CYCLES = 50_000_000
 GATHER_DESIGN = ("warp-aggregated segment sum: zero rows dropped, "
                  "__match_any_sync groups, a shuffle tree, one atomic a "
                  "group; shared-memory table up to 48 KB")
@@ -969,10 +1000,11 @@ def phase_walk_stale(scenes, rec, paths, device):
 
 
 def _reset_counts():
-    from solr_tpu_torch.ops import bvh, gather, sweep, traverse
+    from solr_tpu_torch.ops import bvh, gather, sweep, textures, traverse
 
     for counts in (sweep.LAUNCHES, bvh.LAUNCHES, gather.LAUNCHES,
-                   traverse.NET_STATS, traverse.BRUTE_CALLS):
+                   textures.LAUNCHES, traverse.NET_STATS,
+                   traverse.BRUTE_CALLS):
         for k in counts:
             counts[k] = 0
 
@@ -1008,10 +1040,12 @@ def phase_path(scene, cam, cfg, rec, key, kernels, frames=3, idle=(),
     timed times (one when the warm-up took over ``slow_s`` seconds), the
     counts read.  Every kernel in ``kernels`` must have launched, none in
     ``idle``, and no pool in ``no_brute`` may have been brute-forced.
-    With ``keep`` (a dict), the last image is kept there under ``key``."""
+    Every frame shades, so procedural_color must have launched, and its
+    backward not.  With ``keep`` (a dict), the last image is kept there
+    under ``key``."""
     import torch
 
-    from solr_tpu_torch.ops import bvh, sweep, traverse
+    from solr_tpu_torch.ops import bvh, sweep, textures, traverse
     from solr_tpu_torch.ops.render import render_sample
 
     _reset_counts()
@@ -1029,7 +1063,7 @@ def phase_path(scene, cam, cfg, rec, key, kernels, frames=3, idle=(),
             img, _ = render_sample(scene, cam, cfg)
             torch.cuda.synchronize()
             times.append(time.time() - t0)
-    launches = {**sweep.LAUNCHES, **bvh.LAUNCHES}
+    launches = {**sweep.LAUNCHES, **bvh.LAUNCHES, **textures.LAUNCHES}
     best = min(times)
     n_lights = scene.lights.position.shape[0]
     rays = cfg.n_pixels * cfg.max_bounces * (1 + n_lights)
@@ -1052,10 +1086,10 @@ def phase_path(scene, cam, cfg, rec, key, kernels, frames=3, idle=(),
         raise AssertionError(f"{key} image is not finite")
     if keep is not None:
         keep[key] = img
-    missing = [k for k in kernels if launches[k] <= 0]
+    missing = [k for k in (*kernels, "procedural_color") if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on {key}: {missing}")
-    stray = [k for k in idle if launches[k]] + [
+    stray = [k for k in (*idle, "procedural_color_bwd") if launches[k]] + [
         f"brute force over {k}" for k in no_brute if traverse.BRUTE_CALLS[k]]
     if stray:
         raise AssertionError(f"launched or called on {key}: {stray}")
@@ -1320,11 +1354,11 @@ def phase_textured_path(rec, device, kernels, frames=3):
     """BASELINE config #3 at 1920x1080 through ``render`` with a key and
     TEXTURED_SPP samples: the launch counts set to 0, one warm-up and
     ``frames`` timed frames, the counts read (every kernel in
-    ``kernels`` must have launched); then one frame under
+    ``kernels`` and procedural_color must have launched); then one frame under
     torch.profiler."""
     import torch
 
-    from solr_tpu_torch.ops import bvh, sweep, traverse
+    from solr_tpu_torch.ops import bvh, sweep, textures, traverse
     from solr_tpu_torch.ops.render import render
     from solr_tpu_torch.ops.rng import Key
     from solr_tpu_torch.textured_scene import textured_scene
@@ -1351,7 +1385,7 @@ def phase_textured_path(rec, device, kernels, frames=3):
             img = frame()
             _sync(device)
             times.append(time.time() - t0)
-        launches = {**sweep.LAUNCHES, **bvh.LAUNCHES}
+        launches = {**sweep.LAUNCHES, **bvh.LAUNCHES, **textures.LAUNCHES}
         brute = dict(traverse.BRUTE_CALLS)
         peak = torch.cuda.max_memory_allocated() / 2**30
         profile = _device_profile(frame)
@@ -1372,7 +1406,7 @@ def phase_textured_path(rec, device, kernels, frames=3):
         launches=launches, brute_calls=brute, peak_mem_gb=peak)
     if not finite:
         raise AssertionError("textured_path image is not finite")
-    missing = [k for k in kernels if launches[k] <= 0]
+    missing = [k for k in (*kernels, "procedural_color") if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on textured_path: "
                              f"{missing}")
@@ -1599,12 +1633,13 @@ def phase_grad_path(scene, cam, cfg, rec, key, kernels, idle=(),
     with_params (refresh), render_sample and the loss (forward) and
     backward, each timed with a sync on each side.  The launch counts
     are set to 0 just before the warm-up step and read after the last;
-    every kernel in ``kernels`` must have launched, none in ``idle``;
+    every kernel in ``kernels`` must have launched, none in ``idle``,
+    and procedural_color with its backward (every step shades);
     every gradient must be finite and the vertex gradients non-zero.
     One more backward runs under torch.profiler."""
     import torch
 
-    from solr_tpu_torch.ops import bvh, gather, sweep
+    from solr_tpu_torch.ops import bvh, gather, sweep, textures
     from solr_tpu_torch.ops.render import render_sample
 
     device = scene.device
@@ -1635,7 +1670,8 @@ def phase_grad_path(scene, cam, cfg, rec, key, kernels, idle=(),
         _sync(device)
         parts.append(dict(refresh_ms=refresh_ms, forward_ms=forward_ms,
                           backward_ms=(time.perf_counter() - t0) * 1e3))
-    launches = {**sweep.LAUNCHES, **bvh.LAUNCHES, **gather.LAUNCHES}
+    launches = {**sweep.LAUNCHES, **bvh.LAUNCHES, **gather.LAUNCHES,
+                **textures.LAUNCHES}
     peak = torch.cuda.max_memory_allocated() / 2**30
     g = _grad_tree(p)
     finite = all(bool(torch.isfinite(x).all()) for x in _grad_leaf_list(g))
@@ -1656,7 +1692,7 @@ def phase_grad_path(scene, cam, cfg, rec, key, kernels, idle=(),
     if not finite or rows == 0:
         raise AssertionError(f"{key}: gradients not finite or no vertex "
                              f"gradient: {rec[key]}")
-    missing = [k for k in kernels if launches[k] <= 0]
+    missing = [k for k in (*kernels, *textures.LAUNCHES) if launches[k] <= 0]
     stray = [k for k in idle if launches[k]]
     if missing or stray:
         raise AssertionError(f"{key}: kernels never launched {missing}, "
@@ -2981,6 +3017,152 @@ def phase_viewer_reference(rec, out_dir):
         raise AssertionError(f"viewer_reference: {bad}")
 
 
+def _procedural_bound_ms(kind):
+    """(forward, backward) ms of the procedural kernels at these kinds
+    moving PROCEDURAL_BYTES at 3.35 TB/s, counted a warp at a time."""
+    import torch
+
+    k = kind.long().clamp(0, PROCEDURAL_KINDS - 1)
+    n = k.numel()
+    warps = torch.nn.functional.pad(k, (0, -n % 32)).view(-1, 32)
+    lanes = torch.full((warps.shape[0],), 32, device=k.device)
+    lanes[-1] = n - 32 * (warps.shape[0] - 1)
+    tinted = (warps > 0).any(1) * PROCEDURAL_BYTES["tinted"]
+    base = (warps >= 4).any(1) * PROCEDURAL_BYTES["bwd_base"]
+    fwd = int((lanes * (PROCEDURAL_BYTES["fwd"] + tinted)).sum())
+    bwd = int((lanes * (PROCEDURAL_BYTES["bwd"] + tinted + base)).sum())
+    return fwd / 3.35e12 * 1e3, bwd / 3.35e12 * 1e3
+
+
+def _procedural_grad_gaps(got, want, kind):
+    """Per gradient (uv, scale, base_color) and kind present: the largest
+    gap between ``got`` and ``want`` over that kind's rays, as a share of
+    the largest entry of ``want`` there."""
+    k = kind.long().clamp(0, PROCEDURAL_KINDS - 1)
+    gaps = {}
+    for name, g, w in zip(("uv", "scale", "base"), got, want):
+        for kk in range(PROCEDURAL_KINDS):
+            rows = k == kk
+            if bool(rows.any()):
+                gap = float((g[rows] - w[rows]).abs().max())
+                top = float(w[rows].abs().max())
+                gaps[f"{name}.{kk}"] = gap / top if top else gap
+    return gaps
+
+
+def phase_procedural(rec, device):
+    """``procedural``: the procedural albedo's kernels (csrc/procedural.cu)
+    through ``textures.procedural_color`` and its autograd Function, at
+    262,144 rays (a 512x512 bounce) and 2,073,600 (a 1920x1080 one),
+    float32, on seeded uv in [0, 1), scale in [1, 8] and base_color in
+    [0.1, 0.9], with the kinds all NONE (every material of the
+    benchmark's scenes), a kind for each warp of 32 rays in turn
+    (``warps``) and a kind for each ray (``lanes``, the most a warp can
+    diverge).  The forward must be bit-equal to procedural_color_plain;
+    the backward's gradients of uv, scale and base_color equal to
+    autograd through it for PROCEDURAL_EXACT_KINDS and within
+    PROCEDURAL_GRAD_TOL of each other kind's largest entry; a forward
+    call and a backward call must each count one launch in
+    textures.LAUNCHES.  ms: the forward (under no_grad) and the backward
+    (autograd.grad of a retained graph), each the mean of 20 calls, the
+    plain forward and autograd forward and backward through it each the
+    mean of 3, between CUDA events after a warm-up (host-bound where a
+    call's Python outlasts its kernel), and ``device_ms``,
+    ``bwd_device_ms``: the same 20 calls queued behind a GPU spin of
+    SPIN_CYCLES, between CUDA events, so that they run back to back (the
+    kernels and the gaps between them; a host that outlasts the device
+    raises); bound: the mix's PROCEDURAL_BYTES at 3.35 TB/s."""
+    import torch
+
+    from solr_tpu_torch.kernel_shapes import time_ms
+    from solr_tpu_torch.ops import textures as tex
+
+    print(tex.build(verbose=True).strip(), flush=True)
+    out = []
+    for rays in (262_144, 2_073_600):
+        gen = torch.Generator(device=device).manual_seed(27)
+        uv = torch.rand((rays, 2), generator=gen, device=device)
+        scale = 1.0 + 7.0 * torch.rand(rays, generator=gen, device=device)
+        base = 0.1 + 0.8 * torch.rand((rays, 4), generator=gen,
+                                      device=device)
+        grad = torch.randn((rays, 4), generator=gen, device=device)
+        lane = torch.arange(rays, device=device)
+        for mix, kind in (
+                ("none", torch.zeros(rays, dtype=torch.int32, device=device)),
+                ("warps", (lane // 32 % PROCEDURAL_KINDS).to(torch.int32)),
+                ("lanes", torch.randint(0, PROCEDURAL_KINDS, (rays,),
+                                        generator=gen, device=device,
+                                        dtype=torch.int32))):
+            args = (kind, scale, uv, base)
+            leaves = [x.clone().requires_grad_() for x in (uv, scale, base)]
+
+            def fwd():
+                with torch.no_grad():
+                    return tex.procedural_color(*args)
+
+            def bwd():
+                return torch.autograd.grad(y, leaves, grad, retain_graph=True)
+
+            def plain_bwd():
+                p = [x.clone().requires_grad_() for x in (uv, scale, base)]
+                z = tex.procedural_color_plain(kind, p[1], p[0], p[2])
+                return torch.autograd.grad(z, p, grad)
+
+            def device_ms(fn):
+                spin, start, end = (torch.cuda.Event(enable_timing=True)
+                                    for _ in range(3))
+                _sync(device)
+                spin.record()
+                torch.cuda._sleep(SPIN_CYCLES)
+                start.record()
+                t0 = time.perf_counter()
+                for _ in range(20):
+                    fn()
+                host_ms = (time.perf_counter() - t0) * 1e3
+                end.record()
+                _sync(device)
+                spin_ms = spin.elapsed_time(start)
+                if host_ms >= spin_ms:
+                    raise AssertionError(
+                        f"procedural: the launches took {host_ms} ms on the "
+                        f"host, the spin {spin_ms}: not back to back")
+                return start.elapsed_time(end) / 20
+
+            before = dict(tex.LAUNCHES)
+            got = fwd()
+            y = tex.procedural_color(kind, leaves[1], leaves[0], leaves[2])
+            grads = bwd()
+            _sync(device)
+            launches = {k: tex.LAUNCHES[k] - before[k] for k in before}
+            gaps = _procedural_grad_gaps(grads, plain_bwd(), kind)
+            exact = {k: int(k[-1]) in PROCEDURAL_EXACT_KINDS for k in gaps}
+            bound_ms, bwd_bound_ms = _procedural_bound_ms(kind)
+            out.append(dict(
+                rays=rays, kinds=mix,
+                equal=torch.equal(
+                    got.view(torch.int32),
+                    tex.procedural_color_plain(*args).view(torch.int32)),
+                launches=launches,
+                grad_not_exact=[k for k, g in gaps.items() if exact[k] and g],
+                grad_gap=max((g for k, g in gaps.items() if not exact[k]),
+                             default=0.0),
+                ms=time_ms(fwd, 20), bwd_ms=time_ms(bwd, 20),
+                plain_ms=time_ms(lambda: tex.procedural_color_plain(*args),
+                                 3),
+                plain_fwd_bwd_ms=time_ms(plain_bwd, 3),
+                device_ms=device_ms(fwd), bwd_device_ms=device_ms(bwd),
+                bound_ms=bound_ms, bwd_bound_ms=bwd_bound_ms))
+            print(f"procedural: {json.dumps(out[-1])}", flush=True)
+    rec["procedural"] = out
+    bad = [c for c in out if not c["equal"] or c["grad_not_exact"]
+           or c["grad_gap"] > PROCEDURAL_GRAD_TOL
+           or c["launches"] != {"procedural_color": 2,
+                                "procedural_color_bwd": 1}]
+    if bad:
+        raise AssertionError(f"procedural: forward not bit-equal, gradients "
+                             f"off or launches not counted: {bad}")
+
+
 def _kernel_table(rec, paths):
     """The kernels JSON line: each kernel's timed comparison, with its
     launches from the main path whose shapes it was timed at."""
@@ -3033,6 +3215,20 @@ def _kernel_table(rec, paths):
         ms=g["step_ms"], plain_ms=g["step_plain_ms"],
         bound_ms=g["step_bound_ms"], bound_by="bytes",
         library_ms=g["step_library_ms"], calls=len(g["calls"])))
+    for c in rec["procedural"]:
+        for name, pre, plain, path in (
+                ("procedural_color", "", "plain_ms", "main_path"),
+                ("procedural_color_bwd", "bwd_", "plain_fwd_bwd_ms",
+                 "grad_main_path")):
+            table.append(dict(
+                name=name, route="cuda", design=PROCEDURAL_DESIGN,
+                source="solr_tpu_torch/csrc/procedural.cu",
+                replaces="none (XLA fused the reference's elementwise ops)",
+                launches=paths[path][name], launches_from=path,
+                rays=c["rays"], kinds=c["kinds"], ms=c[f"{pre}device_ms"],
+                events_ms=c[f"{pre}ms"], plain_ms=c[plain],
+                bound_ms=c[f"{pre}bound_ms"], bound_by="bytes",
+                library_ms=None))
     return table
 
 
@@ -3175,6 +3371,7 @@ def main() -> int:
         ("bench", lambda: phase_bench(rec, device)),
         ("gather_backward",
          lambda: phase_gather_backward(*scenes["bench"], rec)),
+        ("procedural", lambda: phase_procedural(rec, device)),
         ("walk_profiles", lambda: phase_walk_profiles(scenes, rec)),
     )
     rec["phase_s"] = {}

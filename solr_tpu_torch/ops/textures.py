@@ -3,17 +3,36 @@ textures (counterpart of solr_tpu/ops/textures.py).
 
 The atlas is one (N, 4) uint8 tensor; each texture's (offset, width,
 height) addresses it.  Sampling is a bilinear four-texel gather with
-repeat addressing, over all rays at once."""
+repeat addressing, over all rays at once.
+
+:func:`procedural_color` dispatches on the device of its tensors
+(``cudalib.on_card``): CPU tensors take :func:`procedural_color_plain`,
+which computes all seven kinds for every ray and selects each ray's own,
+as the reference does; CUDA tensors take ``csrc/procedural.cu``
+(``LIBRARY``, built at first use by ``ops.cudalib``), one launch that
+computes each ray's own kind alone, bit-equal to the plain version on
+the card.  With grad mode on and ``scale``, ``uv`` or ``base_color``
+requiring grad, the launch is an autograd Function whose backward is the
+library's second kernel.  A build or launch failure raises, and so does
+a call the kernels do not take (neither float32 nor float64, kinds not
+int32); nothing falls back to the plain version."""
 
 from __future__ import annotations
 
-import torch
+import ctypes
 
+import torch
+from torch.autograd.function import once_differentiable
+
+from solr_tpu_torch.ops import cudalib
+from solr_tpu_torch.ops.cudalib import ptr, raise_on
 from solr_tpu_torch.utils.profiling import render_phase
 
 __all__ = ["sample_texture", "material_map_scales", "tangent_basis",
-           "apply_normal_maps", "procedural_color", "mandelbrot", "julia",
-           "value_noise", "turbulence", "BUMP_STRENGTH"]
+           "apply_normal_maps", "procedural_color", "procedural_color_plain",
+           "mandelbrot", "julia", "value_noise", "turbulence",
+           "BUMP_STRENGTH", "LAUNCHES", "LIBRARY", "build", "launch",
+           "launch_bwd", "load_library"]
 
 # The bump map's height-gradient gain.
 BUMP_STRENGTH = 2.0
@@ -198,7 +217,7 @@ def turbulence(p, scale, octaves: int = 4):
     return out
 
 
-def procedural_color(kind, scale, uv, base_color):
+def procedural_color_plain(kind, scale, uv, base_color):
     """Procedural albedo by ProceduralKind code.  Every kind is computed
     and the material's kind selected, as in the reference.
 
@@ -229,3 +248,130 @@ def procedural_color(kind, scale, uv, base_color):
     out = torch.gather(palette, 0, k[None, ..., None].expand(
         (1,) + base_color.shape))[0]
     return torch.cat([out[..., :3], base_color[..., 3:4]], -1)
+
+
+# Kernel launches since the caller last zeroed this.
+LAUNCHES = {"procedural_color": 0, "procedural_color_bwd": 0}
+
+_DTYPES = (torch.float32, torch.float64)
+
+
+def load_library(path):
+    """Load a compiled procedural library and declare its C entry
+    points."""
+    lib = ctypes.CDLL(str(path))
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    lib.solr_procedural_fwd.argtypes = [vp, vp, vp, vp, i64, i32, vp, vp]
+    lib.solr_procedural_fwd.restype = i32
+    lib.solr_procedural_bwd.argtypes = [vp, vp, vp, vp, vp, i64, i32, vp, vp,
+                                        vp, vp]
+    lib.solr_procedural_bwd.restype = i32
+    return lib
+
+
+# csrc/procedural.cu, compiled for sm_90a at first use; ``build`` reports
+# the compiler's output.
+LIBRARY = cudalib.library("procedural.cu", load_library)
+build = LIBRARY.build
+
+
+def _inputs(kind, scale, uv, base_color):
+    """The kernels' inputs, contiguous, after the checks of what they
+    take: kind (R,) int32, scale (R,), uv (R, 2) and base_color (R, 4)
+    of one float type, on one device."""
+    shape = kind.shape
+    if (scale.shape != shape or uv.shape != shape + (2,)
+            or base_color.shape != shape + (4,)):
+        raise ValueError(
+            f"procedural_color takes kind and scale of one shape, uv and "
+            f"base_color of that shape + (2,) and + (4,); got "
+            f"{tuple(shape)}, {tuple(scale.shape)}, {tuple(uv.shape)}, "
+            f"{tuple(base_color.shape)}")
+    if kind.dtype != torch.int32 or uv.dtype not in _DTYPES or not (
+            scale.dtype == base_color.dtype == uv.dtype):
+        raise ValueError(
+            f"procedural_color takes int32 kinds and float32 or float64 "
+            f"values of one type; got {kind.dtype}, {scale.dtype}, "
+            f"{uv.dtype}, {base_color.dtype}")
+    if not all(x.device == uv.device for x in (kind, scale, base_color)):
+        raise ValueError("procedural_color takes tensors of one device")
+    return tuple(x.contiguous() for x in (kind, scale, uv, base_color))
+
+
+def launch(lib, kind, scale, uv, base_color):
+    """One launch of ``lib``'s forward kernel: what
+    :func:`procedural_color_plain` returns (on the CPU, the emulated
+    kernel of the tests)."""
+    kind, scale, uv, base_color = _inputs(kind, scale, uv, base_color)
+    out = torch.empty_like(base_color)
+    err = lib.solr_procedural_fwd(
+        ptr(kind), ptr(scale), ptr(uv), ptr(base_color), kind.numel(),
+        uv.element_size(), ptr(out), cudalib.stream(uv.device))
+    raise_on(err, "procedural_color")
+    return out
+
+
+def launch_bwd(lib, kind, scale, uv, base_color, grad, need=(True,) * 3):
+    """One launch of ``lib``'s backward kernel: the gradients (of uv, of
+    scale, of base_color) of the forward at these inputs from ``grad``
+    (R, 4); ``need`` says which of the three to compute (None for the
+    others)."""
+    kind, scale, uv, base_color = _inputs(kind, scale, uv, base_color)
+    if grad.shape != base_color.shape or grad.dtype != uv.dtype:
+        raise ValueError(f"procedural_color_bwd takes a gradient of the "
+                         f"output's shape and type; got {grad.dtype} "
+                         f"{tuple(grad.shape)}")
+    grad = grad.contiguous()
+    outs = [torch.empty_like(x) if n else None
+            for x, n in zip((uv, scale, base_color), need)]
+    err = lib.solr_procedural_bwd(
+        ptr(kind), ptr(scale), ptr(uv), ptr(base_color), ptr(grad),
+        kind.numel(), uv.element_size(),
+        *(ctypes.c_void_p(None) if x is None else ptr(x) for x in outs),
+        cudalib.stream(uv.device))
+    raise_on(err, "procedural_color_bwd")
+    return tuple(outs)
+
+
+def _fwd(kind, scale, uv, base_color):
+    out = launch(LIBRARY.load(), kind, scale, uv, base_color)
+    LAUNCHES["procedural_color"] += 1
+    return out
+
+
+def _bwd(kind, scale, uv, base_color, grad, need):
+    outs = launch_bwd(LIBRARY.load(), kind, scale, uv, base_color, grad,
+                      need)
+    LAUNCHES["procedural_color_bwd"] += 1
+    return outs
+
+
+class _ProceduralColor(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, kind, scale, uv, base_color):
+        ctx.save_for_backward(kind, scale, uv, base_color)
+        return _fwd(kind, scale, uv, base_color)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad):
+        need = ctx.needs_input_grad
+        g_uv, g_scale, g_base = _bwd(
+            *ctx.saved_tensors, grad, (need[2], need[1], need[3]))
+        return None, g_scale, g_uv, g_base
+
+
+def procedural_color(kind, scale, uv, base_color):
+    """Procedural albedo by ProceduralKind code: kind (R,) int (int32 on
+    the card); scale (R,); uv (R, 2); base_color (R, 4) -> (R, 4).  CPU
+    tensors take :func:`procedural_color_plain`; CUDA tensors the
+    kernel, which computes each ray's own kind alone (with grad mode on
+    and any of scale, uv or base_color requiring grad, an autograd
+    Function whose backward is the backward kernel, :func:`launch_bwd`);
+    any other device raises ValueError."""
+    if not cudalib.on_card(uv, "procedural_color"):
+        return procedural_color_plain(kind, scale, uv, base_color)
+    if torch.is_grad_enabled() and any(
+            x.requires_grad for x in (scale, uv, base_color)):
+        return _ProceduralColor.apply(kind, scale, uv, base_color)
+    return _fwd(kind, scale, uv, base_color)

@@ -36,6 +36,10 @@ BASELINE config #1 at 64x64 on the card holds to the port's numpy
 oracle.  The gathers' backward kernel (csrc/gather.cu) holds to a
 float64 index_add_ at the gradient step's shapes, in float32 and
 float64, and a float64 gradient step on the card matches the CPU's.
+The procedural albedo's kernels (csrc/procedural.cu) hold to the plain
+version on the card, bit for bit forward, and to autograd through it
+backward, for each kind and a mix of all seven, in float32 and float64;
+the gradient steps launch both.
 
 These need a CUDA card and nvcc; without a card they skip.  The file
 imports neither JAX nor solr_tpu, so it runs where only PyTorch is
@@ -80,6 +84,9 @@ from torch_bvh_helpers import (STALE_ROW, cross_leaf_pairs, cyl_field,
                                shadow_rays_to_light, sphere_field, tie_scene,
                                two_leaf_stale)
 from torch_parallel_helpers import gpu_frame
+from torch_procedural_helpers import CASES as PROCEDURAL_CASES
+from torch_procedural_helpers import assert_grads_match, autograd_grads
+from torch_procedural_helpers import inputs as procedural_inputs
 from torch_sweep_helpers import forced_ties
 
 N_TRIS, SIZE, BLOCK = 20_000, 64, 512
@@ -788,9 +795,11 @@ def _grads_on_card_and_cpu(cuda, height, cast=lambda x: x):
     """One gradient step through the reduced bench frame (``cast`` applied
     to its scene and camera) on the CPU and on the card, where the
     traversal's kernels (B1 and B2 on packets, the triangle walks at
-    64x56) and the gathers' backward must launch.  Returns the vertex
-    gradients' L1 total and the albedo and light gradients of each."""
+    64x56), the gathers' backward and the procedural albedo's kernels
+    (forward and backward) must launch.  Returns the vertex gradients' L1
+    total and the albedo and light gradients of each."""
     from solr_tpu_torch.ops import gather
+    from solr_tpu_torch.ops import textures as tex
 
     kernels = (("sweep_closest", "sweep_transmittance") if height == SIZE
                else ("bvh_closest_hit_tri", "bvh_transmittance_tri"))
@@ -805,13 +814,16 @@ def _grads_on_card_and_cpu(cuda, height, cast=lambda x: x):
                  if isinstance(v, tuple)
                  else v.detach().clone().requires_grad_())
              for k, v in scene.params.items()}
-        before = {**sweep.LAUNCHES, **bvh.LAUNCHES, **gather.LAUNCHES}
+        before = {**sweep.LAUNCHES, **bvh.LAUNCHES, **gather.LAUNCHES,
+                  **tex.LAUNCHES}
         img, _ = render_sample(scene.with_params(p), cam, cfg)
         ((img[..., :3] - target) ** 2).mean().backward()
         if dev != "cpu":
-            after = {**sweep.LAUNCHES, **bvh.LAUNCHES, **gather.LAUNCHES}
+            after = {**sweep.LAUNCHES, **bvh.LAUNCHES, **gather.LAUNCHES,
+                     **tex.LAUNCHES}
             assert min(after[k] - before[k]
-                       for k in kernels + ("gather_rows_bwd",)) > 0
+                       for k in kernels + ("gather_rows_bwd",) + tuple(
+                           tex.LAUNCHES)) > 0
         grads.append({
             "l1": sum(float(x.grad.abs().sum()) for x in p["vertices"]),
             "albedo": p["albedo"].grad.cpu(),
@@ -908,6 +920,49 @@ def test_gather_backward_kernel_against_float64(cuda, case):
         want = torch.zeros((n, 3), dtype=torch.float64,
                            device=cuda).index_add_(0, idx, g.double())
         assert torch.equal(table.grad.double(), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("rays", [262_144, 262_144 + 77],
+                         ids=["whole_blocks", "ragged"])
+@pytest.mark.parametrize("case", PROCEDURAL_CASES)
+def test_procedural_kernels_match_plain(cuda, case, rays, dtype):
+    """The procedural albedo's kernels (csrc/procedural.cu) through
+    ``procedural_color`` on the card, for one kind at a time and a batch
+    that mixes all seven (and the clamped kinds -1 and 9), at a 512x512
+    bounce's rays and at a count no block size divides.  The forward is
+    bit-equal to procedural_color_plain on the card.  The backward
+    (uv, scale and base_color requiring grad) against autograd through
+    the plain version on the card: equal for NONE, MANDELBROT, JULIA and
+    CHECKER; for NOISE, MARBLE and GRANITE within 1e-5 (f32) or 1e-12
+    (f64) of each kind's largest entry, since the kernel takes the chain
+    rule in another association (the emulation reads 2e-7 and 2e-16 on
+    NOISE, tests/test_torch_procedural.py).  textures.LAUNCHES counts
+    one launch a call of each."""
+    from solr_tpu_torch.ops import textures as tex
+
+    kind, scale, uv, base, grad = procedural_inputs(case, rays, dtype,
+                                                    device=cuda)
+    before = dict(tex.LAUNCHES)
+    got = tex.procedural_color(kind, scale, uv, base)
+    want = tex.procedural_color_plain(kind, scale, uv, base)
+    torch.cuda.synchronize()
+    assert tex.LAUNCHES["procedural_color"] == before["procedural_color"] + 1
+    view = torch.int32 if dtype == torch.float32 else torch.int64
+    assert torch.equal(got.view(view), want.view(view))
+
+    leaves = [x.clone().requires_grad_() for x in (uv, scale, base)]
+    out = tex.procedural_color(kind, leaves[1], leaves[0], leaves[2])
+    kernel = torch.autograd.grad(out, leaves, grad)
+    torch.cuda.synchronize()
+    assert tex.LAUNCHES == {"procedural_color": before["procedural_color"] + 2,
+                            "procedural_color_bwd":
+                            before["procedural_color_bwd"] + 1}
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    assert_grads_match(kernel, autograd_grads(kind, scale, uv, base, grad),
+                       kind, tol)
 
 
 def _float64(x):

@@ -1,6 +1,6 @@
 """Helpers of the kernel tests: inputs with forced ties, the block
 mirrors, and a CPU emulation of the CUDA kernels in
-solr_tpu_torch/csrc/sweep.cu, bvh_walk.cu and gather.cu.
+solr_tpu_torch/csrc/sweep.cu, bvh_walk.cu, gather.cu and procedural.cu.
 
 The block mirrors (``tri_blocks_closest`` / ``tri_blocks_transmittance``)
 test every ray of a tile against every block of the tile's candidate
@@ -183,7 +183,7 @@ inline void emu_launch(unsigned grid, unsigned block, int64_t smem,
 
 
 def emulated_source(src: str) -> str:
-    """``src`` (sweep.cu, bvh_walk.cu or gather.cu) rewritten for the stand-in
+    """``src`` (a source of solr_tpu_torch/csrc/) rewritten for the stand-in
     runtime: launches call emu_launch, cp.async copies at once, the
     dynamic shared array is the emulator's buffer."""
     def launch(m):
